@@ -6,17 +6,28 @@
 Phases (any failure exits non-zero, with no result line):
   1. require a CUDA device; print the card's name and power limit;
   2. build the CUDA kernels from kernels/csrc/ with nvcc (sm_90a);
-  3. hold each kernel against its plain torch version on the card (TF32
-     off) at the test stage's shapes, and time both;
+  3. hold the encoder and decode+deviation kernels against their plain torch
+     versions on the card (TF32 off) at the test stage's shapes, and time
+     both;
+  3b. hold the decoder_nll kernel pair (forward and backward) against its
+     plain version plus autograd, with ragged row masks, at training
+     shapes; check that two backward calls are bit-equal; time both;
   4. score 5 folds of the flagship model (cVAE_multimodal, UCA-gPoE widths
      4x[90, 90, 90, 270], c 29, hidden [110, 110], latent 10, 1024 padded
      rows per fold, seeded random weights) through the test stage's scoring
      entry, count the kernel launches of that one call, compare it with the
-     plain path on the same eps, and time both.
+     plain path on the same eps, and time both;
+  5. train the flagship model (5 folds of 512 seeded subjects, one fold's
+     last batch ragged, batch 256, 10 epochs) through MultiFoldTrainer with
+     the --fused_decoder loss, count the decoder_nll launches of that run,
+     and hold it against the plain loss from the same init and eps; then a
+     few steps at PPMI width (3 x 3485, one fold) the same way; ms per step
+     of both.
 
 The last line is {"ok": true, "device": {"platform": "gpu", ...}}; the line
 before it holds the kernels' launches, errors and times.
 """
+import importlib.util
 import json
 import subprocess
 import sys
@@ -43,6 +54,26 @@ SHAPES = [(1, 7, 90, 29), (1, 300, 270, 29), (1, 1024, 3485, 2),
 TOL = dict(rtol=1e-5, atol=1e-5)       # mu, logvar, recon
 DEV_TOL = dict(rtol=1e-4, atol=1e-6)   # per-row deviation
 MODEL_TOL = dict(rtol=2e-4, atol=2e-5)  # whole scoring call
+
+# decoder_nll (folds, rows, hidden, D), each with a ragged row mask; the
+# bounds are tests/test_decoder_nll.py's: the value rtol 1e-5, gradients
+# rtol 1e-4 / atol 1e-6 at flagship width, rtol 1e-3 / atol 1e-5 at 3485
+NLL_SHAPES = [(1, 7, 110, 90), (5, 256, 110, 270), (1, 256, 110, 3485),
+              (5, 256, 110, 3485)]
+NLL_TIMED = (5, 256, 110, 270)  # the flagship step's widest modality
+NLL_VALUE_TOL = dict(rtol=1e-5, atol=0.0)
+NLL_GRAD_TOL = {90: dict(rtol=1e-4, atol=1e-6), 270: dict(rtol=1e-4, atol=1e-6),
+                3485: dict(rtol=1e-3, atol=1e-5)}
+
+# training (bench.py:29-36): 512 subjects per fold, the last fold 500 so its
+# second batch is ragged; and the PPMI width (bench.py:45-46)
+TRAIN_ROWS = [512, 512, 512, 512, 500]
+TRAIN_EPOCHS = 10
+BATCH = 256
+PPMI_DIMS = [3485, 3485, 3485]
+PPMI_ROWS = [2500]
+LOG_TOL = dict(rtol=1e-4, atol=0.0)
+PARAM_TOL = dict(rtol=5e-3, atol=1e-5)
 
 
 def cuda_ms(fn, iters=50, warmup=5):
@@ -85,14 +116,155 @@ def check_close(what, got, want, tol):
     return err.max().item(), rel
 
 
-def covariates(rng, folds, rows):
-    """One-hot age (27 bins) + gender (2 bins), as the test stage feeds."""
-    c = np.zeros((folds, rows, C_DIM), np.float32)
+def one_hot_covariates(rng, rows):
+    """One-hot age (27 bins) + gender (2 bins), as the CLIs feed."""
+    c = np.zeros((rows, C_DIM), np.float32)
     idx = np.arange(rows)
+    c[idx, rng.integers(0, 27, rows)] = 1.0
+    c[idx, 27 + rng.integers(0, 2, rows)] = 1.0
+    return c
+
+
+def covariates(rng, folds, rows):
+    return torch.from_numpy(np.stack([one_hot_covariates(rng, rows)
+                                      for _ in range(folds)])).cuda()
+
+
+def check_nll(rng, folds, rows, hidden, d):
+    """decoder_nll's kernels against the plain version plus autograd on
+    one ragged shape; returns (max abs err, max rel err, times in ms)."""
+    from multi_modal_normative_modeling_tpu_torch.kernels.decoder_nll import (
+        decoder_nll,
+        decoder_nll_reference,
+    )
+
+    def normal(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            np.float32)).cuda()
+
+    # g at a LeakyReLU activation's scale, w and b at the init's, and x
+    # drawn from the decoder's own Gaussian N(g w^T + b, exp(lvo)): gradient
+    # entries of order 1, where an absolute 1e-6 is a bound on the kernel's
+    # arithmetic and not on fp32 rounding of large terms (with x ~ N(0, 1)
+    # and lvo = -3 at n = 5 the dW terms reach ~50, and two summation orders
+    # differ by 2.5 ulp of them, ~1e-5)
+    g = normal(folds, rows, hidden, scale=0.5).requires_grad_()
+    w = normal(folds, d, hidden, scale=0.05).requires_grad_()
+    b = normal(folds, d, scale=0.1).requires_grad_()
+    lvo = (normal(folds, 1, d, scale=0.1) - 1.0).requires_grad_()
+    with torch.no_grad():
+        x = (g @ w.mT + b[:, None] + torch.exp(0.5 * lvo)
+             * normal(folds, rows, d))
+    mask = torch.ones(folds, rows, device="cuda")
     for f in range(folds):
-        c[f, idx, rng.integers(0, 27, rows)] = 1.0
-        c[f, idx, 27 + rng.integers(0, 2, rows)] = 1.0
-    return torch.from_numpy(c).cuda()
+        mask[f, rows - 2 - f:] = 0.0  # ragged: n < B in every fold
+    n = torch.clamp(mask.sum(-1), min=1.0)
+    params = (g, w, b, lvo)
+
+    def value_and_grads(fn):
+        ll = fn(g, w, b, lvo, x, mask, n)
+        return ll, torch.autograd.grad(ll.sum(), params)
+
+    ll, grads = value_and_grads(decoder_nll)
+    ll_p, grads_p = value_and_grads(decoder_nll_reference)
+    errs = [check_close(f"decoder_nll value {folds}x{rows}x{d}", ll.detach(),
+                        ll_p.detach(), NLL_VALUE_TOL)]
+    for name, got, want in zip(("dg", "dw", "db", "dlvo"), grads, grads_p):
+        errs.append(check_close(f"decoder_nll {name} {folds}x{rows}x{d}", got,
+                                want, NLL_GRAD_TOL[d]))
+    again = value_and_grads(decoder_nll)[1]
+    for name, a, b2 in zip(("dg", "dw", "db", "dlvo"), grads, again):
+        if not torch.equal(a, b2):
+            raise RuntimeError(f"decoder_nll {name}: two backward calls "
+                               "differ")
+    times = {}
+    with torch.no_grad():
+        times["fwd"] = cuda_ms(lambda: decoder_nll(g, w, b, lvo, x, mask, n))
+        times["plain_fwd"] = cuda_ms(
+            lambda: decoder_nll_reference(g, w, b, lvo, x, mask, n))
+    times["fwd_bwd"] = cuda_ms(lambda: value_and_grads(decoder_nll))
+    times["plain_fwd_bwd"] = cuda_ms(
+        lambda: value_and_grads(decoder_nll_reference))
+    return max(e for e, _ in errs), max(r for _, r in errs), times
+
+
+def training_run(dims, rows_per_fold, epochs, seed, fused):
+    """Fresh seeded model and cohort, trained by MultiFoldTrainer with the
+    --fused_decoder loss or the plain loss on fixed eps; returns (logs,
+    final state dict, ms per step, steps). The batches are uploaded before
+    the clock starts."""
+    from multi_modal_normative_modeling_tpu_torch.kernels.decoder_nll import (
+        fused_decoder_loss_fn,
+    )
+    from multi_modal_normative_modeling_tpu_torch.models import build_model
+    from multi_modal_normative_modeling_tpu_torch.parallel import (
+        MultiFoldTrainer,
+        stack_fold_batches,
+    )
+    from multi_modal_normative_modeling_tpu_torch.train import TrainConfig
+    from multi_modal_normative_modeling_tpu_torch.train.trainer import (
+        DeviceBatches,
+    )
+
+    rng = np.random.default_rng(seed)
+    folds = len(rows_per_fold)
+    data = [[rng.standard_normal((n, d), dtype=np.float32) for d in dims]
+            for n in rows_per_fold]
+    cov = [[one_hot_covariates(rng, n)] * len(dims) for n in rows_per_fold]
+    batches = DeviceBatches(stack_fold_batches(data, cov, BATCH), "cuda")
+    steps = epochs * batches.n_batches
+    eps = torch.randn((steps, folds, BATCH, LATENT),
+                      generator=torch.Generator().manual_seed(seed)).cuda()
+    model = build_model("cVAE_multimodal", dims, HIDDEN, LATENT, C_DIM,
+                        len(dims), folds=folds,
+                        generator=torch.Generator().manual_seed(seed),
+                        device="cuda")
+    config = TrainConfig(epochs=epochs, batch_size=BATCH, combine=COMBINE)
+    loss = fused_decoder_loss_fn(model, config) if fused else None
+    trainer = MultiFoldTrainer(model, config, max(rows_per_fold), loss_fn=loss)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logs = trainer.run(batches, eps=eps)  # ends in a fetch: synchronized
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    for k, v in logs.items():
+        if not np.isfinite(v).all() or v.shape != (folds, epochs):
+            raise RuntimeError(f"training log {k}: shape {v.shape}, finite "
+                               f"{np.isfinite(v).all()}")
+    return logs, model.state_dict(), ms, steps
+
+
+def compare_training(what, dims, rows_per_fold, epochs, seed):
+    """plain, kernel, kernel, plain: holds the first kernel run against the
+    first plain run and returns the kernel run's decoder_nll launches and
+    the ms per step of each run."""
+    from multi_modal_normative_modeling_tpu_torch import kernels
+
+    logs_p, state_p, plain1, steps = training_run(dims, rows_per_fold,
+                                                  epochs, seed, fused=False)
+    kernels.reset_launch_counts()
+    logs_k, state_k, kern1, _ = training_run(dims, rows_per_fold, epochs,
+                                             seed, fused=True)
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels.KERNELS}
+    want = 2 * len(dims) * steps  # a forward and a backward per modality
+    if launches["decoder_nll"] != want:
+        raise RuntimeError(f"{what}: decoder_nll launched "
+                           f"{launches['decoder_nll']} times, expected {want}")
+    for k in logs_p:
+        check_close(f"{what} log {k}", torch.from_numpy(logs_k[k]),
+                    torch.from_numpy(logs_p[k]), LOG_TOL)
+    err = 0.0
+    for k in state_p:
+        err = max(err, check_close(f"{what} param {k}", state_k[k],
+                                   state_p[k], PARAM_TOL)[0])
+    kern2 = training_run(dims, rows_per_fold, epochs, seed, fused=True)[2]
+    plain2 = training_run(dims, rows_per_fold, epochs, seed, fused=False)[2]
+    print(f"phase 5: {what}: {len(rows_per_fold)} folds x {rows_per_fold} "
+          f"subjects, widths {dims}, {steps} steps: launches {launches}; "
+          f"final params max abs err {err:.3e}; ms/step kernel "
+          f"{kern1:.4f}, {kern2:.4f}, plain {plain1:.4f}, {plain2:.4f}",
+          flush=True)
+    return launches
 
 
 def main():
@@ -135,6 +307,8 @@ def main():
     rng = np.random.default_rng(0)
     gen = torch.Generator().manual_seed(0)
     stats = {k.__name__: {"max_abs_err": 0.0} for k in kernels.KERNELS}
+    print(f"matplotlib installed: "
+          f"{importlib.util.find_spec('matplotlib') is not None}", flush=True)
     with torch.no_grad():
         for folds, rows, d, c_dim in SHAPES:
             x = torch.from_numpy(rng.standard_normal(
@@ -180,6 +354,19 @@ def main():
                 # the flagship scoring call's widest modality
                 s["ms"], s["plain_ms"] = ms, plain
 
+    # ---- phase 3b: decoder_nll forward and backward -----------------------
+    for folds, rows, hidden, d in NLL_SHAPES:
+        err, rel, t = check_nll(rng, folds, rows, hidden, d)
+        print(f"phase 3b: F={folds} B={rows} H={hidden} D={d}: decoder_nll "
+              f"max abs err {err:.3e} (rel {rel:.3e}), backward bit-equal; "
+              f"forward {t['fwd']:.4f} ms vs plain {t['plain_fwd']:.4f} ms, "
+              f"forward+backward {t['fwd_bwd']:.4f} ms vs plain "
+              f"{t['plain_fwd_bwd']:.4f} ms", flush=True)
+        s = stats["decoder_nll"]
+        s["max_abs_err"] = max(s["max_abs_err"], err)
+        if (folds, rows, hidden, d) == NLL_TIMED:
+            s["ms"], s["plain_ms"] = t["fwd_bwd"], t["plain_fwd_bwd"]
+
     # ---- phase 4: the flagship scoring call through the kernels -----------
     model = build_model("cVAE_multimodal", DIMS, HIDDEN, LATENT, C_DIM,
                         len(DIMS), folds=FOLDS, generator=gen, device="cuda")
@@ -193,8 +380,8 @@ def main():
     recons, devs = model.pred_recon_fused(xes, cs, COMBINE, eps=eps)
     torch.cuda.synchronize()
     launches = {k.__name__: k.launches for k in kernels.KERNELS}
-    for name, n in launches.items():
-        if n == 0:
+    for name in ("fused_encoder", "fused_pred_deviation"):
+        if launches[name] == 0:
             raise RuntimeError(f"phase 4: {name} was not launched by the "
                                "scoring call")
     with torch.no_grad():
@@ -225,9 +412,16 @@ def main():
           f"{plain_wall:.4f} ms), CUDA-event {kernel_dev:.4f} ms (plain "
           f"{plain_dev:.4f} ms)", flush=True)
 
+    # ---- phase 5: training through decoder_nll -----------------------------
+    train_launches = compare_training("flagship", DIMS, TRAIN_ROWS,
+                                      TRAIN_EPOCHS, seed=1)
+    compare_training("PPMI width", PPMI_DIMS, PPMI_ROWS, 1, seed=2)
+    launches["decoder_nll"] = train_launches["decoder_nll"]
+
     sources = {"fused_encoder": ("encoder.cu", "mlp.py:121"),
                "fused_pred_deviation": ("pred_deviation.cu",
-                                        "deviation.py:76")}
+                                        "deviation.py:76"),
+               "decoder_nll": ("decoder_nll.cu", "decoder_nll.py:130")}
     report = []
     for name, (src, tpu) in sources.items():
         report.append({

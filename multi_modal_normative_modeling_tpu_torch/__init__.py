@@ -4,17 +4,19 @@
 The JAX package stays the reference; this package mirrors its layout and
 module names so each counterpart is easy to find:
 
-  ops/        - linear layers and latent-fusion ops (plain torch)
+  ops/        - linear layers, latent-fusion ops and loss terms (plain torch)
   models/     - the conditional encoder/decoder and MultimodalCVAE
   kernels/    - hand-written CUDA kernels (sm_90a) with plain torch versions
-  parallel/   - fold stacking
+  train/      - training config, batching, the masked Adam, the epoch loop
+                and the checkpoint writer
+  parallel/   - fold stacking and the fold-parallel trainer
   interop.py  - JAX param trees <-> torch modules, flax msgpack checkpoints
-  cli/        - the k-fold test stage (deviation scoring)
+  cli/        - the k-fold train stage and test stage (deviation scoring)
 
 Weights are stored as ``[fan_out, fan_in]`` with a leading fold axis
-(``[F, fan_out, fan_in]``): every fold of a k-fold run is scored by one
-kernel launch per modality. Only ``interop`` transposes to the JAX
-``[fan_in, fan_out]`` layout.
+(``[F, fan_out, fan_in]``): every fold of a k-fold run trains in one step
+and is scored by one kernel launch per modality. Only ``interop``
+transposes to the JAX ``[fan_in, fan_out]`` layout.
 
 The package never imports jax. Importing it imports nothing heavy:
 attribute access pulls the submodule on demand.
@@ -29,9 +31,12 @@ _PUBLIC_API = {
     "params_from_jax": "interop",
     "params_to_jax": "interop",
     "read_flax_checkpoint": "interop",
+    "MultiFoldTrainer": "parallel",
+    "TrainConfig": "train",
 }
 
-_SUBMODULES = ("cli", "interop", "kernels", "models", "ops", "parallel")
+_SUBMODULES = ("cli", "interop", "kernels", "models", "ops", "parallel",
+               "train")
 
 __all__ = sorted(_PUBLIC_API) + list(_SUBMODULES)
 

@@ -31,6 +31,7 @@ from multi_modal_normative_modeling_tpu.infer.emitters import DeviationEmitter
 from ..interop import params_from_jax, read_flax_checkpoint
 from ..parallel import stack_params
 from . import common
+from .common import resolve_device
 
 # JAX CLI flags with no port yet: each raises instead of being ignored
 _NOT_PORTED_FLAGS = {
@@ -51,21 +52,12 @@ def default_eps(fold: int, padded_rows: int, z_dim: int) -> np.ndarray:
     return torch.randn((padded_rows, z_dim), generator=gen).numpy()
 
 
-def resolve_device(name: str) -> torch.device:
-    device = torch.device(name)
-    if device.type == 'cuda' and not torch.cuda.is_available():
-        raise SystemExit(f'--device {name}: no CUDA device is available '
-                         '(pass --device cpu to score with the plain torch '
-                         'versions of the kernels)')
-    return device
-
-
 def main(args, project_root=None, eps_fn: Optional[EpsFn] = None):
     for flag, item in _NOT_PORTED_FLAGS.items():
         if getattr(args, flag, None):
             raise SystemExit(f'--{flag} is not ported to the torch test stage '
                              f'yet; see ROADMAP.md, {item}')
-    device = resolve_device(getattr(args, 'device', 'cuda'))
+    device = resolve_device(getattr(args, 'device', 'cuda'), 'score')
     eps_fn = eps_fn or default_eps
 
     project_root = Path(project_root) if project_root else Path.cwd()
@@ -89,18 +81,13 @@ def main(args, project_root=None, eps_fn: Optional[EpsFn] = None):
         (model_dir / f'{fold:03d}').mkdir(exist_ok=True, parents=True)
         for dataset_name in dataset_names:
             jobs.append((dataset_name, train_ids_path, test_ids_path))
-    # every fold merges the same demographic and modality tables: parse
-    # each once, up front, and share the frames (read-only) across folds
-    table_paths = [participants_path] + [
-        project_root / 'data' / args.dataset_resourse / f'{name}.csv'
-        for name in dataset_names]
     with ThreadPoolExecutor(max_workers=8) as pool:
-        tables = dict(zip(table_paths, pool.map(common.read_csv,
-                                                table_paths)))
+        read = common.shared_tables(pool, project_root, args.dataset_resourse,
+                                    dataset_names, participants_path)
         all_preps = list(pool.map(
             lambda j: common.prepare_modality(
                 project_root, args.dataset_resourse, j[0],
-                participants_path, j[1], j[2], tables.__getitem__), jobs))
+                participants_path, j[1], j[2], read), jobs))
 
     # ---- phase 1: per-fold splits + restored params (host side) ----------
     n_mod = len(dataset_names)
@@ -212,15 +199,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def run(argv=None, project_root=None):
-    args = build_parser().parse_args(argv)
-    if args.hz_para_list is None:
-        args.hz_para_list = [110, 110, 10]
-    if args.procedure is None:
-        args.procedure = 'UCA-gPoE'
-    if args.combine is None:
-        args.combine = args.procedure.split('-')[1]
-    if args.dataset_resourse is None:
-        args.dataset_resourse = 'ADNI'
+    args = common.apply_post_parse_defaults(build_parser().parse_args(argv))
     main(args, project_root=project_root)
 
 

@@ -4,8 +4,9 @@ nvcc compiles every ``csrc/*.cu`` into one shared library with a plain C
 interface: ``extern "C"`` launchers that take raw device pointers and the
 current ``cudaStream_t`` and return ``cudaGetLastError()`` after the
 launch. The library is built on first use into ``kernels/_build/``, keyed
-by a hash of the sources and flags, and loaded with ctypes. The ptxas
-report (registers, shared memory, spills) is kept beside it as a ``.log``.
+by a hash of the sources and flags, and loaded with ctypes: one nvcc per
+source, all started together, then one link. The ptxas report (registers,
+shared memory, spills) is kept beside it as a ``.log``.
 
 Any build, load or launch error raises.
 """
@@ -24,7 +25,7 @@ import torch
 
 SRC_DIR = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
-NVCC_FLAGS = ("-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+NVCC_FLAGS = ("-O3", "-std=c++17", "-Xcompiler", "-fPIC",
               "-gencode", "arch=compute_90a,code=sm_90a", "-Xptxas", "-v")
 
 _lib = None
@@ -55,19 +56,42 @@ def build_library() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # pid-unique tmp: concurrent cold builds never publish a partial file
-    tmp = out.with_suffix(f".building.{os.getpid()}.so")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(SRC_DIR.glob("*.cu")))]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+    # pid-unique tmp names: concurrent cold builds never publish a partial
+    # file
+    tag = f"building.{os.getpid()}"
+    tmp = out.with_suffix(f".{tag}.so")
+    objects = [out.with_suffix(f".{src.stem}.{tag}.o")
+               for src in sorted(SRC_DIR.glob("*.cu"))]
+    compiles = [[nvcc_path(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for obj, src in zip(objects, sorted(SRC_DIR.glob("*.cu")))]
+    link = [nvcc_path(), "-shared", "-o", str(tmp), *map(str, objects)]
+    log = []
+    procs = []
+
+    def finish(cmd, proc):
+        text, _ = proc.communicate()
+        log.append(text)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                               f"{' '.join(cmd)}\n{proc.stderr}")
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+                               f"{' '.join(cmd)}\n{text}")
+
+    def start(cmd):
+        procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+        return procs[-1]
+
+    try:
+        for proc, cmd in [(start(cmd), cmd) for cmd in compiles]:
+            finish(cmd, proc)
+        finish(link, start(link))
+        out.with_suffix(".log").write_text("".join(log))
         os.replace(tmp, out)
     finally:
-        tmp.unlink(missing_ok=True)
+        for proc in procs:  # after a failure, let the others end first
+            if proc.returncode is None:
+                proc.communicate()
+        for path in [tmp, *objects]:
+            path.unlink(missing_ok=True)
     return out
 
 
@@ -83,6 +107,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                                         i32, i32, i32, i32, ptrs, ptrs, ints,
                                         i32, ptr]
     lib.mmnm_pred_deviation.restype = i32
+    lib.mmnm_decoder_nll_fwd.argtypes = [ptr] * 9 + [i32] * 5 + [ptr]
+    lib.mmnm_decoder_nll_fwd.restype = i32
+    lib.mmnm_decoder_nll_bwd.argtypes = [ptr] * 16 + [i32] * 6 + [ptr]
+    lib.mmnm_decoder_nll_bwd.restype = i32
     lib.mmnm_error_string.argtypes = [i32]
     lib.mmnm_error_string.restype = ctypes.c_char_p
     return lib
@@ -107,10 +135,11 @@ def check_launch(lib: ctypes.CDLL, rc: int, kernel: str) -> None:
 
 # the largest dynamic shared memory an H100 block may use (227 KB), and the
 # tile constants of csrc/tile_mlp.cuh that set a CTA's use of it: TM rows,
-# sizeof(mmnm::Stage), MAX_LAYERS
+# BN columns, sizeof(mmnm::Stage), MAX_LAYERS
 MAX_SMEM_BYTES = 232448
-_TM = 32
-_STAGE_BYTES = 4 * (_TM * 33 + 32 * 65)
+TM = 32
+BN = 64
+_STAGE_BYTES = 4 * (TM * 33 + 32 * 65)
 _MAX_LAYERS = 8
 
 Layer = Tuple[torch.Tensor, torch.Tensor]
@@ -160,11 +189,18 @@ def chain_widths(kernel: str, layers: Sequence[Layer], k_in: int,
         raise ValueError(f"{kernel}: at most {_MAX_LAYERS} layers, got "
                          f"{len(layers)}")
     widest = max(widths[:n_hidden], default=1)
-    smem = _STAGE_BYTES + 2 * _TM * widest * 4
+    smem = _STAGE_BYTES + 2 * TM * widest * 4
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"{kernel}: hidden width {widest} needs {smem} B of "
                          f"shared memory, over the {MAX_SMEM_BYTES} B limit")
     return widths
+
+
+def decoder_nll_smem(hidden: int) -> int:
+    """Shared memory of csrc/decoder_nll.cu's largest block (the dW pass):
+    the stage, two dmean-sized tiles and a g tile plus a dW tile of
+    ``hidden`` columns."""
+    return _STAGE_BYTES + 4 * (2 * TM * (BN + 1) + (TM + BN) * hidden)
 
 
 def launch_args(layers: Sequence[Layer], widths: Sequence[int]):

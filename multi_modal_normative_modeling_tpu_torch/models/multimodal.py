@@ -18,6 +18,7 @@ from torch import nn
 
 from ..kernels.deviation import reconstruction_deviation
 from ..ops import fusion
+from ..ops.losses import gaussian_ll, kl_standard_normal
 from .cvae import Decoder, Encoder, reparameterize
 
 
@@ -85,6 +86,25 @@ class MultimodalCVAE(nn.Module):
             "logvars": logvars,
             "z": z,
         }
+
+    # -- losses ---------------------------------------------------------------
+    def loss(self, xes: Sequence[torch.Tensor], fwd: dict,
+             mask: Optional[torch.Tensor] = None) -> dict:
+        """The cvae ELBO terms per fold, each [F]: total = sum over
+        modalities of (KL - ll_m), kl = M * KL, ll = sum of ll_m
+        (cVAE.py:1187-1196). ``mask`` [F, B] marks the valid rows."""
+        kl = kl_standard_normal(fwd["mu_multimodal"],
+                                fwd["logvar_multimodal"], mask)
+        kl_total = 0.0
+        ll_total = 0.0
+        total = 0.0
+        for i in range(self.modalities):
+            ll = gaussian_ll(xes[i], fwd["recon_means"][i],
+                             fwd["recon_logvars"][i], mask)
+            kl_total += kl
+            ll_total += ll
+            total += kl - ll
+        return {"total": total, "kl": kl_total, "ll": ll_total}
 
     # -- inference ------------------------------------------------------------
     def pred_recon(self, xes, cs, combine: str,

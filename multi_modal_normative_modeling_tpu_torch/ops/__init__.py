@@ -1,6 +1,7 @@
-"""Plain torch building blocks: fold-stacked linears and latent fusion."""
+"""Plain torch building blocks: fold-stacked linears, latent fusion and the
+loss terms."""
 
-from . import fusion  # noqa: F401
+from . import fusion, losses  # noqa: F401
 from .linear import (  # noqa: F401
     FoldLinear,
     apply_hidden,

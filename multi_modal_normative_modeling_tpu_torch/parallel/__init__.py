@@ -1,3 +1,8 @@
-"""Fold-parallel helpers of the port."""
+"""Fold stacking and the fold-parallel trainer of the port."""
 
-from .folds import stack_params  # noqa: F401
+from .folds import (  # noqa: F401
+    MultiFoldTrainer,
+    stack_fold_batches,
+    stack_params,
+    unstack_params,
+)

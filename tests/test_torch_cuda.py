@@ -7,7 +7,10 @@ machine, from the repository root:
 
 TF32 is off, so the plain versions run true fp32 like the kernels;
 tolerance rtol/atol 1e-5 for mu, logvar and recon (sums in another order),
-rtol 1e-4 for the per-row deviation (a 3485-term reduction).
+rtol 1e-4 for the per-row deviation (a 3485-term reduction). decoder_nll is
+held to tests/test_decoder_nll.py's bounds: the value rtol 1e-5, gradients
+rtol 1e-4 / atol 1e-6 (rtol 1e-3 / atol 1e-5 at D = 3485), trajectories
+rtol 1e-4 (logs) and rtol 5e-3 / atol 1e-5 (parameters).
 """
 import numpy as np
 import pytest
@@ -111,3 +114,108 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         enc.fused(x.double(), c)
     with pytest.raises(ValueError, match="expected"):
         enc.fused(torch.zeros(1, 8, 91, device=cuda), c)
+
+
+# ---- decoder_nll (forward and backward) -------------------------------------
+
+def _nll_operands(cuda, rng, folds, rows, hidden, d):
+    def normal(*shape, scale=1.0):
+        return (_rows(rng, *shape) * scale).to(cuda)
+
+    # as chip_smoke.check_nll: gradient entries of order 1, x drawn from
+    # the decoder's own Gaussian
+    g = normal(folds, rows, hidden, scale=0.5).requires_grad_()
+    w = normal(folds, d, hidden, scale=0.05).requires_grad_()
+    b = normal(folds, d, scale=0.1).requires_grad_()
+    lvo = (normal(folds, 1, d, scale=0.1) - 1.0).requires_grad_()
+    with torch.no_grad():
+        x = (g @ w.mT + b[:, None] + torch.exp(0.5 * lvo)
+             * normal(folds, rows, d))
+    mask = torch.ones(folds, rows, device=cuda)
+    for f in range(folds):
+        mask[f, max(rows - 2 - f, 0):] = 0.0
+    return (g, w, b, lvo), x, mask, torch.clamp(mask.sum(-1), min=1.0)
+
+
+@pytest.mark.parametrize("folds,rows,hidden,d", [
+    (1, 7, 110, 90), (5, 256, 110, 270), (1, 256, 110, 3485),
+    (3, 65, 17, 130), (2, 1, 110, 64), (2, 300, 529, 90)])
+def test_decoder_nll_kernels_match_autograd(cuda, folds, rows, hidden, d):
+    from multi_modal_normative_modeling_tpu_torch.kernels.decoder_nll import (
+        decoder_nll,
+        decoder_nll_reference,
+    )
+
+    rng = np.random.default_rng(d + rows)
+    params, x, mask, n = _nll_operands(cuda, rng, folds, rows, hidden, d)
+
+    def run(fn):
+        ll = fn(*params, x, mask, n)
+        return ll, torch.autograd.grad(ll.sum(), params)
+
+    before = kernels.decoder_nll.launches
+    ll, grads = run(decoder_nll)
+    assert kernels.decoder_nll.launches == before + 2
+    ll_p, grads_p = run(decoder_nll_reference)
+    torch.testing.assert_close(ll, ll_p, rtol=1e-5, atol=0.0)
+    tol = (dict(rtol=1e-3, atol=1e-5) if d > 270
+           else dict(rtol=1e-4, atol=1e-6))
+    for got, want in zip(grads, grads_p):
+        torch.testing.assert_close(got, want, **tol)
+    for a, b in zip(grads, run(decoder_nll)[1]):
+        assert torch.equal(a, b)
+
+
+def test_decoder_nll_refuses_what_it_does_not_take(cuda):
+    from multi_modal_normative_modeling_tpu_torch.kernels.decoder_nll import (
+        decoder_nll,
+    )
+
+    rng = np.random.default_rng(0)
+    (g, w, b, lvo), x, mask, n = _nll_operands(cuda, rng, 2, 8, 16, 40)
+    with pytest.raises(ValueError, match="contiguous"):
+        decoder_nll(g.detach().mT.contiguous().mT, w, b, lvo, x, mask, n)
+    with pytest.raises(ValueError, match="expected"):
+        decoder_nll(g, w, b, lvo, x[:, :, :39].contiguous(), mask, n)
+    wide = _nll_operands(cuda, rng, 1, 8, 530, 40)
+    with pytest.raises(ValueError, match="shared memory"):
+        decoder_nll(*wide[0], *wide[1:])
+
+
+def test_fused_decoder_training_matches_plain(cuda):
+    """A few steps of the flagship model with the --fused_decoder loss stay
+    within the trajectory bound of the plain loss (same init, same eps)."""
+    from multi_modal_normative_modeling_tpu_torch.kernels.decoder_nll import (
+        fused_decoder_loss_fn,
+    )
+    from multi_modal_normative_modeling_tpu_torch.parallel import (
+        MultiFoldTrainer,
+        stack_fold_batches,
+    )
+    from multi_modal_normative_modeling_tpu_torch.train import TrainConfig
+
+    dims = [90, 270]
+    rng = np.random.default_rng(3)
+    sizes = [300, 260]
+    data = [[rng.standard_normal((s, d), dtype=np.float32) for d in dims]
+            for s in sizes]
+    cov = [[rng.standard_normal((s, 29), dtype=np.float32)] * 2
+           for s in sizes]
+    batches = stack_fold_batches(data, cov, 256)
+    eps = torch.randn(6, 2, 256, 10, generator=torch.Generator().manual_seed(0))
+    config = TrainConfig(epochs=3, batch_size=256)
+    out = []
+    for fused in (False, True):
+        model = build_model("cVAE_multimodal", dims, [110, 110], 10, 29, 2,
+                            folds=2, generator=torch.Generator().manual_seed(1),
+                            device=cuda)
+        loss = fused_decoder_loss_fn(model, config) if fused else None
+        logs = MultiFoldTrainer(model, config, 300, loss_fn=loss).run(
+            batches, eps=eps)
+        out.append((logs, model.state_dict()))
+    (logs_p, state_p), (logs_k, state_k) = out
+    for k in logs_p:
+        np.testing.assert_allclose(logs_k[k], logs_p[k], rtol=1e-4)
+    for k in state_p:
+        torch.testing.assert_close(state_k[k], state_p[k], rtol=5e-3,
+                                   atol=1e-5)

@@ -165,5 +165,5 @@ def test_library_hash_tracks_sources():
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libmmnm_kernels_")
     assert {p.name for p in _build.SRC_DIR.glob("*.cu")} == {
-        "encoder.cu", "pred_deviation.cu"}
+        "encoder.cu", "pred_deviation.cu", "decoder_nll.cu"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
