@@ -6,9 +6,9 @@
 Phases (any failure exits non-zero, with no result line):
   1. require a CUDA device; print the card's name and power limit;
   2. build the CUDA kernels from kernels/csrc/ with nvcc (sm_90a);
-  3. hold the encoder and decode+deviation kernels against their plain torch
-     versions on the card (TF32 off) at the test stage's shapes, and time
-     both;
+  3. hold the encoder, decode+deviation and decoder-mean kernels against
+     their plain torch versions on the card (TF32 off) at the test stage's
+     shapes, and time both;
   3b. hold the decoder_nll kernel pair (forward and backward) against its
      plain version plus autograd, with ragged row masks, at training
      shapes; check that two backward calls are bit-equal; time both;
@@ -16,13 +16,26 @@ Phases (any failure exits non-zero, with no result line):
      4x[90, 90, 90, 270], c 29, hidden [110, 110], latent 10, 1024 padded
      rows per fold, seeded random weights) through the test stage's scoring
      entry, count the kernel launches of that one call, compare it with the
-     plain path on the same eps, and time both;
+     plain path on the same eps, and time both; then the reconstruction
+     call (encoder and decoder-mean kernels) the same way;
   5. train the flagship model (5 folds of 512 seeded subjects, one fold's
      last batch ragged, batch 256, 10 epochs) through MultiFoldTrainer with
      the --fused_decoder loss, count the decoder_nll launches of that run,
      and hold it against the plain loss from the same init and eps; then a
      few steps at PPMI width (3 x 3485, one fold) the same way; ms per step
-     of both.
+     of both;
+  6a. hold the fused train step (K5) against its plain version (autograd
+     over the packed model, TF32 off) with ragged row masks: the flagship
+     (5 folds), every fusion and 1 and 3 hidden layers at small width, and
+     PPMI width with one fold; two calls bit-equal; time both;
+  6b. the batch-tiled step (K6) in fp32 with tile_b < B against K5 and the
+     plain version, and in bf16 against the fp32 plain version (at the JAX
+     test's shape) and against its own plain bf16 transcription (flagship);
+     two calls bit-equal; time both;
+  7. train the flagship (5 folds, 10 epochs) through FusedFoldTrainer (K5)
+     and hold it against MultiFoldTrainer with the plain loss from the same
+     init and eps, counting K5 launches; the same at PPMI width; then a few
+     bf16 steps through K6 against the fp32 run; ms per step of both paths.
 
 The last line is {"ok": true, "device": {"platform": "gpu", ...}}; the line
 before it holds the kernels' launches, errors and times.
@@ -74,6 +87,38 @@ PPMI_DIMS = [3485, 3485, 3485]
 PPMI_ROWS = [2500]
 LOG_TOL = dict(rtol=1e-4, atol=0.0)
 PARAM_TOL = dict(rtol=5e-3, atol=1e-5)
+
+# fused train step (tests/test_train_step_kernel.py:68-83,
+# tests/test_train_step_tiled.py:71, :91-105, :126-146): losses rtol 1e-5,
+# gradients rtol 1e-3 / atol 1e-5 (rtol 2e-3 / atol 2e-5 at 3485), K6 fp32
+# against K5 rtol 1e-4 / atol 1e-6; bf16 against fp32 a total within 2e-2
+# and a normalized error per gradient leaf under 6e-2, and the bf16 kernel
+# against its own plain bf16 transcription (same cast points) a normalized
+# error under 5e-3: a value that lands near a bf16 rounding boundary may
+# round the other way from another summation order (one bf16 ulp, 2^-8),
+# so the two agree to well under bf16's own error but not to fp32's;
+# trajectories (tests/test_fused_cli.py:57-62) logs rtol 2e-4, parameters
+# rtol 5e-3 / atol 5e-5
+STEP_LOSS_TOL = dict(rtol=1e-5, atol=0.0)
+STEP_GRAD_TOL = dict(rtol=1e-3, atol=1e-5)
+STEP_GRAD_TOL_WIDE = dict(rtol=2e-3, atol=2e-5)
+TILED_TOL = dict(rtol=1e-4, atol=1e-6)
+BF16_TOTAL, BF16_LEAF, BF16_OWN = 2e-2, 6e-2, 5e-3
+FUSED_LOG_TOL = dict(rtol=2e-4, atol=0.0)
+FUSED_PARAM_TOL = dict(rtol=5e-3, atol=5e-5)
+# (name, dims, hidden, folds, rows, C, Z, fusion)
+STEP_SHAPES = [
+    ("flagship", DIMS, HIDDEN, FOLDS, BATCH, C_DIM, LATENT, COMBINE),
+    ("poe", [40, 60, 30], [32, 32], 2, 100, C_DIM, LATENT, "poe"),
+    ("moe", [40, 60, 30], [32, 32], 2, 100, C_DIM, LATENT, "moe"),
+    ("mopoe", [40, 60, 30], [32, 32], 2, 100, C_DIM, LATENT, "mopoe"),
+    ("1 hidden", [40, 60, 30], [48], 2, 100, C_DIM, LATENT, "gpoe"),
+    ("3 hidden", [40, 60, 30], [64, 110, 32], 2, 100, C_DIM, LATENT, "gpoe"),
+    ("1 modality", [90], HIDDEN, 2, 100, C_DIM, LATENT, "gpoe"),
+    ("PPMI", PPMI_DIMS, HIDDEN, 1, BATCH, C_DIM, LATENT, COMBINE),
+]
+TILE = 64        # K6's tile in phase 6b: 4 row groups of the flagship batch
+BF16_STEPS = 4   # phase 7's bf16 steps (2 epochs of the flagship cohort)
 
 
 def cuda_ms(fn, iters=50, warmup=5):
@@ -267,6 +312,323 @@ def compare_training(what, dims, rows_per_fold, epochs, seed):
     return launches
 
 
+def step_problem(dims, hidden, folds, rows, c_dim, z_dim, seed):
+    """A seeded packed model and one ragged batch on the card: (stacked,
+    packed params, x [F, M, B, d_max], c [F, B, C], eps, row mask)."""
+    from multi_modal_normative_modeling_tpu_torch.interop import (
+        packed_from_model,
+    )
+    from multi_modal_normative_modeling_tpu_torch.models import build_model
+    from multi_modal_normative_modeling_tpu_torch.models.stacked import (
+        StackedMultimodalCVAE,
+    )
+
+    rng = np.random.default_rng(seed)
+    model = build_model("cVAE_multimodal", dims, hidden, z_dim, c_dim,
+                        len(dims), folds=folds,
+                        generator=torch.Generator().manual_seed(seed),
+                        device="cuda")
+    stacked = StackedMultimodalCVAE(dims, hidden, z_dim, c_dim, len(dims))
+    packed = packed_from_model(model, stacked)
+    x = stacked.pack_inputs([rng.standard_normal((folds, rows, d),
+                                                 dtype=np.float32)
+                             for d in dims]).cuda()
+    if c_dim == C_DIM:
+        c = covariates(rng, folds, rows)
+    else:
+        c = torch.from_numpy(rng.standard_normal(
+            (folds, rows, c_dim), dtype=np.float32)).cuda()
+    eps = torch.from_numpy(rng.standard_normal(
+        (folds, rows, z_dim), dtype=np.float32)).cuda()
+    mask = torch.ones(folds, rows, device="cuda")
+    for f in range(folds):
+        mask[f, rows - 2 - f:] = 0.0   # ragged: n < B in every fold
+    return stacked, packed, x, c, eps, mask
+
+
+def leaf_error(got, want):
+    """Normalized error of one gradient leaf: |got - want| / |want|."""
+    return ((got.double() - want.double()).norm()
+            / (want.double().norm() + 1e-12)).item()
+
+
+def check_bit_equal(what, a, b):
+    for k in a:
+        if not torch.equal(a[k], b[k]):
+            raise RuntimeError(f"{what} d{k}: two calls differ")
+
+
+def fp64(*tensors):
+    return [t.double() for t in tensors]
+
+
+def plain64(reference, named, batch):
+    """A plain version evaluated in fp64 on the same inputs (the plain code
+    with double operands), rounded back to fp32: the reference the kernels
+    are held to. The fp32 evaluation on the card (cuBLAS) strayed up to
+    6.3e-3 from fp64 at the flagship in one call of this script, while the
+    kernel stayed within 1.6e-6."""
+    losses, grads = reference({k: v.double() for k, v in named.items()},
+                              *fp64(*batch))
+    return ({k: v.float() for k, v in losses.items()},
+            {k: v.float() for k, v in grads.items()})
+
+
+def check_step(name, dims, hidden, folds, rows, c_dim, z_dim, combine):
+    """K5 against autograd over the packed model (in fp64) on one ragged
+    batch; returns (max abs err, (kernel ms, fp32 plain ms))."""
+    from multi_modal_normative_modeling_tpu_torch.kernels.train_step import (
+        FusedTrainStep,
+    )
+
+    stacked, packed, x, c, eps, mask = step_problem(
+        dims, hidden, folds, rows, c_dim, z_dim, seed=len(name) + rows)
+    step = FusedTrainStep(stacked, combine)
+    named = step.pad_params(packed)
+    xx, cc, rm, nv = step.pack_batch(x, c, mask)
+    batch = (xx, cc, eps, rm, nv)
+    losses, grads = step.loss_and_grads_padded(named, *batch)
+    ref_losses, ref_grads = plain64(step.reference, named, batch)
+    plain_err = max((g - ref_grads[k]).abs().max().item() for k, g in
+                    step.reference(named, *batch)[1].items())
+    for k in losses:
+        check_close(f"K5 {name} {k}", losses[k], ref_losses[k],
+                    STEP_LOSS_TOL)
+    tol = STEP_GRAD_TOL_WIDE if max(dims) > 1000 else STEP_GRAD_TOL
+    err = max(check_close(f"K5 {name} d{k}", grads[k], ref_grads[k], tol)[0]
+              for k in grads)
+    check_bit_equal(f"K5 {name}", grads,
+                    step.loss_and_grads_padded(named, *batch)[1])
+    ms = cuda_ms(lambda: step.loss_and_grads_padded(named, *batch))
+    plain = cuda_ms(lambda: step.reference(named, *batch))
+    print(f"phase 6a: K5 {name}: {folds} folds x {rows} rows, widths {dims}, "
+          f"hidden {hidden}, {combine}: max abs err {err:.3e} (the fp32 "
+          f"plain's {plain_err:.3e}), bit-equal; {ms:.4f} ms vs plain "
+          f"forward+autograd {plain:.4f} ms", flush=True)
+    return err, (ms, plain)
+
+
+def check_tiled():
+    """K6 in fp32 (tile < B) against K5 and the plain version; in bf16
+    against the fp32 plain version at the JAX test's shape and against its
+    own plain bf16 transcription at the flagship. Returns (max abs err of
+    the fp32 checks, (bf16 kernel ms, its plain ms)) at the flagship."""
+    from multi_modal_normative_modeling_tpu_torch.kernels.train_step import (
+        FusedTrainStep,
+    )
+    from multi_modal_normative_modeling_tpu_torch.kernels.train_step_tiled import (  # noqa: E501
+        TiledFusedTrainStep,
+    )
+
+    stacked, packed, x, c, eps, mask = step_problem(
+        DIMS, HIDDEN, FOLDS, BATCH, C_DIM, LATENT, seed=11)
+    k5 = FusedTrainStep(stacked, COMBINE)
+    named = k5.pad_params(packed)
+    xx, cc, rm, nv = k5.pack_batch(x, c, mask)
+    batch = (xx, cc, eps, rm, nv)
+    l5, g5 = k5.loss_and_grads_padded(named, *batch)
+    ref_l, ref_g = plain64(k5.reference, named, batch)
+    t32 = TiledFusedTrainStep(stacked, COMBINE, tile_b=TILE)
+    lt, gt = t32.loss_and_grads_padded(named, *batch)
+    check_close("K6 fp32 total vs K5", lt["total"], l5["total"],
+                STEP_LOSS_TOL)
+    err = 0.0
+    for k in gt:
+        check_close(f"K6 fp32 d{k} vs K5", gt[k], g5[k], TILED_TOL)
+        err = max(err, check_close(f"K6 fp32 d{k} vs plain", gt[k],
+                                   ref_g[k], STEP_GRAD_TOL)[0])
+    check_bit_equal("K6 fp32", gt, t32.loss_and_grads_padded(named, *batch)[1])
+    ms32 = cuda_ms(lambda: t32.loss_and_grads_padded(named, *batch))
+    plain32 = cuda_ms(lambda: t32.reference(named, *batch))
+
+    # bf16 against fp32 at the JAX test's shape (tests/test_train_step_
+    # tiled.py:126-146: widths 24/40/16, hidden 12/12, latent 6, c 5, 20
+    # rows, tile 16)
+    s_st, s_packed, s_x, s_c, s_eps, s_mask = step_problem(
+        [24, 40, 16], [12, 12], 1, 20, 5, 6, seed=4)
+    small = TiledFusedTrainStep(s_st, "gpoe", tile_b=16,
+                                compute_dtype=torch.bfloat16)
+    s_named = small.pad_params(s_packed)
+    sx, sc, srm, snv = small.pack_batch(s_x, s_c, s_mask)
+    s_batch = (sx, sc, small.pad_eps(s_eps), srm, snv)
+    lb, gb = small.loss_and_grads_padded(s_named, *s_batch)
+    lf, gf = plain64(FusedTrainStep(s_st, "gpoe").reference, s_named,
+                     s_batch)
+    total_rel = ((lb["total"] - lf["total"]).abs()
+                 / lf["total"].abs()).max().item()
+    leaf = max(leaf_error(gb[k], gf[k]) for k in gb)
+    if not total_rel < BF16_TOTAL or not leaf < BF16_LEAF:
+        raise RuntimeError(f"K6 bf16 vs fp32 plain: total rel {total_rel:.3e}"
+                           f", worst leaf {leaf:.3e}")
+
+    # bf16 at the flagship against its own plain bf16 transcription
+    t16 = TiledFusedTrainStep(stacked, COMBINE, tile_b=TILE,
+                              compute_dtype=torch.bfloat16)
+    lb16, gb16 = t16.loss_and_grads_padded(named, *batch)
+    named16 = t16.cast_exec(named)
+    b16 = (xx.bfloat16(), cc.bfloat16(), eps, rm, nv)
+    # the transcription with bf16 cast points, computed in fp64
+    lp16, gp16 = plain64(t16.reference, named16, b16)
+    own = max(leaf_error(gb16[k], gp16[k]) for k in gb16)
+    own_total = ((lb16["total"] - lp16["total"]).abs()
+                 / lp16["total"].abs()).max().item()
+    vs_fp32 = max(leaf_error(gb16[k], ref_g[k]) for k in gb16)
+    plain_vs_fp32 = max(leaf_error(gp16[k], ref_g[k]) for k in gp16)
+    if not own < BF16_OWN or not own_total < BF16_OWN:
+        raise RuntimeError(f"K6 bf16 vs its plain bf16: worst leaf {own:.3e}"
+                           f", total rel {own_total:.3e}")
+    check_bit_equal("K6 bf16", gb16,
+                    t16.loss_and_grads_padded(named, *batch)[1])
+    ms16 = cuda_ms(lambda: t16.loss_and_grads_padded(named, *batch))
+    plain16 = cuda_ms(lambda: t16.reference(named16, *b16))
+    print(f"phase 6b: K6 fp32 tile {TILE}: max abs err {err:.3e} vs plain, "
+          f"within {TILED_TOL} of K5, bit-equal; {ms32:.4f} ms vs plain "
+          f"{plain32:.4f} ms. K6 bf16 at the JAX test's shape: total rel "
+          f"{total_rel:.3e}, worst leaf {leaf:.3e} vs fp32 plain. K6 bf16 "
+          f"flagship: worst leaf {own:.3e} vs its plain bf16 (whose own "
+          f"worst leaf vs fp32 is {plain_vs_fp32:.3e}; the kernel's "
+          f"{vs_fp32:.3e}), bit-equal; {ms16:.4f} ms vs plain {plain16:.4f} "
+          "ms", flush=True)
+    return err, (ms16, plain16)
+
+
+def fused_training_run(dims, rows_per_fold, epochs, seed, fused,
+                       precision="fp32"):
+    """Fresh seeded model and cohort trained on fixed eps by
+    MultiFoldTrainer with the plain loss or by FusedFoldTrainer (K5 in
+    fp32, K6 in bf16); returns (logs, final packed params, ms per step,
+    steps). The batches are uploaded before the clock starts."""
+    from multi_modal_normative_modeling_tpu_torch.interop import (
+        packed_from_model,
+    )
+    from multi_modal_normative_modeling_tpu_torch.models import build_model
+    from multi_modal_normative_modeling_tpu_torch.models.stacked import (
+        StackedMultimodalCVAE,
+    )
+    from multi_modal_normative_modeling_tpu_torch.parallel import (
+        MultiFoldTrainer,
+        stack_fold_batches,
+    )
+    from multi_modal_normative_modeling_tpu_torch.train import TrainConfig
+    from multi_modal_normative_modeling_tpu_torch.train.fused import (
+        FusedFoldTrainer,
+    )
+    from multi_modal_normative_modeling_tpu_torch.train.trainer import (
+        DeviceBatches,
+    )
+
+    rng = np.random.default_rng(seed)
+    folds = len(rows_per_fold)
+    data = [[rng.standard_normal((n, d), dtype=np.float32) for d in dims]
+            for n in rows_per_fold]
+    cov = [one_hot_covariates(rng, n) for n in rows_per_fold]
+    model = build_model("cVAE_multimodal", dims, HIDDEN, LATENT, C_DIM,
+                        len(dims), folds=folds,
+                        generator=torch.Generator().manual_seed(seed),
+                        device="cuda")
+    config = TrainConfig(epochs=epochs, batch_size=BATCH, combine=COMBINE,
+                         precision=precision)
+    stacked = StackedMultimodalCVAE(dims, HIDDEN, LATENT, C_DIM, len(dims))
+    if not fused:
+        batches = DeviceBatches(stack_fold_batches(
+            data, [[c] * len(dims) for c in cov], BATCH), "cuda")
+        trainer = MultiFoldTrainer(model, config, max(rows_per_fold))
+    else:
+        trainer = FusedFoldTrainer(model, config, max(rows_per_fold))
+        batches = trainer.batches(data, cov, "cuda")
+        packed = packed_from_model(model, stacked)
+    steps = epochs * batches.n_batches
+    eps = torch.randn((steps, folds, BATCH, LATENT),
+                      generator=torch.Generator().manual_seed(seed)).cuda()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if not fused:
+        logs = trainer.run(batches, eps=eps)  # ends in a fetch
+        trained = packed_from_model(model, stacked)
+    else:
+        trained, logs = trainer.run(packed, batches, eps=eps)
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    for k, v in logs.items():
+        if not np.isfinite(v).all() or v.shape != (folds, epochs):
+            raise RuntimeError(f"training log {k}: shape {v.shape}, finite "
+                               f"{np.isfinite(v).all()}")
+    return logs, trained, ms, steps
+
+
+def packed_leaves(tree):
+    """The tensors of a packed tree, in a fixed order."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in packed_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [t for v in tree for t in packed_leaves(v)]
+    return [tree]
+
+
+def compare_fused_training(what, dims, rows_per_fold, epochs, seed):
+    """plain, K5, K5, plain: holds the first K5 run against the first plain
+    run and returns the K5 run's launches."""
+    from multi_modal_normative_modeling_tpu_torch import kernels
+
+    logs_p, state_p, plain1, steps = fused_training_run(
+        dims, rows_per_fold, epochs, seed, fused=False)
+    kernels.reset_launch_counts()
+    logs_k, state_k, kern1, _ = fused_training_run(
+        dims, rows_per_fold, epochs, seed, fused=True)
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels.KERNELS}
+    if launches["fused_train_step"] != steps:
+        raise RuntimeError(f"{what}: fused_train_step launched "
+                           f"{launches['fused_train_step']} times, expected "
+                           f"{steps}")
+    for k in logs_p:
+        check_close(f"{what} fused log {k}", torch.from_numpy(logs_k[k]),
+                    torch.from_numpy(logs_p[k]), FUSED_LOG_TOL)
+    err = 0.0
+    for a, b in zip(packed_leaves(state_k), packed_leaves(state_p)):
+        err = max(err, check_close(f"{what} fused param", a, b,
+                                   FUSED_PARAM_TOL)[0])
+    kern2 = fused_training_run(dims, rows_per_fold, epochs, seed,
+                               fused=True)[2]
+    plain2 = fused_training_run(dims, rows_per_fold, epochs, seed,
+                                fused=False)[2]
+    print(f"phase 7: {what}: {len(rows_per_fold)} folds x {rows_per_fold} "
+          f"subjects, widths {dims}, {steps} steps: launches {launches}; "
+          f"final params max abs err {err:.3e}; ms/step K5 {kern1:.4f}, "
+          f"{kern2:.4f}, plain {plain1:.4f}, {plain2:.4f}", flush=True)
+    return launches
+
+
+def bf16_training(seed):
+    """A few flagship steps through K6 in bf16 against the same steps in
+    fp32 (K5) from the same init and eps; returns the K6 run's launches."""
+    from multi_modal_normative_modeling_tpu_torch import kernels
+
+    epochs = BF16_STEPS // 2
+    logs_f, state_f, ms_f, steps = fused_training_run(
+        DIMS, TRAIN_ROWS, epochs, seed, fused=True)
+    kernels.reset_launch_counts()
+    logs_b, state_b, ms_b, _ = fused_training_run(
+        DIMS, TRAIN_ROWS, epochs, seed, fused=True, precision="bf16")
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels.KERNELS}
+    if launches["tiled_fused_train_step"] != steps:
+        raise RuntimeError(f"bf16: tiled_fused_train_step launched "
+                           f"{launches['tiled_fused_train_step']} times, "
+                           f"expected {steps}")
+    total_rel = np.max(np.abs(logs_b["total"] - logs_f["total"])
+                       / np.abs(logs_f["total"]))
+    leaf = max(leaf_error(a, b) for a, b in zip(packed_leaves(state_b),
+                                                packed_leaves(state_f)))
+    if not total_rel < BF16_TOTAL or not leaf < BF16_LEAF:
+        raise RuntimeError(f"bf16 training: total rel {total_rel:.3e}, worst "
+                           f"param leaf {leaf:.3e}")
+    print(f"phase 7: bf16: {steps} flagship steps through K6: launches "
+          f"{launches}; logs total within {total_rel:.3e} of fp32, worst "
+          f"param leaf {leaf:.3e}; ms/step K6 bf16 {ms_b:.4f}, K5 fp32 "
+          f"{ms_f:.4f}", flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -326,6 +688,9 @@ def main():
             mu_p, lv_p = enc(x, c)
             e1, r1 = check_close("fused_encoder mu", mu, mu_p, TOL)
             e2, r2 = check_close("fused_encoder logvar", lv, lv_p, TOL)
+            mean = dec.fused_mean(z, c)
+            e5, r5 = check_close("fused_decoder_mean", mean, dec(z, c)[0],
+                                 TOL)
             recon, dev = dec.fused_pred_deviation(z, c, x)
             recon_p = dec(z, c)[0]
             dev_p = kernels.reconstruction_deviation(x, recon_p)
@@ -338,17 +703,22 @@ def main():
             dec_ms = cuda_ms(lambda: dec.fused_pred_deviation(z, c, x))
             dec_plain_ms = cuda_ms(lambda: kernels.reconstruction_deviation(
                 x, dec(z, c)[0]))
+            mean_ms = cuda_ms(lambda: dec.fused_mean(z, c))
+            mean_plain_ms = cuda_ms(lambda: dec(z, c)[0])
             print(f"phase 3: F={folds} B={rows} D={d} C={c_dim}: "
                   f"encoder max abs err {max(e1, e2):.3e} (rel "
                   f"{max(r1, r2):.3e}), {enc_ms:.4f} ms vs plain "
                   f"{enc_plain_ms:.4f} ms; pred_deviation recon err "
                   f"{e3:.3e} (rel {r3:.3e}), dev err {e4:.3e} (rel "
                   f"{r4:.3e}), {dec_ms:.4f} ms vs plain {dec_plain_ms:.4f} "
-                  "ms", flush=True)
+                  f"ms; decoder_mean err {e5:.3e} (rel {r5:.3e}), "
+                  f"{mean_ms:.4f} ms vs plain {mean_plain_ms:.4f} ms",
+                  flush=True)
             for name, err, ms, plain in (
                     ("fused_encoder", max(e1, e2), enc_ms, enc_plain_ms),
                     ("fused_pred_deviation", max(e3, e4), dec_ms,
-                     dec_plain_ms)):
+                     dec_plain_ms),
+                    ("fused_decoder_mean", e5, mean_ms, mean_plain_ms)):
                 s = stats[name]
                 s["max_abs_err"] = max(s["max_abs_err"], err)
                 # the flagship scoring call's widest modality
@@ -412,16 +782,56 @@ def main():
           f"{plain_wall:.4f} ms), CUDA-event {kernel_dev:.4f} ms (plain "
           f"{plain_dev:.4f} ms)", flush=True)
 
+    # the reconstruction call: encoder + decoder-mean kernels
+    kernels.reset_launch_counts()
+    means = model.pred_recon_means_fused(xes, cs, COMBINE, eps=eps)
+    torch.cuda.synchronize()
+    recon_launches = {k.__name__: k.launches for k in kernels.KERNELS}
+    if recon_launches["fused_decoder_mean"] != len(DIMS):
+        raise RuntimeError(f"phase 4: the reconstruction call launched "
+                           f"{recon_launches}")
+    for m in range(len(DIMS)):
+        check_close(f"modality {m} recon mean", means[m], ref[m], MODEL_TOL)
+    launches["fused_decoder_mean"] = recon_launches["fused_decoder_mean"]
+    print(f"phase 4: reconstruction call launches {recon_launches}",
+          flush=True)
+
     # ---- phase 5: training through decoder_nll -----------------------------
     train_launches = compare_training("flagship", DIMS, TRAIN_ROWS,
                                       TRAIN_EPOCHS, seed=1)
     compare_training("PPMI width", PPMI_DIMS, PPMI_ROWS, 1, seed=2)
     launches["decoder_nll"] = train_launches["decoder_nll"]
 
+    # ---- phase 6a/6b: the fused train step against its plain version ------
+    for shape in STEP_SHAPES:
+        err, times = check_step(*shape)
+        s5 = stats["fused_train_step"]
+        s5["max_abs_err"] = max(s5["max_abs_err"], err)
+        if shape[0] == "flagship":
+            s5["ms"], s5["plain_ms"] = times
+    err, times = check_tiled()
+    stats["tiled_fused_train_step"].update(max_abs_err=err, ms=times[0],
+                                           plain_ms=times[1])
+
+    # ---- phase 7: training through the fused train step --------------------
+    fused = compare_fused_training("flagship", DIMS, TRAIN_ROWS,
+                                   TRAIN_EPOCHS, seed=3)
+    compare_fused_training("PPMI width", PPMI_DIMS, PPMI_ROWS, 1, seed=4)
+    tiled = bf16_training(seed=5)
+    launches["fused_train_step"] = fused["fused_train_step"]
+    launches["tiled_fused_train_step"] = tiled["tiled_fused_train_step"]
+
     sources = {"fused_encoder": ("encoder.cu", "mlp.py:121"),
                "fused_pred_deviation": ("pred_deviation.cu",
                                         "deviation.py:76"),
-               "decoder_nll": ("decoder_nll.cu", "decoder_nll.py:130")}
+               "fused_decoder_mean": ("pred_deviation.cu", "mlp.py:182"),
+               "decoder_nll": ("decoder_nll.cu", "decoder_nll.py:130"),
+               "fused_train_step": ("train_step.cu", "train_step.py:543"),
+               "tiled_fused_train_step": ("train_step.cu",
+                                          "train_step_tiled.py:447")}
+    missing = [name for name in sources if not launches.get(name)]
+    if missing:
+        raise RuntimeError(f"no launch on the main path: {missing}")
     report = []
     for name, (src, tpu) in sources.items():
         report.append({

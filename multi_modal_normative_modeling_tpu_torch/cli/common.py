@@ -2,7 +2,8 @@
 the JAX package's cli/common.py (add_common_flags,
 apply_post_parse_defaults, prepare_modality, prepare_folds, fold_paths,
 assert_modalities_aligned, require_test_cov, infer_row_tile,
-model_config_dict, build_model_from_config, emit_fold_artifacts), without
+uniform_covariates, model_config_dict, build_model_from_config,
+emit_fold_artifacts), without
 its process-wide memo caches, plus the k-fold id files without sklearn.
 
 The registry and the data layer (loading, scaling, covariate binning) are
@@ -293,6 +294,20 @@ def prepare_folds(args, project_root: Path, kfold_dir: Path, model_dir: Path,
     input_dim_list = [p['train_data'].shape[1] for p in preps[:n_mod]]
     c_dim = preps[0]['train_cov'].shape[1]
     return folds, input_dim_list, c_dim
+
+
+def uniform_covariates(folds):
+    """None when every fold's per-modality covariate blocks are identical,
+    else the reason. The packed layouts feed one covariate block to every
+    modality, which is only equivalent to the per-modality path when the
+    blocks match (they do whenever the modality CSVs share row order)."""
+    for _, cov_list in folds:
+        first = cov_list[0]
+        for c in cov_list[1:]:
+            if c.shape != first.shape or not np.array_equal(c, first):
+                return ('per-modality covariates differ across modalities '
+                        '(packed layout shares one block)')
+    return None
 
 
 def model_config_dict(args, input_dim_list: List[int], c_dim: int,

@@ -9,9 +9,14 @@ fold-stacked model (``parallel.MultiFoldTrainer``); the JAX package's
 per-fold path and its ``--fold_parallel`` path follow the same trajectory,
 so both map onto it. ``--fused_decoder`` runs each modality's mean head and
 Gaussian NLL through the ``decoder_nll`` CUDA kernel pair.
+``--fused_train_step`` trains every fold at once on the fused train step
+(``train.fused.FusedFoldTrainer``: K5 in fp32, K6 with ``--precision
+bf16``); where the JAX CLI falls back to its XLA path for a configuration
+the fused step does not take, this one exits and says why.
 
     python -m multi_modal_normative_modeling_tpu_torch.cli.train_supervised \\
         -R ADNI -P UCA-gPoE -E 200 -K 5 [--fused_decoder] [--device cpu]
+        [--fused_train_step [--precision bf16]]
 """
 from __future__ import annotations
 
@@ -26,11 +31,13 @@ import torch
 from multi_modal_normative_modeling_tpu import registry
 from multi_modal_normative_modeling_tpu.utils.logging import RunLog
 
-from ..interop import params_to_jax
+from ..interop import packed_from_model, packed_to_model, params_to_jax
 from ..kernels.decoder_nll import fused_decoder_loss_fn
 from ..models import build_model
+from ..models.stacked import SKELETON_VARIANTS
 from ..parallel import MultiFoldTrainer, stack_fold_batches
 from ..train import TrainConfig
+from ..train.fused import FusedFoldTrainer, supported
 from . import common
 
 # JAX CLI flags with no port yet: each raises instead of being ignored
@@ -38,7 +45,6 @@ _NOT_PORTED_FLAGS = {
     'mesh': "queue 1 item 'Multi-device'",
     'ep_mesh': "queue 1 item 'Multi-device'",
     'packed_xla': "queue 1 items 'Packed layout' and 'Grouped layout'",
-    'fused_train_step': "queue 2, K5 and K6",
     'stream_shards': "queue 1 item 'Streaming'",
     'checkpoint_every': "queue 1 item 'Resume'",
     'resume': "queue 1 item 'Resume'",
@@ -76,10 +82,17 @@ def main(args, project_root=None, init_fn: Optional[InitFn] = None,
         if getattr(args, flag, None):
             raise SystemExit(f'--{flag} is not ported to the torch trainer '
                              f'yet; see ROADMAP.md, {item}')
-    if getattr(args, 'precision', 'fp32') != 'fp32':
-        raise SystemExit(f'--precision {args.precision} is not ported to the '
-                         "torch trainer yet; see ROADMAP.md, queue 1 item "
-                         "'Trainer'")
+    fused = getattr(args, 'fused_train_step', False)
+    precision = getattr(args, 'precision', 'fp32')
+    if precision != 'fp32' and not fused:
+        raise SystemExit(f'--precision {precision} runs only through the '
+                         'fused train step (K6): add --fused_train_step; '
+                         'bf16 for the plain trainer is not ported yet, see '
+                         "ROADMAP.md, queue 1 item 1 'Trainer'")
+    if fused:
+        unsupported = _fused_flag_conflict(args)
+        if unsupported:
+            raise SystemExit(f'fused train step unavailable ({unsupported})')
     device = common.resolve_device(getattr(args, 'device', 'cuda'), 'train')
 
     project_root = Path(project_root) if project_root else Path.cwd()
@@ -124,26 +137,24 @@ def main(args, project_root=None, init_fn: Optional[InitFn] = None,
         base_lr=args.base_learning_rate,
         max_lr=args.max_learning_rate,
         seed=42,
+        precision=precision,
     )
 
     model = common.build_model_from_config(config_dict, folds=n_folds)
+    if fused:
+        ok, reason = supported(model, train_config)
+        if ok:
+            reason = common.uniform_covariates(folds)
+            ok = reason is None
+        if not ok:
+            raise SystemExit(f'fused train step unavailable ({reason})')
     (init_fn or default_init)(model)
     model.to(device)
-    loss_fn = None
-    if getattr(args, 'fused_decoder', False):
-        loss_fn = fused_decoder_loss_fn(model, train_config)
-        print('train model (fused decoder+NLL CUDA kernel pair)')
     max_n = max(f[0][0].shape[0] for f in folds)
-    trainer = MultiFoldTrainer(model, train_config, max_n, loss_fn=loss_fn)
-    batches = stack_fold_batches([f[0] for f in folds], [f[1] for f in folds],
-                                 batch_size)
-    eps = None
-    if eps_fn is not None:
-        eps = eps_fn(batches['valid'], train_config.epochs, batch_size,
-                     model.latent_dim)
-    print('train model (all folds fold-parallel)')
-    logs = trainer.run(batches, eps=eps)
-
+    if fused:
+        logs = _train_fused(model, train_config, folds, max_n, device, eps_fn)
+    else:
+        logs = _train(args, model, train_config, folds, max_n, eps_fn)
     per_fold_logs = [{k: v[f] for k, v in logs.items()}
                      for f in range(n_folds)]
     per_fold_params = [params_to_jax(model, fold=f) for f in range(n_folds)]
@@ -157,6 +168,63 @@ def main(args, project_root=None, init_fn: Optional[InitFn] = None,
         run_log.event('fold_done', fold=fold, **last)
         print('fold_model_dir:', model_dir / f'{fold:03d}')
     run_log.event('train_end', folds=n_folds)
+
+
+def _fused_flag_conflict(args) -> Optional[str]:
+    """Why --fused_train_step cannot run with these flags (checked before
+    any file is written), or None."""
+    variant = SKELETON_VARIANTS.get(getattr(args, 'model', 'cVAE_multimodal'))
+    if variant != 'cvae':
+        return (f'model {args.model!r}: the fused step trains '
+                "cVAE_multimodal; other variants are not ported, see "
+                "ROADMAP.md, queue 1 item 7 'Zoo'")
+    combine = (getattr(args, 'combine', None)
+               or getattr(args, 'procedure', 'UCA-gPoE').split('-')[1])
+    if combine.lower() not in ('poe', 'gpoe', 'moe', 'mopoe'):
+        return f'fusion {combine!r}'
+    if getattr(args, 'fused_decoder', False):
+        return ('--fused_decoder is mutually exclusive with '
+                '--fused_train_step')
+    return None
+
+
+def _train_fused(model, train_config, folds, max_n, device, eps_fn):
+    """Every fold at once on the fused train step; the trained parameters
+    go back into ``model``."""
+    trainer = FusedFoldTrainer(model, train_config, max_n)
+    # one covariate block for every modality (uniform_covariates checked)
+    batches = trainer.batches([f[0] for f in folds], [f[1][0] for f in folds],
+                              device)
+    eps = None
+    if eps_fn is not None:
+        eps = eps_fn(batches.valid_host.T, train_config.epochs,
+                     train_config.batch_size, model.latent_dim)
+    kernel = 'K6, bf16' if train_config.precision == 'bf16' else 'K5'
+    print(f'train model (all folds fold-parallel, fused train-step CUDA '
+          f'kernel {kernel})')
+    packed = packed_from_model(model, trainer.stacked)
+    trained, logs = trainer.run(packed, batches, eps=eps)
+    packed_to_model(trained, trainer.stacked, model)
+    return logs
+
+
+def _train(args, model, train_config, folds, max_n, eps_fn):
+    """Every fold at once on MultiFoldTrainer (plain or --fused_decoder
+    loss); trains ``model`` in place."""
+    batch_size = train_config.batch_size
+    loss_fn = None
+    if getattr(args, 'fused_decoder', False):
+        loss_fn = fused_decoder_loss_fn(model, train_config)
+        print('train model (fused decoder+NLL CUDA kernel pair)')
+    trainer = MultiFoldTrainer(model, train_config, max_n, loss_fn=loss_fn)
+    batches = stack_fold_batches([f[0] for f in folds], [f[1] for f in folds],
+                                 batch_size)
+    eps = None
+    if eps_fn is not None:
+        eps = eps_fn(batches['valid'], train_config.epochs, batch_size,
+                     model.latent_dim)
+    print('train model (all folds fold-parallel)')
+    return trainer.run(batches, eps=eps)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -192,14 +260,24 @@ def build_parser() -> argparse.ArgumentParser:
                              'port always runs the mu and logvar heads as '
                              'two products (the same math as the merged '
                              'head)')
+    parser.add_argument('--fused_train_step', dest='fused_train_step',
+                        action='store_true',
+                        help='run each optimizer step (forward and '
+                             'hand-derived backward of every fold) as one '
+                             'fused train-step CUDA kernel call on the '
+                             'packed layout: K5 in fp32, K6 under '
+                             '--precision bf16; cvae variant, poe/gpoe/moe/'
+                             'mopoe, 1-3 hidden layers. Exits (never falls '
+                             'back) on a configuration it does not take.')
     parser.add_argument('--precision', dest='precision', default='fp32',
                         choices=['fp32', 'bf16'],
-                        help='fp32; bf16 is not ported yet (raises)')
+                        help='fp32; bf16 runs only through the fused train '
+                             'step (K6, with --fused_train_step) and raises '
+                             'without it')
     not_ported = 'not ported yet (raises); see ROADMAP.md'
     for flag, kwargs in (('--mesh', {'default': None}),
                          ('--ep_mesh', {'default': None}),
                          ('--packed_xla', {'action': 'store_true'}),
-                         ('--fused_train_step', {'action': 'store_true'}),
                          ('--stream_shards', {'type': int, 'default': 0}),
                          ('--checkpoint_every', {'type': int, 'default': 0}),
                          ('--resume', {'action': 'store_true'}),

@@ -13,6 +13,11 @@ with weights ``[fan_in, fan_out]``. The port's modules store weights
 place that transposes. A module's state-dict key names its tree path:
 ``enc.0.hidden.1.weight`` is ``tree["enc"][0]["hidden"][1]["w"]``.
 
+The packed layout of ``models.stacked`` (all modalities on one axis, the
+layout of the fused train step) keeps the JAX orientation; ``packed_*``
+convert between it, the fold-stacked module and JAX per-modality trees.
+Checkpoints stay in the per-modality format.
+
 ``read_flax_checkpoint`` reads the JAX package's per-fold checkpoint
 (``cVAE_model.ckpt``, a flax msgpack blob, train/checkpoints.py:54, plus the
 ``cVAE_model.json`` config sidecar) without jax or flax.
@@ -95,6 +100,52 @@ def params_to_jax(model: nn.Module, fold: Optional[int] = None) -> dict:
             node = node.setdefault(p, {})
         node[path[-1]] = leaf
     return _listify(tree)
+
+
+def packed_from_jax(trees, stacked) -> dict:
+    """JAX per-modality trees (a list of one fold's trees, or one
+    fold-stacked tree) -> the packed tree of ``stacked``
+    (a models.stacked.StackedMultimodalCVAE)."""
+    if isinstance(trees, (list, tuple)):
+        from .parallel.folds import stack_params
+
+        trees = stack_params(list(trees))
+    return stacked.pack_params(trees)
+
+
+def packed_to_jax(packed: dict, stacked, fold: Optional[int] = None) -> dict:
+    """The packed tree -> the per-modality JAX-layout tree of numpy arrays:
+    fold-stacked, or only ``fold``'s when it is given."""
+    def to_numpy(node):
+        if isinstance(node, dict):
+            return {k: to_numpy(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [to_numpy(v) for v in node]
+        leaf = node.detach().cpu().numpy()
+        return np.ascontiguousarray(leaf if fold is None else leaf[fold])
+
+    return to_numpy(stacked.unpack_params(packed))
+
+
+def packed_from_model(model: nn.Module, stacked) -> dict:
+    """The fold-stacked MultimodalCVAE's parameters as ``stacked``'s packed
+    tree, on the model's device."""
+    device = next(model.parameters()).device
+    packed = stacked.pack_params(params_to_jax(model))
+
+    def move(node):
+        if isinstance(node, dict):
+            return {k: move(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [move(v) for v in node]
+        return node.to(device)
+
+    return move(packed)
+
+
+def packed_to_model(packed: dict, stacked, model: nn.Module) -> nn.Module:
+    """Load a packed tree into the fold-stacked MultimodalCVAE (in place)."""
+    return params_from_jax(packed_to_jax(packed, stacked), model)
 
 
 def _flax_ext_hook(code: int, data: bytes):

@@ -111,6 +111,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mmnm_decoder_nll_fwd.restype = i32
     lib.mmnm_decoder_nll_bwd.argtypes = [ptr] * 16 + [i32] * 6 + [ptr]
     lib.mmnm_decoder_nll_bwd.restype = i32
+    lib.mmnm_train_step.argtypes = [ptrs, ints, i32, ptr]
+    lib.mmnm_train_step.restype = i32
+    lib.mmnm_train_step_workspace.argtypes = [ints, i32]
+    lib.mmnm_train_step_workspace.restype = ctypes.c_longlong
     lib.mmnm_error_string.argtypes = [i32]
     lib.mmnm_error_string.restype = ctypes.c_char_p
     return lib

@@ -14,6 +14,10 @@
 // deterministic. Unlike the single-block TPU kernel there is no row-count
 // limit: rows are tiled over the grid. What bounds it on an H100: the reads
 // of x and the writes of recon ([B, D] each), plus the mean head's weights.
+//
+// With x and dev null it is the decoder's mean alone, and replaces the
+// Pallas kernel multi_modal_normative_modeling_tpu/kernels/mlp.py::
+// fused_decoder_mean (_decoder_kernel) too.
 #include "tile_mlp.cuh"
 
 namespace mmnm {
@@ -28,8 +32,10 @@ struct ReconDeviation {
   __device__ void operator()(int i, int r, int n, float v) {
     if (r < rows) {
       recon[(size_t)r * D + n] = v;
-      const float d = x[(size_t)r * D + n] - v;
-      part[i] = fmaf(d, d, part[i]);
+      if (x != nullptr) {
+        const float d = x[(size_t)r * D + n] - v;
+        part[i] = fmaf(d, d, part[i]);
+      }
     }
   }
 };
@@ -52,10 +58,12 @@ pred_deviation_kernel(const float* __restrict__ z, const float* __restrict__ c,
   const ConcatRows in{z + frow * Z, c + frow * C, Z, C, rows};
   const float* cur = run_hidden(in, L, n_hidden, f, non_linear != 0, st, h0,
                                 h1, ld);
-  ReconDeviation epi{recon + frow * D, x + frow * D, D, rows, {}};
+  ReconDeviation epi{recon + frow * D, x ? x + frow * D : nullptr, D, rows,
+                     {}};
 #pragma unroll
   for (int i = 0; i < RM; ++i) epi.part[i] = 0.f;
   run_head(in, cur, ld, L.l[n_hidden], f, st, epi);
+  if (dev == nullptr) return;
 
   // the GROUPS column threads of a row are consecutive lanes of one warp
   const int tr = threadIdx.x / GROUPS;
@@ -74,7 +82,8 @@ pred_deviation_kernel(const float* __restrict__ z, const float* __restrict__ c,
 
 }  // namespace mmnm
 
-// z [F, B, Z], c [F, B, C], x [F, B, D] -> recon [F, B, D], dev [F, B].
+// z [F, B, Z], c [F, B, C], x [F, B, D] -> recon [F, B, D], dev [F, B];
+// x and dev both null: recon alone (the decoder mean).
 // w, b and widths hold n_hidden + 1 layers: the hidden layers, then the
 // mean head (width D). Launches on `stream` and returns cudaGetLastError().
 extern "C" int mmnm_pred_deviation(const float* z, const float* c,

@@ -79,6 +79,11 @@ class Decoder(nn.Module):
             self.hidden_layers(), self.mean.pair(), z, c, self.non_linear)
         return mean, self.logvar_out
 
+    def fused_mean(self, z: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+        """The reconstruction mean [F, B, D] in one kernel."""
+        return dev_kernel.fused_decoder_mean(
+            self.hidden_layers(), self.mean.pair(), z, c, self.non_linear)
+
     def fused_pred_deviation(self, z: torch.Tensor, c: torch.Tensor,
                              x: torch.Tensor):
         """(reconstruction mean [F, B, D], deviation [F, B]) in one kernel."""

@@ -140,3 +140,19 @@ class MultimodalCVAE(nn.Module):
         out = [dec.fused_pred_deviation(z, cs[i], xes[i])
                for i, dec in enumerate(self.dec)]
         return [recon for recon, _ in out], [dev for _, dev in out]
+
+    @torch.no_grad()
+    def pred_recon_means_fused(self, xes, cs, combine: str,
+                               eps: Optional[torch.Tensor] = None,
+                               generator: Optional[torch.Generator] = None
+                               ) -> List[torch.Tensor]:
+        """``pred_recon`` through the kernels: the encoder kernel per
+        modality, fusion in torch, then the decoder-mean kernel per
+        modality (no x, no deviation). Returns the recon means [F, B, D_m];
+        numerically equivalent to pred_recon on the same eps."""
+        stats = [enc.fused(xes[i], cs[i]) for i, enc in enumerate(self.enc)]
+        fused_mu, fused_logvar = self.fuse(
+            torch.stack([mu for mu, _ in stats]),
+            torch.stack([lv for _, lv in stats]), combine)
+        z = reparameterize(fused_mu, fused_logvar, eps, generator)
+        return [dec.fused_mean(z, cs[i]) for i, dec in enumerate(self.dec)]

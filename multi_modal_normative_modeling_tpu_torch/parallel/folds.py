@@ -91,6 +91,10 @@ class MultiFoldTrainer:
 
     def __init__(self, model, config: TrainConfig, n_samples: int,
                  loss_fn: Optional[Callable] = None):
+        if config.precision != "fp32" or config.shuffle:
+            raise NotImplementedError(
+                "MultiFoldTrainer trains in fp32 without shuffle; see "
+                "ROADMAP.md, queue 1 item 1 'Trainer'")
         self.model = model
         self.config = config
         self.lr_fn = build_lr_fn(config, n_samples)

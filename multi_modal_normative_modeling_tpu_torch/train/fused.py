@@ -1,0 +1,199 @@
+"""Fold-parallel training on the fused train step (counterpart of
+train/fused.py).
+
+Every optimizer step's forward and backward is one call of the fused step
+(``kernels/train_step.py``, K5, in fp32; ``kernels/train_step_tiled.py``,
+K6, in bf16) on the packed layout (``models/stacked.py``). The parameters
+are packed once, trained in the step's layout with the port's MaskedAdam
+(one step count per fold, the all-padding-batch skip) and unpacked once
+after training, so checkpoints and the test stage are unchanged. Padded
+entries have zero gradients, so Adam keeps them at exactly zero. The noise
+of every step is the plain trainer's (``FoldNoise``, or replayed ``eps``),
+so the trajectories of every fold are comparable step for step with
+``MultiFoldTrainer``'s.
+
+Scope: variant cvae (cVAE_multimodal), fusion poe, gpoe, moe or mopoe,
+1 to 3 hidden layers, no shuffle, covariates shared by every modality, and
+hidden widths that fit the kernels' shared memory; ``select_kernel`` says
+why a configuration is out of it.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..kernels.train_step import (
+    COMBINES,
+    MAX_HIDDEN,
+    MAX_MODALITIES,
+    FusedTrainStep,
+    smem_bytes,
+)
+from ..kernels import _build
+from ..models.stacked import StackedMultimodalCVAE
+from .trainer import (
+    LOG_KEYS,
+    FoldNoise,
+    MaskedAdam,
+    TrainConfig,
+    build_lr_fn,
+    run_epochs,
+)
+
+
+def select_kernel(model, config: TrainConfig) -> Tuple[Optional[str], str]:
+    """(kernel, reason): 'single' (K5, fp32), 'tiled' (K6, bf16), or None
+    with the reason the fused step cannot train this configuration. The
+    same routing holds on the CPU (plain versions) and on the card."""
+    variant = getattr(model, "variant", None)
+    if variant != "cvae":
+        return None, f"model variant {variant!r} (the fused step is cvae)"
+    if config.combine.lower() not in COMBINES:
+        return None, f"fusion {config.combine!r}"
+    if config.precision not in ("fp32", "bf16"):
+        return None, f"precision {config.precision!r}"
+    if config.shuffle:
+        return None, "shuffle=True (the fused path trains in batch order)"
+    if not getattr(model, "non_linear", True):
+        return None, "linear layers (the fused step runs LeakyReLU)"
+    if not 1 <= len(model.hidden_dim) <= MAX_HIDDEN:
+        return None, (f"{len(model.hidden_dim)} hidden layers (the fused "
+                      f"step takes 1 to {MAX_HIDDEN})")
+    if model.modalities > MAX_MODALITIES:
+        return None, f"{model.modalities} modalities (at most {MAX_MODALITIES})"
+    smem = smem_bytes(model.hidden_dim)
+    if smem > _build.MAX_SMEM_BYTES:
+        return None, (f"hidden widths {list(model.hidden_dim)} need {smem} B "
+                      f"of shared memory per block, over the "
+                      f"{_build.MAX_SMEM_BYTES} B an H100 block has")
+    return ("tiled" if config.precision == "bf16" else "single"), ""
+
+
+def supported(model, config: TrainConfig) -> Tuple[bool, str]:
+    """(ok, reason). ``model`` is the MultimodalCVAE the CLI built."""
+    kernel, reason = select_kernel(model, config)
+    return kernel is not None, reason
+
+
+def make_packed_batches(step: FusedTrainStep,
+                        per_fold_data: Sequence[Sequence[np.ndarray]],
+                        per_fold_cov: Sequence[np.ndarray],
+                        batch_size: int) -> dict:
+    """Every fold's per-modality sample arrays in the step's batch layout,
+    padded once (numpy, fold-major): x [F, NB, M, Bp, d_max], c [F, NB, Bp,
+    C], rm [F, NB, Bp], nvalid [F, NB] = max(rows, 1), valid [F, NB]. Folds
+    are padded to the largest fold's batch count with all-padding batches
+    (train/fused.py:109-142 for one fold)."""
+    m = step.model
+    folds = len(per_fold_data)
+    max_n = max(d[0].shape[0] for d in per_fold_data)
+    nb = max(1, -(-max_n // batch_size))
+    bp = -(-batch_size // step.row_align) * step.row_align
+    c_dim = per_fold_cov[0].shape[1]
+    x = np.zeros((folds, nb, m.modalities, bp, m.d_max), np.float32)
+    c = np.zeros((folds, nb, bp, c_dim), np.float32)
+    rm = np.zeros((folds, nb, bp), np.float32)
+    counts = np.zeros((folds, nb), np.float32)
+    for f, (data_list, cov) in enumerate(zip(per_fold_data, per_fold_cov)):
+        n = data_list[0].shape[0]
+        for b in range(nb):
+            lo, hi = b * batch_size, min(n, (b + 1) * batch_size)
+            rows = hi - lo
+            if rows <= 0:
+                continue
+            for mi, d in enumerate(data_list):
+                x[f, b, mi, :rows, :d.shape[1]] = d[lo:hi]
+            c[f, b, :rows] = cov[lo:hi]
+            rm[f, b, :rows] = 1.0
+            counts[f, b] = rows
+    return {"x": x, "c": c, "rm": rm, "nvalid": np.maximum(counts, 1.0),
+            "valid": counts > 0}
+
+
+class PackedDeviceBatches:
+    """``make_packed_batches`` output uploaded once, step-major, in the
+    step's storage dtype; the interface train.trainer.run_epochs reads."""
+
+    def __init__(self, batches: dict, step: FusedTrainStep, device):
+        def up(a):
+            return torch.from_numpy(np.ascontiguousarray(
+                np.swapaxes(np.asarray(a, np.float32), 0, 1))).to(device)
+
+        stored = step.cast_batch({"x": up(batches["x"]),
+                                  "c": up(batches["c"])})
+        self.x, self.c = stored["x"], stored["c"]
+        self.rm = up(batches["rm"])
+        self.nvalid = up(batches["nvalid"])
+        self.mask = self.rm
+        self.valid_host = np.asarray(batches["valid"]).T       # [NB, F]
+        self.valid = torch.from_numpy(
+            self.valid_host.astype(np.float32)).to(device)
+        self.n_batches, self.folds, self.rows = self.rm.shape
+
+    def step(self, t: int) -> dict:
+        return {"x": self.x[t], "c": self.c[t], "rm": self.rm[t],
+                "nvalid": self.nvalid[t]}
+
+
+class FusedFoldTrainer:
+    """Trains every fold at once on the fused step. ``run`` takes and
+    returns the packed tree (``interop.packed_from_model`` /
+    ``packed_to_model`` convert to and from the fold-stacked module)."""
+
+    def __init__(self, model, config: TrainConfig, n_samples: int,
+                 tile_b: Optional[int] = None):
+        kernel, reason = select_kernel(model, config)
+        if kernel is None:
+            raise ValueError(f"fused train step unsupported: {reason}")
+        self.kernel = kernel
+        self.stacked = StackedMultimodalCVAE(
+            model.input_dim_list, model.hidden_dim, model.latent_dim,
+            model.c_dim, model.modalities, model.non_linear)
+        self.config = config
+        if kernel == "tiled":
+            from ..kernels.train_step_tiled import TiledFusedTrainStep
+
+            self.step = TiledFusedTrainStep(
+                self.stacked, config.combine, tile_b=tile_b,
+                compute_dtype=torch.bfloat16, batch_hint=config.batch_size)
+        else:
+            self.step = FusedTrainStep(self.stacked, config.combine)
+        self.lr_fn = build_lr_fn(config, n_samples)
+
+    def batches(self, per_fold_data, per_fold_cov, device):
+        return PackedDeviceBatches(make_packed_batches(
+            self.step, per_fold_data, per_fold_cov, self.config.batch_size),
+            self.step, device)
+
+    def run(self, packed: dict, batches: PackedDeviceBatches,
+            eps=None) -> Tuple[dict, dict]:
+        """Train ``packed`` (fold-stacked, on the batches' device) for
+        ``config.epochs`` epochs. ``eps`` [epochs * NB, F, batch_size, Z]
+        replays given noise; by default each fold draws its own. Returns
+        (the trained packed tree, logs {total, kl, ll: [F, epochs]})."""
+        device = batches.rm.device
+        named = self.step.pad_params(packed)
+        params = [torch.nn.Parameter(named[k].detach().float().clone())
+                  for k in self.step._param_names]
+        noise = None
+        if eps is not None:
+            eps = torch.as_tensor(eps, dtype=torch.float32).to(device)
+        else:
+            noise = FoldNoise(batches.folds, (self.config.batch_size,
+                                              self.stacked.latent_dim),
+                              self.config.seed, device)
+        adam = MaskedAdam(params, self.lr_fn)
+        logs = run_epochs(self.step.loss_fn(params), params, adam, batches,
+                          self.config.epochs, eps=eps, noise=noise)
+        trained = self.step.unpad_named(
+            {k: p.detach() for k, p in zip(self.step._param_names, params)})
+        host = logs.cpu().numpy()
+        return trained, {k: host[:, i, :].T.copy()
+                         for i, k in enumerate(LOG_KEYS)}
+
+    def run_resumable(self, *args, **kwargs):
+        raise NotImplementedError(
+            "resumable fused training is not ported yet; see ROADMAP.md, "
+            "queue 1 item 6 'Resume'")

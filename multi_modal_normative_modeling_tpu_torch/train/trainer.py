@@ -47,6 +47,10 @@ class TrainConfig:
     max_lr: float = 5e-3
     gamma: float = 0.98
     seed: int = 42
+    # "bf16" runs only on the fused train step's K6 (train/fused.py); the
+    # per-epoch shuffle is not ported (every trainer refuses True)
+    precision: str = "fp32"
+    shuffle: bool = False
 
 
 def make_batches(data_list: Sequence[np.ndarray],

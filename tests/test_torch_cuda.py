@@ -219,3 +219,257 @@ def test_fused_decoder_training_matches_plain(cuda):
     for k in state_p:
         torch.testing.assert_close(state_k[k], state_p[k], rtol=5e-3,
                                    atol=1e-5)
+
+
+# ---- fused_decoder_mean (K3) --------------------------------------------------
+
+@pytest.mark.parametrize("non_linear", [True, False])
+@pytest.mark.parametrize("folds,rows,d,c_dim,hidden", CASES)
+def test_decoder_mean_kernel_matches_plain(cuda, folds, rows, d, c_dim,
+                                           hidden, non_linear):
+    rng = np.random.default_rng(rows + 2 * d)
+    dec = Decoder(d, hidden, 10, c_dim, non_linear, folds,
+                  generator=torch.Generator().manual_seed(2), device=cuda)
+    z, c = (_rows(rng, folds, rows, 10).to(cuda),
+            _rows(rng, folds, rows, c_dim).to(cuda))
+    with torch.no_grad():
+        before = kernels.fused_decoder_mean.launches
+        mean = dec.fused_mean(z, c)
+        assert kernels.fused_decoder_mean.launches == before + 1
+        torch.testing.assert_close(mean, dec(z, c)[0], **TOL)
+
+
+# ---- the fused train step (K5) and its batch-tiled form (K6) -----------------
+# The kernels are held to the plain version evaluated in fp64 (the plain
+# code on double operands): cuBLAS's fp32 sums at the flagship strayed
+# further from it than the kernel does (chip_smoke.plain64). Bounds are the
+# JAX tests': losses rtol 1e-5, gradients rtol 1e-3 / atol 1e-5 (rtol 2e-3
+# / atol 2e-5 at 3485), K6 fp32 against K5 rtol 1e-4 / atol 1e-6, bf16
+# within a normalized 6e-2 of fp32 per gradient leaf and 5e-3 of its own
+# plain bf16 transcription.
+
+# (dims, hidden, folds, rows, fusion, seed): chip_smoke's phase 6a
+# problems, seeds included. A seed can put a LeakyReLU pre-activation
+# within fp32 rounding of zero, where fp32 and fp64 take different
+# derivatives (0.01 against 1) for a whole row: these seeds have none.
+STEP_CASES = {
+    "flagship": ([90, 90, 90, 270], [110, 110], 5, 256, "gpoe", 264),
+    "poe": ([40, 60, 30], [32, 32], 2, 100, "poe", 103),
+    "moe": ([40, 60, 30], [32, 32], 2, 100, "moe", 103),
+    "mopoe": ([40, 60, 30], [32, 32], 2, 100, "mopoe", 105),
+    "1hidden": ([40, 60, 30], [48], 2, 100, "gpoe", 108),
+    "3hidden": ([40, 60, 30], [64, 110, 32], 2, 100, "gpoe", 108),
+    "1modality": ([90], [110, 110], 2, 100, "gpoe", 110),
+    "ppmi": ([3485] * 3, [110, 110], 1, 256, "gpoe", 260),
+}
+
+
+def _step_problem(cuda, dims, hidden, folds, rows, seed, c_dim=29, z_dim=10):
+    from multi_modal_normative_modeling_tpu_torch.interop import (
+        packed_from_model,
+    )
+    from multi_modal_normative_modeling_tpu_torch.models.stacked import (
+        StackedMultimodalCVAE,
+    )
+
+    rng = np.random.default_rng(seed)
+    model = build_model("cVAE_multimodal", dims, hidden, z_dim, c_dim,
+                        len(dims), folds=folds,
+                        generator=torch.Generator().manual_seed(seed),
+                        device=cuda)
+    stacked = StackedMultimodalCVAE(dims, hidden, z_dim, c_dim, len(dims))
+    x = stacked.pack_inputs([_rows(rng, folds, rows, d) for d in dims])
+    if c_dim == 29:
+        # one-hot age (27 bins) and sex, as the CLIs feed (and chip_smoke)
+        c = torch.zeros(folds, rows, c_dim)
+        idx = torch.arange(rows)
+        for f in range(folds):
+            c[f, idx, torch.from_numpy(rng.integers(0, 27, rows))] = 1.0
+            c[f, idx, torch.from_numpy(27 + rng.integers(0, 2, rows))] = 1.0
+    else:
+        c = _rows(rng, folds, rows, c_dim)
+    eps = _rows(rng, folds, rows, z_dim).to(cuda)
+    mask = torch.ones(folds, rows)
+    for f in range(folds):
+        mask[f, max(rows - 2 - f, 1):] = 0.0
+    return stacked, packed_from_model(model, stacked), x.to(cuda), \
+        c.to(cuda), eps, mask.to(cuda)
+
+
+def _plain64(reference, named, batch):
+    losses, grads = reference({k: v.double() for k, v in named.items()},
+                              *[t.double() for t in batch])
+    return ({k: v.float() for k, v in losses.items()},
+            {k: v.float() for k, v in grads.items()})
+
+
+def _leaf_error(got, want):
+    return ((got.double() - want.double()).norm()
+            / (want.double().norm() + 1e-12)).item()
+
+
+@pytest.mark.parametrize("case", list(STEP_CASES))
+def test_fused_train_step_kernel_matches_plain(cuda, case):
+    from multi_modal_normative_modeling_tpu_torch.kernels.train_step import (
+        FusedTrainStep,
+    )
+
+    dims, hidden, folds, rows, combine, seed = STEP_CASES[case]
+    stacked, packed, x, c, eps, mask = _step_problem(cuda, dims, hidden,
+                                                     folds, rows, seed)
+    step = FusedTrainStep(stacked, combine)
+    named = step.pad_params(packed)
+    xx, cc, rm, nv = step.pack_batch(x, c, mask)
+    batch = (xx, cc, eps, rm, nv)
+    before = kernels.fused_train_step.launches
+    losses, grads = step.loss_and_grads_padded(named, *batch)
+    assert kernels.fused_train_step.launches == before + 1
+    ref_losses, ref_grads = _plain64(step.reference, named, batch)
+    for k in losses:
+        torch.testing.assert_close(losses[k], ref_losses[k], rtol=1e-5,
+                                   atol=0.0)
+    tol = (dict(rtol=2e-3, atol=2e-5) if max(dims) > 1000
+           else dict(rtol=1e-3, atol=1e-5))
+    for k in grads:
+        torch.testing.assert_close(grads[k], ref_grads[k], **tol)
+    again = step.loss_and_grads_padded(named, *batch)[1]
+    for k in grads:
+        assert torch.equal(grads[k], again[k]), k
+    if len(dims) > 1:
+        # padded columns of the narrower modalities get exactly zero
+        narrow = dims.index(min(dims))
+        assert torch.count_nonzero(
+            grads["lvo"][:, narrow, min(dims):]) == 0
+        assert torch.count_nonzero(
+            grads["enc_w0"][:, narrow, min(dims):max(dims)]) == 0
+
+
+def test_tiled_train_step_kernel_matches_k5_and_plain(cuda):
+    from multi_modal_normative_modeling_tpu_torch.kernels.train_step import (
+        FusedTrainStep,
+    )
+    from multi_modal_normative_modeling_tpu_torch.kernels.train_step_tiled import (  # noqa: E501
+        TiledFusedTrainStep,
+    )
+
+    dims, hidden, folds, rows, combine, _ = STEP_CASES["flagship"]
+    stacked, packed, x, c, eps, mask = _step_problem(cuda, dims, hidden,
+                                                     folds, rows, seed=11)
+    k5 = FusedTrainStep(stacked, combine)
+    named = k5.pad_params(packed)
+    xx, cc, rm, nv = k5.pack_batch(x, c, mask)
+    batch = (xx, cc, eps, rm, nv)
+    l5, g5 = k5.loss_and_grads_padded(named, *batch)
+    ref_g = _plain64(k5.reference, named, batch)[1]
+
+    t32 = TiledFusedTrainStep(stacked, combine, tile_b=64)
+    before = kernels.tiled_fused_train_step.launches
+    lt, gt = t32.loss_and_grads_padded(named, *batch)
+    assert kernels.tiled_fused_train_step.launches == before + 1
+    torch.testing.assert_close(lt["total"], l5["total"], rtol=1e-5, atol=0.0)
+    for k in gt:
+        torch.testing.assert_close(gt[k], g5[k], rtol=1e-4, atol=1e-6)
+        torch.testing.assert_close(gt[k], ref_g[k], rtol=1e-3, atol=1e-5)
+
+    t16 = TiledFusedTrainStep(stacked, combine, tile_b=64,
+                              compute_dtype=torch.bfloat16)
+    lb, gb = t16.loss_and_grads_padded(named, *batch)
+    lp, gp = _plain64(t16.reference, t16.cast_exec(named),
+                      (xx.bfloat16(), cc.bfloat16(), eps, rm, nv))
+    assert max(_leaf_error(gb[k], gp[k]) for k in gb) < 5e-3
+    assert ((lb["total"] - lp["total"]).abs()
+            / lp["total"].abs()).max().item() < 5e-3
+    again = t16.loss_and_grads_padded(named, *batch)[1]
+    for k in gb:
+        assert torch.equal(gb[k], again[k]), k
+
+    # bf16 against fp32 at tests/test_train_step_tiled.py's shape
+    stacked, packed, x, c, eps, mask = _step_problem(
+        cuda, [24, 40, 16], [12, 12], 1, 20, seed=4, c_dim=5, z_dim=6)
+    small = TiledFusedTrainStep(stacked, "gpoe", tile_b=16,
+                                compute_dtype=torch.bfloat16)
+    named = small.pad_params(packed)
+    xx, cc, rm, nv = small.pack_batch(x, c, mask)
+    batch = (xx, cc, small.pad_eps(eps), rm, nv)
+    lb, gb = small.loss_and_grads_padded(named, *batch)
+    lf, gf = _plain64(FusedTrainStep(stacked, "gpoe").reference, named, batch)
+    assert ((lb["total"] - lf["total"]).abs()
+            / lf["total"].abs()).max().item() < 2e-2
+    assert max(_leaf_error(gb[k], gf[k]) for k in gb) < 6e-2
+
+
+def test_fused_train_step_refuses_what_it_does_not_take(cuda):
+    from multi_modal_normative_modeling_tpu_torch.kernels.train_step import (
+        FusedTrainStep,
+    )
+
+    stacked, packed, x, c, eps, mask = _step_problem(
+        cuda, [40, 60], [32], 1, 16, seed=0)
+    step = FusedTrainStep(stacked, "gpoe")
+    named = step.pad_params(packed)
+    xx, cc, rm, nv = step.pack_batch(x, c, mask)
+    with pytest.raises(ValueError, match="contiguous"):
+        step.loss_and_grads_padded(named, xx, cc.mT.contiguous().mT, eps,
+                                   rm, nv)
+    with pytest.raises(ValueError, match="float32"):
+        step.loss_and_grads_padded(named, xx, cc, eps.double(), rm, nv)
+    with pytest.raises(ValueError, match="expected"):
+        step.loss_and_grads_padded(named, xx[:, :, :8].contiguous(), cc, eps,
+                                   rm, nv)
+
+
+def _packed_leaves(tree):
+    """The tensors of a packed tree, in a fixed order."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _packed_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _packed_leaves(v)]
+    return [tree]
+
+
+def test_fused_trainer_matches_plain_trainer(cuda):
+    """A few flagship-width steps through FusedFoldTrainer (K5) stay within
+    tests/test_fused_cli.py's trajectory bounds of MultiFoldTrainer with
+    the plain loss (same init, same eps): logs rtol 2e-4, parameters rtol
+    5e-3 / atol 5e-5; one K5 launch per step."""
+    from multi_modal_normative_modeling_tpu_torch.interop import (
+        packed_from_model,
+    )
+    from multi_modal_normative_modeling_tpu_torch.parallel import (
+        MultiFoldTrainer,
+        stack_fold_batches,
+    )
+    from multi_modal_normative_modeling_tpu_torch.train import TrainConfig
+    from multi_modal_normative_modeling_tpu_torch.train.fused import (
+        FusedFoldTrainer,
+    )
+
+    dims, sizes = [90, 270], [300, 260]
+    rng = np.random.default_rng(3)
+    data = [[rng.standard_normal((s, d), dtype=np.float32) for d in dims]
+            for s in sizes]
+    cov = [rng.standard_normal((s, 29), dtype=np.float32) for s in sizes]
+    eps = torch.randn(6, 2, 256, 10,
+                      generator=torch.Generator().manual_seed(0)).to(cuda)
+    config = TrainConfig(epochs=3, batch_size=256)
+
+    def model():
+        return build_model("cVAE_multimodal", dims, [110, 110], 10, 29, 2,
+                           folds=2, generator=torch.Generator().manual_seed(1),
+                           device=cuda)
+
+    plain = model()
+    logs_p = MultiFoldTrainer(plain, config, 300).run(
+        stack_fold_batches(data, [[c] * 2 for c in cov], 256), eps=eps)
+    fused = model()
+    trainer = FusedFoldTrainer(fused, config, 300)
+    batches = trainer.batches(data, cov, cuda)
+    before = kernels.fused_train_step.launches
+    trained, logs_k = trainer.run(packed_from_model(fused, trainer.stacked),
+                                  batches, eps=eps)
+    assert kernels.fused_train_step.launches == before + 6
+    for k in logs_p:
+        np.testing.assert_allclose(logs_k[k], logs_p[k], rtol=2e-4)
+    want = packed_from_model(plain, trainer.stacked)
+    for a, b in zip(_packed_leaves(trained), _packed_leaves(want)):
+        torch.testing.assert_close(a, b, rtol=5e-3, atol=5e-5)

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from multi_modal_normative_modeling_tpu.kernels import (
+    fused_decoder_mean as jax_fused_decoder_mean,
     fused_encoder as jax_fused_encoder,
     fused_pred_deviation as jax_fused_pred_deviation,
 )
@@ -95,6 +96,33 @@ def test_pred_deviation_reference_matches_jax(b, d, c_dim, hidden):
 
 
 @pytest.mark.parametrize("non_linear", [True, False])
+@pytest.mark.parametrize("hidden", HIDDEN)
+@pytest.mark.parametrize("b,d,c_dim", SHAPES)
+def test_decoder_mean_matches_jax(b, d, c_dim, hidden, non_linear):
+    """K3: the wrapper on CPU tensors (its plain version) against JAX
+    fused_decoder_mean in interpret mode and apply_decoder's mean, with
+    two folds (the second the first's params on other rows)."""
+    params = init_decoder(jax.random.PRNGKey(2), d, hidden, 10, c_dim)
+    rng = np.random.default_rng(b + 3 * d)
+    z, c = _rows(rng, 2, b, 10), _rows(rng, 2, b, c_dim)
+    kernels.reset_launch_counts()
+    mean = kernels.fused_decoder_mean(
+        *_dec_operands(params, params), torch.from_numpy(z),
+        torch.from_numpy(c), non_linear)
+    assert kernels.fused_decoder_mean.launches == 0
+    for f in range(2):
+        mean_ref, _ = apply_decoder(params, jnp.asarray(z[f]),
+                                    jnp.asarray(c[f]), non_linear=non_linear)
+        mean_pl = jax_fused_decoder_mean(params, jnp.asarray(z[f]),
+                                         jnp.asarray(c[f]),
+                                         non_linear=non_linear,
+                                         interpret=True)
+        for ref in (mean_ref, mean_pl):
+            np.testing.assert_allclose(mean[f].numpy(), np.asarray(ref),
+                                       **TOL)
+
+
+@pytest.mark.parametrize("non_linear", [True, False])
 def test_wrappers_run_plain_versions_per_fold_on_cpu(non_linear):
     """Fold-stacked operands: every fold matches the JAX function on that
     fold's params; on CPU tensors the wrappers launch nothing."""
@@ -137,6 +165,8 @@ def test_wrappers_raise_off_cpu_and_cuda():
         kernels.fused_encoder([], layer, layer, x, x, True)
     with pytest.raises(ValueError, match="no kernel"):
         kernels.fused_pred_deviation([], layer, x, x, x, True)
+    with pytest.raises(ValueError, match="no kernel"):
+        kernels.fused_decoder_mean([], layer, x, x, True)
 
 
 def test_operand_checks():
@@ -165,5 +195,5 @@ def test_library_hash_tracks_sources():
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libmmnm_kernels_")
     assert {p.name for p in _build.SRC_DIR.glob("*.cu")} == {
-        "encoder.cu", "pred_deviation.cu", "decoder_nll.cu"}
+        "encoder.cu", "pred_deviation.cu", "decoder_nll.cu", "train_step.cu"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
