@@ -26,19 +26,28 @@ Phases (any failure exits non-zero, with no result line):
      of both;
   6a. hold the fused train step (K5) against its plain version (autograd
      over the packed model, TF32 off) with ragged row masks: the flagship
-     (5 folds), every fusion and 1 and 3 hidden layers at small width, and
-     PPMI width with one fold; two calls bit-equal; time both;
+     (5 folds), every fusion and 1 and 3 hidden layers at small width, two
+     shapes none of whose widths is a multiple of 4 (so every tensor of
+     the padded layout is wider than its true shape), and PPMI width with
+     one fold; two calls bit-equal; the flat gradient buffer bit-equal to
+     the gradients autograd takes through StepFunction; time both;
   6b. the batch-tiled step (K6) in fp32 with tile_b < B against K5 and the
      plain version, and in bf16 against the fp32 plain version (at the JAX
-     test's shape) and against its own plain bf16 transcription (flagship);
+     test's shape) and against its own plain bf16 transcription (flagship,
+     and a ragged-width shape whose batch is not a multiple of the tile);
      two calls bit-equal; time both;
   7. train the flagship (5 folds, 10 epochs) through FusedFoldTrainer (K5)
      and hold it against MultiFoldTrainer with the plain loss from the same
      init and eps, counting K5 launches; the same at PPMI width; then a few
      bf16 steps through K6 against the fp32 run; ms per step of both paths.
 
+Beside every kernel time stands the kernel's bound: the least time the
+card could take for the same work (kernels/roofline.py: the larger of its
+FLOP over the card's peak for the operand type and its bytes over the
+memory rate), and the share of it that the time reaches.
+
 The last line is {"ok": true, "device": {"platform": "gpu", ...}}; the line
-before it holds the kernels' launches, errors and times.
+before it holds the kernels' launches, errors, times and bounds.
 """
 import importlib.util
 import json
@@ -62,7 +71,7 @@ COMBINE = "gpoe"
 
 # (folds, rows, feature width, covariate width); the last two are the
 # flagship scoring call's own shapes
-SHAPES = [(1, 7, 90, 29), (1, 300, 270, 29), (1, 1024, 3485, 2),
+SHAPES = [(1, 7, 90, 29), (1, 1024, 3485, 2),
           (FOLDS, ROWS, 90, C_DIM), (FOLDS, ROWS, 270, C_DIM)]
 TOL = dict(rtol=1e-5, atol=1e-5)       # mu, logvar, recon
 DEV_TOL = dict(rtol=1e-4, atol=1e-6)   # per-row deviation
@@ -84,6 +93,7 @@ TRAIN_ROWS = [512, 512, 512, 512, 500]
 TRAIN_EPOCHS = 10
 BATCH = 256
 PPMI_DIMS = [3485, 3485, 3485]
+RAGGED_DIMS = [37, 90, 271]
 PPMI_ROWS = [2500]
 LOG_TOL = dict(rtol=1e-4, atol=0.0)
 PARAM_TOL = dict(rtol=5e-3, atol=1e-5)
@@ -115,8 +125,13 @@ STEP_SHAPES = [
     ("1 hidden", [40, 60, 30], [48], 2, 100, C_DIM, LATENT, "gpoe"),
     ("3 hidden", [40, 60, 30], [64, 110, 32], 2, 100, C_DIM, LATENT, "gpoe"),
     ("1 modality", [90], HIDDEN, 2, 100, C_DIM, LATENT, "gpoe"),
+    # no width a multiple of 4: d_max, hidden, latent and covariates all
+    # padded, with ragged rows
+    ("ragged widths", RAGGED_DIMS, HIDDEN, 2, 100, C_DIM, LATENT, "gpoe"),
+    ("ragged widths, C 2", RAGGED_DIMS, [110, 57], 2, 75, 2, 7, "poe"),
     ("PPMI", PPMI_DIMS, HIDDEN, 1, BATCH, C_DIM, LATENT, COMBINE),
 ]
+FLAT_CHECKED = ("flagship", "ragged widths", "PPMI")
 TILE = 64        # K6's tile in phase 6b: 4 row groups of the flagship batch
 BF16_STEPS = 4   # phase 7's bf16 steps (2 epochs of the flagship cohort)
 
@@ -145,6 +160,19 @@ def wall_ms(fn, iters=20, warmup=3):
         fn()
         torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def bound_text(work, ms):
+    """'bound x ms by y, z% reached' for a roofline.Work and a time."""
+    return (f"bound {work.bound_ms:.5f} ms by {work.bound_by} "
+            f"({work.peak_name}), {100 * work.share(ms):.1f}% reached")
+
+
+def step_work(dims, hidden, folds, rows, c_dim, z_dim, bf16=False):
+    from multi_modal_normative_modeling_tpu_torch.kernels import roofline
+
+    return roofline.fused_train_step(folds, rows, dims, c_dim, hidden, z_dim,
+                                     bf16=bf16)
 
 
 def check_close(what, got, want, tol):
@@ -399,13 +427,30 @@ def check_step(name, dims, hidden, folds, rows, c_dim, z_dim, combine):
               for k in grads)
     check_bit_equal(f"K5 {name}", grads,
                     step.loss_and_grads_padded(named, *batch)[1])
+    flat_note = ""
+    if name in FLAT_CHECKED:
+        # the trainer's path (the flat buffer) against autograd's
+        flat = step.loss_and_grads_flat(named, *batch)[1]
+        leaves = [torch.nn.Parameter(named[k].clone())
+                  for k in step._param_names]
+        total, _ = step.loss_fn(leaves)(
+            {"x": xx, "c": cc, "rm": rm, "nvalid": nv}, eps)
+        auto = torch.autograd.grad(total.sum(), leaves)
+        if not torch.equal(flat, torch.cat([g.reshape(-1) for g in auto])):
+            raise RuntimeError(f"K5 {name}: the flat gradient buffer differs "
+                               "from StepFunction's gradients")
+        flat_note = ", flat buffer bit-equal to StepFunction's gradients"
+    from multi_modal_normative_modeling_tpu_torch.kernels import train_step
+    plan = train_step.plan(step, folds, rows)
     ms = cuda_ms(lambda: step.loss_and_grads_padded(named, *batch))
     plain = cuda_ms(lambda: step.reference(named, *batch))
+    work = step_work(dims, hidden, folds, rows, c_dim, z_dim)
     print(f"phase 6a: K5 {name}: {folds} folds x {rows} rows, widths {dims}, "
-          f"hidden {hidden}, {combine}: max abs err {err:.3e} (the fp32 "
-          f"plain's {plain_err:.3e}), bit-equal; {ms:.4f} ms vs plain "
-          f"forward+autograd {plain:.4f} ms", flush=True)
-    return err, (ms, plain)
+          f"hidden {hidden}, {combine}, route {plan}: max abs err {err:.3e} "
+          f"(the fp32 plain's {plain_err:.3e}), bit-equal{flat_note}; "
+          f"{ms:.4f} ms vs plain forward+autograd {plain:.4f} ms; "
+          f"{bound_text(work, ms)}", flush=True)
+    return err, (ms, plain, work)
 
 
 def check_tiled():
@@ -452,44 +497,85 @@ def check_tiled():
     sx, sc, srm, snv = small.pack_batch(s_x, s_c, s_mask)
     s_batch = (sx, sc, small.pad_eps(s_eps), srm, snv)
     lb, gb = small.loss_and_grads_padded(s_named, *s_batch)
-    lf, gf = plain64(FusedTrainStep(s_st, "gpoe").reference, s_named,
-                     s_batch)
+    s32 = FusedTrainStep(s_st, "gpoe")     # fp32, in its own layout
+    fx, fc, frm, fnv = s32.pack_batch(s_x, s_c, s_mask)
+    lf, gf = plain64(s32.reference, s32.pad_params(s_packed),
+                     (fx, fc, s_eps, frm, fnv))
     total_rel = ((lb["total"] - lf["total"]).abs()
                  / lf["total"].abs()).max().item()
+    gb, gf = small.strip(gb), s32.strip(gf)
     leaf = max(leaf_error(gb[k], gf[k]) for k in gb)
     if not total_rel < BF16_TOTAL or not leaf < BF16_LEAF:
         raise RuntimeError(f"K6 bf16 vs fp32 plain: total rel {total_rel:.3e}"
                            f", worst leaf {leaf:.3e}")
 
-    # bf16 at the flagship against its own plain bf16 transcription
+    # bf16 at the flagship against its own plain bf16 transcription, in its
+    # own layout (widths padded to 16, where fp32 pads to 4) and on the
+    # batch stored in bf16, as the trainer keeps it
     t16 = TiledFusedTrainStep(stacked, COMBINE, tile_b=TILE,
                               compute_dtype=torch.bfloat16)
-    lb16, gb16 = t16.loss_and_grads_padded(named, *batch)
-    named16 = t16.cast_exec(named)
-    b16 = (xx.bfloat16(), cc.bfloat16(), eps, rm, nv)
+    named_w = t16.pad_params(packed)
+    x16, c16, rm16, nv16 = t16.pack_batch(x, c, mask)
+    stored = t16.cast_batch({"x": x16, "c": c16})
+    b16 = (stored["x"], stored["c"], t16.pad_eps(eps), rm16, nv16)
+    lb16, gb16 = t16.loss_and_grads_padded(named_w, *b16)
+    named16 = t16.cast_exec(named_w)
     # the transcription with bf16 cast points, computed in fp64
     lp16, gp16 = plain64(t16.reference, named16, b16)
     own = max(leaf_error(gb16[k], gp16[k]) for k in gb16)
     own_total = ((lb16["total"] - lp16["total"]).abs()
                  / lp16["total"].abs()).max().item()
-    vs_fp32 = max(leaf_error(gb16[k], ref_g[k]) for k in gb16)
-    plain_vs_fp32 = max(leaf_error(gp16[k], ref_g[k]) for k in gp16)
+    true16, true_p16, true_ref = (t16.strip(gb16), t16.strip(gp16),
+                                  k5.strip(ref_g))
+    vs_fp32 = max(leaf_error(true16[k], true_ref[k]) for k in true16)
+    plain_vs_fp32 = max(leaf_error(true_p16[k], true_ref[k])
+                        for k in true_p16)
     if not own < BF16_OWN or not own_total < BF16_OWN:
         raise RuntimeError(f"K6 bf16 vs its plain bf16: worst leaf {own:.3e}"
                            f", total rel {own_total:.3e}")
     check_bit_equal("K6 bf16", gb16,
-                    t16.loss_and_grads_padded(named, *batch)[1])
-    ms16 = cuda_ms(lambda: t16.loss_and_grads_padded(named, *batch))
+                    t16.loss_and_grads_padded(named_w, *b16)[1])
+    ms16 = cuda_ms(lambda: t16.loss_and_grads_padded(named_w, *b16))
     plain16 = cuda_ms(lambda: t16.reference(named16, *b16))
+    work16 = step_work(DIMS, HIDDEN, FOLDS, BATCH, C_DIM, LATENT, bf16=True)
+
+    # ragged widths, 100 rows in tiles of 48 (padded to 144), both types
+    ragged = {}
+    r_st, r_packed, r_x, r_c, r_eps, r_mask = step_problem(
+        RAGGED_DIMS, HIDDEN, 2, 100, C_DIM, LATENT, seed=13)
+    for dtype in (torch.float32, torch.bfloat16):
+        rt = TiledFusedTrainStep(r_st, COMBINE, tile_b=48,
+                                 compute_dtype=dtype)
+        r_named = rt.pad_params(r_packed)
+        rx, rc, rrm, rnv = rt.pack_batch(r_x, r_c, r_mask)
+        r_batch = (rx, rc, rt.pad_eps(r_eps), rrm, rnv)
+        lr, gr = rt.loss_and_grads_padded(r_named, *r_batch)
+        cast = (rt.cast_batch({"x": rx, "c": rc}))
+        lp, gp = plain64(rt.reference, rt.cast_exec(r_named),
+                         (cast["x"], cast["c"]) + r_batch[2:])
+        ragged[dtype] = max(leaf_error(gr[k], gp[k]) for k in gr)
+        rel = ((lr["total"] - lp["total"]).abs()
+               / lp["total"].abs()).max().item()
+        bound = BF16_OWN if dtype == torch.bfloat16 else 1e-4
+        if not ragged[dtype] < bound or not rel < bound:
+            raise RuntimeError(f"K6 {dtype} ragged widths: worst leaf "
+                               f"{ragged[dtype]:.3e}, total rel {rel:.3e}")
+        check_bit_equal(f"K6 {dtype} ragged", gr,
+                        rt.loss_and_grads_padded(r_named, *r_batch)[1])
     print(f"phase 6b: K6 fp32 tile {TILE}: max abs err {err:.3e} vs plain, "
           f"within {TILED_TOL} of K5, bit-equal; {ms32:.4f} ms vs plain "
-          f"{plain32:.4f} ms. K6 bf16 at the JAX test's shape: total rel "
+          f"{plain32:.4f} ms; "
+          f"{bound_text(step_work(DIMS, HIDDEN, FOLDS, BATCH, C_DIM, LATENT), ms32)}"
+          f". K6 bf16 at the JAX test's shape: total rel "
           f"{total_rel:.3e}, worst leaf {leaf:.3e} vs fp32 plain. K6 bf16 "
           f"flagship: worst leaf {own:.3e} vs its plain bf16 (whose own "
           f"worst leaf vs fp32 is {plain_vs_fp32:.3e}; the kernel's "
           f"{vs_fp32:.3e}), bit-equal; {ms16:.4f} ms vs plain {plain16:.4f} "
-          "ms", flush=True)
-    return err, (ms16, plain16)
+          f"ms; {bound_text(work16, ms16)}. K6 at ragged widths {RAGGED_DIMS}"
+          f", 100 rows in tiles of 48: worst leaf vs its plain version "
+          f"{ragged[torch.float32]:.3e} (fp32), "
+          f"{ragged[torch.bfloat16]:.3e} (bf16), bit-equal", flush=True)
+    return err, (ms16, plain16, work16)
 
 
 def fused_training_run(dims, rows_per_fold, epochs, seed, fused,
@@ -635,7 +721,10 @@ def main():
         return 2
     sys.path.insert(0, str(ROOT))
     from multi_modal_normative_modeling_tpu_torch import kernels
-    from multi_modal_normative_modeling_tpu_torch.kernels import _build
+    from multi_modal_normative_modeling_tpu_torch.kernels import (
+        _build,
+        roofline,
+    )
     from multi_modal_normative_modeling_tpu_torch.models import (
         Decoder,
         Encoder,
@@ -705,37 +794,50 @@ def main():
                 x, dec(z, c)[0]))
             mean_ms = cuda_ms(lambda: dec.fused_mean(z, c))
             mean_plain_ms = cuda_ms(lambda: dec(z, c)[0])
+            shape = (folds, rows, d, c_dim, HIDDEN, LATENT)
+            enc_w = roofline.fused_encoder(*shape)
+            dec_w = roofline.fused_pred_deviation(*shape)
+            mean_w = roofline.fused_decoder_mean(*shape)
             print(f"phase 3: F={folds} B={rows} D={d} C={c_dim}: "
                   f"encoder max abs err {max(e1, e2):.3e} (rel "
                   f"{max(r1, r2):.3e}), {enc_ms:.4f} ms vs plain "
-                  f"{enc_plain_ms:.4f} ms; pred_deviation recon err "
+                  f"{enc_plain_ms:.4f} ms, {bound_text(enc_w, enc_ms)}; "
+                  f"pred_deviation recon err "
                   f"{e3:.3e} (rel {r3:.3e}), dev err {e4:.3e} (rel "
                   f"{r4:.3e}), {dec_ms:.4f} ms vs plain {dec_plain_ms:.4f} "
-                  f"ms; decoder_mean err {e5:.3e} (rel {r5:.3e}), "
-                  f"{mean_ms:.4f} ms vs plain {mean_plain_ms:.4f} ms",
-                  flush=True)
-            for name, err, ms, plain in (
-                    ("fused_encoder", max(e1, e2), enc_ms, enc_plain_ms),
+                  f"ms, {bound_text(dec_w, dec_ms)}; decoder_mean err "
+                  f"{e5:.3e} (rel {r5:.3e}), "
+                  f"{mean_ms:.4f} ms vs plain {mean_plain_ms:.4f} ms, "
+                  f"{bound_text(mean_w, mean_ms)}", flush=True)
+            for name, err, ms, plain, work in (
+                    ("fused_encoder", max(e1, e2), enc_ms, enc_plain_ms,
+                     enc_w),
                     ("fused_pred_deviation", max(e3, e4), dec_ms,
-                     dec_plain_ms),
-                    ("fused_decoder_mean", e5, mean_ms, mean_plain_ms)):
+                     dec_plain_ms, dec_w),
+                    ("fused_decoder_mean", e5, mean_ms, mean_plain_ms,
+                     mean_w)):
                 s = stats[name]
                 s["max_abs_err"] = max(s["max_abs_err"], err)
                 # the flagship scoring call's widest modality
-                s["ms"], s["plain_ms"] = ms, plain
+                s["ms"], s["plain_ms"], s["work"] = ms, plain, work
 
     # ---- phase 3b: decoder_nll forward and backward -----------------------
     for folds, rows, hidden, d in NLL_SHAPES:
         err, rel, t = check_nll(rng, folds, rows, hidden, d)
+        fwd_w = roofline.decoder_nll(folds, rows, hidden, d, backward=False)
+        nll_w = roofline.decoder_nll(folds, rows, hidden, d)
         print(f"phase 3b: F={folds} B={rows} H={hidden} D={d}: decoder_nll "
               f"max abs err {err:.3e} (rel {rel:.3e}), backward bit-equal; "
               f"forward {t['fwd']:.4f} ms vs plain {t['plain_fwd']:.4f} ms, "
+              f"{bound_text(fwd_w, t['fwd'])}; "
               f"forward+backward {t['fwd_bwd']:.4f} ms vs plain "
-              f"{t['plain_fwd_bwd']:.4f} ms", flush=True)
+              f"{t['plain_fwd_bwd']:.4f} ms, "
+              f"{bound_text(nll_w, t['fwd_bwd'])}", flush=True)
         s = stats["decoder_nll"]
         s["max_abs_err"] = max(s["max_abs_err"], err)
         if (folds, rows, hidden, d) == NLL_TIMED:
             s["ms"], s["plain_ms"] = t["fwd_bwd"], t["plain_fwd_bwd"]
+            s["work"] = nll_w
 
     # ---- phase 4: the flagship scoring call through the kernels -----------
     model = build_model("cVAE_multimodal", DIMS, HIDDEN, LATENT, C_DIM,
@@ -808,10 +910,10 @@ def main():
         s5 = stats["fused_train_step"]
         s5["max_abs_err"] = max(s5["max_abs_err"], err)
         if shape[0] == "flagship":
-            s5["ms"], s5["plain_ms"] = times
+            s5["ms"], s5["plain_ms"], s5["work"] = times
     err, times = check_tiled()
     stats["tiled_fused_train_step"].update(max_abs_err=err, ms=times[0],
-                                           plain_ms=times[1])
+                                           plain_ms=times[1], work=times[2])
 
     # ---- phase 7: training through the fused train step --------------------
     fused = compare_fused_training("flagship", DIMS, TRAIN_ROWS,
@@ -827,7 +929,7 @@ def main():
                "fused_decoder_mean": ("pred_deviation.cu", "mlp.py:182"),
                "decoder_nll": ("decoder_nll.cu", "decoder_nll.py:130"),
                "fused_train_step": ("train_step.cu", "train_step.py:543"),
-               "tiled_fused_train_step": ("train_step.cu",
+               "tiled_fused_train_step": ("train_step_bf16.cu",
                                           "train_step_tiled.py:447")}
     missing = [name for name in sources if not launches.get(name)]
     if missing:
@@ -842,6 +944,11 @@ def main():
             "launches": launches[name],
             "max_abs_err": stats[name]["max_abs_err"],
             "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"],
+            # the least time the card could take at the shape `ms` was
+            # taken at; no single PyTorch call computes any of the six
+            "bound_ms": stats[name]["work"].bound_ms,
+            "bound_by": stats[name]["work"].bound_by,
+            "library_ms": None,
         })
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,10 @@ module names so each counterpart is easy to find:
                 and the checkpoint writer
   parallel/   - fold stacking and the fold-parallel trainer
   interop.py  - JAX param trees <-> torch modules, flax msgpack checkpoints
+  registry.py - dataset, modality and label tables
+  data/       - CSV ingestion, scaling, covariate binning, synthetic cohorts
+  infer/      - deviation math and the deviation CSV emitters
+  utils/      - loss logs, plots, the JSONL run log
   cli/        - the k-fold train stage and test stage (deviation scoring)
 
 Weights are stored as ``[fan_out, fan_in]`` with a leading fold axis
@@ -18,7 +22,7 @@ Weights are stored as ``[fan_out, fan_in]`` with a leading fold axis
 and is scored by one kernel launch per modality. Only ``interop``
 transposes to the JAX ``[fan_in, fan_out]`` layout.
 
-The package never imports jax. Importing it imports nothing heavy:
+The package never imports jax, nor the JAX package. Importing it imports nothing heavy:
 attribute access pulls the submodule on demand.
 """
 
@@ -35,8 +39,8 @@ _PUBLIC_API = {
     "TrainConfig": "train",
 }
 
-_SUBMODULES = ("cli", "interop", "kernels", "models", "ops", "parallel",
-               "train")
+_SUBMODULES = ("cli", "data", "infer", "interop", "kernels", "models", "ops",
+               "parallel", "registry", "train", "utils")
 
 __all__ = sorted(_PUBLIC_API) + list(_SUBMODULES)
 

@@ -7,7 +7,8 @@ emit_fold_artifacts), without
 its process-wide memo caches, plus the k-fold id files without sklearn.
 
 The registry and the data layer (loading, scaling, covariate binning) are
-the JAX package's own modules, which import neither jax nor flax.
+the port's own copies (``registry``, ``data/``) of the JAX package's
+jax-free modules; nothing here imports that package.
 """
 from __future__ import annotations
 
@@ -22,15 +23,9 @@ import numpy as np
 import pandas as pd
 import torch
 
-from multi_modal_normative_modeling_tpu import registry
-from multi_modal_normative_modeling_tpu.data.loading import (
-    fast_inner_merge,
-    load_demographic_data,
-)
-from multi_modal_normative_modeling_tpu.data.preprocess import (
-    fit_robust_scaler,
-    one_hot_covariates,
-)
+from .. import registry
+from ..data.loading import fast_inner_merge, load_demographic_data
+from ..data.preprocess import fit_robust_scaler, one_hot_covariates
 
 
 def resolve_device(name: str, what: str = 'run') -> torch.device:
@@ -344,12 +339,8 @@ def emit_fold_artifacts(model_dir: Path, per_fold_logs, per_fold_params,
     over folds (the checkpoint writer is atomic; plot_losses uses no pyplot
     state). Without matplotlib the plots are skipped, and said so; the
     checkpoints are always written."""
-    from multi_modal_normative_modeling_tpu.utils.logging import (
-        Logger,
-        plot_losses,
-    )
-
     from ..train.checkpoints import save_checkpoint
+    from ..utils.logging import Logger, plot_losses
 
     plot = importlib.util.find_spec('matplotlib') is not None
     if not plot:

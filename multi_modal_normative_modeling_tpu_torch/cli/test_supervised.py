@@ -4,7 +4,7 @@ For each fold: re-fit the scaler on the fold's train rows, re-bin the test
 covariates (reference quirk, SURVEY.md Q5), restore the fold checkpoint the
 JAX trainer wrote, run the stochastic reconstruction (SURVEY.md Q2) and
 write the five deviation CSVs per (fold, modality) plus the all-fold copies,
-through the JAX package's DeviationEmitter.
+through the DeviationEmitter (infer/emitters.py).
 
 All folds are scored by one call of ``MultimodalCVAE.pred_recon_fused`` on
 a fold-stacked model: on CUDA each modality is one encoder kernel launch and
@@ -25,9 +25,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from multi_modal_normative_modeling_tpu import registry
-from multi_modal_normative_modeling_tpu.infer.emitters import DeviationEmitter
-
+from .. import registry
+from ..infer.emitters import DeviationEmitter
 from ..interop import params_from_jax, read_flax_checkpoint
 from ..parallel import stack_params
 from . import common

@@ -28,9 +28,7 @@ import numpy as np
 import pandas as pd
 import torch
 
-from multi_modal_normative_modeling_tpu import registry
-from multi_modal_normative_modeling_tpu.utils.logging import RunLog
-
+from .. import registry
 from ..interop import packed_from_model, packed_to_model, params_to_jax
 from ..kernels.decoder_nll import fused_decoder_loss_fn
 from ..models import build_model
@@ -38,6 +36,7 @@ from ..models.stacked import SKELETON_VARIANTS
 from ..parallel import MultiFoldTrainer, stack_fold_batches
 from ..train import TrainConfig
 from ..train.fused import FusedFoldTrainer, supported
+from ..utils.logging import RunLog
 from . import common
 
 # JAX CLI flags with no port yet: each raises instead of being ignored

@@ -1,0 +1,115 @@
+"""Feature scaling and covariate encoding (counterpart of
+data/preprocess.py).
+
+Parity notes (SURVEY.md Q5):
+  * Scaling is sklearn's ``RobustScaler`` fit on the fold's *train* rows; the
+    test script re-fits it from train rows itself
+    (multimodal_kfold_test_cvae_supervised.py:82-90). The numpy path here is
+    bit-identical to sklearn's; the port does not import sklearn, so input
+    with NaNs raises.
+  * Covariates are one-hot encodings of ``pd.qcut`` bins over the
+    rank(method='first') of AGE (27 bins) and PTGENDER (2 bins)
+    (multimodal_kfold_train_cvae_supervised.py:107-126); at test time the
+    binning is re-fit on the test set itself (test:93-97), reproduced as-is.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from functools import lru_cache
+from typing import Tuple
+
+import numpy as np
+import pandas as pd
+
+
+@dataclass
+class RobustScalerParams:
+    """Center/scale of a fitted RobustScaler as plain numpy (device-friendly)."""
+    center: np.ndarray
+    scale: np.ndarray
+
+    def transform(self, x: np.ndarray) -> np.ndarray:
+        return (np.asarray(x) - self.center) / self.scale
+
+    def inverse_transform(self, x: np.ndarray) -> np.ndarray:
+        return np.asarray(x) * self.scale + self.center
+
+
+def fit_robust_scaler(train_data: np.ndarray) -> Tuple[np.ndarray, RobustScalerParams]:
+    """RobustScaler fit on ``train_data``: returns (scaled, params).
+
+    One C-level ``np.percentile`` across all columns, bit-identical to
+    sklearn's per-column ``nanpercentile`` loop on NaN-free input
+    (tests/test_torch_data.py). NaNs are sklearn's territory and raise here.
+    """
+    a = np.asarray(train_data, dtype=np.float64)
+    if a.ndim != 2 or np.isnan(a).any():
+        raise ValueError(
+            'fit_robust_scaler takes a NaN-free [rows, features] array; got '
+            f'shape {a.shape} with {int(np.isnan(a).sum())} NaN entries '
+            '(drop or impute them before scaling)')
+    center = np.median(a, axis=0)
+    q25, q75 = np.percentile(a, [25.0, 75.0], axis=0)
+    scale = q75 - q25
+    # sklearn's _handle_zeros_in_scale: near-zero IQR -> 1.0
+    scale[scale < 10 * np.finfo(scale.dtype).eps] = 1.0
+    params = RobustScalerParams(center=center, scale=scale)
+    return params.transform(a), params
+
+
+@lru_cache(maxsize=256)
+def _qcut_codes_for_ranks(n: int, q: int) -> np.ndarray:
+    """Bin code of each rank 1..n under ``pd.qcut(ranks, q)``.
+
+    rank(method='first') is always a permutation of 1..n, so qcut's bin
+    edges — and the code assigned to every rank value — depend only on
+    (n, q). Computed once per shape with pandas itself (exact semantics)."""
+    return np.asarray(
+        pd.qcut(pd.Series(np.arange(1, n + 1, dtype=np.float64)), q=q,
+                labels=list(range(q))),
+        dtype=int)
+
+
+def qcut_rank_one_hot(values: pd.Series, q: int) -> np.ndarray:
+    """One-hot of ``pd.qcut(values.rank(method='first'), q)`` bin codes.
+
+    This is the exact covariate binning of the reference train/test scripts.
+    rank(method='first') of column ``v`` equals the inverse of a stable
+    argsort, and qcut over a permutation of 1..n has (n, q)-only bin edges —
+    so the pandas rank+qcut pair collapses to one stable argsort plus a
+    cached code table (bit-identical; tests/test_data_layer.py::
+    test_qcut_rank_one_hot_matches_pandas). NaNs fall back to pandas (the
+    reference would crash on them anyway — rank propagates NaN into the
+    int cast)."""
+    try:
+        vals = np.asarray(values, dtype=np.float64)
+    except (TypeError, ValueError):
+        # non-numeric covariates (e.g. string PTGENDER): pandas rank sorts
+        # them lexicographically — exactly what the reference does
+        bins = pd.qcut(pd.Series(values).rank(method="first"), q=q,
+                       labels=list(range(q)))
+        return np.eye(q)[np.asarray(bins, dtype=int)]
+    n = vals.shape[0]
+    if np.isnan(vals).any():
+        bins = pd.qcut(pd.Series(values).rank(method="first"), q=q,
+                       labels=list(range(q)))
+        return np.eye(q)[np.asarray(bins, dtype=int)]
+    order = np.argsort(vals, kind="stable")
+    ranks = np.empty(n, dtype=np.intp)
+    ranks[order] = np.arange(n, dtype=np.intp)
+    codes = _qcut_codes_for_ranks(n, q)[ranks]
+    out = np.zeros((n, q), dtype=np.float64)
+    out[np.arange(n), codes] = 1.0
+    return out
+
+
+def one_hot_covariates(covariates: pd.DataFrame, n_bins_age: int = 27,
+                       n_bins_gender: int = 2) -> np.ndarray:
+    """``concat(one_hot(AGE qcut), one_hot(PTGENDER qcut))`` as float32.
+
+    c_dim = n_bins_age + n_bins_gender (29 by default), matching
+    multimodal_kfold_train_cvae_supervised.py:107-128.
+    """
+    one_hot_age = qcut_rank_one_hot(covariates["AGE"], n_bins_age)
+    one_hot_gender = qcut_rank_one_hot(covariates["PTGENDER"], n_bins_gender)
+    return np.concatenate((one_hot_age, one_hot_gender), axis=1).astype("float32")

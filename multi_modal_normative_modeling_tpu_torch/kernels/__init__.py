@@ -12,12 +12,15 @@ Kernel inventory:
                      mean head plus the masked Gaussian NLL, forward and
                      backward, for every fold; the ``--fused_decoder``
                      training loss.
-  * train_step.py  — ``fused_train_step`` (csrc/train_step.cu): one whole
-                     training step (forward and every gradient) of the
-                     packed cVAE for every fold; ``--fused_train_step``.
+  * train_step.py  — ``fused_train_step`` (csrc/train_step.cuh, fp32 in
+                     train_step.cu): one whole training step (forward and
+                     every gradient) of the packed cVAE for every fold;
+                     ``--fused_train_step``.
   * train_step_tiled.py — ``tiled_fused_train_step``: the same kernels
-                     with bf16 or fp32 operands and the weight gradients
-                     summed over batch tiles; ``--precision bf16``.
+                     with fp32 operands or, on the tensor cores, bf16
+                     (train_step_bf16.cu), the weight gradients summed over
+                     batch tiles; ``--precision bf16``.
+  * roofline.py    — each kernel's FLOP, bytes and bound on one H100.
 
 A wrapper launches its kernel for CUDA tensors and runs the plain version
 for CPU tensors; ``<wrapper>.launches`` counts the kernel's launches.

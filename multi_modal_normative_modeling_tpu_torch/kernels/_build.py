@@ -115,6 +115,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mmnm_train_step.restype = i32
     lib.mmnm_train_step_workspace.argtypes = [ints, i32]
     lib.mmnm_train_step_workspace.restype = ctypes.c_longlong
+    lib.mmnm_train_step_plan.argtypes = [ints, ints]
+    lib.mmnm_train_step_plan.restype = i32
     lib.mmnm_error_string.argtypes = [i32]
     lib.mmnm_error_string.restype = ctypes.c_char_p
     return lib

@@ -9,7 +9,8 @@ weight matrices, the batch and the activations in bf16, multiplies bf16
 operands with fp32 accumulation, and keeps the fusion, KL, reparam, NLL,
 biases and gradient sums in fp32.
 
-On the card it is ``csrc/train_step.cu`` with bf16 or fp32 operands and the
+On the card it is ``csrc/train_step.cuh`` with bf16 (tensor cores) or fp32
+(FFMA) operands and the
 weight-gradient row sums split into groups of ``tile_b`` rows (per-group
 partials summed in group order). On the CPU its plain version is
 ``TiledFusedTrainStep.reference``, a torch transcription of the TPU
@@ -32,8 +33,8 @@ from .train_step import (
 # The TPU kernel sized its tile by a VMEM budget (choose_tile,
 # VMEM_BUDGET_TILED). On the card the tile only groups the rows of the
 # weight-gradient sums: the row-owned passes always run 32-row blocks, and
-# the weight-gradient pass already launches one block per 32 x 64 output
-# tile per (fold, modality) - over a thousand blocks at flagship and PPMI
+# the weight-gradient pass already launches one block per 32 x 128 output
+# tile per (fold, modality) - about a thousand blocks at flagship and PPMI
 # widths for 132 SMs - so more groups only add partial sums. The default
 # tile is the reference's whole batch of 256 rows, capped at the batch.
 DEFAULT_TILE_B = 256
@@ -50,9 +51,12 @@ class TiledFusedTrainStep(FusedTrainStep):
 
     def __init__(self, stacked_model, combine: str, tile_b: int = None,
                  compute_dtype=torch.float32, batch_hint: int = None):
-        super().__init__(stacked_model, combine)
         if compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype {compute_dtype}")
+        # fp32: 16 bytes; bf16: one k16 step of the tensor cores' mma
+        super().__init__(stacked_model, combine,
+                         col_align=4 if compute_dtype == torch.float32
+                         else 16)
         self.compute_dtype = compute_dtype
         if tile_b is None:
             tile_b = min(DEFAULT_TILE_B, batch_hint or DEFAULT_TILE_B)
@@ -80,7 +84,7 @@ class TiledFusedTrainStep(FusedTrainStep):
         return out
 
     # ---- the step ------------------------------------------------------------------
-    def loss_and_grads_padded(self, named, x, c, eps, rm, nvalid):
+    def _run(self, named, x, c, eps, rm, nvalid):
         """As FusedTrainStep's; the batch rows must be a multiple of
         ``tile_b``, and fp32 operands are cast here."""
         if x.shape[2] % self.tile_b:
@@ -90,7 +94,7 @@ class TiledFusedTrainStep(FusedTrainStep):
         batch = self.cast_batch({"x": x, "c": c})
         x, c = batch["x"], batch["c"]
         if x.device.type == "cpu":
-            return self.reference(named, x, c, eps, rm, nvalid)
+            return self.reference(named, x, c, eps, rm, nvalid) + (None,)
         if x.device.type != "cuda":
             raise ValueError(f"tiled_fused_train_step: no kernel for "
                              f"{x.device}")
@@ -98,7 +102,10 @@ class TiledFusedTrainStep(FusedTrainStep):
 
     def reference(self, named, x, c, eps, rm, nvalid):
         """The plain version: a torch transcription of the TPU kernel's
-        tile loop (JAX train_step_tiled.py:72-283), every fold at once."""
+        tile loop (JAX train_step_tiled.py:72-283), every fold at once, on
+        the true widths cut out of the padded layout."""
+        named = self.strip(named)
+        x, c = x[..., :self.D], c[..., :self.C]
         cd = self.compute_dtype
         work = _work_dtype(x)
 
@@ -242,7 +249,7 @@ class TiledFusedTrainStep(FusedTrainStep):
                 grads[f"enc_b{l}"] += dz_l.sum(2)
                 if l > 0:
                     da = dz_c @ w[f"enc_w{l}"].mT
-        return losses, grads
+        return losses, self.widen(grads)
 
 
 def tiled_fused_train_step(step: TiledFusedTrainStep, named, x, c, eps, rm,

@@ -63,7 +63,8 @@ def select_kernel(model, config: TrainConfig) -> Tuple[Optional[str], str]:
                       f"step takes 1 to {MAX_HIDDEN})")
     if model.modalities > MAX_MODALITIES:
         return None, f"{model.modalities} modalities (at most {MAX_MODALITIES})"
-    smem = smem_bytes(model.hidden_dim)
+    smem = smem_bytes(model.hidden_dim, model.latent_dim,
+                      16 if config.precision == "bf16" else 4)
     if smem > _build.MAX_SMEM_BYTES:
         return None, (f"hidden widths {list(model.hidden_dim)} need {smem} B "
                       f"of shared memory per block, over the "
@@ -82,8 +83,9 @@ def make_packed_batches(step: FusedTrainStep,
                         per_fold_cov: Sequence[np.ndarray],
                         batch_size: int) -> dict:
     """Every fold's per-modality sample arrays in the step's batch layout,
-    padded once (numpy, fold-major): x [F, NB, M, Bp, d_max], c [F, NB, Bp,
-    C], rm [F, NB, Bp], nvalid [F, NB] = max(rows, 1), valid [F, NB]. Folds
+    padded once (numpy, fold-major; rows to ``row_align``, the feature and
+    covariate widths to ``col_align``): x [F, NB, M, Bp, Dp], c [F, NB, Bp,
+    Cp], rm [F, NB, Bp], nvalid [F, NB] = max(rows, 1), valid [F, NB]. Folds
     are padded to the largest fold's batch count with all-padding batches
     (train/fused.py:109-142 for one fold)."""
     m = step.model
@@ -92,8 +94,11 @@ def make_packed_batches(step: FusedTrainStep,
     nb = max(1, -(-max_n // batch_size))
     bp = -(-batch_size // step.row_align) * step.row_align
     c_dim = per_fold_cov[0].shape[1]
-    x = np.zeros((folds, nb, m.modalities, bp, m.d_max), np.float32)
-    c = np.zeros((folds, nb, bp, c_dim), np.float32)
+    if c_dim != step.C:
+        raise ValueError(f"covariates of width {c_dim}, the model's are "
+                         f"{step.C}")
+    x = np.zeros((folds, nb, m.modalities, bp, step.Dp), np.float32)
+    c = np.zeros((folds, nb, bp, step.Cp), np.float32)
     rm = np.zeros((folds, nb, bp), np.float32)
     counts = np.zeros((folds, nb), np.float32)
     for f, (data_list, cov) in enumerate(zip(per_fold_data, per_fold_cov)):
@@ -105,7 +110,7 @@ def make_packed_batches(step: FusedTrainStep,
                 continue
             for mi, d in enumerate(data_list):
                 x[f, b, mi, :rows, :d.shape[1]] = d[lo:hi]
-            c[f, b, :rows] = cov[lo:hi]
+            c[f, b, :rows, :c_dim] = cov[lo:hi]
             rm[f, b, :rows] = 1.0
             counts[f, b] = rows
     return {"x": x, "c": c, "rm": rm, "nvalid": np.maximum(counts, 1.0),
@@ -168,15 +173,24 @@ class FusedFoldTrainer:
             self.step, device)
 
     def run(self, packed: dict, batches: PackedDeviceBatches,
-            eps=None) -> Tuple[dict, dict]:
+            eps=None, through_autograd: bool = False) -> Tuple[dict, dict]:
         """Train ``packed`` (fold-stacked, on the batches' device) for
         ``config.epochs`` epochs. ``eps`` [epochs * NB, F, batch_size, Z]
         replays given noise; by default each fold draws its own. Returns
-        (the trained packed tree, logs {total, kl, ll: [F, epochs]})."""
+        (the trained packed tree, logs {total, kl, ll: [F, epochs]}).
+
+        The loss the trainers minimize is the plain sum of the folds'
+        totals, so the step's gradients are the update's: they go from the
+        step to MaskedAdam as the one flat buffer the kernel wrote, with no
+        autograd graph. ``through_autograd`` takes the long way instead
+        (``StepFunction`` under ``run_epochs``, which scales every gradient
+        by the incoming one and concatenates them again); both ways give
+        the same trajectory bit for bit."""
         device = batches.rm.device
         named = self.step.pad_params(packed)
-        params = [torch.nn.Parameter(named[k].detach().float().clone())
-                  for k in self.step._param_names]
+        names = self.step._param_names
+        wrap = torch.nn.Parameter if through_autograd else (lambda t: t)
+        params = [wrap(named[k].detach().float().clone()) for k in names]
         noise = None
         if eps is not None:
             eps = torch.as_tensor(eps, dtype=torch.float32).to(device)
@@ -185,13 +199,41 @@ class FusedFoldTrainer:
                                               self.stacked.latent_dim),
                               self.config.seed, device)
         adam = MaskedAdam(params, self.lr_fn)
-        logs = run_epochs(self.step.loss_fn(params), params, adam, batches,
-                          self.config.epochs, eps=eps, noise=noise)
+        if through_autograd:
+            logs = run_epochs(self.step.loss_fn(params), params, adam,
+                              batches, self.config.epochs, eps=eps,
+                              noise=noise)
+        else:
+            logs = self._run_flat(dict(zip(names, params)), adam, batches,
+                                  eps, noise)
         trained = self.step.unpad_named(
-            {k: p.detach() for k, p in zip(self.step._param_names, params)})
+            {k: p.detach() for k, p in zip(names, params)})
         host = logs.cpu().numpy()
         return trained, {k: host[:, i, :].T.copy()
                          for i, k in enumerate(LOG_KEYS)}
+
+    @torch.no_grad()
+    def _run_flat(self, named: dict, adam: MaskedAdam,
+                  batches: PackedDeviceBatches, eps, noise) -> torch.Tensor:
+        """train.trainer.run_epochs without autograd: ``named`` are views
+        of ``adam.flat``, and each step's flat gradient updates it."""
+        epochs = self.config.epochs
+        logs = torch.empty((epochs, len(LOG_KEYS), batches.folds),
+                           device=batches.rm.device)
+        t = 0
+        for epoch in range(epochs):
+            for i in range(batches.n_batches):
+                noise_t = (eps[t] if eps is not None
+                           else noise.draw(batches.valid_host[i]))
+                b = batches.step(i)
+                losses, flat = self.step.loss_and_grads_flat(
+                    named, b["x"], b["c"], self.step.pad_eps(noise_t),
+                    b["rm"], b["nvalid"])
+                if i == 0:
+                    logs[epoch] = torch.stack([losses[k] for k in LOG_KEYS])
+                adam.step_flat(flat, batches.valid[i])
+                t += 1
+        return logs
 
     def run_resumable(self, *args, **kwargs):
         raise NotImplementedError(

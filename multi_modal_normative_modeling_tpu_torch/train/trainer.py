@@ -158,8 +158,15 @@ class MaskedAdam:
         """One update from ``grads`` (None: the parameter took no part in
         the loss, a zero gradient) for the folds where ``valid`` [F] is
         1.0; the other folds keep parameters, moments and count."""
-        g = torch.cat([(torch.zeros_like(p) if gr is None else gr).reshape(-1)
-                       for p, gr in zip(self.params, grads)])
+        self.step_flat(torch.cat([
+            (torch.zeros_like(p) if gr is None else gr).reshape(-1)
+            for p, gr in zip(self.params, grads)]), valid)
+
+    @torch.no_grad()
+    def step_flat(self, g: torch.Tensor, valid: torch.Tensor) -> None:
+        """``step`` from the gradients already laid out as ``self.flat`` is:
+        every parameter's [F, ...] gradient back to back, in the order of
+        ``params``."""
         b1, b2 = self.b1, self.b2
         lr = self.lr_fn(self.count)
         count = self.count + valid

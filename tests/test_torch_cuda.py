@@ -261,7 +261,13 @@ STEP_CASES = {
     "3hidden": ([40, 60, 30], [64, 110, 32], 2, 100, "gpoe", 108),
     "1modality": ([90], [110, 110], 2, 100, "gpoe", 110),
     "ppmi": ([3485] * 3, [110, 110], 1, 256, "gpoe", 260),
+    # no width a multiple of 4 (C 29 and Z 10 neither): every tensor of the
+    # padded layout is wider than its true shape; ragged rows
+    "ragged": ([37, 90, 271], [110, 110], 2, 100, "gpoe", 113),
+    "ragged-c2": ([37, 90, 271], [110, 57], 2, 75, "poe", 93),
 }
+# (c_dim, z_dim) of the cases that do not take the CLIs' 29 and 10
+STEP_WIDTHS = {"ragged-c2": (2, 7)}
 
 
 def _step_problem(cuda, dims, hidden, folds, rows, seed, c_dim=29, z_dim=10):
@@ -315,8 +321,9 @@ def test_fused_train_step_kernel_matches_plain(cuda, case):
     )
 
     dims, hidden, folds, rows, combine, seed = STEP_CASES[case]
-    stacked, packed, x, c, eps, mask = _step_problem(cuda, dims, hidden,
-                                                     folds, rows, seed)
+    c_dim, z_dim = STEP_WIDTHS.get(case, (29, 10))
+    stacked, packed, x, c, eps, mask = _step_problem(
+        cuda, dims, hidden, folds, rows, seed, c_dim=c_dim, z_dim=z_dim)
     step = FusedTrainStep(stacked, combine)
     named = step.pad_params(packed)
     xx, cc, rm, nv = step.pack_batch(x, c, mask)
@@ -335,6 +342,29 @@ def test_fused_train_step_kernel_matches_plain(cuda, case):
     again = step.loss_and_grads_padded(named, *batch)[1]
     for k in grads:
         assert torch.equal(grads[k], again[k]), k
+    # every padded entry of every gradient is exactly zero
+    ones = step.widen({k: torch.ones_like(v)
+                       for k, v in step.strip(named).items()})
+    for k in grads:
+        assert torch.count_nonzero(grads[k][ones[k] == 0]) == 0, k
+    # the flat buffer is the named gradients back to back, and what
+    # autograd takes through StepFunction
+    flat = step.loss_and_grads_flat(named, *batch)[1]
+    assert torch.equal(flat, torch.cat([grads[k].reshape(-1)
+                                        for k in step._param_names]))
+    leaves = [torch.nn.Parameter(named[k].clone())
+              for k in step._param_names]
+    total, _ = step.loss_fn(leaves)(
+        {"x": xx, "c": cc, "rm": rm, "nvalid": nv}, eps)
+    auto = torch.autograd.grad(total.sum(), leaves)
+    assert torch.equal(flat, torch.cat([g.reshape(-1) for g in auto]))
+    # both routes give the same gradients within the summation order
+    for route in (1, 264):
+        step.route = route
+        forced = step.loss_and_grads_padded(named, *batch)[1]
+        for k in grads:
+            torch.testing.assert_close(forced[k], ref_grads[k], **tol)
+    step.route = 0
     if len(dims) > 1:
         # padded columns of the narrower modalities get exactly zero
         narrow = dims.index(min(dims))
@@ -371,17 +401,10 @@ def test_tiled_train_step_kernel_matches_k5_and_plain(cuda):
         torch.testing.assert_close(gt[k], g5[k], rtol=1e-4, atol=1e-6)
         torch.testing.assert_close(gt[k], ref_g[k], rtol=1e-3, atol=1e-5)
 
+    # bf16 in its own layout (widths padded to 16)
     t16 = TiledFusedTrainStep(stacked, combine, tile_b=64,
                               compute_dtype=torch.bfloat16)
-    lb, gb = t16.loss_and_grads_padded(named, *batch)
-    lp, gp = _plain64(t16.reference, t16.cast_exec(named),
-                      (xx.bfloat16(), cc.bfloat16(), eps, rm, nv))
-    assert max(_leaf_error(gb[k], gp[k]) for k in gb) < 5e-3
-    assert ((lb["total"] - lp["total"]).abs()
-            / lp["total"].abs()).max().item() < 5e-3
-    again = t16.loss_and_grads_padded(named, *batch)[1]
-    for k in gb:
-        assert torch.equal(gb[k], again[k]), k
+    _check_tiled_against_own_plain(t16, packed, x, c, eps, mask)
 
     # bf16 against fp32 at tests/test_train_step_tiled.py's shape
     stacked, packed, x, c, eps, mask = _step_problem(
@@ -392,10 +415,60 @@ def test_tiled_train_step_kernel_matches_k5_and_plain(cuda):
     xx, cc, rm, nv = small.pack_batch(x, c, mask)
     batch = (xx, cc, small.pad_eps(eps), rm, nv)
     lb, gb = small.loss_and_grads_padded(named, *batch)
-    lf, gf = _plain64(FusedTrainStep(stacked, "gpoe").reference, named, batch)
+    f32 = FusedTrainStep(stacked, "gpoe")
+    x32, c32, rm32, nv32 = f32.pack_batch(x, c, mask)
+    lf, gf = _plain64(f32.reference, f32.pad_params(packed),
+                      (x32, c32, eps, rm32, nv32))
     assert ((lb["total"] - lf["total"]).abs()
             / lf["total"].abs()).max().item() < 2e-2
+    gb, gf = small.strip(gb), f32.strip(gf)
     assert max(_leaf_error(gb[k], gf[k]) for k in gb) < 6e-2
+
+
+def _check_tiled_against_own_plain(step, packed, x, c, eps, mask):
+    """K6 against its own plain version (the tile-loop transcription with
+    the same cast points, in fp64) in its own padded layout, on the batch
+    stored in the operand type; two calls bit-equal; padding zero."""
+    named = step.pad_params(packed)
+    xx, cc, rm, nv = step.pack_batch(x, c, mask)
+    stored = step.cast_batch({"x": xx, "c": cc})
+    batch = (stored["x"], stored["c"], step.pad_eps(eps), rm, nv)
+    before = kernels.tiled_fused_train_step.launches
+    losses, grads = step.loss_and_grads_padded(named, *batch)
+    assert kernels.tiled_fused_train_step.launches == before + 1
+    lp, gp = _plain64(step.reference, step.cast_exec(named), batch)
+    bound = 5e-3 if step.compute_dtype == torch.bfloat16 else 1e-4
+    assert max(_leaf_error(grads[k], gp[k]) for k in grads) < bound
+    assert ((losses["total"] - lp["total"]).abs()
+            / lp["total"].abs()).max().item() < bound
+    again = step.loss_and_grads_padded(named, *batch)[1]
+    ones = step.widen({k: torch.ones_like(v)
+                       for k, v in step.strip(named).items()})
+    for k in grads:
+        assert torch.equal(grads[k], again[k]), k
+        assert torch.count_nonzero(grads[k][ones[k] == 0]) == 0, k
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case,tile_b", [("ragged", 48), ("ragged-c2", 64),
+                                         ("flagship", 100)])
+def test_tiled_train_step_kernel_at_ragged_widths_and_batches(cuda, case,
+                                                              tile_b, dtype):
+    """K6 where no width is a multiple of 4 and where the batch is not a
+    multiple of 64 or of the tile (100 rows in tiles of 48, 75 rows in one
+    tile of 64, 256 rows in tiles of 100)."""
+    from multi_modal_normative_modeling_tpu_torch.kernels.train_step_tiled import (  # noqa: E501
+        TiledFusedTrainStep,
+    )
+
+    dims, hidden, folds, rows, combine, seed = STEP_CASES[case]
+    c_dim, z_dim = STEP_WIDTHS.get(case, (29, 10))
+    stacked, packed, x, c, eps, mask = _step_problem(
+        cuda, dims, hidden, folds, rows, seed, c_dim=c_dim, z_dim=z_dim)
+    step = TiledFusedTrainStep(stacked, combine, tile_b=tile_b,
+                               compute_dtype=dtype)
+    _check_tiled_against_own_plain(step, packed, x, c, eps, mask)
 
 
 def test_fused_train_step_refuses_what_it_does_not_take(cuda):

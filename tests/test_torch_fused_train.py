@@ -103,6 +103,59 @@ def test_fused_trainer_trajectory_matches_jax(hidden, latent, combine,
     assert torch.count_nonzero(trained["dec"]["lvo"][:, 1, 12:]) == 0
 
 
+def _ragged_run(precision, through_autograd, epochs=3, tile_b=None):
+    """Two folds (19 and 13 subjects, batch 8) at widths that are not
+    multiples of 4 anywhere, trained from one seeded init and noise."""
+    dims, hidden, latent = [21, 10], [13, 9], 5
+    model = build_model("cVAE_multimodal", dims, hidden, latent, C, len(dims),
+                        folds=2, generator=torch.Generator().manual_seed(0))
+    config = TrainConfig(epochs=epochs, batch_size=8, combine="gpoe",
+                         precision=precision)
+    trainer = FusedFoldTrainer(model, config, 19, tile_b=tile_b)
+    rng = np.random.default_rng(1)
+    cohorts = [_cohort(rng, 19, dims), _cohort(rng, 13, dims)]
+    batches = trainer.batches([d for d, _ in cohorts], [c for _, c in cohorts],
+                              "cpu")
+    eps = rng.standard_normal(
+        (epochs * batches.n_batches, 2, 8, latent)).astype(np.float32)
+    trained, logs = trainer.run(packed_from_model(model, trainer.stacked),
+                                batches, eps=eps,
+                                through_autograd=through_autograd)
+    return trainer, trained, logs
+
+
+@pytest.mark.parametrize("precision,tile_b", [("fp32", None), ("bf16", 8)])
+def test_flat_gradient_path_equals_step_function_path(precision, tile_b):
+    """The trainer hands the step's flat gradient buffer to MaskedAdam; the
+    long way (StepFunction under autograd, gradients scaled by the incoming
+    one and concatenated again) follows the same trajectory bit for bit."""
+    _, flat, flat_logs = _ragged_run(precision, False, tile_b=tile_b)
+    _, auto, auto_logs = _ragged_run(precision, True, tile_b=tile_b)
+    for k in flat_logs:
+        assert np.array_equal(flat_logs[k], auto_logs[k]), k
+    a, b = (jax.tree_util.tree_leaves(t) for t in (flat, auto))
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_padded_columns_stay_zero_after_three_steps():
+    """Training runs in the padded layout: after 3 steps every padded entry
+    of every parameter is still exactly zero, and unpad_named hands back
+    the true shapes."""
+    trainer, trained, logs = _ragged_run("fp32", False, epochs=1)
+    step = trainer.step
+    assert step.Dp == 24 and step.Cp == 4 and step.Zp == 8
+    named = step.pad_params(trained)
+    ones = step.widen({k: torch.ones_like(v)
+                       for k, v in step.strip(named).items()})
+    for k, t in named.items():
+        assert torch.count_nonzero(t[ones[k] == 0]) == 0, k
+    assert trained["enc"]["layers"][0]["w"].shape == (2, 2, 21 + C, 13)
+    assert trained["dec"]["wm"].shape == (2, 2, 13, 21)
+    assert all(np.isfinite(v).all() for v in logs.values())
+
+
 def test_bf16_fused_trainer_runs_k6():
     dims = [20, 12]
     model = build_model("cVAE_multimodal", dims, [10, 8], 4, C, len(dims),
@@ -136,7 +189,7 @@ def test_select_kernel_reasons():
                             "precision")):
         kernel, why = select_kernel(model, config)
         assert kernel is None and reason in why
-    wide = build_model("cVAE_multimodal", [20, 12], [400], 4, C, 2)
+    wide = build_model("cVAE_multimodal", [20, 12], [480], 4, C, 2)
     kernel, why = select_kernel(wide, TrainConfig(combine="gpoe"))
     assert kernel is None and "shared memory" in why
 
@@ -223,7 +276,7 @@ def test_fused_cli_exits_before_writing(extra, match, tmp_path):
 def test_fused_cli_exits_on_wide_hidden_layers(roots, tmp_path):
     shutil.copytree(roots["jax"] / "data", tmp_path / "data")
     with pytest.raises(SystemExit, match="shared memory"):
-        port_train.main(_args(device="cpu", hz_para_list=[400, 4]),
+        port_train.main(_args(device="cpu", hz_para_list=[480, 4]),
                         project_root=tmp_path)
 
 

@@ -1,0 +1,120 @@
+"""The port stands on its own: no module of
+``multi_modal_normative_modeling_tpu_torch`` and not ``chip_smoke.py``
+imports jax, flax or the JAX package, absolutely or relatively. Each file
+is parsed with ``ast`` (nothing is executed), one case per file; a last
+case runs both CLIs in a process where importing the JAX package fails."""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "multi_modal_normative_modeling_tpu_torch"
+JAX_PACKAGE = "multi_modal_normative_modeling_tpu"
+FORBIDDEN = ("jax", "flax", "optax", JAX_PACKAGE)
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _absolute(path: Path, node: ast.ImportFrom, root: Path) -> str:
+    """The absolute module an ImportFrom names, resolving leading dots
+    against the file's own package under ``root``."""
+    if node.level == 0:
+        return node.module or ""
+    parts = list(path.relative_to(root).with_suffix("").parts[:-1])
+    if node.level > 1:
+        parts = parts[:len(parts) - (node.level - 1)]
+    return ".".join(parts + ([node.module] if node.module else []))
+
+
+def imported_modules(path: Path, root: Path = ROOT):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name, node.lineno
+        elif isinstance(node, ast.ImportFrom):
+            base = _absolute(path, node, root)
+            yield base, node.lineno
+            for alias in node.names:
+                yield f"{base}.{alias.name}", node.lineno
+
+
+def _forbidden(module: str) -> bool:
+    return any(module == name or module.startswith(name + ".")
+               for name in FORBIDDEN)
+
+
+@pytest.mark.parametrize("path", FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in FILES])
+def test_no_import_of_jax_or_the_jax_package(path):
+    bad = [(m, line) for m, line in imported_modules(path) if _forbidden(m)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_the_walk_sees_relative_and_absolute_imports(tmp_path):
+    """The checker itself: a relative import that climbs out of the port
+    into the JAX package, and plain absolute ones, are all caught."""
+    pkg = tmp_path / PORT.name / "cli"
+    pkg.mkdir(parents=True)
+    probe = pkg / "probe.py"
+    probe.write_text(
+        "import jax.numpy as jnp\n"
+        "from flax import serialization\n"
+        f"from {JAX_PACKAGE}.data import loading\n"
+        f"from ...{JAX_PACKAGE} import registry\n"
+        "from .. import registry as ok\n"
+        "import numpy\n")
+
+    found = {m for m, _ in imported_modules(probe, tmp_path)}
+    bad = {m for m in found if _forbidden(m)}
+    assert {"jax.numpy", "flax", f"{JAX_PACKAGE}.data",
+            f"{JAX_PACKAGE}", f"{JAX_PACKAGE}.registry"} <= bad, found
+    assert f"{PORT.name}.registry" in found - bad
+    assert not _forbidden(PORT.name) and not _forbidden("numpy")
+
+
+_BLOCKED_CHAIN = """
+import sys
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        root = name.split('.')[0]
+        if root in ('jax', 'flax', 'optax', 'multi_modal_normative_modeling_tpu'):
+            raise ImportError('blocked for this check: ' + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+sys.path.insert(0, sys.argv[1])
+import os
+from pathlib import Path
+from multi_modal_normative_modeling_tpu_torch.data.synthetic import (
+    make_synthetic_resource,
+)
+from multi_modal_normative_modeling_tpu_torch.cli import (
+    test_supervised,
+    train_supervised,
+)
+os.chdir(sys.argv[2])
+make_synthetic_resource(Path('.'), 'ADNI', n_hc=20, n_disease={0: 6, 1: 6})
+flags = ['-R', 'ADNI', '-P', 'SE-MoE', '-K', '2', '-H', '8', '8', '4',
+         '--device', 'cpu']
+train_supervised.run(flags + ['-E', '2'])
+test_supervised.run(flags)
+bad = [m for m in sys.modules if m.split('.')[0] in
+       ('jax', 'flax', 'optax', 'multi_modal_normative_modeling_tpu')]
+assert not bad, bad
+print('CHAIN_OK')
+"""
+
+
+def test_clis_run_where_the_jax_package_cannot_be_imported(tmp_path):
+    """Train then score a tiny synthetic cohort on the CPU in a process
+    whose import system refuses jax, flax, optax and the JAX package."""
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_CHAIN, str(ROOT), str(tmp_path)],
+        capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-4000:]
+    assert "CHAIN_OK" in out.stdout
+    assert list(tmp_path.glob("deviation/**/*.csv"))

@@ -195,5 +195,8 @@ def test_library_hash_tracks_sources():
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libmmnm_kernels_")
     assert {p.name for p in _build.SRC_DIR.glob("*.cu")} == {
-        "encoder.cu", "pred_deviation.cu", "decoder_nll.cu", "train_step.cu"}
+        "encoder.cu", "pred_deviation.cu", "decoder_nll.cu", "train_step.cu",
+        "train_step_bf16.cu"}
+    assert {p.name for p in _build.SRC_DIR.glob("*.cuh")} == {
+        "tile_mlp.cuh", "train_step.cuh"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

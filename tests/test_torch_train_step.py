@@ -78,6 +78,10 @@ CASES = {
     "1hidden": ([14], [24, 40, 16], "gpoe"),
     "3hidden": ([20, 12, 8], [24, 40, 16], "gpoe"),
     "1modality": ([12, 12], [30], "gpoe"),
+    # no width a multiple of 4 anywhere (C 5 and Z 6 neither): every tensor
+    # of the padded layout is wider than its true shape
+    "ragged": ([13, 10], [37, 9, 22], "gpoe"),
+    "ragged-mopoe": ([11], [21, 6], "mopoe"),
 }
 
 
@@ -209,3 +213,75 @@ def test_shared_memory_limit_and_scope():
     step = TiledFusedTrainStep(StackedMultimodalCVAE([24], [12], Z, C, 1),
                                "gpoe", batch_hint=100)
     assert step.tile_b == 100 and step.row_align == 100
+
+
+def _named_problem(hidden, dims, combine, cls=FusedTrainStep, **kw):
+    model, params, xp, c, eps, rowmask = _make_problem(hidden, dims, seed=3)
+    step = _port(model, combine, cls, **kw)
+    packed = _fold(params)
+    named = step.pad_params(packed)
+    x, cc, rm, nvalid = step.pack_batch(_fold(xp), _fold(c), _fold(rowmask))
+    return step, packed, named, (x, cc, step.pad_eps(_fold(eps)), rm, nvalid)
+
+
+@pytest.mark.parametrize("cls,kw,align", [
+    (FusedTrainStep, {}, 4),
+    (TiledFusedTrainStep, dict(tile_b=8), 4),
+    (TiledFusedTrainStep, dict(tile_b=8, compute_dtype=torch.bfloat16), 16)],
+    ids=["k5", "k6-fp32", "k6-bf16"])
+def test_padded_layout_round_trips(cls, kw, align):
+    """pad_params then unpad_named is the identity; every padded width is a
+    multiple of the alignment (4 in fp32, 16 in bf16), the [x | c]
+    and [z | c] blocks each on their own; the padding is zero."""
+    step, packed, named, batch = _named_problem([13, 10], [37, 9, 22],
+                                                "gpoe", cls, **kw)
+    assert step.col_align == align
+    assert (step.Dp, step.Cp, step.Zp, step.Hp) == tuple(
+        -(-n // align) * align if isinstance(n, int)
+        else [-(-h // align) * align for h in n]
+        for n in (37, C, Z, [13, 10]))
+    for k, t in named.items():
+        assert tuple(t.shape[1:]) == step._shapes[k] and t.is_contiguous()
+        if k != "alpha":
+            assert all(n % align == 0 for n in t.shape[2:]), k
+    assert named["enc_w0"].shape[2] == step.Dp + step.Cp
+    assert named["dec_w0"].shape[2] == step.Zp + step.Cp
+    # the covariate rows start at the padded d_max / latent width
+    torch.testing.assert_close(
+        named["enc_w0"][:, :, step.Dp:step.Dp + C, :13],
+        packed["enc"]["layers"][0]["w"][:, :, 37:], rtol=0, atol=0)
+    torch.testing.assert_close(
+        named["dec_w0"][:, :, step.Zp:step.Zp + C, :10],
+        packed["dec"]["layers"][0]["w"][:, :, Z:], rtol=0, atol=0)
+    back = step.unpad_named(named)
+    want = jax.tree_util.tree_leaves(packed)
+    got = jax.tree_util.tree_leaves(back)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    total = sum(t.sum().item() for t in named.values())
+    assert total == pytest.approx(sum(t.sum().item() for t in want), rel=1e-5)
+    x, cc = batch[0], batch[1]
+    assert x.shape[-1] == step.Dp and cc.shape[-1] == step.Cp
+    assert torch.count_nonzero(x[..., 37:]) == 0
+    assert torch.count_nonzero(cc[..., C:]) == 0
+    widened = step.widen(step.strip(named))
+    assert all(torch.equal(widened[k], named[k]) for k in named)
+
+
+def test_padded_gradients_are_zero_and_flat_matches_named():
+    """The plain version's gradients in the padded layout: zero in every
+    padded entry, and the flat buffer is the named gradients back to back
+    in _param_names order."""
+    step, _, named, batch = _named_problem([13, 10], [37, 9, 22], "gpoe")
+    losses, grads = step.loss_and_grads_padded(named, *batch)
+    ones = step.widen({k: torch.ones_like(v)
+                       for k, v in step.strip(named).items()})
+    for k, g in grads.items():
+        assert g.shape == named[k].shape
+        assert torch.count_nonzero(g[ones[k] == 0]) == 0, k
+        assert torch.count_nonzero(g) > 0, k
+    losses2, flat = step.loss_and_grads_flat(named, *batch)
+    assert torch.equal(losses["total"], losses2["total"])
+    assert torch.equal(flat, torch.cat([grads[k].reshape(-1)
+                                        for k in step._param_names]))
