@@ -120,8 +120,13 @@
 // the chunk loads almost nothing, and half remains with both skipped
 // (scripts/torch_step_probe.py): about 5 us a product of exposed latency
 // (its first load, its epilogue's loads, its barriers) and the launches.
-// fp32 stays off the tensor cores: one TF32 pass keeps about three digits,
-// fewer than the gradient check asks.
+// fp32 stays off the tensor cores. One TF32 pass keeps about three digits,
+// fewer than the gradient check asks. Three passes (each operand split into
+// a TF32 value and the TF32 value of the rest, every k8 step summed outside
+// the tensor core, whose own accumulation truncates) held that check and
+// took a step from 0.28 to 0.26 ms, but 20 Adam steps then ended 8.5e-05
+// from the plain trainer's on one near-zero bias, over the trajectory
+// check's 5e-05: not kept.
 //
 // This header holds all of it as templates over T; train_step.cu
 // instantiates the fp32 step and the C entry points, train_step_bf16.cu the
@@ -1485,10 +1490,22 @@ wgrad_kernel(Dims d, Jobs jobs, const float* n, float* part_base,
   const int tid = threadIdx.x;
 
   if (jb.colsum) {
+    // one thread a column, the rows added in order; 16 loads are asked for
+    // before the first is added (with one load in flight at a time these
+    // blocks were the pass's longest)
     const int col = t * THREADS + tid;
     if (col < jb.N) {
+      const float* at = dy + col;
       float sum = 0.f;
-      for (int r = r_lo; r < r_hi; ++r) sum += dy[(size_t)r * jb.dy_ld + col];
+      int r = r_lo;
+      for (; r + 16 <= r_hi; r += 16) {
+        float v[16];
+#pragma unroll
+        for (int u = 0; u < 16; ++u) v[u] = at[(size_t)(r + u) * jb.dy_ld];
+#pragma unroll
+        for (int u = 0; u < 16; ++u) sum += v[u];
+      }
+      for (; r < r_hi; ++r) sum += at[(size_t)r * jb.dy_ld];
       out[col] = sum * scale;
     }
     return;

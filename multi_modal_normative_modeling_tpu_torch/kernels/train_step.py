@@ -288,22 +288,34 @@ class FusedTrainStep:
         return {k: v.detach() for k, v in losses.items()}, out
 
     def _run(self, named, x, c, eps, rm, nvalid):
-        """(losses, named gradients, the flat gradient buffer or None)."""
+        """(losses, named gradients, flat gradient buffer): the plain
+        version gives the named gradients, the kernel the flat buffer, and
+        the other of the two is None."""
         if x.device.type == "cpu":
             return self.reference(named, x, c, eps, rm, nvalid) + (None,)
         if x.device.type != "cuda":
             raise ValueError(f"fused_train_step: no kernel for {x.device}")
-        return fused_train_step(self, named, x, c, eps, rm, nvalid)
+        losses, flat = fused_train_step(self, named, x, c, eps, rm, nvalid)
+        return losses, None, flat
+
+    def named_views(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The flat gradient buffer as named [F, ...] views of it."""
+        folds = flat.numel() // sum(self._sizes.values())
+        sizes = [folds * self._sizes[k] for k in self._param_names]
+        return {k: v.view((folds,) + self._shapes[k])
+                for k, v in zip(self._param_names, flat.split(sizes))}
 
     def loss_and_grads_padded(self, named, x, c, eps, rm, nvalid):
         """(losses {total, kl, ll: [F]}, gradients in the named layout)."""
-        return self._run(named, x, c, eps, rm, nvalid)[:2]
+        losses, grads, flat = self._run(named, x, c, eps, rm, nvalid)
+        return losses, self.named_views(flat) if grads is None else grads
 
     def loss_and_grads_flat(self, named, x, c, eps, rm, nvalid):
         """(losses, every gradient in one flat fp32 tensor, back to back in
         ``_param_names`` order, each [F, ...] fold-major): the buffer the
         kernel wrote, or on the CPU the plain version's gradients laid out
-        the same way."""
+        the same way. The trainer's entry: it builds no per-parameter
+        views."""
         losses, grads, flat = self._run(named, x, c, eps, rm, nvalid)
         if flat is None:
             flat = torch.cat([grads[k].reshape(-1).float()
@@ -434,11 +446,11 @@ def plan(step: FusedTrainStep, folds: int, rows: int, tile_rows: int = None):
 
 
 def launch(step: FusedTrainStep, named, x, c, eps, rm, nvalid,
-           tile_rows: int, dtype) -> Tuple[dict, dict, torch.Tensor]:
+           tile_rows: int, dtype) -> Tuple[dict, torch.Tensor]:
     """One step on the card: every launch of csrc/train_step.cuh. Weight
     gradients sum their rows in groups of ``tile_rows`` (partials summed in
-    group order when there is more than one group). Returns (losses, named
-    gradients, the flat buffer they are views of)."""
+    group order when there is more than one group). Returns (losses, the
+    flat gradient buffer)."""
     folds, rows = _check(step, named, x, c, eps, rm, nvalid, dtype)
     ints = _ints(step, folds, rows, tile_rows)
     ints_c = (ctypes.c_int * len(ints))(*ints)
@@ -454,23 +466,25 @@ def launch(step: FusedTrainStep, named, x, c, eps, rm, nvalid,
         work = torch.empty(max(nbytes, 1), dtype=torch.uint8,
                            device=x.device)
         step._workspace = {key: work}
+    # the gradients back to back in one buffer, then the losses [F, 3]
     sizes = [folds * step._sizes[k] for k in step._param_names]
     count = sum(sizes)
     flat = torch.empty(count + 3 * folds, device=x.device)
-    grads = {k: v.view((folds,) + step._shapes[k]) for k, v in zip(
-        step._param_names, flat[:count].split(sizes))}
     losses = flat[count:].view(folds, 3)
-    ptrs = ([x, c, eps, rm, nvalid]
-            + [named[k] for k in step._param_names]
-            + [grads[k] for k in step._param_names] + [losses])
-    ptrs_c = (ctypes.c_void_p * (len(ptrs) + 1))(
-        *[t.data_ptr() for t in ptrs], work.data_ptr())
+    base = flat.data_ptr()
+    starts = [0]
+    for size in sizes:
+        starts.append(starts[-1] + size)
+    ptrs = ([t.data_ptr() for t in (x, c, eps, rm, nvalid)]
+            + [named[k].data_ptr() for k in step._param_names]
+            + [base + 4 * at for at in starts])   # ends on the losses
+    ptrs_c = (ctypes.c_void_p * (len(ptrs) + 1))(*ptrs, work.data_ptr())
     with torch.cuda.device(x.device):
         rc = lib.mmnm_train_step(ptrs_c, ints_c, bf16,
                                  _build.stream_of(x.device))
     _build.check_launch(lib, rc, "fused_train_step")
     return ({"total": losses[:, 0], "kl": losses[:, 1], "ll": losses[:, 2]},
-            grads, flat[:count])
+            flat[:count])
 
 
 def _numel(shape) -> int:

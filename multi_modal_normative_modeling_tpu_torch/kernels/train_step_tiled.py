@@ -98,7 +98,9 @@ class TiledFusedTrainStep(FusedTrainStep):
         if x.device.type != "cuda":
             raise ValueError(f"tiled_fused_train_step: no kernel for "
                              f"{x.device}")
-        return tiled_fused_train_step(self, named, x, c, eps, rm, nvalid)
+        losses, flat = tiled_fused_train_step(self, named, x, c, eps, rm,
+                                              nvalid)
+        return losses, None, flat
 
     def reference(self, named, x, c, eps, rm, nvalid):
         """The plain version: a torch transcription of the TPU kernel's

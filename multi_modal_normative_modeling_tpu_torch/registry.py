@@ -101,7 +101,7 @@ BASE_MODALITIES = {
 
 HC_LABELS = {"ADNI": 2, "HCP": 1, "ADHD": 1, "PPMI": 1, "HCPimage": 1}
 
-# hc/disease label pairs iterated by the group-analysis driver
+# hc/disease label pairs iterated by the group analysis
 # (multimodal_kfold_cvae_group_analysis_1x1.py:333-340).
 HC_PATIENT_COMBINATIONS = {
     "ADNI": [[2, 0], [2, 1], [1, 0]],

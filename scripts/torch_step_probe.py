@@ -98,7 +98,7 @@ def main():
         batch = (xx, cc, eps, rm, nv)
         for value, label in SWITCHES:
             os.environ["MMNM_PROBE"] = str(value)
-            ms = cs.cuda_ms(lambda: step.loss_and_grads_padded(named, *batch))
+            ms = cs.cuda_ms(lambda: step.loss_and_grads_flat(named, *batch))
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(10):
                     step.loss_and_grads_padded(named, *batch)

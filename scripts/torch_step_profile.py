@@ -150,7 +150,7 @@ def routes():
                 for route_name, route in ROUTES.items():
                     step.route = route
                     ms = cs.cuda_ms(
-                        lambda: step.loss_and_grads_padded(named, *batch))
+                        lambda: step.loss_and_grads_flat(named, *batch))
                     times.setdefault(route_name, []).append(round(ms, 4))
             step.route = 0
             plan = ts.plan(step, batch[0].shape[0], batch[0].shape[2])

@@ -166,7 +166,7 @@ def test_load_demographic_data_and_dataset_equal(projects, tmp_path):
                                  data_dir / f"{modality}.csv"))
 
 
-@pytest.mark.parametrize("fmt", ["session", "run"])
+@pytest.mark.parametrize("fmt", ["two_part", "three_part"])
 def test_load_demographic_data_composite_ids_equal(tmp_path, fmt):
     rng = np.random.default_rng(7)
     n = 12
@@ -176,7 +176,7 @@ def test_load_demographic_data_composite_ids_equal(tmp_path, fmt):
         "DIA": rng.integers(0, 3, n), "AGE": rng.uniform(60, 80, n),
         "PTGENDER": rng.integers(1, 3, n)})
     uid = demo["participant_id"] + "_" + demo["Session_ID"]
-    if fmt == "run":
+    if fmt == "three_part":
         demo["Run_ID"] = rng.integers(1, 3, n)
         uid = uid + "_run-" + demo["Run_ID"].astype(str)
     demo.to_csv(tmp_path / "y.csv", index=False)
