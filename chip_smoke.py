@@ -8,10 +8,13 @@ Phases (any failure exits non-zero, with no result line):
   2. build the CUDA kernels from kernels/csrc/ with nvcc (sm_90a);
   3. hold the encoder, decode+deviation and decoder-mean kernels against
      their plain torch versions on the card (TF32 off) at the test stage's
-     shapes, and time both;
+     shapes (one of them takes the decode kernel's column groups with a
+     ragged last row tile), check that two calls give a bit-equal
+     deviation, and time both;
   3b. hold the decoder_nll kernel pair (forward and backward) against its
      plain version plus autograd, with ragged row masks, at training
-     shapes; check that two backward calls are bit-equal; time both;
+     shapes; check that two backward calls are bit-equal; time both, the
+     forward and the pair;
   4. score 5 folds of the flagship model (cVAE_multimodal, UCA-gPoE widths
      4x[90, 90, 90, 270], c 29, hidden [110, 110], latent 10, 1024 padded
      rows per fold, seeded random weights) through the test stage's scoring
@@ -44,7 +47,10 @@ Phases (any failure exits non-zero, with no result line):
 Beside every kernel time stands the kernel's bound: the least time the
 card could take for the same work (kernels/roofline.py: the larger of its
 FLOP over the card's peak for the operand type and its bytes over the
-memory rate), and the share of it that the time reaches.
+memory rate), and the share of it that the time reaches. A kernel's time is
+given twice: by CUDA events around calls of its wrapper, host work
+included, and as the time the device needs for the same launches replayed
+from a CUDA graph, the host out of the way (`device_ms`).
 
 The last line is {"ok": true, "device": {"platform": "gpu", ...}}; the line
 before it holds the kernels' launches, errors, times and bounds.
@@ -70,8 +76,9 @@ ROWS = 1024
 COMBINE = "gpoe"
 
 # (folds, rows, feature width, covariate width); the last two are the
-# flagship scoring call's own shapes
-SHAPES = [(1, 7, 90, 29), (1, 1024, 3485, 2),
+# flagship scoring call's own shapes; at 3485 the decode kernel splits the
+# mean head's columns over blocks, with 1000 rows over a ragged last tile
+SHAPES = [(1, 7, 90, 29), (1, 1000, 3485, 2), (1, 1024, 3485, 2),
           (FOLDS, ROWS, 90, C_DIM), (FOLDS, ROWS, 270, C_DIM)]
 TOL = dict(rtol=1e-5, atol=1e-5)       # mu, logvar, recon
 DEV_TOL = dict(rtol=1e-4, atol=1e-6)   # per-row deviation
@@ -83,6 +90,7 @@ MODEL_TOL = dict(rtol=2e-4, atol=2e-5)  # whole scoring call
 NLL_SHAPES = [(1, 7, 110, 90), (5, 256, 110, 270), (1, 256, 110, 3485),
               (5, 256, 110, 3485)]
 NLL_TIMED = (5, 256, 110, 270)  # the flagship step's widest modality
+NLL_PPMI = (1, 256, 110, 3485)  # one PPMI modality of a one-fold step
 NLL_VALUE_TOL = dict(rtol=1e-5, atol=0.0)
 NLL_GRAD_TOL = {90: dict(rtol=1e-4, atol=1e-6), 270: dict(rtol=1e-4, atol=1e-6),
                 3485: dict(rtol=1e-3, atol=1e-5)}
@@ -148,6 +156,34 @@ def cuda_ms(fn, iters=50, warmup=5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters=20, replays=5):
+    """Mean time in ms that the device needs for what one fn() launches,
+    with the host out of the way: `iters` calls are captured into one CUDA
+    graph, and CUDA events time replays of the graph. Between two kernels
+    there is then the graph's own launch gap (a microsecond or two) and
+    nothing of the wrapper's host work."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):   # warm up where the capture will run
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * iters)
 
 
 def wall_ms(fn, iters=20, warmup=3):
@@ -258,6 +294,20 @@ def check_nll(rng, folds, rows, hidden, d):
     times["fwd_bwd"] = cuda_ms(lambda: value_and_grads(decoder_nll))
     times["plain_fwd_bwd"] = cuda_ms(
         lambda: value_and_grads(decoder_nll_reference))
+    with torch.no_grad():
+        times["fwd_device"] = device_ms(
+            lambda: decoder_nll(g, w, b, lvo, x, mask, n))
+
+    def fresh_pair(fn):
+        # leaves made inside the capture: autograd ties a leaf to the
+        # stream it was made on, and the outer ones belong to the default
+        # stream, which a capture may not wait for
+        leaves = [p.detach().requires_grad_() for p in params]
+        return torch.autograd.grad(fn(*leaves, x, mask, n).sum(), leaves)
+
+    times["fwd_bwd_device"] = device_ms(lambda: fresh_pair(decoder_nll))
+    times["plain_fwd_bwd_device"] = device_ms(
+        lambda: fresh_pair(decoder_nll_reference))
     return max(e for e, _ in errs), max(r for _, r in errs), times
 
 
@@ -451,7 +501,9 @@ def check_step(name, dims, hidden, folds, rows, c_dim, z_dim, combine):
           f"(the fp32 plain's {plain_err:.3e}), bit-equal{flat_note}; "
           f"{ms:.4f} ms vs plain forward+autograd {plain:.4f} ms; "
           f"{bound_text(work, ms)}", flush=True)
-    return err, (ms, plain, work)
+    device = (device_ms(lambda: step.loss_and_grads_flat(named, *batch))
+              if name == "flagship" else None)   # the shape the report keeps
+    return err, (ms, plain, work, device)
 
 
 def check_tiled():
@@ -576,7 +628,8 @@ def check_tiled():
           f", 100 rows in tiles of 48: worst leaf vs its plain version "
           f"{ragged[torch.float32]:.3e} (fp32), "
           f"{ragged[torch.bfloat16]:.3e} (bf16), bit-equal", flush=True)
-    return err, (ms16, plain16, work16)
+    device16 = device_ms(lambda: t16.loss_and_grads_flat(named_w, *b16))
+    return err, (ms16, plain16, work16, device16)
 
 
 def fused_training_run(dims, rows_per_fold, epochs, seed, fused,
@@ -782,6 +835,9 @@ def main():
             e5, r5 = check_close("fused_decoder_mean", mean, dec(z, c)[0],
                                  TOL)
             recon, dev = dec.fused_pred_deviation(z, c, x)
+            if not torch.equal(dev, dec.fused_pred_deviation(z, c, x)[1]):
+                raise RuntimeError("fused_pred_deviation dev: two calls "
+                                   "differ")
             recon_p = dec(z, c)[0]
             dev_p = kernels.reconstruction_deviation(x, recon_p)
             e3, r3 = check_close("fused_pred_deviation recon", recon,
@@ -795,32 +851,42 @@ def main():
                 x, dec(z, c)[0]))
             mean_ms = cuda_ms(lambda: dec.fused_mean(z, c))
             mean_plain_ms = cuda_ms(lambda: dec(z, c)[0])
+            enc_dev = device_ms(lambda: enc.fused(x, c))
+            dec_dev = device_ms(lambda: dec.fused_pred_deviation(z, c, x))
+            dec_plain_dev = device_ms(
+                lambda: kernels.reconstruction_deviation(x, dec(z, c)[0]))
+            mean_dev = device_ms(lambda: dec.fused_mean(z, c))
             shape = (folds, rows, d, c_dim, HIDDEN, LATENT)
             enc_w = roofline.fused_encoder(*shape)
             dec_w = roofline.fused_pred_deviation(*shape)
             mean_w = roofline.fused_decoder_mean(*shape)
             print(f"phase 3: F={folds} B={rows} D={d} C={c_dim}: "
                   f"encoder max abs err {max(e1, e2):.3e} (rel "
-                  f"{max(r1, r2):.3e}), {enc_ms:.4f} ms vs plain "
+                  f"{max(r1, r2):.3e}), {enc_ms:.4f} ms (device "
+                  f"{enc_dev:.4f}) vs plain "
                   f"{enc_plain_ms:.4f} ms, {bound_text(enc_w, enc_ms)}; "
                   f"pred_deviation recon err "
                   f"{e3:.3e} (rel {r3:.3e}), dev err {e4:.3e} (rel "
-                  f"{r4:.3e}), {dec_ms:.4f} ms vs plain {dec_plain_ms:.4f} "
-                  f"ms, {bound_text(dec_w, dec_ms)}; decoder_mean err "
+                  f"{r4:.3e}), dev bit-equal, {dec_ms:.4f} ms (device "
+                  f"{dec_dev:.4f}) vs plain {dec_plain_ms:.4f} "
+                  f"ms (device {dec_plain_dev:.4f}), "
+                  f"{bound_text(dec_w, dec_ms)}; decoder_mean err "
                   f"{e5:.3e} (rel {r5:.3e}), "
-                  f"{mean_ms:.4f} ms vs plain {mean_plain_ms:.4f} ms, "
+                  f"{mean_ms:.4f} ms (device {mean_dev:.4f}) vs plain "
+                  f"{mean_plain_ms:.4f} ms, "
                   f"{bound_text(mean_w, mean_ms)}", flush=True)
-            for name, err, ms, plain, work in (
-                    ("fused_encoder", max(e1, e2), enc_ms, enc_plain_ms,
-                     enc_w),
-                    ("fused_pred_deviation", max(e3, e4), dec_ms,
+            for name, err, ms, dev_ms, plain, work in (
+                    ("fused_encoder", max(e1, e2), enc_ms, enc_dev,
+                     enc_plain_ms, enc_w),
+                    ("fused_pred_deviation", max(e3, e4), dec_ms, dec_dev,
                      dec_plain_ms, dec_w),
-                    ("fused_decoder_mean", e5, mean_ms, mean_plain_ms,
-                     mean_w)):
+                    ("fused_decoder_mean", e5, mean_ms, mean_dev,
+                     mean_plain_ms, mean_w)):
                 s = stats[name]
                 s["max_abs_err"] = max(s["max_abs_err"], err)
                 # the flagship scoring call's widest modality
                 s["ms"], s["plain_ms"], s["work"] = ms, plain, work
+                s["device_ms"] = dev_ms
 
     # ---- phase 3b: decoder_nll forward and backward -----------------------
     for folds, rows, hidden, d in NLL_SHAPES:
@@ -829,16 +895,24 @@ def main():
         nll_w = roofline.decoder_nll(folds, rows, hidden, d)
         print(f"phase 3b: F={folds} B={rows} H={hidden} D={d}: decoder_nll "
               f"max abs err {err:.3e} (rel {rel:.3e}), backward bit-equal; "
-              f"forward {t['fwd']:.4f} ms vs plain {t['plain_fwd']:.4f} ms, "
+              f"forward {t['fwd']:.4f} ms (device {t['fwd_device']:.4f}) vs "
+              f"plain {t['plain_fwd']:.4f} ms, "
               f"{bound_text(fwd_w, t['fwd'])}; "
-              f"forward+backward {t['fwd_bwd']:.4f} ms vs plain "
-              f"{t['plain_fwd_bwd']:.4f} ms, "
+              f"forward+backward {t['fwd_bwd']:.4f} ms (device "
+              f"{t['fwd_bwd_device']:.4f}) vs plain "
+              f"{t['plain_fwd_bwd']:.4f} ms (device "
+              f"{t['plain_fwd_bwd_device']:.4f}), "
               f"{bound_text(nll_w, t['fwd_bwd'])}", flush=True)
         s = stats["decoder_nll"]
         s["max_abs_err"] = max(s["max_abs_err"], err)
         if (folds, rows, hidden, d) == NLL_TIMED:
             s["ms"], s["plain_ms"] = t["fwd_bwd"], t["plain_fwd_bwd"]
-            s["work"] = nll_w
+            s["work"], s["device_ms"] = nll_w, t["fwd_bwd_device"]
+        if (folds, rows, hidden, d) == NLL_PPMI:
+            s["ppmi"] = {"ms": t["fwd_bwd"],
+                         "device_ms": t["fwd_bwd_device"],
+                         "plain_ms": t["plain_fwd_bwd"],
+                         "bound_ms": nll_w.bound_ms}
 
     # ---- phase 4: the flagship scoring call through the kernels -----------
     model = build_model("cVAE_multimodal", DIMS, HIDDEN, LATENT, C_DIM,
@@ -911,10 +985,11 @@ def main():
         s5 = stats["fused_train_step"]
         s5["max_abs_err"] = max(s5["max_abs_err"], err)
         if shape[0] == "flagship":
-            s5["ms"], s5["plain_ms"], s5["work"] = times
+            s5["ms"], s5["plain_ms"], s5["work"], s5["device_ms"] = times
     err, times = check_tiled()
     stats["tiled_fused_train_step"].update(max_abs_err=err, ms=times[0],
-                                           plain_ms=times[1], work=times[2])
+                                           plain_ms=times[1], work=times[2],
+                                           device_ms=times[3])
 
     # ---- phase 7: training through the fused train step --------------------
     fused = compare_fused_training("flagship", DIMS, TRAIN_ROWS,
@@ -950,7 +1025,12 @@ def main():
             "bound_ms": stats[name]["work"].bound_ms,
             "bound_by": stats[name]["work"].bound_by,
             "library_ms": None,
+            # the device's time for one call's launches, replayed from a
+            # CUDA graph: `ms` less this is the wrapper's host work
+            "device_ms": stats[name]["device_ms"],
         })
+        if "ppmi" in stats[name]:   # decoder_nll at one PPMI fold as well
+            report[-1]["ppmi"] = stats[name]["ppmi"]
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,9 @@ Kernel inventory:
   * decoder_nll.py — ``decoder_nll`` (csrc/decoder_nll.cu): the decoder's
                      mean head plus the masked Gaussian NLL, forward and
                      backward, for every fold; the ``--fused_decoder``
-                     training loss.
+                     training loss. Both sources sit on
+                     csrc/tile_product.cuh: register-tile products over a
+                     cp.async ring, launch plans in Python (``plan``).
   * train_step.py  — ``fused_train_step`` (csrc/train_step.cuh, fp32 in
                      train_step.cu): one whole training step (forward and
                      every gradient) of the packed cVAE for every fold;

@@ -12,6 +12,7 @@ Any build, load or launch error raises.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -103,14 +104,19 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mmnm_encoder.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
                                  i32, ptrs, ptrs, ints, i32, ptr]
     lib.mmnm_encoder.restype = i32
-    lib.mmnm_pred_deviation.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32,
-                                        i32, i32, i32, i32, ptrs, ptrs, ints,
-                                        i32, ptr]
+    lib.mmnm_pred_deviation.argtypes = [ptr] * 6 + [i32] * 6 + [
+        ptrs, ptrs, ints, i32, i32, ptr]
     lib.mmnm_pred_deviation.restype = i32
     lib.mmnm_decoder_nll_fwd.argtypes = [ptr] * 9 + [i32] * 5 + [ptr]
     lib.mmnm_decoder_nll_fwd.restype = i32
-    lib.mmnm_decoder_nll_bwd.argtypes = [ptr] * 16 + [i32] * 6 + [ptr]
+    lib.mmnm_decoder_nll_bwd.argtypes = ([ptr] * 8 + [i32] + [ptr] * 5
+                                         + [i32] * 5 + [ptr])
     lib.mmnm_decoder_nll_bwd.restype = i32
+    sizes = ctypes.POINTER(ctypes.c_longlong)
+    lib.mmnm_decoder_nll_sizes.argtypes = [i32, sizes]
+    lib.mmnm_decoder_nll_sizes.restype = None
+    lib.mmnm_pred_deviation_sizes.argtypes = [i32, sizes]
+    lib.mmnm_pred_deviation_sizes.restype = None
     lib.mmnm_train_step.argtypes = [ptrs, ints, i32, ptr]
     lib.mmnm_train_step.restype = i32
     lib.mmnm_train_step_workspace.argtypes = [ints, i32]
@@ -127,8 +133,29 @@ def load_library() -> ctypes.CDLL:
     global _lib
     with _lib_lock:
         if _lib is None:
-            _lib = _declare(ctypes.CDLL(str(build_library())))
+            lib = _declare(ctypes.CDLL(str(build_library())))
+            _check_mirrored_sizes(lib)
+            _lib = lib
         return _lib
+
+
+def _check_mirrored_sizes(lib: ctypes.CDLL) -> None:
+    """The launch plans are computed here, in Python, from tile constants
+    that mirror csrc/tile_product.cuh: hold them to what the library
+    reports, at a few widths."""
+    out = (ctypes.c_longlong * 4)()
+    for width in (1, 13, 110, 128, 529):
+        lib.mmnm_decoder_nll_sizes(width, out)
+        want = [TILE_ROWS, TILE_COLS, decoder_nll_fwd_smem(width),
+                decoder_nll_smem(width)]
+        if list(out) != want:
+            raise RuntimeError(f"decoder_nll.cu reports {list(out)} at width "
+                               f"{width}, _build.py expects {want}")
+        lib.mmnm_pred_deviation_sizes(width, out)
+        want = [TILE_ROWS, TILE_COLS, pred_deviation_smem(width)]
+        if list(out)[:3] != want:
+            raise RuntimeError(f"pred_deviation.cu reports {list(out)[:3]} at "
+                               f"width {width}, _build.py expects {want}")
 
 
 def check_launch(lib: ctypes.CDLL, rc: int, kernel: str) -> None:
@@ -140,13 +167,26 @@ def check_launch(lib: ctypes.CDLL, rc: int, kernel: str) -> None:
 # ---- operand checks shared by the wrappers ----------------------------------
 
 # the largest dynamic shared memory an H100 block may use (227 KB), and the
-# tile constants of csrc/tile_mlp.cuh that set a CTA's use of it: TM rows,
-# BN columns, sizeof(mmnm::Stage), MAX_LAYERS
+# tile constants of csrc/tile_mlp.cuh (the encoder's) that set a CTA's use of
+# it: TM rows, BN columns, sizeof(mmnm::Stage), MAX_LAYERS
 MAX_SMEM_BYTES = 232448
 TM = 32
 BN = 64
 _STAGE_BYTES = 4 * (TM * 33 + 32 * 65)
 _MAX_LAYERS = 8
+
+# csrc/tile_product.cuh (decoder_nll.cu, pred_deviation.cu): a block's tile
+# is TILE_ROWS x TILE_COLS, its cp.async ring three slots of [128][32 + 4]
+# floats; load_library() holds these to what the library reports
+TILE_ROWS = 32
+TILE_COLS = 128
+RING_BYTES = 4 * 3 * TILE_COLS * 36
+_DMEAN_TILE_BYTES = 4 * TILE_ROWS * (TILE_COLS + 8)
+# an H100's SMs, and the blocks of these kernels that share one (256
+# threads, at most 128 registers a thread, under half its shared memory at
+# the flagship widths): what a launch plan fills
+SMS = 132
+BLOCKS_PER_SM = 2
 
 Layer = Tuple[torch.Tensor, torch.Tensor]
 
@@ -202,11 +242,53 @@ def chain_widths(kernel: str, layers: Sequence[Layer], k_in: int,
     return widths
 
 
+def tile_ld(width: int) -> int:
+    """Row stride (floats) of a shared-memory activation tile of ``width``
+    columns: a multiple of 4 that is 8 mod 16 (tile_product.cuh)."""
+    return width + (24 - width % 16) % 16
+
+
+def decoder_nll_fwd_smem(hidden: int) -> int:
+    """Shared memory of csrc/decoder_nll.cu's forward block: the ring, the
+    g tile of ``hidden`` columns and the block sum's 256 floats."""
+    return RING_BYTES + 4 * (TILE_ROWS * tile_ld(hidden) + 256)
+
+
 def decoder_nll_smem(hidden: int) -> int:
-    """Shared memory of csrc/decoder_nll.cu's largest block (the dW pass):
-    the stage, two dmean-sized tiles and a g tile plus a dW tile of
-    ``hidden`` columns."""
-    return _STAGE_BYTES + 4 * (2 * TM * (BN + 1) + (TM + BN) * hidden)
+    """Shared memory of csrc/decoder_nll.cu's largest block (the
+    backward): the ring, the g tile of ``hidden`` columns, the dmean tile
+    and the column sums."""
+    return (RING_BYTES + 4 * TILE_ROWS * tile_ld(hidden) + _DMEAN_TILE_BYTES
+            + 4 * 4 * TILE_COLS)
+
+
+def pred_deviation_smem(widest: int) -> int:
+    """Shared memory of csrc/pred_deviation.cu's block: the ring, two
+    activation tiles as wide as the widest of the input and the hidden
+    layers, and the row sums."""
+    return RING_BYTES + 4 * (2 * TILE_ROWS * tile_ld(widest) + 4 * TILE_ROWS)
+
+
+def fill_split(blocks: int, loop: int, unit: float = 0.0) -> int:
+    """Into how many blocks to split a loop of ``loop`` steps that each of
+    ``blocks`` blocks would walk alone, so that the launch takes the fewest
+    block-times: waves of SMS * BLOCKS_PER_SM blocks, each block walking
+    ceil(loop / split) steps plus ``unit`` steps of work that every block
+    repeats. The smallest such split. A launch gets at least SMS blocks
+    wherever blocks * loop allows it."""
+    slots = SMS * BLOCKS_PER_SM
+    return min(range(1, max(loop, 1) + 1),
+               key=lambda s: (-(-blocks * s // slots) * (-(-loop // s) + unit),
+                              s))
+
+
+def current_device_guard(device: torch.device):
+    """``torch.cuda.device(device)``, or nothing when ``device`` is
+    already the current one (the guard costs more than a launch's other
+    host work)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def launch_args(layers: Sequence[Layer], widths: Sequence[int]):

@@ -1,4 +1,5 @@
-// Row-tile MLP building blocks shared by encoder.cu and pred_deviation.cu.
+// Row-tile MLP building blocks of encoder.cu (pred_deviation.cu and
+// decoder_nll.cu build on tile_product.cuh).
 //
 // One CTA owns TM rows of one fold and runs a whole chain of small linear
 // layers on them: the first layer reads its input straight from device

@@ -26,9 +26,13 @@ from multi_modal_normative_modeling_tpu_torch.models import (
 pytestmark = pytest.mark.cuda
 
 TOL = dict(rtol=1e-5, atol=1e-5)
+# at 3485 the decode kernel splits the mean head's columns over blocks (7
+# groups), with 1000 rows over a ragged last row tile; the others take one
+# group
 CASES = [(1, 7, 90, 29, [110, 110]), (5, 1024, 270, 29, [110, 110]),
-         (1, 1024, 3485, 2, [110, 110]), (2, 33, 90, 29, [460, 460]),
-         (3, 65, 45, 3, []), (1, 40, 130, 29, [64, 110, 32])]
+         (1, 1024, 3485, 2, [110, 110]), (1, 1000, 3485, 2, [110, 110]),
+         (2, 33, 90, 29, [460, 460]), (3, 65, 45, 3, []),
+         (1, 40, 130, 29, [64, 110, 32]), (2, 100, 271, 2, [57, 33])]
 
 
 @pytest.fixture
@@ -73,13 +77,23 @@ def test_pred_deviation_kernel_matches_plain(cuda, folds, rows, d, c_dim,
     z, c, x = (_rows(rng, folds, rows, 10).to(cuda),
                _rows(rng, folds, rows, c_dim).to(cuda),
                _rows(rng, folds, rows, d).to(cuda))
+    from multi_modal_normative_modeling_tpu_torch.kernels import deviation
+
     with torch.no_grad():
+        before = kernels.fused_pred_deviation.launches
         recon, dev = dec.fused_pred_deviation(z, c, x)
+        assert kernels.fused_pred_deviation.launches == before + 1
         recon_p = dec(z, c)[0]
+        again = dec.fused_pred_deviation(z, c, x)
     torch.testing.assert_close(recon, recon_p, **TOL)
     torch.testing.assert_close(
         dev, kernels.reconstruction_deviation(x, recon_p), rtol=1e-4,
         atol=1e-6)
+    # partial deviations are summed in group order: bit-equal repeats
+    assert torch.equal(dev, again[1]) and torch.equal(recon, again[0])
+    plan = deviation.plan(folds, rows, 10 + c_dim, tuple(hidden), d)
+    if d == 3485:
+        assert plan.groups == 7   # the column-group route
 
 
 def test_scoring_call_runs_every_modality_through_the_kernels(cuda):
@@ -137,33 +151,59 @@ def _nll_operands(cuda, rng, folds, rows, hidden, d):
     return (g, w, b, lvo), x, mask, torch.clamp(mask.sum(-1), min=1.0)
 
 
+# (5, 256, 110, 3485) splits the forward's columns 6 ways and the
+# backward's rows 8 ways; (2, 300, 529, 90) has 5 h blocks and one column
+# chunk; (2, 40, 130, 1000) two h blocks and 8 chunks
+@pytest.mark.parametrize("uniform", [True, False],
+                         ids=["uniform", "nonuniform"])
 @pytest.mark.parametrize("folds,rows,hidden,d", [
     (1, 7, 110, 90), (5, 256, 110, 270), (1, 256, 110, 3485),
-    (3, 65, 17, 130), (2, 1, 110, 64), (2, 300, 529, 90)])
-def test_decoder_nll_kernels_match_autograd(cuda, folds, rows, hidden, d):
-    from multi_modal_normative_modeling_tpu_torch.kernels.decoder_nll import (
-        decoder_nll,
-        decoder_nll_reference,
-    )
+    (3, 65, 17, 130), (2, 1, 110, 64), (2, 300, 529, 90),
+    (5, 256, 110, 3485), (2, 40, 130, 1000)])
+def test_decoder_nll_kernels_match_autograd(cuda, folds, rows, hidden, d,
+                                            uniform):
+    import importlib
+
+    nll = importlib.import_module(
+        "multi_modal_normative_modeling_tpu_torch.kernels.decoder_nll")
+    decoder_nll, decoder_nll_reference = (nll.decoder_nll,
+                                          nll.decoder_nll_reference)
+    plan = nll.plan(folds, rows, hidden, d)
+    if (folds, d) == (5, 3485):
+        assert (plan.fwd_split, plan.bwd_split) == (6, 8)
 
     rng = np.random.default_rng(d + rows)
     params, x, mask, n = _nll_operands(cuda, rng, folds, rows, hidden, d)
+    # the cotangent of ll: all ones, or distinct per fold with the last 0
+    a = (torch.ones(folds, device=cuda) if uniform or folds == 1
+         else torch.linspace(1.5, 0.0, folds, device=cuda))
+    if folds == 1 and not uniform:
+        a = a * 0.75
 
-    def run(fn):
-        ll = fn(*params, x, mask, n)
-        return ll, torch.autograd.grad(ll.sum(), params)
+    def run(fn, cast=lambda t: t):
+        leaves = [cast(p.detach()).requires_grad_() for p in params]
+        ll = fn(*leaves, cast(x), cast(mask), cast(n))
+        grads = torch.autograd.grad((cast(a) * ll).sum(), leaves)
+        return ll.detach().float(), [t.float() for t in grads]
 
     before = kernels.decoder_nll.launches
     ll, grads = run(decoder_nll)
     assert kernels.decoder_nll.launches == before + 2
-    ll_p, grads_p = run(decoder_nll_reference)
+    # the plain code in fp64: on the card its fp32 sums (cuBLAS) stray
+    # further from fp64 than the kernel's
+    ll_p, grads_p = run(decoder_nll_reference, lambda t: t.double())
     torch.testing.assert_close(ll, ll_p, rtol=1e-5, atol=0.0)
     tol = (dict(rtol=1e-3, atol=1e-5) if d > 270
            else dict(rtol=1e-4, atol=1e-6))
     for got, want in zip(grads, grads_p):
         torch.testing.assert_close(got, want, **tol)
-    for a, b in zip(grads, run(decoder_nll)[1]):
-        assert torch.equal(a, b)
+    for got, rep in zip(grads, run(decoder_nll)[1]):
+        assert torch.equal(got, rep)
+    if not uniform and folds > 1:
+        # a zero cotangent reaches every gradient of its fold, and only it
+        assert all(float(t[-1].abs().max()) == 0.0 for t in grads)
+        if rows > 2:
+            assert all(float(t[0].abs().max()) > 0.0 for t in grads)
 
 
 def test_decoder_nll_refuses_what_it_does_not_take(cuda):
@@ -177,7 +217,7 @@ def test_decoder_nll_refuses_what_it_does_not_take(cuda):
         decoder_nll(g.detach().mT.contiguous().mT, w, b, lvo, x, mask, n)
     with pytest.raises(ValueError, match="expected"):
         decoder_nll(g, w, b, lvo, x[:, :, :39].contiguous(), mask, n)
-    wide = _nll_operands(cuda, rng, 1, 8, 530, 40)
+    wide = _nll_operands(cuda, rng, 1, 8, 1800, 40)
     with pytest.raises(ValueError, match="shared memory"):
         decoder_nll(*wide[0], *wide[1:])
 
