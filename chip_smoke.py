@@ -7,10 +7,12 @@ Phases (any failure exits non-zero, with no result line):
   1. require a CUDA device; print the card's name and power limit;
   2. build the CUDA kernels from kernels/csrc/ with nvcc (sm_90a);
   3. hold the encoder, decode+deviation and decoder-mean kernels against
-     their plain torch versions on the card (TF32 off) at the test stage's
-     shapes (one of them takes the decode kernel's column groups with a
-     ragged last row tile), check that two calls give a bit-equal
-     deviation, and time both;
+     their plain torch versions on the card (TF32 off; the encoder against
+     the plain code evaluated in fp64) at the test stage's shapes (one of
+     them takes the decode kernel's column groups with a ragged last row
+     tile; the encoder also with a forced K split at the flagship's width
+     and with hidden layers wider than a column block), check that two
+     calls give a bit-equal deviation, mu and logvar, and time both;
   3b. hold the decoder_nll kernel pair (forward and backward) against its
      plain version plus autograd, with ragged row masks, at training
      shapes; check that two backward calls are bit-equal; time both, the
@@ -42,7 +44,14 @@ Phases (any failure exits non-zero, with no result line):
   7. train the flagship (5 folds, 10 epochs) through FusedFoldTrainer (K5)
      and hold it against MultiFoldTrainer with the plain loss from the same
      init and eps, counting K5 launches; the same at PPMI width; then a few
-     bf16 steps through K6 against the fp32 run; ms per step of both paths.
+     bf16 steps through K6 against the fp32 run; ms per step of both paths;
+  8. the chain on the card: a synthetic ADNI cohort of 600 subjects in a
+     temporary directory, then train -> test -> analysis in this process
+     through cli.pipeline (UCA-gPoE, 5 folds, --fused_train_step, epochs
+     cut): K1, K2 and K5 must have been launched, the four report files
+     must have the JAX package's layout with every AUC finite and in
+     [0, 1], and the analysis stage run again on the same CSVs must write
+     byte-equal files; wall time of each stage and of the whole.
 
 Beside every kernel time stands the kernel's bound: the least time the
 card could take for the same work (kernels/roofline.py: the larger of its
@@ -55,15 +64,20 @@ from a CUDA graph, the host out of the way (`device_ms`).
 The last line is {"ok": true, "device": {"platform": "gpu", ...}}; the line
 before it holds the kernels' launches, errors, times and bounds.
 """
-import importlib.util
-import json
-import subprocess
-import sys
 import time
-from pathlib import Path
 
-import numpy as np
-import torch
+PROCESS_START = time.perf_counter()   # before numpy and torch are imported
+
+import importlib.util  # noqa: E402
+import json  # noqa: E402
+import re  # noqa: E402
+import subprocess  # noqa: E402
+import sys  # noqa: E402
+import tempfile  # noqa: E402
+from pathlib import Path  # noqa: E402
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 
@@ -80,6 +94,12 @@ COMBINE = "gpoe"
 # mean head's columns over blocks, with 1000 rows over a ragged last tile
 SHAPES = [(1, 7, 90, 29), (1, 1000, 3485, 2), (1, 1024, 3485, 2),
           (FOLDS, ROWS, 90, C_DIM), (FOLDS, ROWS, 270, C_DIM)]
+# the encoder also where its plan differs in kind: the first layer's
+# reduction cut in two at the flagship's widest modality (partials and a
+# ticket, where the plan takes one block a row tile), and hidden layers wider
+# than one 128-column block; ((folds, rows, D, C), hidden, forced K splits)
+ENCODER_EXTRA = [((FOLDS, ROWS, 270, C_DIM), HIDDEN, 2),
+                 ((2, 100, 270, C_DIM), [130, 110], None)]
 TOL = dict(rtol=1e-5, atol=1e-5)       # mu, logvar, recon
 DEV_TOL = dict(rtol=1e-4, atol=1e-6)   # per-row deviation
 MODEL_TOL = dict(rtol=2e-4, atol=2e-5)  # whole scoring call
@@ -142,6 +162,14 @@ STEP_SHAPES = [
 FLAT_CHECKED = ("flagship", "ragged widths", "PPMI")
 TILE = 64        # K6's tile in phase 6b: 4 row groups of the flagship batch
 BF16_STEPS = 4   # phase 7's bf16 steps (2 epochs of the flagship cohort)
+
+# phase 8: the cohort (healthy controls, then the two disease groups), the
+# chain's flags, and the reports the analysis stage writes
+CHAIN_COHORT = dict(n_hc=300, n_disease={0: 150, 1: 150})
+CHAIN_FLAGS = ["-R", "ADNI", "-P", "UCA-gPoE", "-K", str(FOLDS),
+               "-E", str(TRAIN_EPOCHS), "--fused_train_step"]
+CHAIN_REPORTS = ["result_baseline/result_multimodal.txt",
+                 "result_baseline/result_4.txt", "cvae_auc_and_std.csv"]
 
 
 def cuda_ms(fn, iters=50, warmup=5):
@@ -237,6 +265,30 @@ def one_hot_covariates(rng, rows):
 def covariates(rng, folds, rows):
     return torch.from_numpy(np.stack([one_hot_covariates(rng, rows)
                                       for _ in range(folds)])).cuda()
+
+
+def check_encoder(enc, x, c, splits=None):
+    """K1 against the plain code evaluated in fp64 (rounded to fp32), two
+    calls bit-equal; returns (max abs err, max rel err, its plan)."""
+    from multi_modal_normative_modeling_tpu_torch.kernels import mlp
+
+    layers = (enc.hidden_layers(), enc.mu.pair(), enc.logvar.pair())
+    got = mlp.fused_encoder(*layers, x, c, enc.non_linear, splits=splits)
+    again = mlp.fused_encoder(*layers, x, c, enc.non_linear, splits=splits)
+    want = mlp.encoder_reference(
+        [tuple(fp64(*layer)) for layer in layers[0]],
+        *[tuple(fp64(*head)) for head in layers[1:]], *fp64(x, c),
+        enc.non_linear)
+    errs = []
+    for name, g, a, w in zip(("mu", "logvar"), got, again, want):
+        if not torch.equal(g, a):
+            raise RuntimeError(f"fused_encoder {name}: two calls differ")
+        errs.append(check_close(f"fused_encoder {name}", g, w.float(), TOL))
+    folds, rows, d = x.shape
+    plan = mlp.plan(folds, rows, d + c.shape[2],
+                    tuple(w.shape[1] for w, _ in layers[0]),
+                    layers[1][0].shape[1], splits)
+    return max(e for e, _ in errs), max(r for _, r in errs), plan
 
 
 def check_nll(rng, folds, rows, hidden, d):
@@ -502,7 +554,9 @@ def check_step(name, dims, hidden, folds, rows, c_dim, z_dim, combine):
           f"{ms:.4f} ms vs plain forward+autograd {plain:.4f} ms; "
           f"{bound_text(work, ms)}", flush=True)
     device = (device_ms(lambda: step.loss_and_grads_flat(named, *batch))
-              if name == "flagship" else None)   # the shape the report keeps
+              if name in ("flagship", "PPMI") else None)   # the report's shapes
+    if device is not None:
+        print(f"phase 6a: K5 {name}: device {device:.4f} ms", flush=True)
     return err, (ms, plain, work, device)
 
 
@@ -629,7 +683,13 @@ def check_tiled():
           f"{ragged[torch.float32]:.3e} (fp32), "
           f"{ragged[torch.bfloat16]:.3e} (bf16), bit-equal", flush=True)
     device16 = device_ms(lambda: t16.loss_and_grads_flat(named_w, *b16))
-    return err, (ms16, plain16, work16, device16)
+    device32 = device_ms(lambda: t32.loss_and_grads_flat(named, *batch))
+    print(f"phase 6b: K6 device ms: bf16 {device16:.4f}, fp32 {device32:.4f}",
+          flush=True)
+    fp32 = {"ms": ms32, "device_ms": device32, "plain_ms": plain32,
+            "bound_ms": step_work(DIMS, HIDDEN, FOLDS, BATCH, C_DIM,
+                                  LATENT).bound_ms}
+    return err, (ms16, plain16, work16, device16, fp32)
 
 
 def fused_training_run(dims, rows_per_fold, epochs, seed, fused,
@@ -769,6 +829,88 @@ def bf16_training(seed):
     return launches
 
 
+def check_reports(root, stats):
+    """The analysis stage's files, in the JAX package's layout: three
+    comparisons of ADNI, one block each in result_multimodal.txt, one block
+    in result_4.txt, the last comparison's per-fold AUCs and their std in
+    cvae_auc_and_std.csv, and an auc_rocs.csv per comparison. Returns the
+    files' bytes by relative path."""
+    number = r"-?(?:[0-9]+\.[0-9]+|inf|nan)"
+    block = (r"Experiment settings: CVAE\. [^\n]*\n"
+             r"(?: args\.Model [^\n]*\n)?"
+             + "".join(rf"{name}: \$ {number} \\pm {number} \$ \n"
+                       for name in ("ROC-AUC", "Accuracy", "Sensitivity",
+                                    "Specificity", "Significance ratio"))
+             + r"hz_para_list: \[110, 110, 10\]\n\n\n\n")
+    files = [Path(rel) for rel in CHAIN_REPORTS] + sorted(
+        p.relative_to(root) for p in root.rglob("auc_rocs.csv"))
+    texts = {rel: (root / rel).read_bytes() for rel in files}
+    for rel, blocks in zip(files[:2], (3, 1)):
+        if not re.fullmatch(f"(?:{block}){{{blocks}}}", texts[rel].decode()):
+            raise RuntimeError(f"phase 8: {rel} is not {blocks} report "
+                               f"blocks:\n{texts[rel].decode()}")
+    aucs = list(stats["auc"])
+    table = np.loadtxt(root / files[2], delimiter=",")
+    if table.shape != (FOLDS + 1,):
+        raise RuntimeError(f"phase 8: {files[2]} holds {table.shape} values")
+    aucs += list(table[:-1])
+    if len(files) != 6:
+        raise RuntimeError(f"phase 8: report files {files}")
+    for rel in files[3:]:
+        lines = texts[rel].decode().split("\n")
+        if lines[0] != "ROC-AUC" or len(lines) != FOLDS + 2 or lines[-1]:
+            raise RuntimeError(f"phase 8: {rel}: {lines}")
+        aucs += [float(v) for v in lines[1:-1]]
+    if not all(np.isfinite(a) and 0.0 <= a <= 1.0 for a in aucs):
+        raise RuntimeError(f"phase 8: AUCs {aucs}")
+    return texts
+
+
+def run_chain():
+    """Phase 8: train, score and analyse a synthetic cohort in this process
+    through cli.pipeline; returns the chain's kernel launches."""
+    from multi_modal_normative_modeling_tpu_torch import kernels
+    from multi_modal_normative_modeling_tpu_torch.cli import pipeline
+    from multi_modal_normative_modeling_tpu_torch.data.synthetic import (
+        make_synthetic_resource,
+    )
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        make_synthetic_resource(root, "ADNI", with_early_fusion=True,
+                                **CHAIN_COHORT)
+        made = time.perf_counter() - t0
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        stats = pipeline.run(CHAIN_FLAGS, project_root=root)
+        torch.cuda.synchronize()
+        whole = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in kernels.KERNELS}
+        for name in ("fused_encoder", "fused_pred_deviation",
+                     "fused_train_step"):
+            if launches[name] == 0:
+                raise RuntimeError(f"phase 8: {name} was not launched by the "
+                                   f"chain: {launches}")
+        texts = check_reports(root, stats)
+        # the analysis stage again, on the same CSVs: the same bytes
+        for rel in texts:
+            (root / rel).unlink()
+        pipeline.run(CHAIN_FLAGS + ["--stages", "analyze"], project_root=root)
+        for rel, text in texts.items():
+            if (root / rel).read_bytes() != text:
+                raise RuntimeError(f"phase 8: {rel} differs when the "
+                                   "analysis runs again")
+        print(f"phase 8: ADNI cohort of {sum(CHAIN_COHORT['n_disease'].values()) + CHAIN_COHORT['n_hc']} "
+              f"subjects made in {made:.3f} s; chain "
+              f"{' '.join(CHAIN_FLAGS)} in one process: {whole:.3f} s in all "
+              f"(the stages' own times above); launches {launches}; AUC per "
+              f"comparison {[round(float(a), 4) for a in stats['auc']]}; "
+              f"{len(texts)} report files in the JAX package's layout, "
+              f"byte-equal when the analysis runs again", flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -795,6 +937,13 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
+    before_cuda = time.perf_counter()
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    print(f"phase 1: {before_cuda - PROCESS_START:.3f} s from the script's "
+          f"first line to the first CUDA call (imports and nvidia-smi), "
+          f"{time.perf_counter() - before_cuda:.3f} s in that call",
+          flush=True)
 
     # ---- phase 2: build ---------------------------------------------------
     t0 = time.perf_counter()
@@ -827,10 +976,7 @@ def main():
             dec = Decoder(d, HIDDEN, LATENT, c_dim, folds=folds,
                           generator=gen, device="cuda")
 
-            mu, lv = enc.fused(x, c)
-            mu_p, lv_p = enc(x, c)
-            e1, r1 = check_close("fused_encoder mu", mu, mu_p, TOL)
-            e2, r2 = check_close("fused_encoder logvar", lv, lv_p, TOL)
+            e1, r1, enc_plan = check_encoder(enc, x, c)
             mean = dec.fused_mean(z, c)
             e5, r5 = check_close("fused_decoder_mean", mean, dec(z, c)[0],
                                  TOL)
@@ -852,6 +998,7 @@ def main():
             mean_ms = cuda_ms(lambda: dec.fused_mean(z, c))
             mean_plain_ms = cuda_ms(lambda: dec(z, c)[0])
             enc_dev = device_ms(lambda: enc.fused(x, c))
+            enc_plain_dev = device_ms(lambda: enc(x, c))
             dec_dev = device_ms(lambda: dec.fused_pred_deviation(z, c, x))
             dec_plain_dev = device_ms(
                 lambda: kernels.reconstruction_deviation(x, dec(z, c)[0]))
@@ -861,10 +1008,12 @@ def main():
             dec_w = roofline.fused_pred_deviation(*shape)
             mean_w = roofline.fused_decoder_mean(*shape)
             print(f"phase 3: F={folds} B={rows} D={d} C={c_dim}: "
-                  f"encoder max abs err {max(e1, e2):.3e} (rel "
-                  f"{max(r1, r2):.3e}), {enc_ms:.4f} ms (device "
-                  f"{enc_dev:.4f}) vs plain "
-                  f"{enc_plain_ms:.4f} ms, {bound_text(enc_w, enc_ms)}; "
+                  f"encoder max abs err {e1:.3e} (rel {r1:.3e}) vs fp64, "
+                  f"bit-equal, {enc_plan.tiles} tiles x {enc_plan.splits} "
+                  f"splits of {enc_plan.k_per}, scratch {enc_plan.scratch}, "
+                  f"{enc_ms:.4f} ms (device {enc_dev:.4f}) vs plain "
+                  f"{enc_plain_ms:.4f} ms (device {enc_plain_dev:.4f}), "
+                  f"{bound_text(enc_w, enc_ms)}; "
                   f"pred_deviation recon err "
                   f"{e3:.3e} (rel {r3:.3e}), dev err {e4:.3e} (rel "
                   f"{r4:.3e}), dev bit-equal, {dec_ms:.4f} ms (device "
@@ -876,8 +1025,8 @@ def main():
                   f"{mean_plain_ms:.4f} ms, "
                   f"{bound_text(mean_w, mean_ms)}", flush=True)
             for name, err, ms, dev_ms, plain, work in (
-                    ("fused_encoder", max(e1, e2), enc_ms, enc_dev,
-                     enc_plain_ms, enc_w),
+                    ("fused_encoder", e1, enc_ms, enc_dev, enc_plain_ms,
+                     enc_w),
                     ("fused_pred_deviation", max(e3, e4), dec_ms, dec_dev,
                      dec_plain_ms, dec_w),
                     ("fused_decoder_mean", e5, mean_ms, mean_dev,
@@ -887,6 +1036,32 @@ def main():
                 # the flagship scoring call's widest modality
                 s["ms"], s["plain_ms"], s["work"] = ms, plain, work
                 s["device_ms"] = dev_ms
+            if (folds, rows, d) == (1, 1024, 3485):   # one PPMI modality
+                stats["fused_encoder"]["ppmi"] = {
+                    "ms": enc_ms, "device_ms": enc_dev,
+                    "plain_ms": enc_plain_ms,
+                    "plain_device_ms": enc_plain_dev,
+                    "bound_ms": enc_w.bound_ms}
+        stats["fused_encoder"]["plain_device_ms"] = enc_plain_dev
+
+        for (folds, rows, d, c_dim), hidden, splits in ENCODER_EXTRA:
+            x = torch.from_numpy(rng.standard_normal(
+                (folds, rows, d), dtype=np.float32)).cuda()
+            c = covariates(rng, folds, rows)
+            enc = Encoder(d, hidden, LATENT, c_dim, folds=folds,
+                          generator=gen, device="cuda")
+            err, rel, plan = check_encoder(enc, x, c, splits)
+            layers = (enc.hidden_layers(), enc.mu.pair(), enc.logvar.pair())
+            ms = device_ms(lambda: kernels.fused_encoder(
+                *layers, x, c, True, splits=splits))
+            print(f"phase 3: F={folds} B={rows} D={d} C={c_dim} hidden "
+                  f"{hidden}, K splits forced to {splits}: encoder max abs "
+                  f"err {err:.3e} (rel {rel:.3e}) vs fp64, bit-equal, "
+                  f"{plan.tiles} tiles x {plan.splits} splits of "
+                  f"{plan.k_per}, scratch {plan.scratch}, device {ms:.4f} ms",
+                  flush=True)
+            s = stats["fused_encoder"]
+            s["max_abs_err"] = max(s["max_abs_err"], err)
 
     # ---- phase 3b: decoder_nll forward and backward -----------------------
     for folds, rows, hidden, d in NLL_SHAPES:
@@ -986,10 +1161,15 @@ def main():
         s5["max_abs_err"] = max(s5["max_abs_err"], err)
         if shape[0] == "flagship":
             s5["ms"], s5["plain_ms"], s5["work"], s5["device_ms"] = times
+        if shape[0] == "PPMI":
+            s5["ppmi"] = {"ms": times[0], "device_ms": times[3],
+                          "plain_ms": times[1],
+                          "bound_ms": times[2].bound_ms}
     err, times = check_tiled()
     stats["tiled_fused_train_step"].update(max_abs_err=err, ms=times[0],
                                            plain_ms=times[1], work=times[2],
-                                           device_ms=times[3])
+                                           device_ms=times[3],
+                                           fp32=times[4])
 
     # ---- phase 7: training through the fused train step --------------------
     fused = compare_fused_training("flagship", DIMS, TRAIN_ROWS,
@@ -999,6 +1179,9 @@ def main():
     launches["fused_train_step"] = fused["fused_train_step"]
     launches["tiled_fused_train_step"] = tiled["tiled_fused_train_step"]
 
+    # ---- phase 8: the chain on the card ------------------------------------
+    chain_launches = run_chain()
+
     sources = {"fused_encoder": ("encoder.cu", "mlp.py:121"),
                "fused_pred_deviation": ("pred_deviation.cu",
                                         "deviation.py:76"),
@@ -1007,6 +1190,7 @@ def main():
                "fused_train_step": ("train_step.cu", "train_step.py:543"),
                "tiled_fused_train_step": ("train_step_bf16.cu",
                                           "train_step_tiled.py:447")}
+    print(f"phase 8: launches of the chain {chain_launches}", flush=True)
     missing = [name for name in sources if not launches.get(name)]
     if missing:
         raise RuntimeError(f"no launch on the main path: {missing}")
@@ -1029,8 +1213,11 @@ def main():
             # CUDA graph: `ms` less this is the wrapper's host work
             "device_ms": stats[name]["device_ms"],
         })
-        if "ppmi" in stats[name]:   # decoder_nll at one PPMI fold as well
-            report[-1]["ppmi"] = stats[name]["ppmi"]
+        # the same at PPMI width (K1, K4, K5), K6 with fp32 operands, and
+        # the device's time for K1's plain version
+        for extra in ("ppmi", "fp32", "plain_device_ms"):
+            if extra in stats[name]:
+                report[-1][extra] = stats[name][extra]
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,8 +14,11 @@ module names so each counterpart is easy to find:
   registry.py - dataset, modality and label tables
   data/       - CSV ingestion, scaling, covariate binning, synthetic cohorts
   infer/      - deviation math and the deviation CSV emitters
+  evaluation/ - deviation-to-classification metrics (numpy, no scikit-learn)
+                and the report writers
   utils/      - loss logs, plots, the JSONL run log
-  cli/        - the k-fold train stage and test stage (deviation scoring)
+  cli/        - the k-fold train stage, test stage (deviation scoring) and
+                analysis stage, and the three in one process (pipeline)
 
 Weights are stored as ``[fan_out, fan_in]`` with a leading fold axis
 (``[F, fan_out, fan_in]``): every fold of a k-fold run trains in one step
@@ -39,8 +42,8 @@ _PUBLIC_API = {
     "TrainConfig": "train",
 }
 
-_SUBMODULES = ("cli", "data", "infer", "interop", "kernels", "models", "ops",
-               "parallel", "registry", "train", "utils")
+_SUBMODULES = ("cli", "data", "evaluation", "infer", "interop", "kernels",
+               "models", "ops", "parallel", "registry", "train", "utils")
 
 __all__ = sorted(_PUBLIC_API) + list(_SUBMODULES)
 

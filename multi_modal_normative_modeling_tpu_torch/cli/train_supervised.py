@@ -87,7 +87,7 @@ def main(args, project_root=None, init_fn: Optional[InitFn] = None,
         raise SystemExit(f'--precision {precision} runs only through the '
                          'fused train step (K6): add --fused_train_step; '
                          'bf16 for the plain trainer is not ported yet, see '
-                         "ROADMAP.md, queue 1 item 1 'Trainer'")
+                         "ROADMAP.md, queue 1 item 'Trainer'")
     if fused:
         unsupported = _fused_flag_conflict(args)
         if unsupported:
@@ -176,7 +176,7 @@ def _fused_flag_conflict(args) -> Optional[str]:
     if variant != 'cvae':
         return (f'model {args.model!r}: the fused step trains '
                 "cVAE_multimodal; other variants are not ported, see "
-                "ROADMAP.md, queue 1 item 7 'Zoo'")
+                "ROADMAP.md, queue 1 item 'Zoo'")
     combine = (getattr(args, 'combine', None)
                or getattr(args, 'procedure', 'UCA-gPoE').split('-')[1])
     if combine.lower() not in ('poe', 'gpoe', 'moe', 'mopoe'):

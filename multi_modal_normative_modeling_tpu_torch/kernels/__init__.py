@@ -3,7 +3,9 @@ torch version.
 
 Kernel inventory:
   * mlp.py         — ``fused_encoder`` (csrc/encoder.cu): the conditional
-                     encoder chain for every fold in one launch.
+                     encoder chain for every fold in one launch, the first
+                     layer's reduction split over blocks where the card
+                     would stand empty.
   * deviation.py   — ``fused_pred_deviation`` (csrc/pred_deviation.cu):
                      decode plus per-row deviation for every fold in one
                      launch; ``fused_decoder_mean``, the same kernel
@@ -11,7 +13,7 @@ Kernel inventory:
   * decoder_nll.py — ``decoder_nll`` (csrc/decoder_nll.cu): the decoder's
                      mean head plus the masked Gaussian NLL, forward and
                      backward, for every fold; the ``--fused_decoder``
-                     training loss. Both sources sit on
+                     training loss. These three sources sit on
                      csrc/tile_product.cuh: register-tile products over a
                      cp.async ring, launch plans in Python (``plan``).
   * train_step.py  — ``fused_train_step`` (csrc/train_step.cuh, fp32 in

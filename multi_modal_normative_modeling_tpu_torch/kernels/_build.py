@@ -96,14 +96,29 @@ def build_library() -> Path:
     return out
 
 
+def _declare_encoder(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The entry points of csrc/encoder.cu (also built alone by
+    scripts/torch_encoder_tile_probe.py)."""
+    ptr = ctypes.c_void_p
+    i32 = ctypes.c_int
+    ptrs = ctypes.POINTER(ctypes.c_void_p)
+    lib.mmnm_encoder.argtypes = [ptr] * 5 + [i32] * 6 + [
+        ptrs, ptrs, ctypes.POINTER(ctypes.c_int), i32, i32, i32, ptr]
+    lib.mmnm_encoder.restype = i32
+    lib.mmnm_encoder_sizes.argtypes = [
+        i32, i32, ctypes.POINTER(ctypes.c_longlong)]
+    lib.mmnm_encoder_sizes.restype = None
+    lib.mmnm_error_string.argtypes = [i32]
+    lib.mmnm_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr = ctypes.c_void_p
     i32 = ctypes.c_int
     ptrs = ctypes.POINTER(ctypes.c_void_p)
     ints = ctypes.POINTER(ctypes.c_int)
-    lib.mmnm_encoder.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
-                                 i32, ptrs, ptrs, ints, i32, ptr]
-    lib.mmnm_encoder.restype = i32
+    _declare_encoder(lib)
     lib.mmnm_pred_deviation.argtypes = [ptr] * 6 + [i32] * 6 + [
         ptrs, ptrs, ints, i32, i32, ptr]
     lib.mmnm_pred_deviation.restype = i32
@@ -123,8 +138,6 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mmnm_train_step_workspace.restype = ctypes.c_longlong
     lib.mmnm_train_step_plan.argtypes = [ints, ints]
     lib.mmnm_train_step_plan.restype = i32
-    lib.mmnm_error_string.argtypes = [i32]
-    lib.mmnm_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -156,6 +169,14 @@ def _check_mirrored_sizes(lib: ctypes.CDLL) -> None:
         if list(out)[:3] != want:
             raise RuntimeError(f"pred_deviation.cu reports {list(out)[:3]} at "
                                f"width {width}, _build.py expects {want}")
+        for k_per in (TILE_DEPTH, 7 * TILE_DEPTH, 10 * TILE_DEPTH):
+            lib.mmnm_encoder_sizes(k_per, width, out)
+            want = [TILE_ROWS, TILE_COLS, TILE_DEPTH,
+                    encoder_smem(k_per, width)]
+            if list(out) != want:
+                raise RuntimeError(f"encoder.cu reports {list(out)} at "
+                                   f"k_per {k_per}, width {width}, _build.py "
+                                   f"expects {want}")
 
 
 def check_launch(lib: ctypes.CDLL, rc: int, kernel: str) -> None:
@@ -166,21 +187,21 @@ def check_launch(lib: ctypes.CDLL, rc: int, kernel: str) -> None:
 
 # ---- operand checks shared by the wrappers ----------------------------------
 
-# the largest dynamic shared memory an H100 block may use (227 KB), and the
-# tile constants of csrc/tile_mlp.cuh (the encoder's) that set a CTA's use of
-# it: TM rows, BN columns, sizeof(mmnm::Stage), MAX_LAYERS
+# the largest dynamic shared memory an H100 block may use (227 KB), what a
+# block may use when two are to share an SM (its 228 KB less the 1 KB the
+# system keeps per block, halved), and the kernels' MAX_LAYERS
 MAX_SMEM_BYTES = 232448
-TM = 32
-BN = 64
-_STAGE_BYTES = 4 * (TM * 33 + 32 * 65)
+HALF_SM_SMEM_BYTES = 233472 // 2 - 1024
 _MAX_LAYERS = 8
 
-# csrc/tile_product.cuh (decoder_nll.cu, pred_deviation.cu): a block's tile
-# is TILE_ROWS x TILE_COLS, its cp.async ring three slots of [128][32 + 4]
+# csrc/tile_product.cuh (encoder.cu, decoder_nll.cu, pred_deviation.cu): a
+# block's tile is TILE_ROWS x TILE_COLS, the weights stream in chunks
+# TILE_DEPTH deep through a cp.async ring of three slots of [128][32 + 4]
 # floats; load_library() holds these to what the library reports
 TILE_ROWS = 32
 TILE_COLS = 128
-RING_BYTES = 4 * 3 * TILE_COLS * 36
+TILE_DEPTH = 32
+RING_BYTES = 4 * 3 * TILE_COLS * (TILE_DEPTH + 4)
 _DMEAN_TILE_BYTES = 4 * TILE_ROWS * (TILE_COLS + 8)
 # an H100's SMs, and the blocks of these kernels that share one (256
 # threads, at most 128 registers a thread, under half its shared memory at
@@ -216,8 +237,9 @@ def check_rows(kernel: str, name: str, t: torch.Tensor, folds: int,
 def chain_widths(kernel: str, layers: Sequence[Layer], k_in: int,
                  n_hidden: int, folds: int) -> List[int]:
     """Checks that fold-stacked layers (w [F, n, k], b [F, n]) chain from an
-    input of width k_in (the heads all read the last hidden activation) and
-    fit the kernel's shared memory; returns each layer's output width."""
+    input of width k_in (the heads all read the last hidden activation);
+    returns each layer's output width. What the widths need of shared
+    memory is each kernel's plan to check."""
     widths = []
     k = k_in
     for l, (w, b) in enumerate(layers):
@@ -234,11 +256,6 @@ def chain_widths(kernel: str, layers: Sequence[Layer], k_in: int,
     if len(layers) > _MAX_LAYERS:
         raise ValueError(f"{kernel}: at most {_MAX_LAYERS} layers, got "
                          f"{len(layers)}")
-    widest = max(widths[:n_hidden], default=1)
-    smem = _STAGE_BYTES + 2 * TM * widest * 4
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"{kernel}: hidden width {widest} needs {smem} B of "
-                         f"shared memory, over the {MAX_SMEM_BYTES} B limit")
     return widths
 
 
@@ -269,15 +286,26 @@ def pred_deviation_smem(widest: int) -> int:
     return RING_BYTES + 4 * (2 * TILE_ROWS * tile_ld(widest) + 4 * TILE_ROWS)
 
 
-def fill_split(blocks: int, loop: int, unit: float = 0.0) -> int:
+def encoder_smem(k_per: int, widest: int) -> int:
+    """Shared memory of csrc/encoder.cu's block: the ring, a region that
+    holds the [32, k_per] slice of [x | c] and later an activation tile,
+    and an activation tile, each as wide as the widest hidden layer (1
+    without one)."""
+    ld = tile_ld(widest)
+    return RING_BYTES + 4 * TILE_ROWS * (max(tile_ld(k_per), ld) + ld)
+
+
+def fill_split(blocks: int, loop: int, unit: float = 0.0,
+               least: int = 1) -> int:
     """Into how many blocks to split a loop of ``loop`` steps that each of
     ``blocks`` blocks would walk alone, so that the launch takes the fewest
     block-times: waves of SMS * BLOCKS_PER_SM blocks, each block walking
     ceil(loop / split) steps plus ``unit`` steps of work that every block
-    repeats. The smallest such split. A launch gets at least SMS blocks
-    wherever blocks * loop allows it."""
+    repeats. The smallest such split that is at least ``least``. A launch
+    gets at least SMS blocks wherever blocks * loop allows it."""
     slots = SMS * BLOCKS_PER_SM
-    return min(range(1, max(loop, 1) + 1),
+    least = min(max(least, 1), max(loop, 1))
+    return min(range(least, max(loop, 1) + 1),
                key=lambda s: (-(-blocks * s // slots) * (-(-loop // s) + unit),
                               s))
 

@@ -4,64 +4,297 @@
 // mlp.py::fused_encoder (_encoder_kernel): concat(x, c) -> hidden linears
 // (+LeakyReLU 0.01 when non_linear) -> mu and logvar heads.
 //
-// Grid: (row tiles of TM rows, folds). The fold axis takes the place of the
-// JAX package's vmap over folds; weights are fold-stacked [F, n, k]. The
-// first layer reads x and c straight from device memory (column < D reads x,
-// the rest reads c), hidden activations stay in shared memory in fp32, and
-// only mu and logvar are written back. What bounds it on an H100: one read
-// of x and of each fold's weights per row tile, and the latency of a chain
-// of dependent small products; the TPU version's 128-lane padding and VMEM
-// budget do not carry over, bounds checks take their place.
-#include "tile_mlp.cuh"
+// What bounds it on an H100: operations (12 us of fp32 FFMA at 67 TFLOP/s
+// for 1024 rows of 3485 features against 4 us for the bytes of x), and
+// nearly all of them are the first layer's, whose reduction is as long as
+// the input is wide while its output is one 128-column block. So the design
+// has to spread that one reduction over the card. What it does:
+//   * a grid of (row tile of 32, K split, fold). Block (t, s, f) copies
+//     columns [s k_per, (s + 1) k_per) of its rows of [x | c] into shared
+//     memory with cp.async (c joins at column D: no concatenated copy is
+//     ever made in device memory) and multiplies them against the same
+//     columns of the first layer's weights through tile_product.cuh
+//     (weights streamed through the cp.async ring, sums in registers). The
+//     wrapper's plan picks the splits: as many as fill the card at two
+//     blocks an SM, which also bounds the slice a block holds;
+//   * with one split the block goes on through the chain. With more, every
+//     block writes its raw partial sums to scratch [split, F, B, N0] and
+//     the last block of a (row tile, fold) to arrive (an integer ticket, no
+//     float atomics) adds them in split order, adds the bias, applies the
+//     activation and runs the rest of the chain: two calls give bit-equal
+//     results;
+//   * the rest of the chain (hidden to hidden, the two heads) runs on
+//     activation tiles in shared memory, which are the products' A operand
+//     in place; only mu and logvar go to device memory. The second
+//     activation tile lies over the input slice, which is dead by then;
+//   * without a hidden layer the two heads read [x | c] themselves, and the
+//     split applies to them (N0 = 2 Z: mu's columns, then logvar's).
+#include "tile_product.cuh"
 
 namespace mmnm {
+namespace {
 
-__global__ void __launch_bounds__(THREADS)
-encoder_kernel(const float* __restrict__ x, const float* __restrict__ c,
-               float* __restrict__ mu, float* __restrict__ lv, int B, int D,
-               int C, int Z, Layers L, int n_hidden, int non_linear, int ld) {
-  extern __shared__ float smem[];
-  Stage& st = *reinterpret_cast<Stage*>(smem);
-  float* h0 = smem + sizeof(Stage) / sizeof(float);
-  float* h1 = h0 + TM * ld;
+using namespace mmnm_tp;
 
-  const int f = blockIdx.y;
-  const int row0 = blockIdx.x * TM;
-  const int rows = min(TM, B - row0);
-  const size_t frow = (size_t)f * B + row0;
-
-  const ConcatRows in{x + frow * D, c + frow * C, D, C, rows};
-  const float* cur = run_hidden(in, L, n_hidden, f, non_linear != 0, st, h0,
-                                h1, ld);
-  ToGlobal to_mu{mu + frow * Z, Z, rows};
-  run_head(in, cur, ld, L.l[n_hidden], f, st, to_mu);
-  ToGlobal to_lv{lv + frow * Z, Z, rows};
-  run_head(in, cur, ld, L.l[n_hidden + 1], f, st, to_lv);
+// Source columns [lo, hi) of the tile's rows of src (rows ld floats apart)
+// to a[r][dst0 + (s - lo)] for r < TM; rows past `rows` become zero. lo,
+// hi, dst0 and ld are multiples of VEC and src is aligned to it.
+template <int VEC>
+__device__ __forceinline__ void stage_cols(float* a, int lda, int dst0,
+                                           const float* src, int ld, int rows,
+                                           int lo, int hi) {
+  const int groups = (hi - lo) / VEC;
+  for (int e = threadIdx.x; e < TM * groups; e += THREADS) {
+    const int r = e / groups;
+    const int g = e % groups;
+    const bool ok = r < rows;
+    cp_async<VEC>(a + r * lda + dst0 + VEC * g,
+                  ok ? src + (size_t)r * ld + lo + VEC * g : src, ok);
+  }
 }
 
+__device__ __forceinline__ void stage_cols(float* a, int lda, int dst0,
+                                           const float* src, int ld, int rows,
+                                           int lo, int hi, int vec) {
+  if (vec == 4) {
+    stage_cols<4>(a, lda, dst0, src, ld, rows, lo, hi);
+  } else if (vec == 2) {
+    stage_cols<2>(a, lda, dst0, src, ld, rows, lo, hi);
+  } else {
+    stage_cols<1>(a, lda, dst0, src, ld, rows, lo, hi);
+  }
+}
+
+// Epilogue of a head: v + b to device memory.
+struct ToGlobal {
+  float* out;          // the tile's first row, column 0
+  const float* b;
+  int N;
+  int rows;
+  __device__ void operator()(int n0, const float (&acc)[RM][RN]) {
+    const Lanes ln;
+#pragma unroll
+    for (int j = 0; j < RN; ++j) {
+      const int n = n0 + ln.col_nt(j);
+      if (n >= N) continue;
+      const float bias = b[n];
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        const int r = ln.row(i);
+        if (r < rows) out[(size_t)r * N + n] = acc[i][j] + bias;
+      }
+    }
+  }
+};
+
+// Epilogue of a split first layer: the raw sums to the split's partials.
+struct ToPart {
+  float* out;          // the tile's first row, this product's first column
+  int ld;              // N0
+  int N;
+  int rows;
+  __device__ void operator()(int n0, const float (&acc)[RM][RN]) {
+    const Lanes ln;
+#pragma unroll
+    for (int j = 0; j < RN; ++j) {
+      const int n = n0 + ln.col_nt(j);
+      if (n >= N) continue;
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        const int r = ln.row(i);
+        if (r < rows) out[(size_t)r * ld + n] = acc[i][j];
+      }
+    }
+  }
+};
+
+// Dynamic shared memory: the ring; `first`, the slice [TM][lda] of [x | c]
+// and later an activation tile [TM][ld]; `second`, an activation tile.
+__global__ void __launch_bounds__(THREADS, 2)
+encoder_kernel(const float* __restrict__ x, const float* __restrict__ c,
+               float* __restrict__ mu, float* __restrict__ lv, float* scratch,
+               int B, int D, int C, int Z, Layers L, int n_hidden,
+               int non_linear, int k_per, int lda, int ld, int first_floats,
+               int vec_x, int vec_c) {
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;
+  float* first = ring + RING_FLOATS;
+  float* second = first + first_floats;
+
+  const int tile = blockIdx.x;
+  const int split = blockIdx.y;
+  const int splits = gridDim.y;
+  const int f = blockIdx.z;
+  const int F = gridDim.z;
+  const int row0 = tile * TM;
+  const int rows = min(TM, B - row0);
+  const size_t frow = (size_t)f * B + row0;
+  const int K = D + C;
+  const int k_lo = split * k_per;
+  const int k_hi = min(K, k_lo + k_per);
+  const int kw = k_hi - k_lo;
+  const bool act = non_linear != 0;
+
+  // the block's columns of [x | c]
+  if (k_lo < D) {
+    stage_cols(first, lda, 0, x + frow * D, D, rows, k_lo, min(D, k_hi),
+               vec_x);
+  }
+  if (k_hi > D) {
+    const int lo = max(k_lo, D);
+    stage_cols(first, lda, lo - k_lo, c + frow * C, C, rows, lo - D, k_hi - D,
+               vec_c);
+  }
+  cp_async_commit();
+  // every other entry of both regions zero, so that what a product reads
+  // past a layer's width is finite
+  for (int e = threadIdx.x; e < first_floats; e += THREADS) {
+    if (e >= TM * lda || e % lda >= kw) first[e] = 0.f;
+  }
+  for (int e = threadIdx.x; e < TM * ld; e += THREADS) second[e] = 0.f;
+
+  // the layers that read [x | c]: the first hidden layer, or both heads
+  const int n_first = n_hidden > 0 ? 1 : 2;
+  const int N0 = n_hidden > 0 ? L.l[0].n : 2 * Z;
+  float* part = scratch + (size_t)F * gridDim.x;   // [splits, F, B, N0]
+  for (int q = 0; q < n_first; ++q) {
+    const Layer& ly = L.l[q];
+    const float* w = ly.w + (size_t)f * ly.n * K + k_lo;
+    const float* b = ly.b + (size_t)f * ly.n;
+    const int blocks = (ly.n + BN - 1) / BN;
+    if (splits > 1) {
+      ToPart epi{part + (((size_t)split * F) * B + frow) * N0 + q * Z, N0,
+                 ly.n, rows};
+      product_nt(first, lda, w, K, kw, ly.n, ly.vec, 0, 1, blocks, ring, epi);
+    } else if (n_hidden > 0) {
+      ToAct epi{second, ld, b, ly.n, act};
+      product_nt(first, lda, w, K, kw, ly.n, ly.vec, 0, 1, blocks, ring, epi);
+    } else {
+      ToGlobal epi{(q == 0 ? mu : lv) + frow * Z, b, Z, rows};
+      product_nt(first, lda, w, K, kw, ly.n, ly.vec, 0, 1, blocks, ring, epi);
+    }
+  }
+
+  if (splits > 1) {
+    unsigned* tickets = reinterpret_cast<unsigned*>(scratch);
+    if (!arrive_last(tickets + (size_t)f * gridDim.x + tile, splits)) return;
+    for (int e = threadIdx.x; e < rows * N0; e += THREADS) {
+      const int r = e / N0;
+      const int n = e % N0;
+      float s = 0.f;
+      for (int q = 0; q < splits; ++q) {
+        s += __ldcg(part + (((size_t)q * F) * B + frow + r) * N0 + n);
+      }
+      if (n_hidden > 0) {
+        const float v = s + L.l[0].b[(size_t)f * N0 + n];
+        second[r * ld + n] = act ? leaky(v) : v;
+      } else if (n < Z) {
+        mu[(frow + r) * Z + n] = s + L.l[0].b[(size_t)f * Z + n];
+      } else {
+        lv[(frow + r) * Z + n - Z] = s + L.l[1].b[(size_t)f * Z + n - Z];
+      }
+    }
+  }
+  if (n_hidden == 0) return;
+
+  // `first` turns from the input slice into an activation tile
+  if (n_hidden > 1) {
+    for (int e = threadIdx.x; e < TM * ld; e += THREADS) first[e] = 0.f;
+  }
+  __syncthreads();
+  float* cur = second;
+  float* nxt = first;
+  for (int l = 1; l < n_hidden; ++l) {
+    const Layer& ly = L.l[l];
+    ToAct epi{nxt, ld, ly.b + (size_t)f * ly.n, ly.n, act};
+    product_nt(cur, ld, ly.w + (size_t)f * ly.n * ly.k, ly.k, ly.n, ly.vec, 0,
+               1, (ly.n + BN - 1) / BN, ring, epi);
+    float* t = cur;
+    cur = nxt;
+    nxt = t;
+  }
+  for (int q = 0; q < 2; ++q) {
+    const Layer& ly = L.l[n_hidden + q];
+    ToGlobal epi{(q == 0 ? mu : lv) + frow * Z, ly.b + (size_t)f * Z, Z, rows};
+    product_nt(cur, ld, ly.w + (size_t)f * Z * ly.k, ly.k, Z, ly.vec, 0, 1,
+               (Z + BN - 1) / BN, ring, epi);
+  }
+}
+
+int have[MAX_DEVICES];
+
+// Floats of the region that holds the input slice, then an activation tile.
+int first_region(int k_per, int ld) {
+  const int lda = tile_ld(k_per);
+  return TM * (lda > ld ? lda : ld);
+}
+
+size_t smem_bytes(int k_per, int ld) {
+  return (RING_FLOATS + (size_t)first_region(k_per, ld) + TM * ld) *
+         sizeof(float);
+}
+
+}  // namespace
 }  // namespace mmnm
+
+// The tile constants and the shared memory the Python plan mirrors:
+// out = {TM, BN, BK, bytes} for a slice of k_per columns and a widest hidden
+// layer `widest` (1 without a hidden layer).
+extern "C" void mmnm_encoder_sizes(int k_per, int widest, long long* out) {
+  using namespace mmnm;
+  out[0] = TM;
+  out[1] = BN;
+  out[2] = BK;
+  out[3] = (long long)smem_bytes(k_per, tile_ld(widest));
+}
 
 // x [F, B, D], c [F, B, C] -> mu, lv [F, B, Z]. w, b and widths hold
 // n_hidden + 2 layers: the hidden layers, then the mu head and the logvar
-// head (widths Z). Launches on `stream` and returns cudaGetLastError().
+// head (widths Z). The reduction over D + C is cut into `splits` slices of
+// k_per columns (a multiple of the chunk depth; every slice holds a column).
+// With splits > 1 `scratch` holds F * ceil(B / 32) tickets (zero before the
+// first launch; every launch leaves them zero) and then splits * F * B * N0
+// partials, N0 the first hidden width, or 2 Z without a hidden layer.
+// Launches on `stream` and returns cudaGetLastError().
 extern "C" int mmnm_encoder(const float* x, const float* c, float* mu,
-                            float* lv, int F, int B, int D, int C, int Z,
-                            int n_hidden, const float* const* w,
-                            const float* const* b, const int* widths,
-                            int non_linear, void* stream) {
+                            float* lv, float* scratch, int F, int B, int D,
+                            int C, int Z, int n_hidden,
+                            const float* const* w, const float* const* b,
+                            const int* widths, int non_linear, int splits,
+                            int k_per, void* stream) {
   using namespace mmnm;
-  if (n_hidden < 0 || n_hidden + 2 > MAX_LAYERS || F <= 0 || B <= 0) {
+  const int K = D + C;
+  if (n_hidden < 0 || n_hidden + 2 > MAX_LAYERS || F <= 0 || B <= 0 ||
+      D <= 0 || C < 0 || Z <= 0 || splits < 1 || k_per <= 0 ||
+      k_per % BK != 0 || (long long)k_per * splits < K ||
+      (long long)k_per * (splits - 1) >= K ||
+      (splits > 1 && scratch == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   Layers L;
-  const int ld = chain_layers(L, n_hidden + 2, n_hidden, w, b, widths, D + C);
-  const size_t smem = smem_bytes(ld);
-  cudaError_t err = cudaFuncSetAttribute(
-      encoder_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int k = K;
+  int widest = 1;
+  for (int l = 0; l < n_hidden + 2; ++l) {
+    // a split's window starts a multiple of BK floats into a row: as
+    // aligned as the row itself
+    L.l[l] = Layer{w[l], b[l], widths[l], k, copy_width(w[l], k)};
+    if (l < n_hidden) {
+      k = widths[l];
+      widest = k > widest ? k : widest;
+    }
+  }
+  const int vec_x = copy_width(x, D);
+  // c lands at column D of the slice, so D bounds its copies' width too
+  int vec_c = C > 0 ? copy_width(c, C) : 1;
+  while (D % vec_c != 0) vec_c /= 2;
+  const int ld = tile_ld(widest);
+  const size_t smem = smem_bytes(k_per, ld);
+  cudaError_t err = ensure_smem(encoder_kernel, smem, have);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((B + TM - 1) / TM, F);
+  const dim3 grid((B + TM - 1) / TM, splits, F);
   encoder_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      x, c, mu, lv, B, D, C, Z, L, n_hidden, non_linear, ld);
+      x, c, mu, lv, scratch, B, D, C, Z, L, n_hidden, non_linear, k_per,
+      tile_ld(k_per), ld, first_region(k_per, ld), vec_x, vec_c);
   return (int)cudaGetLastError();
 }
 

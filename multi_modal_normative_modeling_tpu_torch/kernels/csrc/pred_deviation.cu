@@ -39,50 +39,6 @@ namespace {
 
 using namespace mmnm_tp;
 
-constexpr int MAX_LAYERS = 8;
-
-// One linear layer of every fold: w [F, n, k] (nn.Linear's [out, in] per
-// fold), b [F, n]; vec floats per cp.async of a row of w.
-struct Layer {
-  const float* w;
-  const float* b;
-  int n;
-  int k;
-  int vec;
-};
-
-struct Layers {
-  Layer l[MAX_LAYERS];
-};
-
-__device__ __forceinline__ float leaky(float v) {
-  return v > 0.f ? v : 0.01f * v;
-}
-
-// Epilogue of a hidden layer: (LeakyReLU of) v + b into the next
-// activation tile.
-struct ToAct {
-  float* out;
-  int ld;
-  const float* b;
-  int N;
-  bool act;
-  __device__ void operator()(int n0, const float (&acc)[RM][RN]) {
-    const Lanes ln;
-#pragma unroll
-    for (int j = 0; j < RN; ++j) {
-      const int n = n0 + ln.col_nt(j);
-      if (n >= N) continue;
-      const float bias = b[n];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        const float v = acc[i][j] + bias;
-        out[ln.row(i) * ld + n] = act ? leaky(v) : v;
-      }
-    }
-  }
-};
-
 // Epilogue of the mean head: store recon, add (x - mean)^2 to the lane's
 // row sums.
 struct ReconDeviation {

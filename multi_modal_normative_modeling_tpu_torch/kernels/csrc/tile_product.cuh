@@ -1,4 +1,5 @@
-// The fp32 product routine of decoder_nll.cu and pred_deviation.cu.
+// The fp32 product routine of encoder.cu, decoder_nll.cu and
+// pred_deviation.cu.
 //
 // A block of 256 threads owns 32 rows x 128 columns of an output: 8 warps
 // as 2 x 4 tiles of 16 rows x 32 columns, a lane a 4 x 4 tile, every
@@ -61,8 +62,8 @@ inline int copy_width(const void* p, int ld) {
   return 1;
 }
 
-// Where a thread stands: (wr, wc) its warp's 16 x 32 tile, (lr, lc) its
-// lane's row and column group there.
+// Where a thread stands: (wr, wc) its warp's (TM / 2) x 32 tile, (lr, lc)
+// its lane's row and column group there.
 struct Lanes {
   int wr, wc, lr, lc;
   __device__ Lanes() {
@@ -74,7 +75,7 @@ struct Lanes {
     lc = lane & 7;
   }
   // row i (< RM) of this lane within the tile
-  __device__ int row(int i) const { return 16 * wr + lr + 4 * i; }
+  __device__ int row(int i) const { return (TM / 2) * wr + lr + 4 * i; }
   // column j (< RN) within the tile when the weights are W[n][k]
   __device__ int col_nt(int j) const { return 32 * wc + lc + 8 * j; }
   // column j within the tile when the weights are W[k][n]
@@ -125,15 +126,17 @@ __device__ __forceinline__ void stage_block(float* slot, const float* w,
   }
 }
 
-// Chunk [n0, n0 + BN) x [k0, k0 + BK) of W[N][K] as slot[n][k].
-__device__ __forceinline__ void stage_nt(float* slot, const float* w, int K,
-                                         int vec, int n0, int N, int k0) {
+// Chunk [n0, n0 + BN) x [k0, k0 + BK) of W[N][K] (rows ldw floats apart)
+// as slot[n][k].
+__device__ __forceinline__ void stage_nt(float* slot, const float* w, int ldw,
+                                         int K, int vec, int n0, int N,
+                                         int k0) {
   if (vec == 4) {
-    stage_block<4, BN, BK, LDA>(slot, w, K, n0, N, k0, K);
+    stage_block<4, BN, BK, LDA>(slot, w, ldw, n0, N, k0, K);
   } else if (vec == 2) {
-    stage_block<2, BN, BK, LDA>(slot, w, K, n0, N, k0, K);
+    stage_block<2, BN, BK, LDA>(slot, w, ldw, n0, N, k0, K);
   } else {
-    stage_block<1, BN, BK, LDA>(slot, w, K, n0, N, k0, K);
+    stage_block<1, BN, BK, LDA>(slot, w, ldw, n0, N, k0, K);
   }
 }
 
@@ -221,16 +224,19 @@ __device__ __forceinline__ void chunk_nn(float (&acc)[RM][RN],
 // Column blocks first, first + stride, ... (`count` of them, BN wide) of
 // out = a . w^T: a [TM][K] in shared memory (row stride lda, a multiple of
 // 4; columns K .. roundup4(K) hold finite values), w [N][K] in device
-// memory. After the last chunk of column block b, epi(n0, acc) gets the
+// memory, its rows ldw floats apart (ldw > K: a window of K columns of a
+// wider matrix, `vec` then that of the window's first address). After the last chunk of column block b, epi(n0, acc) gets the
 // lane's 4 x 4 sums at rows ln.row(i) and columns n0 + ln.col_nt(j), n0 the
 // block's first column. cp.async groups the caller committed before the
 // call (a tile of A) have landed, and are visible, when the first chunk is
 // multiplied. Ends with __syncthreads: what the epilogues wrote to shared
 // memory is visible and the ring is free.
 template <class Epi>
-__device__ __forceinline__ void product_nt(const float* a, int lda, const float* w, int K,
-                           int N, int vec, int first, int stride, int count,
-                           float* ring, Epi& epi) {
+__device__ __forceinline__ void product_nt(const float* a, int lda,
+                                           const float* w, int ldw, int K,
+                                           int N, int vec, int first,
+                                           int stride, int count, float* ring,
+                                           Epi& epi) {
   const Lanes ln;
   const int nk = (K + BK - 1) / BK;
   const int total = nk * count;
@@ -238,7 +244,7 @@ __device__ __forceinline__ void product_nt(const float* a, int lda, const float*
   // wait_group<1> always means: all but the newest group have landed
   auto fetch = [&](int s) {
     if (s < total) {
-      stage_nt(ring + (s % SLOTS) * SLOT_FLOATS, w, K, vec,
+      stage_nt(ring + (s % SLOTS) * SLOT_FLOATS, w, ldw, K, vec,
                (first + (s / nk) * stride) * BN, N, (s % nk) * BK);
     }
     cp_async_commit();
@@ -270,6 +276,58 @@ __device__ __forceinline__ void product_nt(const float* a, int lda, const float*
   }
   __syncthreads();
 }
+
+// The same for a whole matrix w [N][K].
+template <class Epi>
+__device__ __forceinline__ void product_nt(const float* a, int lda,
+                                           const float* w, int K, int N,
+                                           int vec, int first, int stride,
+                                           int count, float* ring, Epi& epi) {
+  product_nt(a, lda, w, K, K, N, vec, first, stride, count, ring, epi);
+}
+
+// One linear layer of every fold: w [F, n, k] (nn.Linear's [out, in] per
+// fold), b [F, n]; vec floats per cp.async of a row of w.
+struct Layer {
+  const float* w;
+  const float* b;
+  int n;
+  int k;
+  int vec;
+};
+
+constexpr int MAX_LAYERS = 8;
+struct Layers {
+  Layer l[MAX_LAYERS];
+};
+
+__device__ __forceinline__ float leaky(float v) {
+  return v > 0.f ? v : 0.01f * v;
+}
+
+// Epilogue of a hidden layer: (LeakyReLU of) v + b into the next
+// activation tile.
+struct ToAct {
+  float* out;
+  int ld;
+  const float* b;
+  int N;
+  bool act;
+  __device__ void operator()(int n0, const float (&acc)[RM][RN]) {
+    const Lanes ln;
+#pragma unroll
+    for (int j = 0; j < RN; ++j) {
+      const int n = n0 + ln.col_nt(j);
+      if (n >= N) continue;
+      const float bias = b[n];
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        const float v = acc[i][j] + bias;
+        out[ln.row(i) * ld + n] = act ? leaky(v) : v;
+      }
+    }
+  }
+};
 
 // True in every thread of the last block to arrive at `counter` (of
 // `total` blocks); the counter is left at 0 for the next launch. What the

@@ -137,6 +137,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace mmnm_ts {
 
 constexpr int TM = 32;            // rows per block of the row-owned passes
@@ -1934,15 +1936,48 @@ void parse_net(void* const* p, const Dims& d, Net<W>& net) {
 
 inline int net_count(const Dims& d) { return 4 * d.L + 8; }
 
+// cudaFuncAttributeMaxDynamicSharedMemorySize, set when `kernel` asks on the
+// current device for more than it was given there before, and not on every
+// one of a step's launches. Kernels of both operand types share one
+// function type, so the table is keyed by the kernel's address.
+inline cudaError_t ensure_smem(const void* kernel, size_t bytes) {
+  constexpr int MAX_KERNELS = 32;
+  constexpr int MAX_DEVICES = 64;
+  struct Entry {
+    const void* kernel;
+    int have[MAX_DEVICES];
+  };
+  static Entry table[MAX_KERNELS];
+  static int used = 0;
+  static std::mutex guard;
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(guard);
+  Entry* entry = nullptr;
+  for (int i = 0; i < used; ++i) {
+    if (table[i].kernel == kernel) entry = &table[i];
+  }
+  if (entry == nullptr) {
+    if (used == MAX_KERNELS) return cudaErrorInvalidValue;
+    entry = &table[used++];
+    entry->kernel = kernel;
+  }
+  if ((int)bytes <= entry->have[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) entry->have[dev] = (int)bytes;
+  return err;
+}
+
 // Launches `kernel` with `smem` bytes of dynamic shared memory.
 template <class K, class... Args>
 cudaError_t launch(K kernel, dim3 grid, int threads, size_t smem,
                    cudaStream_t stream, Args... args) {
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
+  const cudaError_t err = ensure_smem((const void*)kernel, smem);
+  if (err != cudaSuccess) return err;
   kernel<<<grid, threads, smem, stream>>>(args...);
   return cudaGetLastError();
 }

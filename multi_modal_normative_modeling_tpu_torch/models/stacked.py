@@ -41,7 +41,7 @@ SKELETON_VARIANTS = {"cVAE_multimodal": "cvae"}
 def _not_ported(variant: str) -> NotImplementedError:
     return NotImplementedError(
         f"packed variant {variant!r} is not ported yet; see ROADMAP.md, "
-        "queue 1 item 7 'Zoo'")
+        "queue 1 item 'Zoo'")
 
 
 def skeleton_fuse(variant: str, params, mus: torch.Tensor,

@@ -94,7 +94,7 @@ class MultiFoldTrainer:
         if config.precision != "fp32" or config.shuffle:
             raise NotImplementedError(
                 "MultiFoldTrainer trains in fp32 without shuffle; see "
-                "ROADMAP.md, queue 1 item 1 'Trainer'")
+                "ROADMAP.md, queue 1 item 'Trainer'")
         self.model = model
         self.config = config
         self.lr_fn = build_lr_fn(config, n_samples)

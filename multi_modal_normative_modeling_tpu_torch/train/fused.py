@@ -238,4 +238,4 @@ class FusedFoldTrainer:
     def run_resumable(self, *args, **kwargs):
         raise NotImplementedError(
             "resumable fused training is not ported yet; see ROADMAP.md, "
-            "queue 1 item 6 'Resume'")
+            "queue 1 item 'Resume'")

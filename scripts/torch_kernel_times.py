@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Check and time the decode+deviation kernel (K2, and K3, its mode without
-x) and the decoder_nll pair (K4) on one NVIDIA GPU, for any checkout of the
-port.
+"""Check and time the encoder kernel (K1), the decode+deviation kernel (K2,
+and K3, its mode without x) and the decoder_nll pair (K4) on one NVIDIA
+GPU, for any checkout of the port.
 
     python3 scripts/torch_kernel_times.py [--root DIR] [check] [time] ...
 
@@ -11,7 +11,12 @@ in one process sequence on one card: run the script once per root, in
 turns. Helpers (timers, shapes, tolerances) are this checkout's
 chip_smoke.py.
 
-  check  K2/K3 against the plain code evaluated in fp64 at chip_smoke's
+  check  K1 against the plain code evaluated in fp64 at chip_smoke's
+         shapes and at ragged ones (no hidden layer, wide hidden layers,
+         odd widths), at the plan's K splits and at forced ones (which
+         only a checkout whose wrapper takes ``splits=`` can run), two
+         calls bit-equal; K2/K3 against the plain code evaluated in fp64
+         at chip_smoke's
          shapes and at ragged ones (no hidden layer, wide hidden layers,
          odd widths), two calls bit-equal; K4 value and gradients against
          fp64 autograd under a non-uniform cotangent (one entry 0), at
@@ -22,8 +27,11 @@ chip_smoke.py.
          (kernel, plain, plain, kernel), beside the bound. A CUDA-event entry is
          the least of three runs of 50 calls: the wrappers' times are the
          host's, which other tenants of the machine disturb upwards.
-  parts  one K4 pair and one K2 call under torch.profiler: device time by
-         kernel, and the host's self time by operation.
+  parts  one K4 pair, one K2 call and one K1 call under torch.profiler:
+         device time by kernel, and the host's self time by operation.
+  splits K1 at the two timed shapes under forced numbers of K splits:
+         device ms and CUDA-event ms of each, beside the plan's own choice.
+  check_encode, time_encode: the K1 part of ``check`` and of ``time`` alone.
 """
 import argparse
 import subprocess
@@ -52,6 +60,15 @@ DECODE_SHAPES = [(f, b, d, c, cs.HIDDEN, cs.LATENT)
 NLL_SHAPES = cs.NLL_SHAPES + [(3, 65, 17, 130), (2, 1, 110, 64),
                               (2, 300, 529, 90), (1, 1024, 110, 300),
                               (2, 40, 130, 1000)]
+# K1: the same, each with the K splits to force (None: the plan's)
+ENCODE_SHAPES = [(shape, (None,)) for shape in DECODE_SHAPES] + [
+    ((2, 70, 299, 29, [110, 110], 10), (1, 2, 5, 10)),
+    ((3, 65, 45, 3, [], 10), (1, 2)),
+    ((1, 40, 270, 29, [130], 7), (1, 3, None)),
+    ((5, 37, 90, 29, [64, 110, 32], 10), (1, 2, 4)),
+    ((1, 100, 3485, 2, [110, 110], 10), (8, 11, 16, 109))]
+ENCODE_TIMED = [(1, 1024, 3485, 2), (cs.FOLDS, cs.ROWS, 270, cs.C_DIM)]
+ENCODE_SPLITS = {3485: (4, 8, 11, 14, 16, 22, 28), 270: (1, 2)}
 DECODE_TIMED = [(1, 1000, 3485, 2), (1, 1024, 3485, 2),
                 (cs.FOLDS, cs.ROWS, 270, cs.C_DIM)]
 NLL_TIMED = [cs.NLL_PPMI, cs.NLL_TIMED, (5, 256, 110, 3485)]
@@ -79,6 +96,90 @@ def decoder_problem(shape, seed):
                          device="cuda")
     return dec, rows(rng, folds, b, latent), rows(rng, folds, b, c_dim), \
         rows(rng, folds, b, d)
+
+
+def encoder_problem(shape, seed):
+    from importlib import import_module
+    models = import_module(f"{PKG}.models")
+    folds, b, d, c_dim, hidden, latent = shape
+    rng = np.random.default_rng(seed)
+    enc = models.Encoder(d, hidden, latent, c_dim, folds=folds,
+                         generator=torch.Generator().manual_seed(seed),
+                         device="cuda")
+    return enc, rows(rng, folds, b, d), rows(rng, folds, b, c_dim)
+
+
+def check_encode(kernels):
+    from importlib import import_module
+    mlp = import_module(f"{PKG}.kernels.mlp")
+    for seed, (shape, forced) in enumerate(ENCODE_SHAPES):
+        enc, x, c = encoder_problem(shape, seed)
+        layers = (enc.hidden_layers(), enc.mu.pair(), enc.logvar.pair())
+        with torch.no_grad():
+            ref = kernels.encoder_reference(
+                *[[(w.double(), b.double()) for w, b in layers[0]]]
+                + [tuple(t.double() for t in head) for head in layers[1:]],
+                x.double(), c.double(), enc.non_linear)
+            for splits in forced:
+                got = kernels.fused_encoder(*layers, x, c, enc.non_linear,
+                                            splits=splits)
+                again = kernels.fused_encoder(*layers, x, c, enc.non_linear,
+                                              splits=splits)
+                torch.cuda.synchronize()
+                folds, b, d, c_dim, hidden, latent = shape
+                p = mlp.plan(folds, b, d + c_dim, tuple(hidden), latent,
+                             splits)
+                errs = [(g.double() - r).abs() for g, r in zip(got, ref)]
+                equal = all(torch.equal(g, a) for g, a in zip(got, again))
+                print(f"K1 {shape} splits {splits} -> {p}: mu err "
+                      f"{where(errs[0])}, logvar err {where(errs[1])}, "
+                      f"repeats bit-equal: {equal}", flush=True)
+                if (not equal or max(e.max() for e in errs) > 1e-5
+                        or not all(torch.isfinite(g).all() for g in got)):
+                    raise RuntimeError(f"K1 {shape} splits {splits} failed")
+
+
+def time_encode(roofline):
+    for shape in ENCODE_TIMED:
+        enc, x, c = encoder_problem((*shape, cs.HIDDEN, cs.LATENT), 0)
+        with torch.no_grad():
+            calls = {"K1": lambda: enc.fused(x, c),
+                     "K1 plain": lambda: enc(x, c)}
+            order = ["K1", "K1 plain", "K1 plain", "K1"]
+            ev, dv = {}, {}
+            for name in order:
+                ev.setdefault(name, []).append(event_ms(calls[name]))
+            for name in order:
+                dv.setdefault(name, []).append(round(
+                    cs.device_ms(calls[name]), 4))
+        bound = roofline.fused_encoder(*shape, cs.HIDDEN, cs.LATENT).bound_ms
+        print(f"encode {shape}: bound K1 {bound:.5f} ms; CUDA-event ms {ev}; "
+              f"device ms {dv}", flush=True)
+
+
+def time_splits(kernels):
+    """K1 under forced K splits (this checkout's wrapper takes them)."""
+    from importlib import import_module
+    mlp = import_module(f"{PKG}.kernels.mlp")
+    for shape in ENCODE_TIMED:
+        folds, b, d, c_dim = shape
+        enc, x, c = encoder_problem((*shape, cs.HIDDEN, cs.LATENT), 0)
+        layers = (enc.hidden_layers(), enc.mu.pair(), enc.logvar.pair())
+        own = mlp.plan(folds, b, d + c_dim, tuple(cs.HIDDEN), cs.LATENT)
+        out = {}
+        with torch.no_grad():
+            for splits in (None, *ENCODE_SPLITS[d], None):
+                p = mlp.plan(folds, b, d + c_dim, tuple(cs.HIDDEN), cs.LATENT,
+                             splits)
+
+                def call():
+                    return kernels.fused_encoder(*layers, x, c, True,
+                                                 splits=splits)
+                out.setdefault(f"{p.splits} x {p.k_per} ({p.smem} B)",
+                               []).append((round(cs.device_ms(call), 4),
+                                           event_ms(call)))
+        print(f"encode {shape}: the plan's own {own}; (device ms, CUDA-event "
+              f"ms) by splits x k_per: {out}", flush=True)
 
 
 def check_decode(kernels):
@@ -257,6 +358,10 @@ def parts(nll):
         dec, z, c, x = decoder_problem((*shape, cs.HIDDEN, cs.LATENT), 0)
         with torch.no_grad():
             show(f"K2 {shape}", lambda: dec.fused_pred_deviation(z, c, x))
+    for shape in ENCODE_TIMED:
+        enc, x, c = encoder_problem((*shape, cs.HIDDEN, cs.LATENT), 0)
+        with torch.no_grad():
+            show(f"K1 {shape}", lambda: enc.fused(x, c))
 
 
 def main():
@@ -288,18 +393,27 @@ def main():
     for line in lib.with_suffix(".log").read_text().splitlines():
         if "Compiling entry function" in line:
             keep = any(k in line for k in ("nll_", "pred_deviation",
-                                           "sum_parts", "sum_splits"))
+                                           "encoder", "sum_parts",
+                                           "sum_splits"))
             if keep:
                 print("  ptxas:", line.split("'")[1][:100])
         elif keep and ("registers" in line or "spill" in line):
             print("  ptxas:  ", line.strip())
     for mode in args.modes:
         if mode == "check":
+            check_encode(kernels)
             check_decode(kernels)
             check_nll(nll)
+        elif mode == "check_encode":
+            check_encode(kernels)
         elif mode == "time":
+            time_encode(roofline)
             time_decode(kernels, roofline)
             time_nll(nll, roofline)
+        elif mode == "time_encode":
+            time_encode(roofline)
+        elif mode == "splits":
+            time_splits(kernels)
         elif mode == "parts":
             parts(nll)
         else:

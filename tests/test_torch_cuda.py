@@ -67,6 +67,63 @@ def test_encoder_kernel_matches_plain(cuda, folds, rows, d, c_dim, hidden,
     torch.testing.assert_close(lv, lv_p, **TOL)
 
 
+# (folds, rows, D, C, hidden, Z): ragged rows, 0, 1 and 3 hidden layers, a
+# hidden layer wider than a column block, a latent width of 7, 5 folds
+ENCODER_SPLIT_CASES = [(5, 37, 90, 29, [64, 110, 32], 10),
+                       (3, 65, 45, 3, [], 10),
+                       (1, 40, 270, 29, [130], 7),
+                       (2, 70, 270, 29, [110, 110], 10)]
+
+
+@pytest.mark.parametrize("splits", [1, 2, None],
+                         ids=["one", "two", "the plan's"])
+@pytest.mark.parametrize("folds,rows,d,c_dim,hidden,z", ENCODER_SPLIT_CASES)
+def test_encoder_kernel_matches_fp64_at_forced_splits(cuda, folds, rows, d,
+                                                      c_dim, hidden, z,
+                                                      splits):
+    """K1 against the plain code evaluated in fp64 (the fp32 plain version
+    on the card is the weaker reference), with the reduction of the first
+    layer in one block, cut in two, and cut as the plan cuts it; two calls
+    bit-equal; one launch counted per call."""
+    rng = np.random.default_rng(rows + d)
+    enc = Encoder(d, hidden, z, c_dim, True, folds,
+                  torch.Generator().manual_seed(0), cuda)
+    x, c = _rows(rng, folds, rows, d).to(cuda), _rows(
+        rng, folds, rows, c_dim).to(cuda)
+    layers = (enc.hidden_layers(), enc.mu.pair(), enc.logvar.pair())
+    with torch.no_grad():
+        before = kernels.fused_encoder.launches
+        got = kernels.fused_encoder(*layers, x, c, True, splits=splits)
+        assert kernels.fused_encoder.launches == before + 1
+        again = kernels.fused_encoder(*layers, x, c, True, splits=splits)
+        want = kernels.encoder_reference(
+            [(w.double(), b.double()) for w, b in layers[0]],
+            *[tuple(t.double() for t in head) for head in layers[1:]],
+            x.double(), c.double(), True)
+    for g, a, w in zip(got, again, want):
+        assert g.shape == (folds, rows, z) and torch.equal(g, a)
+        torch.testing.assert_close(g.double(), w, **TOL)
+
+
+def test_encoder_kernel_with_no_rows_launches_nothing(cuda):
+    enc = Encoder(90, [110], 10, 29, device=cuda)
+    before = kernels.fused_encoder.launches
+    mu, lv = enc.fused(torch.zeros(1, 0, 90, device=cuda),
+                       torch.zeros(1, 0, 29, device=cuda))
+    assert mu.shape == lv.shape == (1, 0, 10)
+    assert kernels.fused_encoder.launches == before
+
+
+def test_encoder_kernel_refuses_a_slice_too_large_for_a_block(cuda):
+    """One split of a PPMI-wide input would need 446 KB of shared memory."""
+    enc = Encoder(3485, [110], 10, 2, device=cuda)
+    x = torch.zeros(1, 8, 3485, device=cuda)
+    c = torch.zeros(1, 8, 2, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        kernels.fused_encoder(enc.hidden_layers(), enc.mu.pair(),
+                              enc.logvar.pair(), x, c, True, splits=1)
+
+
 @pytest.mark.parametrize("non_linear", [True, False])
 @pytest.mark.parametrize("folds,rows,d,c_dim,hidden", CASES)
 def test_pred_deviation_kernel_matches_plain(cuda, folds, rows, d, c_dim,

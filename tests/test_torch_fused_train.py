@@ -173,7 +173,7 @@ def test_bf16_fused_trainer_runs_k6():
                                 batches)
     assert all(np.isfinite(v).all() and v.shape == (2, 3)
                for v in logs.values())
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 'Resume'"):
         trainer.run_resumable()
 
 

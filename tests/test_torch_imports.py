@@ -1,8 +1,11 @@
 """The port stands on its own: no module of
 ``multi_modal_normative_modeling_tpu_torch`` and not ``chip_smoke.py``
 imports jax, flax or the JAX package, absolutely or relatively. Each file
-is parsed with ``ast`` (nothing is executed), one case per file; a last
-case runs both CLIs in a process where importing the JAX package fails."""
+is parsed with ``ast`` (nothing is executed), one case per file; the modules
+that end the chain on the machine with the GPU (``evaluation/``,
+``cli/group_analysis.py``, ``cli/pipeline.py``) import no scikit-learn
+either, which that machine does not have; a last case runs the whole chain
+in a process where importing any of them fails."""
 import ast
 import subprocess
 import sys
@@ -15,6 +18,9 @@ PORT = ROOT / "multi_modal_normative_modeling_tpu_torch"
 JAX_PACKAGE = "multi_modal_normative_modeling_tpu"
 FORBIDDEN = ("jax", "flax", "optax", JAX_PACKAGE)
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# the analysis stage: no scikit-learn, at module level or inside a function
+NO_SKLEARN = sorted((PORT / "evaluation").glob("*.py")) + [
+    PORT / "cli" / "group_analysis.py", PORT / "cli" / "pipeline.py"]
 
 
 def _absolute(path: Path, node: ast.ImportFrom, root: Path) -> str:
@@ -41,9 +47,9 @@ def imported_modules(path: Path, root: Path = ROOT):
                 yield f"{base}.{alias.name}", node.lineno
 
 
-def _forbidden(module: str) -> bool:
+def _forbidden(module: str, names=FORBIDDEN) -> bool:
     return any(module == name or module.startswith(name + ".")
-               for name in FORBIDDEN)
+               for name in names)
 
 
 @pytest.mark.parametrize("path", FILES,
@@ -51,6 +57,24 @@ def _forbidden(module: str) -> bool:
 def test_no_import_of_jax_or_the_jax_package(path):
     bad = [(m, line) for m, line in imported_modules(path) if _forbidden(m)]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("path", NO_SKLEARN,
+                         ids=[str(p.relative_to(ROOT)) for p in NO_SKLEARN])
+def test_the_analysis_stage_imports_no_sklearn(path):
+    assert path.exists()
+    bad = [(m, line) for m, line in imported_modules(path)
+           if _forbidden(m, ("sklearn",))]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_the_walk_sees_an_import_inside_a_function(tmp_path):
+    probe = tmp_path / "probe.py"
+    probe.write_text("def f():\n    from sklearn.metrics import auc\n"
+                     "    return auc\n")
+    found = {m for m, _ in imported_modules(probe, tmp_path)}
+    assert {"sklearn.metrics", "sklearn.metrics.auc"} <= found
+    assert all(_forbidden(m, ("sklearn",)) for m in found)
 
 
 def test_the_walk_sees_relative_and_absolute_imports(tmp_path):
@@ -81,7 +105,8 @@ import sys
 class Block:
     def find_spec(self, name, path=None, target=None):
         root = name.split('.')[0]
-        if root in ('jax', 'flax', 'optax', 'multi_modal_normative_modeling_tpu'):
+        if root in ('jax', 'flax', 'optax', 'sklearn',
+                    'multi_modal_normative_modeling_tpu'):
             raise ImportError('blocked for this check: ' + name)
         return None
 
@@ -93,6 +118,8 @@ from multi_modal_normative_modeling_tpu_torch.data.synthetic import (
     make_synthetic_resource,
 )
 from multi_modal_normative_modeling_tpu_torch.cli import (
+    group_analysis,
+    pipeline,
     test_supervised,
     train_supervised,
 )
@@ -102,19 +129,29 @@ flags = ['-R', 'ADNI', '-P', 'SE-MoE', '-K', '2', '-H', '8', '8', '4',
          '--device', 'cpu']
 train_supervised.run(flags + ['-E', '2'])
 test_supervised.run(flags)
+stats = group_analysis.run(flags[:-2] + ['-E', '2'])
+assert len(stats['auc']) == 3, stats
+once = Path('result_baseline/result_4.txt').read_bytes()
+again = pipeline.run(flags + ['-E', '2', '--stages', 'analyze'])
+assert str(again) == str(stats), (again, stats)
+assert Path('result_baseline/result_4.txt').read_bytes() == once * 2
 bad = [m for m in sys.modules if m.split('.')[0] in
-       ('jax', 'flax', 'optax', 'multi_modal_normative_modeling_tpu')]
+       ('jax', 'flax', 'optax', 'sklearn',
+        'multi_modal_normative_modeling_tpu')]
 assert not bad, bad
 print('CHAIN_OK')
 """
 
 
 def test_clis_run_where_the_jax_package_cannot_be_imported(tmp_path):
-    """Train then score a tiny synthetic cohort on the CPU in a process
-    whose import system refuses jax, flax, optax and the JAX package."""
+    """Train, score and analyse a tiny synthetic cohort on the CPU in a
+    process whose import system refuses jax, flax, optax, sklearn and the
+    JAX package."""
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKED_CHAIN, str(ROOT), str(tmp_path)],
         capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-4000:]
     assert "CHAIN_OK" in out.stdout
     assert list(tmp_path.glob("deviation/**/*.csv"))
+    assert (tmp_path / "cvae_auc_and_std.csv").exists()
+    assert len(list(tmp_path.rglob("auc_rocs.csv"))) == 3

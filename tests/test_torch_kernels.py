@@ -23,11 +23,14 @@ from multi_modal_normative_modeling_tpu.models.cvae import (
     init_encoder,
 )
 from multi_modal_normative_modeling_tpu_torch import kernels
-from multi_modal_normative_modeling_tpu_torch.kernels import _build
+from multi_modal_normative_modeling_tpu_torch.kernels import _build, mlp
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 SHAPES = [(7, 90, 29), (300, 270, 29), (16, 3485, 2)]
 HIDDEN = [[110, 110], [110], [64, 110, 32]]
+# the encoder also without a hidden layer (the heads read [x | c]) and with
+# hidden layers wider than one 128-column block of its kernel
+ENCODER_HIDDEN = HIDDEN + [[], [460, 130]]
 
 
 def _layer(*per_fold):
@@ -54,7 +57,7 @@ def _rows(rng, *shape):
     return rng.standard_normal(shape).astype(np.float32)
 
 
-@pytest.mark.parametrize("hidden", HIDDEN)
+@pytest.mark.parametrize("hidden", ENCODER_HIDDEN)
 @pytest.mark.parametrize("b,d,c_dim", SHAPES)
 def test_encoder_reference_matches_jax(b, d, c_dim, hidden):
     params = init_encoder(jax.random.PRNGKey(0), d, hidden, 10, c_dim)
@@ -179,9 +182,14 @@ def test_operand_checks():
     with pytest.raises(ValueError, match="bias"):
         _build.chain_widths("k", [(torch.zeros(2, 5, 4), torch.zeros(5))], 4,
                             1, 2)
+    # what the widths need of shared memory is each kernel's plan to check
     wide = [(torch.zeros(1, 4000, 8), torch.zeros(1, 4000))]
+    wide_head = (torch.zeros(1, 10, 4000), torch.zeros(1, 10))
+    assert _build.chain_widths("k", [*wide, wide_head, wide_head], 8, 1,
+                               1) == [4000, 10, 10]
     with pytest.raises(ValueError, match="shared memory"):
-        _build.chain_widths("k", wide, 8, 1, 1)
+        mlp._prepare("k", [*wide, wide_head, wide_head], 1,
+                     torch.zeros(1, 4, 6), torch.zeros(1, 4, 2), None)
     with pytest.raises(ValueError, match="contiguous"):
         _build.check_tensors("k", [torch.zeros(3, 4).T], torch.device("cpu"))
     with pytest.raises(ValueError, match="float32"):
@@ -198,5 +206,5 @@ def test_library_hash_tracks_sources():
         "encoder.cu", "pred_deviation.cu", "decoder_nll.cu", "train_step.cu",
         "train_step_bf16.cu"}
     assert {p.name for p in _build.SRC_DIR.glob("*.cuh")} == {
-        "tile_mlp.cuh", "tile_product.cuh", "train_step.cuh"}
+        "tile_product.cuh", "train_step.cuh"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

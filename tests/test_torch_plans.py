@@ -1,7 +1,8 @@
-"""The launch plans of the decode+deviation and decoder_nll kernels, and
-decoder_nll under a non-uniform cotangent against the JAX package's.
+"""The launch plans of the encoder, decode+deviation and decoder_nll
+kernels, and decoder_nll under a non-uniform cotangent against the JAX
+package's.
 
-The plans are pure Python (kernels/decoder_nll.py::plan,
+The plans are pure Python (kernels/mlp.py::plan, kernels/decoder_nll.py::plan,
 kernels/deviation.py::plan over _build.fill_split): grids, splits, shared
 memory and scratch sizes from the shapes alone, so they are held here, on
 the CPU, at chip_smoke.py's shapes and over a sweep. The kernels that run
@@ -10,6 +11,7 @@ chip_smoke.py).
 """
 import importlib
 import importlib.util
+import re
 from pathlib import Path
 
 import jax
@@ -25,6 +27,7 @@ from multi_modal_normative_modeling_tpu_torch.kernels import (
     _build,
     decoder_nll as decoder_nll_fn,
     deviation,
+    mlp,
 )
 
 # the module: the package's attribute of that name is the function
@@ -134,6 +137,85 @@ def test_pred_deviation_plan_sweep(folds, rows, k_in, hidden, d):
     _check_deviation_plan(folds, rows, k_in, hidden, d)
 
 
+def _check_encoder_plan(folds, rows, k_in, hidden, z, splits=None):
+    hidden = tuple(hidden)
+    p = mlp.plan(folds, rows, k_in, hidden, z, splits)
+    assert p is mlp.plan(folds, rows, k_in, hidden, z, splits)   # cached
+    assert p.tiles == -(-rows // 32) and p.chunks == -(-k_in // 32)
+    # every column of [x | c] lies in exactly one split, and no split is
+    # empty; slices are whole chunks
+    assert p.k_per % _build.TILE_DEPTH == 0 and 1 <= p.splits <= p.chunks
+    assert p.k_per * (p.splits - 1) < k_in <= p.k_per * p.splits
+    n0 = hidden[0] if hidden else 2 * z
+    assert p.scratch == (folds * p.tiles + p.splits * folds * rows * n0
+                         if p.splits > 1 else 0)
+    assert p.smem == _build.encoder_smem(p.k_per, max(hidden, default=1))
+    if splits is None:
+        blocks = p.tiles * p.splits * folds
+        assert blocks >= min(_build.SMS, p.tiles * p.chunks * folds)
+        # two blocks share an SM unless one chunk's slice is too much
+        assert (p.smem <= _build.HALF_SM_SMEM_BYTES
+                or p.k_per == _build.TILE_DEPTH)
+    return p
+
+
+@pytest.mark.parametrize("shape,splits,k_per", [
+    ((1, 7, 90, 29), 4, 32), ((1, 1000, 3485, 2), 16, 224),
+    ((1, 1024, 3485, 2), 16, 224), ((5, 1024, 90, 29), 1, 128),
+    ((5, 1024, 270, 29), 1, 320)], ids=str)
+def test_encoder_plan_at_the_smoke_shapes(shape, splits, k_per):
+    """One PPMI modality: 32 row tiles x 16 splits of 7 chunks, 512 blocks
+    at two an SM; the flagship's modalities: one block walks the whole
+    chain, no scratch, no ticket."""
+    assert shape in CS.SHAPES
+    folds, rows, d, c_dim = shape
+    p = _check_encoder_plan(folds, rows, d + c_dim, CS.HIDDEN, CS.LATENT)
+    assert (p.splits, p.k_per) == (splits, k_per)
+    assert p.smem <= _build.HALF_SM_SMEM_BYTES < _build.MAX_SMEM_BYTES
+    if splits == 1:
+        assert p.scratch == 0
+    else:
+        assert p.scratch == (folds * p.tiles
+                             + splits * folds * rows * CS.HIDDEN[0])
+
+
+@pytest.mark.parametrize("shape,hidden,splits", CS.ENCODER_EXTRA, ids=str)
+def test_encoder_plan_at_the_forced_smoke_shapes(shape, hidden, splits):
+    folds, rows, d, c_dim = shape
+    p = _check_encoder_plan(folds, rows, d + c_dim, hidden, CS.LATENT, splits)
+    assert p.smem <= _build.MAX_SMEM_BYTES
+    if splits is not None:
+        assert p.splits == splits and p.scratch > 0
+
+
+@settings(max_examples=200, deadline=None, database=None)
+@given(st.integers(1, 6), st.integers(1, 2100), st.integers(1, 4000),
+       st.lists(st.integers(1, 500), max_size=3), st.integers(1, 40),
+       st.one_of(st.none(), st.integers(1, 125)))
+def test_encoder_plan_sweep(folds, rows, k_in, hidden, z, splits):
+    if splits is not None and splits > -(-k_in // 32):
+        with pytest.raises(ValueError, match="splits"):
+            mlp.plan(folds, rows, k_in, tuple(hidden), z, splits)
+        return
+    _check_encoder_plan(folds, rows, k_in, hidden, z, splits)
+
+
+def test_encoder_plan_without_hidden_layers_and_forced():
+    """Without a hidden layer the split applies to the heads: partials of
+    2 Z columns. One forced split needs no scratch, whatever the width."""
+    p = _check_encoder_plan(3, 65, 48, [], 10)
+    assert p.splits == 2 and p.scratch == 3 * 3 + 2 * 3 * 65 * 20
+    q = _check_encoder_plan(3, 65, 48, [], 10, splits=1)
+    assert (q.splits, q.k_per, q.scratch) == (1, 64, 0)
+    # a forced number of splits that leaves one empty is brought down
+    r = _check_encoder_plan(2, 70, 328, [110, 110], 10, splits=5)
+    assert (r.splits, r.k_per) == (4, 96)
+    # one split of a PPMI-wide input does not fit a block: the wrapper
+    # refuses it (tests/test_torch_cuda.py), the plan only says so
+    wide = mlp.plan(1, 8, 3487, (110,), 10, 1)
+    assert wide.smem > _build.MAX_SMEM_BYTES
+
+
 def test_fill_split_takes_the_fewest_block_times():
     slots = SLOTS
     for blocks, loop in ((8, 28), (40, 3), (140, 8), (1, 1), (300, 5)):
@@ -145,6 +227,11 @@ def test_fill_split_takes_the_fewest_block_times():
     assert _build.fill_split(32, 28, unit=0.95) == 7
     assert _build.fill_split(160, 3, unit=1.16) == 1
     assert _build.fill_split(160, 3) == 3
+    # a lower bound (a slice that must fit shared memory) is kept
+    assert _build.fill_split(160, 10, unit=12.0) == 1
+    assert _build.fill_split(160, 10, unit=12.0, least=3) == 3
+    assert _build.fill_split(32, 109, unit=12.0, least=11) == 16
+    assert _build.fill_split(4, 3, least=9) == 3
 
 
 def test_shared_memory_mirrors():
@@ -158,19 +245,43 @@ def test_shared_memory_mirrors():
     assert _build.decoder_nll_smem(110) == (55296 + 32 * 120 * 4
                                             + 32 * 136 * 4 + 2048)
     assert _build.pred_deviation_smem(110) == 55296 + 2 * 32 * 120 * 4 + 512
+    # the encoder: the slice and the second activation tile share a region
+    assert _build.encoder_smem(320, 110) == 55296 + 32 * (328 + 120) * 4
+    assert _build.encoder_smem(32, 110) == 55296 + 32 * (120 + 120) * 4
+    assert _build.encoder_smem(224, 1) == 55296 + 32 * (232 + 8) * 4
+    assert 2 * (_build.HALF_SM_SMEM_BYTES + 1024) == 228 * 1024
     source = (_build.SRC_DIR / "tile_product.cuh").read_text()
     for line in ("constexpr int TM = 32;", "constexpr int BN = 128;",
                  "constexpr int BK = 32;", "constexpr int SLOTS = 3;",
                  "constexpr int DMS = BN + 8;"):
         assert line in source
-    # both sources build on tile_product.cuh alone, not the encoder's header
-    for name in ("decoder_nll.cu", "pred_deviation.cu"):
+    # the three sources build on tile_product.cuh alone
+    for name in ("encoder.cu", "decoder_nll.cu", "pred_deviation.cu"):
         text = (_build.SRC_DIR / name).read_text()
         assert '#include "tile_product.cuh"' in text
         assert "tile_mlp.cuh" not in text
         assert "atomicAdd(" not in text      # the one ticket is the header's
-    assert "cudaFuncSetAttribute" not in (
-        _build.SRC_DIR / "decoder_nll.cu").read_text()
+    assert not (_build.SRC_DIR / "tile_mlp.cuh").exists()
+    assert not hasattr(_build, "_STAGE_BYTES")
+
+
+def test_no_source_sets_the_shared_memory_attribute_per_launch():
+    """cudaFuncSetAttribute is a call into the CUDA runtime: every source
+    sets it through an ``ensure_smem``, which remembers what each kernel was
+    given on each device, never from a launcher itself."""
+    calls = 0
+    for path in sorted(_build.SRC_DIR.glob("*.cu*")):
+        text = path.read_text()
+        for found in re.finditer(r"cudaFuncSetAttribute\(", text):
+            # the function it stands in: the last line before it that
+            # starts in column 0 with a declaration
+            heads = [line for line in text[:found.start()].splitlines()
+                     if re.match(r"[A-Za-z_]", line) and "(" in line]
+            assert "ensure_smem(" in heads[-1], (path.name, heads[-1])
+            calls += 1
+        if "<<<" in text and "extern __shared__" in text:
+            assert "ensure_smem(" in text, path.name
+    assert calls == 2      # tile_product.cuh's and train_step.cuh's
 
 
 def test_decoder_nll_refuses_too_wide_a_hidden_layer():

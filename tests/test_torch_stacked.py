@@ -170,5 +170,5 @@ def test_forward_loss_and_grads_match_jax(case):
 
 @pytest.mark.parametrize("variant", ["mmjsd", "mvtcae", "nmmlp"])
 def test_other_variants_raise(variant):
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 'Zoo'"):
         StackedMultimodalCVAE(DIMS, [12], Z, C, 3, variant=variant)
