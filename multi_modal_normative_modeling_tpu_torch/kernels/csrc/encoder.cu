@@ -27,6 +27,11 @@
 //     activation tiles in shared memory, which are the products' A operand
 //     in place; only mu and logvar go to device memory. The second
 //     activation tile lies over the input slice, which is dead by then;
+//   * the two heads are 2 Z columns (20 of a 128-column tile): as two
+//     products they would be eight chunk steps with two of eight warps at
+//     work. Where their weights fit the ring they are copied there whole
+//     and every thread takes one row and every eighth column, straight
+//     from the activation tile;
 //   * without a hidden layer the two heads read [x | c] themselves, and the
 //     split applies to them (N0 = 2 Z: mu's columns, then logvar's).
 #include "tile_product.cuh"
@@ -44,12 +49,22 @@ __device__ __forceinline__ void stage_cols(float* a, int lda, int dst0,
                                            const float* src, int ld, int rows,
                                            int lo, int hi) {
   const int groups = (hi - lo) / VEC;
-  for (int e = threadIdx.x; e < TM * groups; e += THREADS) {
-    const int r = e / groups;
-    const int g = e % groups;
+  // a warp a row, a lane a group: no division by a run-time width
+  for (int r = threadIdx.x >> 5; r < TM; r += THREADS / 32) {
     const bool ok = r < rows;
-    cp_async<VEC>(a + r * lda + dst0 + VEC * g,
-                  ok ? src + (size_t)r * ld + lo + VEC * g : src, ok);
+    const float* from = ok ? src + (size_t)r * ld + lo : src;
+    float* to = a + r * lda + dst0;
+    for (int g = threadIdx.x & 31; g < groups; g += 32) {
+      cp_async<VEC>(to + VEC * g, ok ? from + VEC * g : src, ok);
+    }
+  }
+}
+
+// n floats at p (16-byte aligned, n a multiple of 4) become zero.
+__device__ __forceinline__ void zero_floats(float* p, int n) {
+  float4* q = reinterpret_cast<float4*>(p);
+  for (int e = threadIdx.x; e < n / 4; e += THREADS) {
+    q[e] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 }
 
@@ -108,6 +123,88 @@ struct ToPart {
   }
 };
 
+// Row stride of the heads' weights [2 Z][K] in the ring: 4 mod 32, so that
+// eight rows read as float4 fall in distinct banks.
+__host__ __device__ inline int heads_ld(int K) {
+  return (K + 31) / 32 * 32 + 4;
+}
+
+template <int VEC>
+__device__ __forceinline__ void stage_heads(float* wt, int ldw,
+                                            const float* wm, const float* wl,
+                                            int Z, int K) {
+  const int groups = K / VEC;
+  for (int n = threadIdx.x >> 5; n < 2 * Z; n += THREADS / 32) {
+    const float* row = n < Z ? wm + (size_t)n * K : wl + (size_t)(n - Z) * K;
+    for (int g = threadIdx.x & 31; g < groups; g += 32) {
+      cp_async<VEC>(wt + n * ldw + VEC * g, row + VEC * g, true);
+    }
+  }
+}
+
+// Both heads at once from the activation tile `act` [TM][ld] (zero past its
+// K columns): their weights [2 Z][K] go to `wt` (the ring, free by now), a
+// thread takes one row and the columns g, g + 8, ... of mu's Z and logvar's
+// Z. `mu` and `lv` point at the tile's first row.
+__device__ __forceinline__ void heads_direct(const float* act, int ld,
+                                             float* wt, const Layer& lm,
+                                             const Layer& ll, int f, int Z,
+                                             int rows, float* mu, float* lv) {
+  const int K = lm.k;
+  const int K4 = (K + 3) & ~3;
+  const int ldw = heads_ld(K);
+  const float* wm = lm.w + (size_t)f * Z * K;
+  const float* wl = ll.w + (size_t)f * Z * K;
+  for (int e = threadIdx.x; e < 2 * Z * (K4 - K); e += THREADS) {
+    wt[(e / (K4 - K)) * ldw + K + e % (K4 - K)] = 0.f;
+  }
+  const int vec = min(lm.vec, ll.vec);
+  if (vec == 4) {
+    stage_heads<4>(wt, ldw, wm, wl, Z, K);
+  } else if (vec == 2) {
+    stage_heads<2>(wt, ldw, wm, wl, Z, K);
+  } else {
+    stage_heads<1>(wt, ldw, wm, wl, Z, K);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  const int g = threadIdx.x & 7;
+  for (int r = threadIdx.x >> 3; r < TM; r += THREADS / 8) {
+    const float* a = act + r * ld;
+    for (int n0 = 0; n0 < 2 * Z; n0 += 32) {
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      const float* wp[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = n0 + g + 8 * j;
+        wp[j] = wt + (n < 2 * Z ? n : 0) * ldw;
+      }
+      for (int k = 0; k < K4; k += 4) {
+        const float4 av = *reinterpret_cast<const float4*>(a + k);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float4 wv = *reinterpret_cast<const float4*>(wp[j] + k);
+          acc[j] = fmaf(av.x, wv.x, acc[j]);
+          acc[j] = fmaf(av.y, wv.y, acc[j]);
+          acc[j] = fmaf(av.z, wv.z, acc[j]);
+          acc[j] = fmaf(av.w, wv.w, acc[j]);
+        }
+      }
+      if (r >= rows) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = n0 + g + 8 * j;
+        if (n < Z) {
+          mu[(size_t)r * Z + n] = acc[j] + lm.b[(size_t)f * Z + n];
+        } else if (n < 2 * Z) {
+          lv[(size_t)r * Z + n - Z] = acc[j] + ll.b[(size_t)f * Z + n - Z];
+        }
+      }
+    }
+  }
+}
+
 // Dynamic shared memory: the ring; `first`, the slice [TM][lda] of [x | c]
 // and later an activation tile [TM][ld]; `second`, an activation tile.
 __global__ void __launch_bounds__(THREADS, 2)
@@ -115,7 +212,7 @@ encoder_kernel(const float* __restrict__ x, const float* __restrict__ c,
                float* __restrict__ mu, float* __restrict__ lv, float* scratch,
                int B, int D, int C, int Z, Layers L, int n_hidden,
                int non_linear, int k_per, int lda, int ld, int first_floats,
-               int vec_x, int vec_c) {
+               int vec_x, int vec_c, int direct_heads) {
   extern __shared__ __align__(16) float smem[];
   float* ring = smem;
   float* first = ring + RING_FLOATS;
@@ -148,10 +245,13 @@ encoder_kernel(const float* __restrict__ x, const float* __restrict__ c,
   cp_async_commit();
   // every other entry of both regions zero, so that what a product reads
   // past a layer's width is finite
-  for (int e = threadIdx.x; e < first_floats; e += THREADS) {
-    if (e >= TM * lda || e % lda >= kw) first[e] = 0.f;
+  for (int r = threadIdx.x >> 5; r < TM; r += THREADS / 32) {
+    for (int k = kw + (threadIdx.x & 31); k < lda; k += 32) {
+      first[r * lda + k] = 0.f;
+    }
   }
-  for (int e = threadIdx.x; e < TM * ld; e += THREADS) second[e] = 0.f;
+  zero_floats(first + TM * lda, first_floats - TM * lda);
+  zero_floats(second, TM * ld);
 
   // the layers that read [x | c]: the first hidden layer, or both heads
   const int n_first = n_hidden > 0 ? 1 : 2;
@@ -178,29 +278,55 @@ encoder_kernel(const float* __restrict__ x, const float* __restrict__ c,
   if (splits > 1) {
     unsigned* tickets = reinterpret_cast<unsigned*>(scratch);
     if (!arrive_last(tickets + (size_t)f * gridDim.x + tile, splits)) return;
-    for (int e = threadIdx.x; e < rows * N0; e += THREADS) {
-      const int r = e / N0;
-      const int n = e % N0;
-      float s = 0.f;
-      for (int q = 0; q < splits; ++q) {
-        s += __ldcg(part + (((size_t)q * F) * B + frow + r) * N0 + n);
+    // the tile's rows of a split's partials are `count` floats in a row.
+    // A thread sums four entries at a time, eight splits' loads of each in
+    // flight together, and adds them in split order (a split past the last
+    // adds 0, which changes nothing)
+    const int count = rows * N0;
+    const float* mine = part + frow * N0;
+    const size_t per_split = (size_t)F * B * N0;
+    for (int e0 = threadIdx.x; e0 < count; e0 += 4 * THREADS) {
+      float sum[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int q0 = 0; q0 < splits; q0 += 8) {
+        float v[4][8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int e = e0 + i * THREADS;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            v[i][j] = (e < count && q0 + j < splits)
+                          ? __ldcg(mine + (q0 + j) * per_split + e)
+                          : 0.f;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) sum[i] += v[i][j];
+        }
       }
-      if (n_hidden > 0) {
-        const float v = s + L.l[0].b[(size_t)f * N0 + n];
-        second[r * ld + n] = act ? leaky(v) : v;
-      } else if (n < Z) {
-        mu[(frow + r) * Z + n] = s + L.l[0].b[(size_t)f * Z + n];
-      } else {
-        lv[(frow + r) * Z + n - Z] = s + L.l[1].b[(size_t)f * Z + n - Z];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int e = e0 + i * THREADS;
+        if (e >= count) continue;
+        const int r = e / N0;
+        const int n = e % N0;
+        if (n_hidden > 0) {
+          const float v0 = sum[i] + L.l[0].b[(size_t)f * N0 + n];
+          second[r * ld + n] = act ? leaky(v0) : v0;
+        } else if (n < Z) {
+          mu[(frow + r) * Z + n] = sum[i] + L.l[0].b[(size_t)f * Z + n];
+        } else {
+          lv[(frow + r) * Z + n - Z] =
+              sum[i] + L.l[1].b[(size_t)f * Z + n - Z];
+        }
       }
     }
   }
   if (n_hidden == 0) return;
 
   // `first` turns from the input slice into an activation tile
-  if (n_hidden > 1) {
-    for (int e = threadIdx.x; e < TM * ld; e += THREADS) first[e] = 0.f;
-  }
+  if (n_hidden > 1) zero_floats(first, TM * ld);
   __syncthreads();
   float* cur = second;
   float* nxt = first;
@@ -212,6 +338,11 @@ encoder_kernel(const float* __restrict__ x, const float* __restrict__ c,
     float* t = cur;
     cur = nxt;
     nxt = t;
+  }
+  if (direct_heads) {
+    heads_direct(cur, ld, ring, L.l[n_hidden], L.l[n_hidden + 1], f, Z, rows,
+                 mu + frow * Z, lv + frow * Z);
+    return;
   }
   for (int q = 0; q < 2; ++q) {
     const Layer& ly = L.l[n_hidden + q];
@@ -288,13 +419,17 @@ extern "C" int mmnm_encoder(const float* x, const float* c, float* mu,
   int vec_c = C > 0 ? copy_width(c, C) : 1;
   while (D % vec_c != 0) vec_c /= 2;
   const int ld = tile_ld(widest);
+  // the heads straight from the last activation tile where their weights
+  // fit the ring; as two products where not
+  const int direct_heads =
+      n_hidden > 0 && 2 * (long long)Z * heads_ld(k) <= RING_FLOATS;
   const size_t smem = smem_bytes(k_per, ld);
   cudaError_t err = ensure_smem(encoder_kernel, smem, have);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((B + TM - 1) / TM, splits, F);
   encoder_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
       x, c, mu, lv, scratch, B, D, C, Z, L, n_hidden, non_linear, k_per,
-      tile_ld(k_per), ld, first_region(k_per, ld), vec_x, vec_c);
+      tile_ld(k_per), ld, first_region(k_per, ld), vec_x, vec_c, direct_heads);
   return (int)cudaGetLastError();
 }
 

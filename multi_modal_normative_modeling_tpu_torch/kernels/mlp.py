@@ -14,7 +14,8 @@ weights (``csrc/tile_product.cuh``); ``plan`` splits the reduction where
 row tiles x folds would leave SMs empty, and so that two blocks share an
 SM. With splits the raw partial sums go to scratch and the last block of a
 (row tile, fold) to arrive adds them in split order and runs the rest of
-the chain: two calls give bit-equal results. The wrapper keeps what
+the chain, its two heads in one pass straight from the last activation
+tile: two calls give bit-equal results. The wrapper keeps what
 depends only on the layers' identity and the shapes (the checked chain, the
 pointer tables, the plan, the scratch) from one call to the next. The
 scratch of a shape is shared by its calls, which must be ordered on one

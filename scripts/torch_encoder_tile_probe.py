@@ -20,7 +20,9 @@ atol 1e-5). Prints device ms (CUDA-graph replays) and CUDA-event ms of each.
 Two more copies keep the 32-row tiles and take something out, to show where
 the kernel's time goes (their results are wrong on purpose and are not
 checked; they run the repository's plan): one skips the multiply of every
-staged chunk, one loads the weights of a product's first chunk only.
+staged chunk, one loads the weights of a product's first chunk only, one
+does both (what is left is the launch, the slice's copy, the waits and
+barriers, the epilogues and the heads).
 """
 import ctypes
 import shutil
@@ -128,7 +130,9 @@ def main():
                 build("tall_one", TALL + ONE_BLOCK)}
     probes = {"32 rows, no multiply": build("no_multiply", NO_MULTIPLY),
               "32 rows, weights loaded for a product's first chunk only":
-                  build("first_load", FIRST_LOAD_ONLY)}
+                  build("first_load", FIRST_LOAD_ONLY),
+              "32 rows, neither":
+                  build("neither", NO_MULTIPLY + FIRST_LOAD_ONLY)}
     for shape, tries in SHAPES:
         folds, rows, d, c_dim = shape
         enc = Encoder(d, cs.HIDDEN, cs.LATENT, c_dim, folds=folds,

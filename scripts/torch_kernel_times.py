@@ -66,7 +66,9 @@ ENCODE_SHAPES = [(shape, (None,)) for shape in DECODE_SHAPES] + [
     ((3, 65, 45, 3, [], 10), (1, 2)),
     ((1, 40, 270, 29, [130], 7), (1, 3, None)),
     ((5, 37, 90, 29, [64, 110, 32], 10), (1, 2, 4)),
-    ((1, 100, 3485, 2, [110, 110], 10), (8, 11, 16, 109))]
+    ((1, 100, 3485, 2, [110, 110], 10), (8, 11, 16, 109)),
+    # heads whose weights do not fit the ring: two products
+    ((2, 33, 90, 29, [460], 20), (1, None))]
 ENCODE_TIMED = [(1, 1024, 3485, 2), (cs.FOLDS, cs.ROWS, 270, cs.C_DIM)]
 ENCODE_SPLITS = {3485: (4, 8, 11, 14, 16, 22, 28), 270: (1, 2)}
 DECODE_TIMED = [(1, 1000, 3485, 2), (1, 1024, 3485, 2),

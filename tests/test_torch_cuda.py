@@ -68,11 +68,13 @@ def test_encoder_kernel_matches_plain(cuda, folds, rows, d, c_dim, hidden,
 
 
 # (folds, rows, D, C, hidden, Z): ragged rows, 0, 1 and 3 hidden layers, a
-# hidden layer wider than a column block, a latent width of 7, 5 folds
+# hidden layer wider than a column block, a latent width of 7, 5 folds, and
+# heads too wide for the kernel's one-pass route (40 rows of 460 weights)
 ENCODER_SPLIT_CASES = [(5, 37, 90, 29, [64, 110, 32], 10),
                        (3, 65, 45, 3, [], 10),
                        (1, 40, 270, 29, [130], 7),
-                       (2, 70, 270, 29, [110, 110], 10)]
+                       (2, 70, 270, 29, [110, 110], 10),
+                       (2, 33, 90, 29, [460], 20)]
 
 
 @pytest.mark.parametrize("splits", [1, 2, None],
