@@ -51,7 +51,21 @@ Phases (any failure exits non-zero, with no result line):
      cut): K1, K2 and K5 must have been launched, the four report files
      must have the JAX package's layout with every AUC finite and in
      [0, 1], and the analysis stage run again on the same CSVs must write
-     byte-equal files; wall time of each stage and of the whole.
+     byte-equal files; wall time of each stage and of the whole;
+  9. the model zoo on the card: the same cohort at -P SE-PoE, -H 110 110 10,
+     5 folds, stage by stage through cli.pipeline with the plain trainer
+     (epochs cut), for mmJSD (with --emit_latent: latent_deviation.csv per
+     fold must hold 4 + 1 + latent_dim columns of finite values), mvtCAE,
+     DMVAE, WeightedDMVAE and mmVAEPlus (their shared code empty at these
+     widths) and DMVAE once more at -H 110 110 40. The launch counts are
+     set to 0 before each test stage and read after it: the test stages of
+     mmJSD and mvtCAE must have launched K1 and K2 once per modality, those
+     of the DMVAE family (which has no kernel) not at all; every AUC must
+     be finite. Before that, on seeded tensors at those widths (5 folds x
+     1024 rows), the scoring call of mmJSD and of mvtCAE through K1 and K2
+     is held against the plain path evaluated in fp64 on the same eps, at
+     phase 4's bound. Prints each model's ms per training step (wall over
+     the trainer's run, which ends in a fetch) and each stage's wall.
 
 Beside every kernel time stands the kernel's bound: the least time the
 card could take for the same work (kernels/roofline.py: the larger of its
@@ -68,9 +82,11 @@ import time
 
 PROCESS_START = time.perf_counter()   # before numpy and torch are imported
 
+import copy  # noqa: E402
 import importlib.util  # noqa: E402
 import json  # noqa: E402
 import re  # noqa: E402
+import shutil  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
 import tempfile  # noqa: E402
@@ -170,6 +186,21 @@ CHAIN_FLAGS = ["-R", "ADNI", "-P", "UCA-gPoE", "-K", str(FOLDS),
                "-E", str(TRAIN_EPOCHS), "--fused_train_step"]
 CHAIN_REPORTS = ["result_baseline/result_multimodal.txt",
                  "result_baseline/result_4.txt", "cvae_auc_and_std.csv"]
+
+
+# phase 9: the zoo's chains, (model, -H, --emit_latent), on phase 8's cohort
+# with separate encoders (three modalities of 90 features), plain trainer
+ZOO_DIMS = [90, 90, 90]
+ZOO_EPOCHS = 20
+ZOO_FLAGS = ["-R", "ADNI", "-P", "SE-PoE", "-K", str(FOLDS),
+             "-E", str(ZOO_EPOCHS)]
+ZOO_CHAINS = [("mmJSD", HIDDEN + [LATENT], True),
+              ("mvtCAE", HIDDEN + [LATENT], False),
+              ("DMVAE", HIDDEN + [LATENT], False),
+              ("WeightedDMVAE", HIDDEN + [LATENT], False),
+              ("mmVAEPlus", HIDDEN + [LATENT], False),
+              ("DMVAE", HIDDEN + [40], False)]
+ZOO_KERNEL_MODELS = ("mmJSD", "mvtCAE")
 
 
 def cuda_ms(fn, iters=50, warmup=5):
@@ -911,6 +942,160 @@ def run_chain():
     return launches
 
 
+def check_zoo_scoring(name, seed):
+    """The scoring call of one skeleton variant through K1 and K2 on seeded
+    tensors (5 folds x 1024 rows at phase 9's widths) against the plain path
+    evaluated in fp64 on the same eps, at phase 4's bound. Returns (max abs
+    err, the call's launches)."""
+    from multi_modal_normative_modeling_tpu_torch import kernels
+    from multi_modal_normative_modeling_tpu_torch.models import build_model
+
+    rng = np.random.default_rng(seed)
+    model = build_model(name, ZOO_DIMS, HIDDEN, LATENT, C_DIM, len(ZOO_DIMS),
+                        folds=FOLDS,
+                        generator=torch.Generator().manual_seed(seed),
+                        device="cuda")
+    xes = [torch.from_numpy(rng.standard_normal(
+        (FOLDS, ROWS, d), dtype=np.float32)).cuda() for d in ZOO_DIMS]
+    cs = [covariates(rng, FOLDS, ROWS)] * len(ZOO_DIMS)
+    eps = torch.randn((FOLDS, ROWS, LATENT),
+                      generator=torch.Generator().manual_seed(seed)).cuda()
+    kernels.reset_launch_counts()
+    recons, devs = model.pred_recon_fused(xes, cs, "poe", eps=eps)
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels.KERNELS
+                if k.launches}
+    if launches != {"fused_encoder": len(ZOO_DIMS),
+                    "fused_pred_deviation": len(ZOO_DIMS)}:
+        raise RuntimeError(f"phase 9: {name}: the scoring call launched "
+                           f"{launches}")
+    model64 = copy.deepcopy(model).double()
+    with torch.no_grad():
+        ref = model64.pred_recon(fp64(*xes), fp64(*cs), "poe",
+                                 eps=eps.double())
+    err = 0.0
+    for m in range(len(ZOO_DIMS)):
+        dev64 = model64.reconstruction_deviation(xes[m].double(), ref[m])
+        err = max(err,
+                  check_close(f"{name} modality {m} recon", recons[m],
+                              ref[m].float(), MODEL_TOL)[0],
+                  check_close(f"{name} modality {m} deviation", devs[m],
+                              dev64.float(), MODEL_TOL)[0])
+    return err, launches
+
+
+def check_latent_files(root, model_dir):
+    """--emit_latent: one latent_deviation.csv per fold, the four clinical
+    columns, the scalar and one column per latent dimension, all finite."""
+    import pandas as pd
+
+    want = (["participant_id", "DIA", "AGE", "PTGENDER", "Latent deviation"]
+            + [f"latent {i}" for i in range(LATENT)])
+    rows = 0
+    for fold in range(FOLDS):
+        frame = pd.read_csv(model_dir / f"{fold:03d}" / "latent_deviation.csv")
+        if list(frame.columns) != want or not len(frame):
+            raise RuntimeError(f"phase 9: latent_deviation.csv of fold {fold} "
+                               f"holds {list(frame.columns)}, {len(frame)} "
+                               "rows")
+        if not np.isfinite(frame[want[4:]].to_numpy()).all():
+            raise RuntimeError(f"phase 9: latent_deviation.csv of fold {fold} "
+                               "holds non-finite values")
+        rows += len(frame)
+    return rows
+
+
+def run_zoo():
+    """Phase 9: each zoo model's chain on the card, stage by stage through
+    cli.pipeline. Returns {model: launches of its test stage} for the
+    models that score through K1 and K2."""
+    from multi_modal_normative_modeling_tpu_torch import kernels
+    from multi_modal_normative_modeling_tpu_torch.cli import pipeline
+    from multi_modal_normative_modeling_tpu_torch.data.synthetic import (
+        make_synthetic_resource,
+    )
+    from multi_modal_normative_modeling_tpu_torch.parallel import folds
+
+    for seed, name in enumerate(ZOO_KERNEL_MODELS, start=9):
+        err, launches = check_zoo_scoring(name, seed)
+        print(f"phase 9: {name} scoring call, {FOLDS} folds x {ROWS} rows, "
+              f"widths {ZOO_DIMS}, through K1 and K2 against the plain path "
+              f"in fp64: max abs err {err:.3e}; launches {launches}",
+              flush=True)
+
+    # ms per step: the wall of every MultiFoldTrainer.run (uploads the
+    # batches, steps, ends in the logs' fetch) over its steps
+    runs = []
+    plain_run = folds.MultiFoldTrainer.run
+
+    def timed_run(self, stacked_batches, eps=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logs = plain_run(self, stacked_batches, eps=eps)
+        steps = self.config.epochs * stacked_batches["mask"].shape[1]
+        runs.append(((time.perf_counter() - t0) * 1e3 / steps, steps))
+        return logs
+
+    test_launches = {}
+    folds.MultiFoldTrainer.run = timed_run
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            base = Path(tmp) / "cohort"
+            make_synthetic_resource(base, "ADNI", **CHAIN_COHORT)
+            for i, (name, hz, emit_latent) in enumerate(ZOO_CHAINS):
+                root = Path(tmp) / f"{i}_{name}"
+                shutil.copytree(base / "data", root / "data")
+                flags = (ZOO_FLAGS + ["-Model", name, "-H"]
+                         + [str(h) for h in hz]
+                         + (["--emit_latent"] if emit_latent else []))
+                walls = {}
+                for stage in ("train", "test", "analyze"):
+                    kernels.reset_launch_counts()
+                    t0 = time.perf_counter()
+                    stats = pipeline.run(flags + ["--stages", stage],
+                                         project_root=root)
+                    torch.cuda.synchronize()
+                    walls[stage] = time.perf_counter() - t0
+                    if stage == "test":
+                        launches = {k.__name__: k.launches
+                                    for k in kernels.KERNELS if k.launches}
+                want = ({"fused_encoder": len(ZOO_DIMS),
+                         "fused_pred_deviation": len(ZOO_DIMS)}
+                        if name in ZOO_KERNEL_MODELS else {})
+                if launches != want:
+                    raise RuntimeError(f"phase 9: the test stage of {name} "
+                                       f"launched {launches}, expected {want}")
+                if name in ZOO_KERNEL_MODELS:
+                    test_launches[name] = launches
+                aucs = [float(a) for a in stats["auc"]]
+                if len(aucs) != 3 or not all(
+                        np.isfinite(a) and 0.0 <= a <= 1.0 for a in aucs):
+                    raise RuntimeError(f"phase 9: {name}: AUCs {aucs}")
+                model_dir = (root / "outputs" / "kfold_analysis"
+                             / "supervised_cvae")
+                latent = list(root.rglob("latent_deviation.csv"))
+                note = ""
+                if emit_latent:
+                    rows = check_latent_files(root, model_dir)
+                    note = (f"; latent_deviation.csv in {FOLDS} folds, "
+                            f"{4 + 1 + LATENT} columns, {rows} rows, finite")
+                elif latent:
+                    raise RuntimeError(f"phase 9: {name} wrote {latent}")
+                ms, steps = runs[-1]
+                print(f"phase 9: {name} -H {' '.join(map(str, hz))}: "
+                      f"{steps} plain steps at {ms:.4f} ms/step; train "
+                      f"{walls['train']:.3f} s, test {walls['test']:.3f} s, "
+                      f"analysis {walls['analyze']:.3f} s; test-stage "
+                      f"launches {launches}; AUC per comparison "
+                      f"{[round(a, 4) for a in aucs]}{note}", flush=True)
+            if len(runs) != len(ZOO_CHAINS):
+                raise RuntimeError(f"phase 9: {len(runs)} trainer runs for "
+                                   f"{len(ZOO_CHAINS)} chains")
+    finally:
+        folds.MultiFoldTrainer.run = plain_run
+    return test_launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1196,6 +1381,15 @@ def main():
                "tiled_fused_train_step": ("train_step_bf16.cu",
                                           "train_step_tiled.py:447")}
     print(f"phase 8: launches of the chain {chain_launches}", flush=True)
+
+    # ---- phase 9: the model zoo on the card --------------------------------
+    zoo_launches = run_zoo()
+    for name in ("fused_encoder", "fused_pred_deviation"):
+        missing = [m for m in ZOO_KERNEL_MODELS
+                   if not zoo_launches.get(m, {}).get(name)]
+        if missing:
+            raise RuntimeError(f"phase 9: {name} was not launched by the "
+                               f"test stage of {missing}")
     missing = [name for name in sources if not launches.get(name)]
     if missing:
         raise RuntimeError(f"no launch on the main path: {missing}")
@@ -1223,6 +1417,10 @@ def main():
         for extra in ("ppmi", "fp32", "plain_device_ms"):
             if extra in stats[name]:
                 report[-1][extra] = stats[name][extra]
+        # K1 and K2 in the zoo's test stages (phase 9), per model
+        if any(name in counts for counts in zoo_launches.values()):
+            report[-1]["zoo_launches"] = {
+                model: counts[name] for model, counts in zoo_launches.items()}
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

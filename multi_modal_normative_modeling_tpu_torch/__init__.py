@@ -5,7 +5,8 @@ The JAX package stays the reference; this package mirrors its layout and
 module names so each counterpart is easy to find:
 
   ops/        - linear layers, latent-fusion ops and loss terms (plain torch)
-  models/     - the conditional encoder/decoder and MultimodalCVAE
+  models/     - the conditional encoder/decoder, MultimodalCVAE (cvae,
+                mmjsd, mvtcae, nmmlp) and the DMVAE family; build_model
   kernels/    - hand-written CUDA kernels (sm_90a) with plain torch versions
   train/      - training config, batching, the masked Adam, the epoch loop
                 and the checkpoint writer
@@ -18,7 +19,8 @@ module names so each counterpart is easy to find:
                 and the report writers
   utils/      - loss logs, plots, the JSONL run log
   cli/        - the k-fold train stage, test stage (deviation scoring) and
-                analysis stage, and the three in one process (pipeline)
+                analysis stage, the three in one process (pipeline), and
+                the early-fusion table writer
 
 Weights are stored as ``[fan_out, fan_in]`` with a leading fold axis
 (``[F, fan_out, fan_in]``): every fold of a k-fold run trains in one step

@@ -11,6 +11,7 @@ three-launch chain (same mains, same args). Usage:
 
     python -m multi_modal_normative_modeling_tpu_torch.cli.pipeline \\
         -R ADNI -P UCA-gPoE -E 200 -K 5 [--fused_train_step] [--device cpu]
+        [-Model mmJSD|mvtCAE|DMVAE|WeightedDMVAE|mmVAEPlus] [--emit_latent]
 
 Select stages with --stages (comma-separated subset of train,test,analyze).
 """
@@ -32,7 +33,8 @@ def build_parser() -> argparse.ArgumentParser:
                              '(in that order).')
     parser.add_argument('--emit_latent', dest='emit_latent',
                         action='store_true',
-                        help='not ported yet (raises); see ROADMAP.md')
+                        help='test stage: also write per-fold '
+                             'latent_deviation.csv.')
     parser.add_argument('--fused_inference', dest='fused_inference',
                         action='store_true',
                         help='accepted for the JAX CLI flag surface: on CUDA '

@@ -6,14 +6,20 @@ JAX trainer wrote, run the stochastic reconstruction (SURVEY.md Q2) and
 write the five deviation CSVs per (fold, modality) plus the all-fold copies,
 through the DeviationEmitter (infer/emitters.py).
 
-All folds are scored by one call of ``MultimodalCVAE.pred_recon_fused`` on
-a fold-stacked model: on CUDA each modality is one encoder kernel launch and
-one decode+deviation kernel launch covering every fold. As in the JAX CLI,
-the CSV deviation is recomputed in float64 on the host from the float64
-scaled data and the float32 predictions, so the CSVs match the JAX ones.
+All folds are scored by one call on a fold-stacked model. A model of the
+cVAE skeleton (cVAE_multimodal, mmJSD, mvtCAE) goes through
+``MultimodalCVAE.pred_recon_fused``: on CUDA each modality is one encoder
+kernel launch and one decode+deviation kernel launch covering every fold,
+with the variant's fusion in torch between them, and a launch that fails
+raises (there is no way from there to the plain version). The DMVAE family
+has no kernel in the JAX package and none here: it goes through
+``pred_recon``. As in the JAX CLI, the CSV deviation is recomputed in
+float64 on the host from the float64 scaled data and the float32
+predictions, so the CSVs match the JAX ones. ``--emit_latent`` also writes
+``latent_deviation.csv`` per fold for the models that have ``latent_stats``.
 
     python -m multi_modal_normative_modeling_tpu_torch.cli.test_supervised \
-        -R ADNI -P UCA-gPoE -K 5
+        -R ADNI -P UCA-gPoE -K 5 [--emit_latent]
 """
 from __future__ import annotations
 
@@ -24,6 +30,8 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+from ..infer.deviation import latent_deviation, separate_latent_deviation
 
 from .. import registry
 from ..infer.emitters import DeviationEmitter
@@ -37,7 +45,6 @@ _NOT_PORTED_FLAGS = {
     'mesh': "queue 1 item 'Multi-device'",
     'ep_mesh': "queue 1 item 'Multi-device'",
     'in_memory_fusion': "queue 1 item 'Main-path CLI chain'",
-    'emit_latent': "queue 1 item 'Main-path CLI chain'",
 }
 
 EpsFn = Callable[[int, int, int], np.ndarray]
@@ -46,7 +53,9 @@ EpsFn = Callable[[int, int, int], np.ndarray]
 def default_eps(fold: int, padded_rows: int, z_dim: int) -> np.ndarray:
     """The fold's reparameterization noise: a torch.Generator seeded with
     1000 + fold (the JAX package draws from PRNGKey(1000 + fold); the two
-    streams differ, tests replay the JAX draws through ``eps_fn``)."""
+    streams differ, tests replay the JAX draws through ``eps_fn``).
+    ``z_dim`` is the model's ``noise_dim`` (0 for a DMVAE-family model whose
+    shared code is empty)."""
     gen = torch.Generator().manual_seed(1000 + fold)
     return torch.randn((padded_rows, z_dim), generator=gen).numpy()
 
@@ -112,6 +121,8 @@ def main(args, project_root=None, eps_fn: Optional[EpsFn] = None):
             # last modality wins (test:102)
             'test_cov': common.require_test_cov(preps[-1],
                                                 f'test fold {fold}'),
+            'train_data_list': [p['train_data'] for p in preps],
+            'train_cov': preps[-1]['train_cov'],
         })
 
     # ---- phase 2: one scoring call over the stacked fold axis ------------
@@ -122,8 +133,8 @@ def main(args, project_root=None, eps_fn: Optional[EpsFn] = None):
         tile = common.infer_row_tile()
         padded_rows = -(-max_rows // tile) * tile
 
-        def stacked(arrays):
-            out = np.zeros((len(arrays), padded_rows, arrays[0].shape[1]),
+        def stacked(arrays, rows=padded_rows):
+            out = np.zeros((len(arrays), rows, arrays[0].shape[1]),
                            np.float32)
             for i, a in enumerate(arrays):
                 out[i, :a.shape[0]] = a
@@ -136,12 +147,32 @@ def main(args, project_root=None, eps_fn: Optional[EpsFn] = None):
                for m in range(n_mod)]
         c = stacked([j['test_cov'] for j in pending])
         eps = torch.from_numpy(np.stack([
-            np.asarray(eps_fn(j['fold'], padded_rows, model.latent_dim),
-                       np.float32)
+            np.asarray(eps_fn(j['fold'], padded_rows, model.noise_dim),
+                       np.float32).reshape(padded_rows, model.noise_dim)
             for j in pending])).to(device)
-        recons, _ = model.pred_recon_fused(xes, [c] * n_mod, args.combine,
-                                           eps=eps)
+        if hasattr(model, 'pred_recon_fused'):
+            recons, _ = model.pred_recon_fused(xes, [c] * n_mod, args.combine,
+                                               eps=eps)
+        else:
+            with torch.no_grad():
+                recons = model.pred_recon(xes, [c] * n_mod, args.combine,
+                                          eps=eps)
         host_preds = [r.cpu().numpy() for r in recons]
+        latent = None
+        if (getattr(args, 'emit_latent', False)
+                and hasattr(model, 'latent_stats')):
+            # rows are independent through the encoders and the fusion, so
+            # each fold's padding rows change nothing above them
+            train_rows = max(j['train_data_list'][0].shape[0]
+                             for j in pending)
+            train_xes = [stacked([j['train_data_list'][m] for j in pending],
+                                 train_rows) for m in range(n_mod)]
+            train_c = stacked([j['train_cov'] for j in pending], train_rows)
+            with torch.no_grad():
+                latent = [
+                    tuple(t.cpu().numpy() for t in model.latent_stats(
+                        inputs, [cov] * n_mod, args.combine))
+                    for inputs, cov in ((train_xes, train_c), (xes, c))]
 
         # ---- phase 3: per-fold float64 deviation + CSV emission ----------
         for i, job in enumerate(pending):
@@ -161,7 +192,25 @@ def main(args, project_root=None, eps_fn: Optional[EpsFn] = None):
                                         'PTGENDER']],
                     job['test_data_list'][m], preds[m], deviations[m],
                 )
+            if latent is not None:
+                (mu_train, _), (mu_test, var_test) = latent
+                _emit_latent(job['dir'], job['clinical_df'],
+                             mu_train[i, :job['train_data_list'][0].shape[0]],
+                             mu_test[i, :n_rows], var_test[i, :n_rows])
     emitter.emit_combined(deviation_dir)
+
+
+def _emit_latent(fold_model_dir, clinical_df, mu_train, mu_test, var_test):
+    """The fold's ``latent_deviation.csv`` (cli/test_supervised.py:445-470
+    of the JAX package): the scalar and the per-dimension latent z-scores of
+    the test rows against the fold's train cohort, from the fused latent
+    statistics the device computed."""
+    frame = clinical_df[['participant_id', 'DIA', 'AGE', 'PTGENDER']].copy()
+    frame['Latent deviation'] = latent_deviation(mu_train, mu_test, var_test)
+    per_dim = separate_latent_deviation(mu_train, mu_test, var_test)
+    for i in range(per_dim.shape[1]):
+        frame[f'latent {i}'] = per_dim[:, i]
+    frame.to_csv(Path(fold_model_dir) / 'latent_deviation.csv', index=False)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -193,7 +242,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--in_memory_fusion', dest='in_memory_fusion',
                         action='store_true', help=not_ported)
     parser.add_argument('--emit_latent', dest='emit_latent',
-                        action='store_true', help=not_ported)
+                        action='store_true',
+                        help='also write per-fold latent_deviation.csv '
+                             '(scalar + per-dim latent z-scores against the '
+                             'train cohort); models with latent_stats only.')
     return parser
 
 

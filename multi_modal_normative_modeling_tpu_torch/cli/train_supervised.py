@@ -12,11 +12,14 @@ Gaussian NLL through the ``decoder_nll`` CUDA kernel pair.
 ``--fused_train_step`` trains every fold at once on the fused train step
 (``train.fused.FusedFoldTrainer``: K5 in fp32, K6 with ``--precision
 bf16``); where the JAX CLI falls back to its XLA path for a configuration
-the fused step does not take, this one exits and says why.
+the fused step does not take, this one exits and says why. ``-Model`` takes
+the six registry names (cVAE_multimodal, mmJSD, mvtCAE, DMVAE,
+WeightedDMVAE, mmVAEPlus); both fused paths compute cVAE_multimodal's loss
+and exit for the other five.
 
     python -m multi_modal_normative_modeling_tpu_torch.cli.train_supervised \\
         -R ADNI -P UCA-gPoE -E 200 -K 5 [--fused_decoder] [--device cpu]
-        [--fused_train_step [--precision bf16]]
+        [--fused_train_step [--precision bf16]] [-Model mvtCAE]
 """
 from __future__ import annotations
 
@@ -31,8 +34,7 @@ import torch
 from .. import registry
 from ..interop import packed_from_model, packed_to_model, params_to_jax
 from ..kernels.decoder_nll import fused_decoder_loss_fn
-from ..models import build_model
-from ..models.stacked import SKELETON_VARIANTS
+from ..models import REGISTRY, build_model
 from ..parallel import MultiFoldTrainer, stack_fold_batches
 from ..train import TrainConfig
 from ..train.fused import FusedFoldTrainer, supported
@@ -57,14 +59,14 @@ InitFn = Callable[[torch.nn.Module], None]
 EpsFn = Callable[[np.ndarray, int, int, int], np.ndarray]
 
 
-def default_init(model) -> None:
+def default_init(model, name: str = 'cVAE_multimodal') -> None:
     """Every fold starts from the same weights, as the reference re-seeds 42
-    per fold (train:119): one fold drawn from torch.Generator seeded 42,
-    repeated over the model's folds."""
-    one = build_model('cVAE_multimodal', model.input_dim_list,
+    per fold (train:119): one fold of the registry model ``name`` drawn from
+    torch.Generator seeded 42, repeated over the model's folds."""
+    one = build_model(name, model.input_dim_list,
                       model.hidden_dim, model.latent_dim, model.c_dim,
-                      model.modalities, model.non_linear, folds=1,
-                      generator=torch.Generator().manual_seed(42))
+                      model.modalities, getattr(model, 'non_linear', True),
+                      folds=1, generator=torch.Generator().manual_seed(42))
     model.load_state_dict({
         k: v.expand((model.folds,) + v.shape[1:]).clone()
         for k, v in one.state_dict().items()})
@@ -75,8 +77,9 @@ def main(args, project_root=None, init_fn: Optional[InitFn] = None,
     """``init_fn(model)`` fills the fold-stacked model's initial weights
     (default: ``default_init``). ``eps_fn(valid [F, NB], epochs, batch rows,
     latent dim)`` gives the noise of every step, [epochs * NB, F, rows, Z]
-    (tests replay the JAX package's draws); by default every fold draws from
-    its own generator on the device."""
+    (tests replay the JAX package's draws; the latent dim is the model's
+    ``noise_dim``, the shared code's width for the DMVAE family); by default
+    every fold draws from its own generator on the device."""
     for flag, item in _NOT_PORTED_FLAGS.items():
         if getattr(args, flag, None):
             raise SystemExit(f'--{flag} is not ported to the torch trainer '
@@ -92,6 +95,10 @@ def main(args, project_root=None, init_fn: Optional[InitFn] = None,
         unsupported = _fused_flag_conflict(args)
         if unsupported:
             raise SystemExit(f'fused train step unavailable ({unsupported})')
+    elif getattr(args, 'fused_decoder', False):
+        unsupported = _cvae_only(args, 'the decoder_nll kernel pair')
+        if unsupported:
+            raise SystemExit(f'fused decoder unavailable ({unsupported})')
     device = common.resolve_device(getattr(args, 'device', 'cuda'), 'train')
 
     project_root = Path(project_root) if project_root else Path.cwd()
@@ -147,7 +154,10 @@ def main(args, project_root=None, init_fn: Optional[InitFn] = None,
             ok = reason is None
         if not ok:
             raise SystemExit(f'fused train step unavailable ({reason})')
-    (init_fn or default_init)(model)
+    if init_fn is not None:
+        init_fn(model)
+    else:
+        default_init(model, config_dict['model'])
     model.to(device)
     max_n = max(f[0][0].shape[0] for f in folds)
     if fused:
@@ -169,14 +179,24 @@ def main(args, project_root=None, init_fn: Optional[InitFn] = None,
     run_log.event('train_end', folds=n_folds)
 
 
+def _cvae_only(args, what: str) -> Optional[str]:
+    """Why a path that computes cVAE_multimodal's loss cannot train
+    ``args.model``, or None."""
+    name = getattr(args, 'model', 'cVAE_multimodal')
+    if name == 'cVAE_multimodal' or name not in REGISTRY:
+        return None  # an unknown name is build_model's to refuse
+    return (f'model {name!r}: {what} computes the cVAE_multimodal loss '
+            'only, as in the JAX package, which falls back to its plain '
+            'loss here; this CLI exits instead (ROADMAP.md, "Stated '
+            'divergences"). Train this model without the flag')
+
+
 def _fused_flag_conflict(args) -> Optional[str]:
     """Why --fused_train_step cannot run with these flags (checked before
     any file is written), or None."""
-    variant = SKELETON_VARIANTS.get(getattr(args, 'model', 'cVAE_multimodal'))
-    if variant != 'cvae':
-        return (f'model {args.model!r}: the fused step trains '
-                "cVAE_multimodal; other variants are not ported, see "
-                "ROADMAP.md, queue 1 item 'Zoo'")
+    unsupported = _cvae_only(args, 'the fused train step')
+    if unsupported:
+        return unsupported
     combine = (getattr(args, 'combine', None)
                or getattr(args, 'procedure', 'UCA-gPoE').split('-')[1])
     if combine.lower() not in ('poe', 'gpoe', 'moe', 'mopoe'):
@@ -197,7 +217,7 @@ def _train_fused(model, train_config, folds, max_n, device, eps_fn):
     eps = None
     if eps_fn is not None:
         eps = eps_fn(batches.valid_host.T, train_config.epochs,
-                     train_config.batch_size, model.latent_dim)
+                     train_config.batch_size, model.noise_dim)
     kernel = 'K6, bf16' if train_config.precision == 'bf16' else 'K5'
     print(f'train model (all folds fold-parallel, fused train-step CUDA '
           f'kernel {kernel})')
@@ -221,7 +241,7 @@ def _train(args, model, train_config, folds, max_n, eps_fn):
     eps = None
     if eps_fn is not None:
         eps = eps_fn(batches['valid'], train_config.epochs, batch_size,
-                     model.latent_dim)
+                     model.noise_dim)
     print('train model (all folds fold-parallel)')
     return trainer.run(batches, eps=eps)
 
@@ -252,7 +272,8 @@ def build_parser() -> argparse.ArgumentParser:
                              'Gaussian NLL (forward and backward) through '
                              'the decoder_nll CUDA kernel pair, which keeps '
                              'the [B, D] means and residuals out of device '
-                             'memory; cvae variant, fp32.')
+                             'memory; cVAE_multimodal, fp32. Exits (never '
+                             'falls back) for another -Model.')
     parser.add_argument('--no_fused_heads', dest='no_fused_heads',
                         action='store_true',
                         help='accepted for the JAX CLI flag surface: the '
@@ -265,9 +286,10 @@ def build_parser() -> argparse.ArgumentParser:
                              'hand-derived backward of every fold) as one '
                              'fused train-step CUDA kernel call on the '
                              'packed layout: K5 in fp32, K6 under '
-                             '--precision bf16; cvae variant, poe/gpoe/moe/'
-                             'mopoe, 1-3 hidden layers. Exits (never falls '
-                             'back) on a configuration it does not take.')
+                             '--precision bf16; cVAE_multimodal, poe/gpoe/'
+                             'moe/mopoe, 1-3 hidden layers. Exits (never '
+                             'falls back) on a configuration or a -Model it '
+                             'does not take.')
     parser.add_argument('--precision', dest='precision', default='fp32',
                         choices=['fp32', 'bf16'],
                         help='fp32; bf16 runs only through the fused train '

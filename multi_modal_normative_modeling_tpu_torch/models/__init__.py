@@ -1,25 +1,35 @@
-"""Model registry of the port. Only ``cVAE_multimodal`` is ported so far."""
+"""Model zoo of the port: the reference's registry names
+(multimodal_kfold_train_cvae_supervised.py:150-157)."""
 
 from .cvae import Decoder, Encoder, reparameterize  # noqa: F401
+from .dmvae import DMVAEFamily  # noqa: F401
 from .multimodal import MultimodalCVAE  # noqa: F401
 
-# reference registry names the JAX package builds and the port does not yet
-NOT_PORTED = ("mmJSD", "mvtCAE", "DMVAE", "WeightedDMVAE", "mmVAEPlus")
+# registry name -> (family, variant)
+REGISTRY = {
+    "cVAE_multimodal": (MultimodalCVAE, "cvae"),
+    "mmJSD": (MultimodalCVAE, "mmjsd"),
+    "mvtCAE": (MultimodalCVAE, "mvtcae"),
+    "DMVAE": (DMVAEFamily, "dmvae"),
+    "WeightedDMVAE": (DMVAEFamily, "weighted"),
+    "mmVAEPlus": (DMVAEFamily, "mmvaeplus"),
+}
 
 
 def build_model(name: str, input_dim_list, hidden_dim, latent_dim, c_dim,
                 modalities: int, non_linear: bool = True, folds: int = 1,
-                generator=None, device=None) -> MultimodalCVAE:
+                generator=None, device=None):
     """Construct a model by its reference registry name, holding ``folds``
     folds' parameters."""
-    if name == "cVAE_multimodal":
-        return MultimodalCVAE(input_dim_list, hidden_dim, latent_dim, c_dim,
-                              modalities, non_linear, variant="cvae",
-                              folds=folds, generator=generator, device=device)
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"Model '{name}' is not ported to torch yet; see ROADMAP.md, "
-            "queue 1 item 'Zoo'")
-    raise ValueError(
-        f"Model '{name}' is not recognized. Available models are: "
-        "cVAE_multimodal, mmJSD, DMVAE, WeightedDMVAE, mvtCAE, mmVAEPlus")
+    if name not in REGISTRY:
+        raise ValueError(
+            f"Model '{name}' is not recognized. Available models are: "
+            "cVAE_multimodal, mmJSD, DMVAE, WeightedDMVAE, mvtCAE, mmVAEPlus")
+    family, variant = REGISTRY[name]
+    if family is DMVAEFamily:
+        return DMVAEFamily(input_dim_list, hidden_dim, latent_dim, c_dim,
+                           modalities, variant=variant, folds=folds,
+                           generator=generator, device=device)
+    return MultimodalCVAE(input_dim_list, hidden_dim, latent_dim, c_dim,
+                          modalities, non_linear, variant=variant,
+                          folds=folds, generator=generator, device=device)

@@ -1,4 +1,4 @@
-"""Loss terms of the cVAE (counterpart of ops/losses.py, main-path terms).
+"""Loss terms of the model zoo (counterpart of ops/losses.py).
 
 Every term is fold-stacked: inputs carry a leading fold axis F and the
 result is one value per fold, [F]. With a row ``mask`` [F, B] a term is the
@@ -8,7 +8,7 @@ real rows (cVAE.py:14-15, :1138-1139; SURVEY.md Q7).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -51,3 +51,57 @@ def gaussian_ll(x: torch.Tensor, mean: torch.Tensor, logvar_out: torch.Tensor,
     learnable homoscedastic output logvar (cVAE.py:14-15, :193-206), per
     fold: [F]."""
     return _masked_mean(gaussian_ll_rows(x, mean, logvar_out), mask)
+
+
+def neg_half_sse(x: torch.Tensor, recon: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """-0.5 * sum((x - recon)^2, features), mean over rows: the DMVAE
+    family's 'll' (cVAE.py:1566). x, recon [F, B, D] -> [F]."""
+    return _masked_mean(-0.5 * torch.sum((x - recon) ** 2, dim=-1), mask)
+
+
+def _masked_element_mean(values: torch.Tensor,
+                         mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Mean over the rows and the last axis of values [F, B, W], over
+    mask's rows: the sum over valid rows divided by max(rows * W, 1)."""
+    if mask is None:
+        return torch.mean(values, dim=(-2, -1))
+    mask = mask.to(values.dtype)
+    return (torch.sum(values * mask.unsqueeze(-1), dim=(-2, -1))
+            / torch.clamp(torch.sum(mask, dim=-1) * values.shape[-1],
+                          min=1.0))
+
+
+def neg_mse(x: torch.Tensor, recon_mean: torch.Tensor,
+            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """-MSE over all elements of a fold: nm-MLP's calc_ll (nmmlp.py:124-127).
+    x, recon_mean [F, B, D] -> [F]."""
+    return -_masked_element_mean((x - recon_mean) ** 2, mask)
+
+
+def gaussian_kl_pair(mu_p: torch.Tensor, logvar_p: torch.Tensor,
+                     mu_q: torch.Tensor, logvar_q: torch.Tensor
+                     ) -> torch.Tensor:
+    """Elementwise KL(N_p || N_q) of diagonal Gaussians (torch
+    kl_divergence(Normal, Normal))."""
+    var_p = torch.exp(logvar_p)
+    var_q = torch.exp(logvar_q)
+    return (0.5 * (logvar_q - logvar_p)
+            + (var_p + (mu_p - mu_q) ** 2) / (2.0 * var_q) - 0.5)
+
+
+def pairwise_jsd(mus: Sequence[torch.Tensor], logvars: Sequence[torch.Tensor],
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """mmJSD's pairwise-KL regularizer (cVAE.py:1404-1411): the mean KL over
+    the pairs i < j, each averaged over its elements. mus, logvars: one
+    [F, B, Z] tensor per expert -> [F]; zero when there is no pair."""
+    n = len(mus)
+    total = mus[0].new_zeros(mus[0].shape[0])
+    if n < 2:
+        return total
+    for i in range(n):
+        for j in range(i + 1, n):
+            total = total + _masked_element_mean(
+                gaussian_kl_pair(mus[i], logvars[i], mus[j], logvars[j]),
+                mask)
+    return total / (n * (n - 1) / 2)

@@ -16,7 +16,6 @@ import numpy as np
 import torch
 
 from ..train.trainer import (
-    LOG_KEYS,
     DeviceBatches,
     FoldNoise,
     MaskedAdam,
@@ -104,8 +103,9 @@ class MultiFoldTrainer:
         """Train ``self.model`` in place, for ``config.epochs`` epochs over
         ``stack_fold_batches`` output (or those batches already uploaded as
         ``DeviceBatches``). ``eps`` [epochs * NB, F, B, Z] replays given
-        noise (tests); by default each fold draws its own. Returns the logs
-        {total, kl, ll: [F, epochs] numpy}."""
+        noise (tests; Z is the model's ``noise_dim``); by default each fold
+        draws its own. Returns the logs {key: [F, epochs] numpy} for every
+        key of the model's ``log_keys``."""
         params = list(self.model.parameters())
         device = params[0].device
         batches = stacked_batches
@@ -116,10 +116,11 @@ class MultiFoldTrainer:
             eps = torch.as_tensor(eps, dtype=torch.float32).to(device)
         else:
             noise = FoldNoise(batches.folds,
-                              (batches.rows, self.model.latent_dim),
+                              (batches.rows, self.model.noise_dim),
                               self.config.seed, device)
         adam = MaskedAdam(params, self.lr_fn)
+        log_keys = self.model.log_keys
         logs = run_epochs(self.loss_fn, params, adam, batches,
-                          self.config.epochs, eps=eps, noise=noise)
+                          self.config.epochs, log_keys, eps=eps, noise=noise)
         host = logs.cpu().numpy()
-        return {k: host[:, i, :].T.copy() for i, k in enumerate(LOG_KEYS)}
+        return {k: host[:, i, :].T.copy() for i, k in enumerate(log_keys)}

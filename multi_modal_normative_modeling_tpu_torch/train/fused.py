@@ -34,7 +34,6 @@ from ..kernels.train_step import (
 from ..kernels import _build
 from ..models.stacked import StackedMultimodalCVAE
 from .trainer import (
-    LOG_KEYS,
     FoldNoise,
     MaskedAdam,
     TrainConfig,
@@ -157,6 +156,8 @@ class FusedFoldTrainer:
             model.input_dim_list, model.hidden_dim, model.latent_dim,
             model.c_dim, model.modalities, model.non_linear)
         self.config = config
+        # the fused step is cvae's: its terms are the model's own log keys
+        self.log_keys = model.log_keys
         if kernel == "tiled":
             from ..kernels.train_step_tiled import TiledFusedTrainStep
 
@@ -201,8 +202,8 @@ class FusedFoldTrainer:
         adam = MaskedAdam(params, self.lr_fn)
         if through_autograd:
             logs = run_epochs(self.step.loss_fn(params), params, adam,
-                              batches, self.config.epochs, eps=eps,
-                              noise=noise)
+                              batches, self.config.epochs, self.log_keys,
+                              eps=eps, noise=noise)
         else:
             logs = self._run_flat(dict(zip(names, params)), adam, batches,
                                   eps, noise)
@@ -210,7 +211,7 @@ class FusedFoldTrainer:
             {k: p.detach() for k, p in zip(names, params)})
         host = logs.cpu().numpy()
         return trained, {k: host[:, i, :].T.copy()
-                         for i, k in enumerate(LOG_KEYS)}
+                         for i, k in enumerate(self.log_keys)}
 
     @torch.no_grad()
     def _run_flat(self, named: dict, adam: MaskedAdam,
@@ -218,7 +219,7 @@ class FusedFoldTrainer:
         """train.trainer.run_epochs without autograd: ``named`` are views
         of ``adam.flat``, and each step's flat gradient updates it."""
         epochs = self.config.epochs
-        logs = torch.empty((epochs, len(LOG_KEYS), batches.folds),
+        logs = torch.empty((epochs, len(self.log_keys), batches.folds),
                            device=batches.rm.device)
         t = 0
         for epoch in range(epochs):
@@ -230,7 +231,8 @@ class FusedFoldTrainer:
                     named, b["x"], b["c"], self.step.pad_eps(noise_t),
                     b["rm"], b["nvalid"])
                 if i == 0:
-                    logs[epoch] = torch.stack([losses[k] for k in LOG_KEYS])
+                    logs[epoch] = torch.stack([losses[k]
+                                               for k in self.log_keys])
                 adam.step_flat(flat, batches.valid[i])
                 t += 1
         return logs

@@ -31,8 +31,6 @@ import torch
 
 from .schedules import cyclic_triangular
 
-LOG_KEYS = ("total", "kl", "ll")
-
 LossFn = Callable[[dict, torch.Tensor], Tuple[torch.Tensor, dict]]
 
 
@@ -234,12 +232,19 @@ class DeviceBatches:
 
 def run_epochs(loss_fn: LossFn, params: List[torch.nn.Parameter],
                adam: MaskedAdam, batches: DeviceBatches, epochs: int,
+               log_keys: Sequence[str],
                eps: Optional[torch.Tensor] = None,
                noise: Optional[FoldNoise] = None) -> torch.Tensor:
     """The epoch loop: every batch of every epoch is one step for all folds.
     ``eps`` [epochs * NB, F, B, Z] replays given noise; otherwise ``noise``
-    draws it. Returns the logs [epochs, 3, F] (LOG_KEYS) on the device."""
-    logs = torch.empty((epochs, len(LOG_KEYS), batches.folds),
+    draws it. Returns the logs [epochs, len(log_keys), F] on the device:
+    the loss terms ``log_keys`` (the model's ``log_keys``: total, kl, ll,
+    and jsd for mmJSD, tc for mvtCAE) of each epoch's first batch.
+
+    A fold whose step is not valid may hand back a NaN loss and gradient
+    (mvtCAE's log-sum-exp over an all-padding batch): nothing here scales by
+    ``valid``, the optimizer selects, so such a step leaves no trace."""
+    logs = torch.empty((epochs, len(log_keys), batches.folds),
                        device=batches.mask.device)
     t = 0
     for epoch in range(epochs):
@@ -251,7 +256,7 @@ def run_epochs(loss_fn: LossFn, params: List[torch.nn.Parameter],
                                         allow_unused=True)
             if step == 0:
                 logs[epoch] = torch.stack([aux[k].detach()
-                                           for k in LOG_KEYS])
+                                           for k in log_keys])
             adam.step(grads, batches.valid[step])
             t += 1
     return logs

@@ -177,6 +177,91 @@ def test_scoring_call_runs_every_modality_through_the_kernels(cuda):
             rtol=2e-4, atol=2e-5)
 
 
+@pytest.mark.parametrize("name,combine", [
+    ("mmJSD", "poe"), ("mmJSD", "gpoe"), ("mvtCAE", "poe"),
+    ("mvtCAE", "gpoe")])
+def test_zoo_scoring_call_runs_through_the_kernels(cuda, name, combine):
+    """The skeleton variants score through K1 and K2 with their own fusion
+    between them: one launch of each per modality, against the plain path
+    evaluated in fp64 on the same eps."""
+    import copy
+
+    dims = [90, 90, 90]
+    model = build_model(name, dims, [110, 110], 10, 29, 3, folds=5,
+                        generator=torch.Generator().manual_seed(0),
+                        device=cuda)
+    rng = np.random.default_rng(1)
+    xes = [_rows(rng, 5, 200, d).to(cuda) for d in dims]
+    cs = [_rows(rng, 5, 200, 29).to(cuda)] * 3
+    eps = _rows(rng, 5, 200, 10).to(cuda)
+    kernels.reset_launch_counts()
+    recons, devs = model.pred_recon_fused(xes, cs, combine, eps=eps)
+    assert kernels.fused_encoder.launches == 3
+    assert kernels.fused_pred_deviation.launches == 3
+    model64 = copy.deepcopy(model).double()
+    with torch.no_grad():
+        ref = model64.pred_recon([x.double() for x in xes],
+                                 [c.double() for c in cs], combine,
+                                 eps=eps.double())
+    for m in range(3):
+        torch.testing.assert_close(recons[m], ref[m].float(), rtol=2e-4,
+                                   atol=2e-5)
+        torch.testing.assert_close(
+            devs[m], model64.reconstruction_deviation(
+                xes[m].double(), ref[m]).float(), rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("name,latent", [("DMVAE", 10), ("DMVAE", 40),
+                                         ("WeightedDMVAE", 40),
+                                         ("mmVAEPlus", 10), ("mvtCAE", 10),
+                                         ("mmJSD", 10)])
+def test_zoo_training_on_the_card_matches_the_cpu(cuda, name, latent):
+    """A few plain steps of a zoo model on the card against the same steps
+    on the CPU, from the same init and eps, a ragged two-fold cohort whose
+    small fold meets an all-padding batch; no kernel is launched."""
+    import warnings
+
+    from multi_modal_normative_modeling_tpu_torch.parallel import (
+        MultiFoldTrainer,
+        stack_fold_batches,
+    )
+    from multi_modal_normative_modeling_tpu_torch.train import TrainConfig
+
+    dims = [90, 90, 90]
+    rng = np.random.default_rng(2)
+    cohorts = [([rng.standard_normal((n, d)).astype(np.float32)
+                 for d in dims],
+                [rng.standard_normal((n, 29)).astype(np.float32)] * 3)
+               for n in (70, 40)]
+    batches = stack_fold_batches([c[0] for c in cohorts],
+                                 [c[1] for c in cohorts], 32)
+    assert not batches["valid"][1, -1]
+    config = TrainConfig(epochs=3, batch_size=32, combine="poe")
+    runs = {}
+    kernels.reset_launch_counts()
+    for device in ("cpu", cuda):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            model = build_model(name, dims, [110, 110], latent, 29, 3,
+                                folds=2,
+                                generator=torch.Generator().manual_seed(3),
+                                device=device)
+        eps = torch.randn((9, 2, 32, model.noise_dim),
+                          generator=torch.Generator().manual_seed(4))
+        logs = MultiFoldTrainer(model, config, 70).run(batches, eps=eps)
+        runs[str(device)] = (logs, {k: v.cpu()
+                                    for k, v in model.state_dict().items()})
+    assert not any(k.launches for k in kernels.KERNELS)
+    (logs_c, state_c), (logs_g, state_g) = runs["cpu"], runs["cuda"]
+    assert set(logs_g) == set(model.log_keys)
+    for k in logs_c:
+        assert np.isfinite(logs_g[k]).all()
+        np.testing.assert_allclose(logs_g[k], logs_c[k], rtol=1e-4)
+    for k in state_c:
+        torch.testing.assert_close(state_g[k], state_c[k], rtol=5e-3,
+                                   atol=1e-5)
+
+
 def test_kernel_refuses_what_it_does_not_take(cuda):
     enc = Encoder(90, [110], 10, 29, device=cuda)
     x = torch.zeros(1, 8, 90, device=cuda)

@@ -2,6 +2,7 @@
 against their originals in the JAX package, on the same numpy-seeded inputs
 and one ``make_synthetic_resource`` project: tables equal, arrays bit-equal,
 frames equal, files byte-equal."""
+import inspect
 import json
 
 import numpy as np
@@ -9,6 +10,9 @@ import pandas as pd
 import pytest
 
 from multi_modal_normative_modeling_tpu import registry as jax_registry
+from multi_modal_normative_modeling_tpu.cli import (
+    early_fusion as jax_early_fusion,
+)
 from multi_modal_normative_modeling_tpu.data import (
     loading as jax_loading,
     preprocess as jax_preprocess,
@@ -20,6 +24,7 @@ from multi_modal_normative_modeling_tpu.infer import (
 )
 from multi_modal_normative_modeling_tpu.utils import logging as jax_logging
 from multi_modal_normative_modeling_tpu_torch import registry
+from multi_modal_normative_modeling_tpu_torch.cli import early_fusion
 from multi_modal_normative_modeling_tpu_torch.data import (
     loading,
     preprocess,
@@ -223,6 +228,72 @@ def test_deviation_functions_bit_equal():
     assert np.array_equal(
         deviation.reconstruction_deviation_roi(x, pred),
         jax_deviation.reconstruction_deviation_roi(x, pred))
+
+
+@pytest.mark.parametrize("name", [
+    "reconstruction_deviation", "reconstruction_deviation_roi",
+    "latent_deviation", "separate_latent_deviation", "_ols_pvalues",
+    "_logit_pvalues", "latent_pvalues"])
+def test_deviation_functions_are_the_originals(name):
+    """Each function of the copy is the original's text, so what
+    tests/test_latent_pvalues_golden.py holds for one holds for both;
+    tests/test_torch_latent.py compares their values."""
+    assert inspect.getsource(getattr(deviation, name)) == \
+        inspect.getsource(getattr(jax_deviation, name))
+
+
+def test_latent_deviation_values_bit_equal():
+    rng = np.random.default_rng(6)
+    mu_train, mu_test = rng.standard_normal((2, 30, 4))
+    var_test = np.exp(rng.standard_normal((30, 4)))
+    for name in ("latent_deviation", "separate_latent_deviation"):
+        assert np.array_equal(
+            getattr(deviation, name)(mu_train, mu_test, var_test),
+            getattr(jax_deviation, name)(mu_train, mu_test, var_test))
+
+
+# ---- early fusion ---------------------------------------------------------------------------
+
+def test_early_fusion_csv_byte_equal(projects):
+    """cli/early_fusion.py of both packages on the same project: the same
+    file, every base modality's columns suffixed with its name."""
+    out = []
+    for module, root in zip((jax_early_fusion, early_fusion), projects):
+        path = module.build_early_fusion(root, "ADNI")
+        assert path == (root / "data" / "ADNI"
+                        / "early_fusion_modalities_ADNI.csv")
+        out.append(path.read_bytes())
+        path.unlink()
+    assert out[0] and out[0] == out[1]
+    module_run = []
+    for module, root in zip((jax_early_fusion, early_fusion), projects):
+        module.run(["-R", "ADNI"], project_root=root)
+        path = root / "data" / "ADNI" / "early_fusion_modalities_ADNI.csv"
+        module_run.append(path.read_bytes())
+        frame = pd.read_csv(path)
+        path.unlink()
+    assert module_run == out
+    names = registry.get_datasets_name("ADNI")
+    assert frame.columns[0] == "IID"
+    assert len(frame.columns) == 1 + sum(
+        len(registry.get_column_name("ADNI", n)) for n in names)
+    assert all(c.endswith(tuple(f"_{n}" for n in names))
+               for c in frame.columns[1:])
+
+
+def test_early_fusion_refuses_misaligned_modalities(projects, tmp_path):
+    root = tmp_path / "project"
+    (root / "data").mkdir(parents=True)
+    import shutil
+
+    shutil.copytree(projects[1] / "data" / "ADNI", root / "data" / "ADNI")
+    last = registry.get_datasets_name("ADNI")[-1]
+    path = root / "data" / "ADNI" / f"{last}.csv"
+    frame = pd.read_csv(path)
+    frame.iloc[::-1].to_csv(path, index=False)
+    for module in (early_fusion, jax_early_fusion):
+        with pytest.raises(ValueError, match="IID order differs"):
+            module.build_early_fusion(root, "ADNI")
 
 
 def _emit(module, out, names, columns):

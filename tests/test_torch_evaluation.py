@@ -397,12 +397,13 @@ def test_pipeline_stages_and_flags(chain, tmp_path):
         pipeline.run(FLAGS + ["--stages", "train,score"], project_root=root)
 
 
-@pytest.mark.parametrize("flag", ["--emit_latent", "--warmup_only",
+@pytest.mark.parametrize("flag", ["--ep_mesh=4,2", "--warmup_only",
                                   "--in_memory_fusion", "--resume",
                                   "--profile_dir=x", "--mesh=2,4"])
 def test_pipeline_refuses_unported_flags_before_any_stage(flag, tmp_path):
     """Whatever stage would refuse the flag, the pipeline refuses it first,
-    citing the ROADMAP item by name, and writes nothing."""
+    citing the ROADMAP item by name, and writes nothing. (--emit_latent,
+    once in this list, is ported: tests/test_torch_latent.py.)"""
     with pytest.raises(SystemExit, match=r"ROADMAP\.md, .*'[A-Za-z]"):
         pipeline.run(FLAGS + ["--stages", "analyze", "--device", "cpu", flag],
                      project_root=tmp_path)

@@ -223,12 +223,26 @@ def test_seeded_init_is_reproducible():
 @pytest.mark.parametrize("name", ["mmJSD", "mvtCAE", "DMVAE",
                                   "WeightedDMVAE", "mmVAEPlus"])
 def test_unported_models_point_to_roadmap(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(name, [9], [5], 3, 4, 1)
+    """The five registry names that once raised, pointing to ROADMAP.md,
+    are ported: each builds, fold-stacked, and runs a forward and a loss
+    (tests/test_torch_zoo.py holds them to the JAX package)."""
+    model = build_model(name, [9, 7], [5, 5], 6, 4, 2, folds=2,
+                        generator=torch.Generator().manual_seed(0))
+    assert model.folds == 2 and model.log_keys[:3] == ("total", "kl", "ll")
+    xes = [torch.rand(2, 3, d) for d in (9, 7)]
+    fwd = model(xes, [torch.rand(2, 3, 4)] * 2, "poe",
+                eps=torch.zeros(2, 3, model.noise_dim))
+    losses = model.loss(xes, fwd, torch.ones(2, 3))
+    assert tuple(losses) == model.log_keys
+    assert all(v.shape == (2,) and torch.isfinite(v).all()
+               for v in losses.values())
 
 
 def test_unknown_model_and_variant_raise():
     with pytest.raises(ValueError, match="not recognized"):
         build_model("nope", [9], [5], 3, 4, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        MultimodalCVAE([9], [5], 3, 4, 1, variant="mmjsd")
+    with pytest.raises(ValueError, match="variant 'nope'"):
+        MultimodalCVAE([9], [5], 3, 4, 1, variant="nope")
+    # a variant that once raised builds now
+    assert MultimodalCVAE([9], [5], 3, 4, 1, variant="mmjsd").log_keys == (
+        "total", "kl", "ll", "jsd")
