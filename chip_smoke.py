@@ -10,8 +10,10 @@ Phases (any failure exits non-zero, with no result line):
      their plain torch versions on the card (TF32 off; the encoder against
      the plain code evaluated in fp64) at the test stage's shapes (one of
      them takes the decode kernel's column groups with a ragged last row
-     tile; the encoder also with a forced K split at the flagship's width
-     and with hidden layers wider than a column block), check that two
+     tile; 5 folds x 128 rows are what the test stages of phases 8 and 9
+     hand the kernels, where the encoder's plan splits its first reduction
+     over blocks; the encoder also with a forced K split at the flagship's
+     width and with hidden layers wider than a column block), check that two
      calls give a bit-equal deviation, mu and logvar, and time both;
   3b. hold the decoder_nll kernel pair (forward and backward) against its
      plain version plus autograd, with ragged row masks, at training
@@ -61,11 +63,13 @@ Phases (any failure exits non-zero, with no result line):
      set to 0 before each test stage and read after it: the test stages of
      mmJSD and mvtCAE must have launched K1 and K2 once per modality, those
      of the DMVAE family (which has no kernel) not at all; every AUC must
-     be finite. Before that, on seeded tensors at those widths (5 folds x
-     1024 rows), the scoring call of mmJSD and of mvtCAE through K1 and K2
-     is held against the plain path evaluated in fp64 on the same eps, at
-     phase 4's bound. Prints each model's ms per training step (wall over
-     the trainer's run, which ends in a fetch) and each stage's wall.
+     be finite. Before that, on seeded tensors at those widths, the scoring
+     call of mmJSD and of mvtCAE through K1 and K2 is held against the plain
+     path evaluated in fp64 on the same eps, at phase 4's bound: at 5 folds
+     x 128 rows, the test stage's own shape (each chain's fold files are
+     read back to show it), and at 1024 rows. Prints each model's ms per
+     training step (the trainer's run, which ends in a fetch, as the train
+     stage's run log gives it) and each stage's wall.
 
 Beside every kernel time stands the kernel's bound: the least time the
 card could take for the same work (kernels/roofline.py: the larger of its
@@ -105,10 +109,21 @@ FOLDS = 5
 ROWS = 1024
 COMBINE = "gpoe"
 
-# (folds, rows, feature width, covariate width); the last two are the
-# flagship scoring call's own shapes; at 3485 the decode kernel splits the
-# mean head's columns over blocks, with 1000 rows over a ragged last tile
+# phases 8 and 9: the cohort (healthy controls, then the two disease groups)
+# and the rows its test stage hands the kernels: the largest fold's test
+# rows padded to the scoring call's 64-row bucket (both chains check this
+# against the fold files they wrote)
+CHAIN_COHORT = dict(n_hc=300, n_disease={0: 150, 1: 150})
+COHORT_SUBJECTS = CHAIN_COHORT["n_hc"] + sum(CHAIN_COHORT["n_disease"].values())
+STAGE_ROWS = -(-(-(-COHORT_SUBJECTS // FOLDS)) // 64) * 64
+
+# (folds, rows, feature width, covariate width); at 3485 the decode kernel
+# splits the mean head's columns over blocks, with 1000 rows over a ragged
+# last tile; then the chains' test stages' shapes (few row tiles, so the
+# encoder's plan splits its first reduction: partials and a ticket); the
+# last two are the flagship scoring call's own shapes
 SHAPES = [(1, 7, 90, 29), (1, 1000, 3485, 2), (1, 1024, 3485, 2),
+          (FOLDS, STAGE_ROWS, 90, C_DIM), (FOLDS, STAGE_ROWS, 270, C_DIM),
           (FOLDS, ROWS, 90, C_DIM), (FOLDS, ROWS, 270, C_DIM)]
 # the encoder also where its plan differs in kind: the first layer's
 # reduction cut in two at the flagship's widest modality (partials and a
@@ -179,9 +194,7 @@ FLAT_CHECKED = ("flagship", "ragged widths", "PPMI")
 TILE = 64        # K6's tile in phase 6b: 4 row groups of the flagship batch
 BF16_STEPS = 4   # phase 7's bf16 steps (2 epochs of the flagship cohort)
 
-# phase 8: the cohort (healthy controls, then the two disease groups), the
-# chain's flags, and the reports the analysis stage writes
-CHAIN_COHORT = dict(n_hc=300, n_disease={0: 150, 1: 150})
+# phase 8: the chain's flags, and the reports the analysis stage writes
 CHAIN_FLAGS = ["-R", "ADNI", "-P", "UCA-gPoE", "-K", str(FOLDS),
                "-E", str(TRAIN_EPOCHS), "--fused_train_step"]
 CHAIN_REPORTS = ["result_baseline/result_multimodal.txt",
@@ -897,6 +910,35 @@ def check_reports(root, stats):
     return texts
 
 
+def check_stage_rows(root, phase):
+    """The rows a chain's test stage gave the kernels, from the fold files it
+    wrote: they must be the STAGE_ROWS at which phase 3 held the kernels
+    against their plain versions."""
+    import pandas as pd
+
+    from multi_modal_normative_modeling_tpu_torch.cli import common
+
+    kfold_dir = root / "outputs" / "kfold_analysis"
+    most = max(len(pd.read_csv(common.fold_paths(kfold_dir, fold)[1]))
+               for fold in range(FOLDS))
+    tile = common.infer_row_tile()
+    rows = -(-most // tile) * tile
+    if rows != STAGE_ROWS:
+        raise RuntimeError(f"{phase}: the test stage scored {FOLDS} folds x "
+                           f"{rows} rows ({most} padded to {tile}s); the "
+                           f"kernels were checked at {STAGE_ROWS}")
+
+
+def train_run(model_dir):
+    """(ms per step, steps) of a train stage, from the train_end event of its
+    run log: the trainer's run alone, from the batches' upload to the logs'
+    fetch."""
+    events = [json.loads(line) for line in
+              (model_dir / "run_log.jsonl").read_text().splitlines()]
+    end = [e for e in events if e["event"] == "train_end"][-1]
+    return end["run_s"] * 1e3 / end["steps"], end["steps"]
+
+
 def run_chain():
     """Phase 8: train, score and analyse a synthetic cohort in this process
     through cli.pipeline; returns the chain's kernel launches."""
@@ -932,7 +974,8 @@ def run_chain():
             if (root / rel).read_bytes() != text:
                 raise RuntimeError(f"phase 8: {rel} differs when the "
                                    "analysis runs again")
-        print(f"phase 8: ADNI cohort of {sum(CHAIN_COHORT['n_disease'].values()) + CHAIN_COHORT['n_hc']} "
+        check_stage_rows(root, "phase 8")
+        print(f"phase 8: ADNI cohort of {COHORT_SUBJECTS} "
               f"subjects made in {made:.3f} s; chain "
               f"{' '.join(CHAIN_FLAGS)} in one process: {whole:.3f} s in all "
               f"(the stages' own times above); launches {launches}; AUC per "
@@ -942,12 +985,13 @@ def run_chain():
     return launches
 
 
-def check_zoo_scoring(name, seed):
+def check_zoo_scoring(name, seed, rows):
     """The scoring call of one skeleton variant through K1 and K2 on seeded
-    tensors (5 folds x 1024 rows at phase 9's widths) against the plain path
-    evaluated in fp64 on the same eps, at phase 4's bound. Returns (max abs
-    err, the call's launches)."""
+    tensors (5 folds x `rows` rows at phase 9's widths) against the plain
+    path evaluated in fp64 on the same eps, at phase 4's bound. Returns (max
+    abs err, the call's launches, K1's K splits at this shape)."""
     from multi_modal_normative_modeling_tpu_torch import kernels
+    from multi_modal_normative_modeling_tpu_torch.kernels import mlp
     from multi_modal_normative_modeling_tpu_torch.models import build_model
 
     rng = np.random.default_rng(seed)
@@ -956,9 +1000,9 @@ def check_zoo_scoring(name, seed):
                         generator=torch.Generator().manual_seed(seed),
                         device="cuda")
     xes = [torch.from_numpy(rng.standard_normal(
-        (FOLDS, ROWS, d), dtype=np.float32)).cuda() for d in ZOO_DIMS]
-    cs = [covariates(rng, FOLDS, ROWS)] * len(ZOO_DIMS)
-    eps = torch.randn((FOLDS, ROWS, LATENT),
+        (FOLDS, rows, d), dtype=np.float32)).cuda() for d in ZOO_DIMS]
+    cs = [covariates(rng, FOLDS, rows)] * len(ZOO_DIMS)
+    eps = torch.randn((FOLDS, rows, LATENT),
                       generator=torch.Generator().manual_seed(seed)).cuda()
     kernels.reset_launch_counts()
     recons, devs = model.pred_recon_fused(xes, cs, "poe", eps=eps)
@@ -981,7 +1025,9 @@ def check_zoo_scoring(name, seed):
                               ref[m].float(), MODEL_TOL)[0],
                   check_close(f"{name} modality {m} deviation", devs[m],
                               dev64.float(), MODEL_TOL)[0])
-    return err, launches
+    splits = {mlp.plan(FOLDS, rows, d + C_DIM, tuple(HIDDEN), LATENT).splits
+              for d in ZOO_DIMS}
+    return err, launches, splits
 
 
 def check_latent_files(root, model_dir):
@@ -1014,85 +1060,71 @@ def run_zoo():
     from multi_modal_normative_modeling_tpu_torch.data.synthetic import (
         make_synthetic_resource,
     )
-    from multi_modal_normative_modeling_tpu_torch.parallel import folds
 
+    # the test stage's own rows (K1 splits its first reduction there) and
+    # the flagship scoring call's
     for seed, name in enumerate(ZOO_KERNEL_MODELS, start=9):
-        err, launches = check_zoo_scoring(name, seed)
-        print(f"phase 9: {name} scoring call, {FOLDS} folds x {ROWS} rows, "
-              f"widths {ZOO_DIMS}, through K1 and K2 against the plain path "
-              f"in fp64: max abs err {err:.3e}; launches {launches}",
-              flush=True)
-
-    # ms per step: the wall of every MultiFoldTrainer.run (uploads the
-    # batches, steps, ends in the logs' fetch) over its steps
-    runs = []
-    plain_run = folds.MultiFoldTrainer.run
-
-    def timed_run(self, stacked_batches, eps=None):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logs = plain_run(self, stacked_batches, eps=eps)
-        steps = self.config.epochs * stacked_batches["mask"].shape[1]
-        runs.append(((time.perf_counter() - t0) * 1e3 / steps, steps))
-        return logs
+        for rows in (STAGE_ROWS, ROWS):
+            err, launches, splits = check_zoo_scoring(name, seed, rows)
+            print(f"phase 9: {name} scoring call, {FOLDS} folds x {rows} "
+                  f"rows, widths {ZOO_DIMS}, through K1 ({sorted(splits)} K "
+                  f"splits) and K2 against the plain path in fp64: max abs "
+                  f"err {err:.3e}; launches {launches}", flush=True)
 
     test_launches = {}
-    folds.MultiFoldTrainer.run = timed_run
-    try:
-        with tempfile.TemporaryDirectory() as tmp:
-            base = Path(tmp) / "cohort"
-            make_synthetic_resource(base, "ADNI", **CHAIN_COHORT)
-            for i, (name, hz, emit_latent) in enumerate(ZOO_CHAINS):
-                root = Path(tmp) / f"{i}_{name}"
-                shutil.copytree(base / "data", root / "data")
-                flags = (ZOO_FLAGS + ["-Model", name, "-H"]
-                         + [str(h) for h in hz]
-                         + (["--emit_latent"] if emit_latent else []))
-                walls = {}
-                for stage in ("train", "test", "analyze"):
-                    kernels.reset_launch_counts()
-                    t0 = time.perf_counter()
-                    stats = pipeline.run(flags + ["--stages", stage],
-                                         project_root=root)
-                    torch.cuda.synchronize()
-                    walls[stage] = time.perf_counter() - t0
-                    if stage == "test":
-                        launches = {k.__name__: k.launches
-                                    for k in kernels.KERNELS if k.launches}
-                want = ({"fused_encoder": len(ZOO_DIMS),
-                         "fused_pred_deviation": len(ZOO_DIMS)}
-                        if name in ZOO_KERNEL_MODELS else {})
-                if launches != want:
-                    raise RuntimeError(f"phase 9: the test stage of {name} "
-                                       f"launched {launches}, expected {want}")
-                if name in ZOO_KERNEL_MODELS:
-                    test_launches[name] = launches
-                aucs = [float(a) for a in stats["auc"]]
-                if len(aucs) != 3 or not all(
-                        np.isfinite(a) and 0.0 <= a <= 1.0 for a in aucs):
-                    raise RuntimeError(f"phase 9: {name}: AUCs {aucs}")
-                model_dir = (root / "outputs" / "kfold_analysis"
-                             / "supervised_cvae")
-                latent = list(root.rglob("latent_deviation.csv"))
-                note = ""
-                if emit_latent:
-                    rows = check_latent_files(root, model_dir)
-                    note = (f"; latent_deviation.csv in {FOLDS} folds, "
-                            f"{4 + 1 + LATENT} columns, {rows} rows, finite")
-                elif latent:
-                    raise RuntimeError(f"phase 9: {name} wrote {latent}")
-                ms, steps = runs[-1]
-                print(f"phase 9: {name} -H {' '.join(map(str, hz))}: "
-                      f"{steps} plain steps at {ms:.4f} ms/step; train "
-                      f"{walls['train']:.3f} s, test {walls['test']:.3f} s, "
-                      f"analysis {walls['analyze']:.3f} s; test-stage "
-                      f"launches {launches}; AUC per comparison "
-                      f"{[round(a, 4) for a in aucs]}{note}", flush=True)
-            if len(runs) != len(ZOO_CHAINS):
-                raise RuntimeError(f"phase 9: {len(runs)} trainer runs for "
-                                   f"{len(ZOO_CHAINS)} chains")
-    finally:
-        folds.MultiFoldTrainer.run = plain_run
+    with tempfile.TemporaryDirectory() as tmp:
+        base = Path(tmp) / "cohort"
+        make_synthetic_resource(base, "ADNI", **CHAIN_COHORT)
+        for i, (name, hz, emit_latent) in enumerate(ZOO_CHAINS):
+            root = Path(tmp) / f"{i}_{name}"
+            shutil.copytree(base / "data", root / "data")
+            flags = (ZOO_FLAGS + ["-Model", name, "-H"]
+                     + [str(h) for h in hz]
+                     + (["--emit_latent"] if emit_latent else []))
+            walls = {}
+            for stage in ("train", "test", "analyze"):
+                kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                stats = pipeline.run(flags + ["--stages", stage],
+                                     project_root=root)
+                torch.cuda.synchronize()
+                walls[stage] = time.perf_counter() - t0
+                if stage == "test":
+                    launches = {k.__name__: k.launches
+                                for k in kernels.KERNELS if k.launches}
+            want = ({"fused_encoder": len(ZOO_DIMS),
+                     "fused_pred_deviation": len(ZOO_DIMS)}
+                    if name in ZOO_KERNEL_MODELS else {})
+            if launches != want:
+                raise RuntimeError(f"phase 9: the test stage of {name} "
+                                   f"launched {launches}, expected {want}")
+            if name in ZOO_KERNEL_MODELS:
+                test_launches[name] = launches
+            aucs = [float(a) for a in stats["auc"]]
+            if len(aucs) != 3 or not all(
+                    np.isfinite(a) and 0.0 <= a <= 1.0 for a in aucs):
+                raise RuntimeError(f"phase 9: {name}: AUCs {aucs}")
+            model_dir = (root / "outputs" / "kfold_analysis"
+                         / "supervised_cvae")
+            latent = list(root.rglob("latent_deviation.csv"))
+            note = ""
+            if emit_latent:
+                rows = check_latent_files(root, model_dir)
+                note = (f"; latent_deviation.csv in {FOLDS} folds, "
+                        f"{4 + 1 + LATENT} columns, {rows} rows, finite")
+            elif latent:
+                raise RuntimeError(f"phase 9: {name} wrote {latent}")
+            check_stage_rows(root, f"phase 9: {name}")
+            ms, steps = train_run(model_dir)
+            if steps <= 0 or steps % ZOO_EPOCHS:
+                raise RuntimeError(f"phase 9: {name}: {steps} steps in "
+                                   f"{ZOO_EPOCHS} epochs")
+            print(f"phase 9: {name} -H {' '.join(map(str, hz))}: "
+                  f"{steps} plain steps at {ms:.4f} ms/step; train "
+                  f"{walls['train']:.3f} s, test {walls['test']:.3f} s, "
+                  f"analysis {walls['analyze']:.3f} s; test-stage "
+                  f"launches {launches}; AUC per comparison "
+                  f"{[round(a, 4) for a in aucs]}{note}", flush=True)
     return test_launches
 
 
@@ -1221,6 +1253,16 @@ def main():
                 # the flagship scoring call's widest modality
                 s["ms"], s["plain_ms"], s["work"] = ms, plain, work
                 s["device_ms"] = dev_ms
+                if (folds, rows) == (FOLDS, STAGE_ROWS):
+                    # a chain's test stage: D = 90 in phases 8 and 9, D =
+                    # 270 the fourth modality of phase 8
+                    s.setdefault("test_stage", {})[f"D={d}"] = {
+                        "ms": ms, "device_ms": dev_ms, "plain_ms": plain,
+                        "bound_ms": work.bound_ms}
+                    if name == "fused_encoder":
+                        s["test_stage"][f"D={d}"].update(
+                            k_splits=enc_plan.splits,
+                            plain_device_ms=enc_plain_dev)
             if (folds, rows, d) == (1, 1024, 3485):   # one PPMI modality
                 stats["fused_encoder"]["ppmi"] = {
                     "ms": enc_ms, "device_ms": enc_dev,
@@ -1412,9 +1454,10 @@ def main():
             # CUDA graph: `ms` less this is the wrapper's host work
             "device_ms": stats[name]["device_ms"],
         })
-        # the same at PPMI width (K1, K4, K5), K6 with fp32 operands, and
-        # the device's time for K1's plain version
-        for extra in ("ppmi", "fp32", "plain_device_ms"):
+        # the same at PPMI width (K1, K4, K5) and at the chains' test
+        # stages' rows (K1 to K3), K6 with fp32 operands, and the device's
+        # time for K1's plain version
+        for extra in ("ppmi", "test_stage", "fp32", "plain_device_ms"):
             if extra in stats[name]:
                 report[-1][extra] = stats[name][extra]
         # K1 and K2 in the zoo's test stages (phase 9), per model

@@ -24,6 +24,7 @@ and exit for the other five.
 from __future__ import annotations
 
 import argparse
+import time
 from pathlib import Path
 from typing import Callable, Optional
 
@@ -161,9 +162,11 @@ def main(args, project_root=None, init_fn: Optional[InitFn] = None,
     model.to(device)
     max_n = max(f[0][0].shape[0] for f in folds)
     if fused:
-        logs = _train_fused(model, train_config, folds, max_n, device, eps_fn)
+        logs, steps, run_s = _train_fused(model, train_config, folds, max_n,
+                                          device, eps_fn)
     else:
-        logs = _train(args, model, train_config, folds, max_n, eps_fn)
+        logs, steps, run_s = _train(args, model, train_config, folds, max_n,
+                                    eps_fn)
     per_fold_logs = [{k: v[f] for k, v in logs.items()}
                      for f in range(n_folds)]
     per_fold_params = [params_to_jax(model, fold=f) for f in range(n_folds)]
@@ -176,7 +179,9 @@ def main(args, project_root=None, init_fn: Optional[InitFn] = None,
               ', '.join(f'{k}: {round(v, 3)}' for k, v in last.items()))
         run_log.event('fold_done', fold=fold, **last)
         print('fold_model_dir:', model_dir / f'{fold:03d}')
-    run_log.event('train_end', folds=n_folds)
+    # the trainer's run alone: batches to the device, every step, the logs'
+    # fetch at the end
+    run_log.event('train_end', folds=n_folds, steps=steps, run_s=run_s)
 
 
 def _cvae_only(args, what: str) -> Optional[str]:
@@ -209,7 +214,7 @@ def _fused_flag_conflict(args) -> Optional[str]:
 
 def _train_fused(model, train_config, folds, max_n, device, eps_fn):
     """Every fold at once on the fused train step; the trained parameters
-    go back into ``model``."""
+    go back into ``model``. Returns (logs, steps, seconds of the run)."""
     trainer = FusedFoldTrainer(model, train_config, max_n)
     # one covariate block for every modality (uniform_covariates checked)
     batches = trainer.batches([f[0] for f in folds], [f[1][0] for f in folds],
@@ -222,14 +227,17 @@ def _train_fused(model, train_config, folds, max_n, device, eps_fn):
     print(f'train model (all folds fold-parallel, fused train-step CUDA '
           f'kernel {kernel})')
     packed = packed_from_model(model, trainer.stacked)
+    start = time.perf_counter()
     trained, logs = trainer.run(packed, batches, eps=eps)
+    run_s = time.perf_counter() - start
     packed_to_model(trained, trainer.stacked, model)
-    return logs
+    return logs, train_config.epochs * batches.n_batches, run_s
 
 
 def _train(args, model, train_config, folds, max_n, eps_fn):
     """Every fold at once on MultiFoldTrainer (plain or --fused_decoder
-    loss); trains ``model`` in place."""
+    loss); trains ``model`` in place. Returns (logs, steps, seconds of the
+    run)."""
     batch_size = train_config.batch_size
     loss_fn = None
     if getattr(args, 'fused_decoder', False):
@@ -243,7 +251,10 @@ def _train(args, model, train_config, folds, max_n, eps_fn):
         eps = eps_fn(batches['valid'], train_config.epochs, batch_size,
                      model.noise_dim)
     print('train model (all folds fold-parallel)')
-    return trainer.run(batches, eps=eps)
+    start = time.perf_counter()
+    logs = trainer.run(batches, eps=eps)
+    run_s = time.perf_counter() - start
+    return logs, train_config.epochs * batches['mask'].shape[1], run_s
 
 
 def build_parser() -> argparse.ArgumentParser:

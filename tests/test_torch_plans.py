@@ -124,8 +124,9 @@ def test_pred_deviation_plan_at_the_smoke_shapes(shape):
     p = _check_deviation_plan(folds, rows, CS.LATENT + c_dim, CS.HIDDEN, d)
     assert 2 * p.smem <= _build.MAX_SMEM_BYTES
     # PPMI width takes the column-group route (1000 rows with a ragged last
-    # tile), the flagship's widths do not
-    assert (p.groups > 1) == (d == 3485)
+    # tile), and so does a cohort's test stage at D = 270 (20 row tiles, 3
+    # groups); the flagship's widths at 1024 rows and D = 90 at 128 do not
+    assert (p.groups > 1) == (d == 3485 or (rows, d) == (CS.STAGE_ROWS, 270))
     if d == 3485:
         assert _build.SMS <= p.blocks <= SLOTS
 
@@ -161,12 +162,14 @@ def _check_encoder_plan(folds, rows, k_in, hidden, z, splits=None):
 
 @pytest.mark.parametrize("shape,splits,k_per", [
     ((1, 7, 90, 29), 4, 32), ((1, 1000, 3485, 2), 16, 224),
-    ((1, 1024, 3485, 2), 16, 224), ((5, 1024, 90, 29), 1, 128),
+    ((1, 1024, 3485, 2), 16, 224), ((5, 128, 90, 29), 4, 32),
+    ((5, 128, 270, 29), 10, 32), ((5, 1024, 90, 29), 1, 128),
     ((5, 1024, 270, 29), 1, 320)], ids=str)
 def test_encoder_plan_at_the_smoke_shapes(shape, splits, k_per):
     """One PPMI modality: 32 row tiles x 16 splits of 7 chunks, 512 blocks
-    at two an SM; the flagship's modalities: one block walks the whole
-    chain, no scratch, no ticket."""
+    at two an SM; the flagship's modalities at 1024 rows: one block walks
+    the whole chain, no scratch, no ticket; at a cohort's test stage (128
+    rows, 20 row tiles) every chunk of the first layer is a split."""
     assert shape in CS.SHAPES
     folds, rows, d, c_dim = shape
     p = _check_encoder_plan(folds, rows, d + c_dim, CS.HIDDEN, CS.LATENT)

@@ -98,9 +98,12 @@ def test_train_cli_matches_jax(roots, port):
 
 def test_train_cli_writes_logs_and_plots(roots):
     model_dir = roots["port"] / MODEL_DIR
-    events = [json.loads(line)["event"] for line in
+    events = [json.loads(line) for line in
               (model_dir / "run_log.jsonl").read_text().splitlines()]
-    assert events == ["train_start", "fold_done", "fold_done", "train_end"]
+    assert [e["event"] for e in events] == ["train_start", "fold_done",
+                                            "fold_done", "train_end"]
+    # the trainer's run: 3 epochs of 6 batches (26 rows in fives), and its wall
+    assert events[-1]["steps"] == 18 and events[-1]["run_s"] > 0.0
     for f in range(2):
         assert (model_dir / f"{f:03d}" / "Lossestraining.png").exists()
 
