@@ -69,7 +69,20 @@ Phases (any failure exits non-zero, with no result line):
      x 128 rows, the test stage's own shape (each chain's fold files are
      read back to show it), and at 1024 rows. Prints each model's ms per
      training step (the trainer's run, which ends in a fetch, as the train
-     stage's run log gives it) and each stage's wall.
+     stage's run log gives it) and each stage's wall;
+  10. the supervised variants' own CLIs on the same cohort with its FI
+     column, 5 folds, -H 110 110 10, 20 epochs of the plain trainer each:
+     nm-PM-cont (SE-MoE, -Layers 128 64 32), nm-MLP train, test and
+     analyze (SE-MoE), the FI regression (UCA-gPoE). The launch counts are
+     set to 0 before each chain's scoring stage and read after it: K1 in
+     every chain, K2 in nm-MLP's, K3 in the regression's (its FI pass and
+     its ROI pass over the whole cohort). The files each chain wrote are
+     read back (results_endtoend.csv, the fold CSVs, the .npy pairs and the
+     ROI CSVs, no figure). Each scoring call is then held against its plain
+     path evaluated in fp64 on the same eps, at phase 4's bound, on seeded
+     tensors at the rows the stage gave it; K1 and K3 are held and timed
+     at the regression's shapes (c 2, the test rows and the 600-row
+     cohort). Prints ms per plain step and each stage's wall.
 
 Beside every kernel time stands the kernel's bound: the least time the
 card could take for the same work (kernels/roofline.py: the larger of its
@@ -214,6 +227,28 @@ ZOO_CHAINS = [("mmJSD", HIDDEN + [LATENT], True),
               ("mmVAEPlus", HIDDEN + [LATENT], False),
               ("DMVAE", HIDDEN + [40], False)]
 ZOO_KERNEL_MODELS = ("mmJSD", "mvtCAE")
+
+# phase 10: the supervised variants' own CLIs on phase 8's cohort with the
+# FI column; 20 epochs each, cut from the reference's 200 (nmpmcont, nmmlp)
+# and 500 (regression) for the time limit
+VARIANT_EPOCHS = 20
+VARIANT_FLAGS = ["-R", "ADNI", "-K", str(FOLDS), "-E", str(VARIANT_EPOCHS),
+                 "-H", "110", "110", "10"]
+VARIANT_CHAINS = [
+    ("nmpmcont", VARIANT_FLAGS + ["-P", "SE-MoE", "-Layers", "128", "64",
+                                  "32"]),
+    ("nmmlp", ["all"] + VARIANT_FLAGS + ["-P", "SE-MoE"]),
+    ("regression", VARIANT_FLAGS + ["-P", "UCA-gPoE"]),
+]
+CLASSIFIER_LAYERS = [128, 64, 32]
+# what each chain's scoring launches (SE-MoE: 3 modalities of 90; UCA-gPoE:
+# 4, the fourth the 270-column early fusion, once for FI, once for the ROIs)
+VARIANT_LAUNCHES = {
+    "nmpmcont": {"fused_encoder": 3},
+    "nmmlp": {"fused_encoder": 3, "fused_pred_deviation": 3},
+    "regression": {"fused_encoder": 8, "fused_decoder_mean": 8},
+}
+REGRESSION_C = 2
 
 
 def cuda_ms(fn, iters=50, warmup=5):
@@ -1128,6 +1163,328 @@ def run_zoo():
     return test_launches
 
 
+def raw_covariates(rng, folds, rows):
+    """[AGE, PTGENDER] as the regression feeds them (c_dim 2), one block
+    for every fold."""
+    c = np.stack([rng.uniform(55, 90, rows),
+                  rng.integers(1, 3, rows)], axis=1).astype(np.float32)
+    return torch.from_numpy(np.broadcast_to(c, (folds, rows, 2)).copy()).cuda()
+
+
+def check_variant_scoring(name, rows, roi_rows=None, seed=20):
+    """The scoring call of one variant CLI through the kernels on seeded
+    tensors at the rows its stage gave them, against the plain path in fp64
+    on the same eps, at phase 4's bound. Returns (max abs err, launches of
+    the call)."""
+    from multi_modal_normative_modeling_tpu_torch import kernels
+    from multi_modal_normative_modeling_tpu_torch.models import (
+        EndToEndCVAE,
+        MultimodalCVAE,
+        RegressionCVAE,
+    )
+
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator().manual_seed(seed)
+    dims = DIMS if name == "regression" else ZOO_DIMS
+    if name == "nmpmcont":
+        model = EndToEndCVAE(dims, HIDDEN, LATENT, C_DIM, len(dims),
+                             classifier_layers=CLASSIFIER_LAYERS,
+                             folds=FOLDS, generator=gen, device="cuda")
+    elif name == "nmmlp":
+        model = MultimodalCVAE(dims, HIDDEN, LATENT, C_DIM, len(dims),
+                               variant="nmmlp", folds=FOLDS, generator=gen,
+                               device="cuda")
+    else:
+        model = RegressionCVAE(dims, HIDDEN, LATENT, REGRESSION_C, len(dims),
+                               folds=FOLDS, generator=gen, device="cuda")
+    if name == "nmpmcont":
+        # running statistics a trained model would hold, not the init's
+        for stats in model.classifier.state:
+            stats.mean.copy_(torch.randn(stats.mean.shape, generator=gen))
+            stats.var.copy_(torch.rand(stats.var.shape, generator=gen) + 0.5)
+    model64 = copy.deepcopy(model).double()
+    xes = [torch.from_numpy(rng.standard_normal(
+        (FOLDS, rows, d), dtype=np.float32)).cuda() for d in dims]
+    cs = ([raw_covariates(rng, FOLDS, rows)] if name == "regression"
+          else [covariates(rng, FOLDS, rows)]) * len(dims)
+    eps = torch.randn((FOLDS, rows, LATENT), generator=gen).cuda()
+    kernels.reset_launch_counts()
+    err = 0.0
+    if name == "nmpmcont":
+        got = model.predict(xes, cs)
+        torch.cuda.synchronize()
+        launches = {k.__name__: k.launches for k in kernels.KERNELS
+                    if k.launches}
+        want = model64.predict_reference(fp64(*xes), fp64(*cs))
+        err = check_close("nmpmcont logits", got, want.float(), MODEL_TOL)[0]
+    elif name == "nmmlp":
+        recons, devs = model.pred_recon_fused(xes, cs, "moe", eps=eps)
+        torch.cuda.synchronize()
+        launches = {k.__name__: k.launches for k in kernels.KERNELS
+                    if k.launches}
+        with torch.no_grad():
+            ref = model64.pred_recon(fp64(*xes), fp64(*cs), "moe",
+                                     eps=eps.double())
+        for m in range(len(dims)):
+            dev64 = model64.reconstruction_deviation(xes[m].double(), ref[m])
+            err = max(err, check_close(f"nmmlp modality {m} recon",
+                                       recons[m], ref[m].float(),
+                                       MODEL_TOL)[0],
+                      check_close(f"nmmlp modality {m} deviation", devs[m],
+                                  dev64.float(), MODEL_TOL)[0])
+    else:
+        fi = model.pred_fi(xes, cs, "gpoe", eps=eps)
+        x_roi = [torch.from_numpy(rng.standard_normal(
+            (FOLDS, roi_rows, d), dtype=np.float32)).cuda() for d in dims]
+        c_roi = raw_covariates(rng, FOLDS, roi_rows)
+        eps_roi = torch.randn((FOLDS, roi_rows, LATENT), generator=gen).cuda()
+        devs = [model.roiwise_deviation(x_roi[m], c_roi, m, eps=eps_roi)
+                for m in range(len(dims))]
+        torch.cuda.synchronize()
+        launches = {k.__name__: k.launches for k in kernels.KERNELS
+                    if k.launches}
+        want = model64.pred_fi_reference(fp64(*xes), fp64(*cs), "gpoe",
+                                         eps=eps.double())
+        err = check_close("regression FI", fi, want.float(), MODEL_TOL)[0]
+        for m in range(len(dims)):
+            ref = model64.roiwise_deviation_reference(
+                x_roi[m].double(), c_roi.double(), m, eps=eps_roi.double())
+            err = max(err, check_close(f"regression ROI modality {m}",
+                                       devs[m], ref.float(), MODEL_TOL)[0])
+    if launches != VARIANT_LAUNCHES[name]:
+        raise RuntimeError(f"phase 10: {name}: the scoring call launched "
+                           f"{launches}, expected {VARIANT_LAUNCHES[name]}")
+    return err, launches
+
+
+def time_regression_shapes(rows, roi_rows, stats):
+    """K1 and K3 at the regression's new shapes (c 2; the FI pass's test
+    rows and the ROI pass's whole cohort, D = 90 and 270): each against
+    its plain version in fp64 (K1 through check_encoder), event and device
+    ms beside the bound. Fills stats[kernel]["regression"]."""
+    from multi_modal_normative_modeling_tpu_torch.kernels import (
+        deviation,
+        roofline,
+    )
+    from multi_modal_normative_modeling_tpu_torch.models import (
+        Decoder,
+        Encoder,
+    )
+
+    rng = np.random.default_rng(21)
+    gen = torch.Generator().manual_seed(21)
+    for n in (rows, roi_rows):
+        for d in (90, 270):
+            x = torch.from_numpy(rng.standard_normal(
+                (FOLDS, n, d), dtype=np.float32)).cuda()
+            c = raw_covariates(rng, FOLDS, n)
+            z = torch.from_numpy(rng.standard_normal(
+                (FOLDS, n, LATENT), dtype=np.float32)).cuda()
+            enc = Encoder(d, HIDDEN, LATENT, REGRESSION_C, folds=FOLDS,
+                          generator=gen, device="cuda")
+            dec = Decoder(d, HIDDEN, LATENT, REGRESSION_C, folds=FOLDS,
+                          generator=gen, device="cuda")
+            e1, _, enc_plan = check_encoder(enc, x, c)
+            mean = dec.fused_mean(z, c)
+            want = deviation.decode_mean_reference(
+                [tuple(fp64(*layer)) for layer in dec.hidden_layers()],
+                tuple(fp64(*dec.mean.pair())), *fp64(z, c), True)
+            e3 = check_close("fused_decoder_mean", mean, want.float(),
+                             TOL)[0]
+            dec_plan = deviation.plan(FOLDS, n, LATENT + REGRESSION_C,
+                                      tuple(HIDDEN[::-1]), d)
+            shape = (FOLDS, n, d, REGRESSION_C, HIDDEN, LATENT)
+            key = f"F={FOLDS} B={n} D={d} C={REGRESSION_C}"
+            with torch.no_grad():
+                for kname, err, fn, plain, work, plan_text in (
+                        ("fused_encoder", e1, lambda: enc.fused(x, c),
+                         lambda: enc(x, c), roofline.fused_encoder(*shape),
+                         f"{enc_plan.tiles} tiles x {enc_plan.splits} "
+                         "K splits"),
+                        ("fused_decoder_mean", e3,
+                         lambda: dec.fused_mean(z, c),
+                         lambda: dec(z, c)[0],
+                         roofline.fused_decoder_mean(*shape),
+                         f"{dec_plan.tiles} tiles x {dec_plan.groups} "
+                         "column groups")):
+                    ms, dev = cuda_ms(fn), device_ms(fn)
+                    plain_ms, plain_dev = cuda_ms(plain), device_ms(plain)
+                    print(f"phase 10: {kname} at {key} ({plan_text}): max "
+                          f"abs err {err:.3e} vs fp64; {ms:.4f} ms (device "
+                          f"{dev:.4f}) vs plain {plain_ms:.4f} ms (device "
+                          f"{plain_dev:.4f}), {bound_text(work, ms)}",
+                          flush=True)
+                    s = stats[kname]
+                    s["max_abs_err"] = max(s["max_abs_err"], err)
+                    s.setdefault("regression", {})[key] = {
+                        "ms": ms, "device_ms": dev, "plain_ms": plain_ms,
+                        "plain_device_ms": plain_dev,
+                        "bound_ms": work.bound_ms}
+
+
+def check_variant_files(name, root, timings, stats):
+    """The files a variant chain wrote, read back: their counts, shapes and
+    finite values. Returns a short summary for the phase line."""
+    import pandas as pd
+
+    model_dir = root / "outputs" / "kfold_analysis" / "supervised_cvae"
+    for fold in range(FOLDS):
+        if name != "regression" and not (
+                model_dir / f"{fold:03d}" / "cVAE_model.ckpt").exists():
+            raise RuntimeError(f"phase 10: {name}: no checkpoint of fold "
+                               f"{fold}")
+    if name == "nmpmcont":
+        lines = (root / "results_endtoend.csv").read_text().split("\n")
+        values = {}
+        for line in lines[1:6]:
+            metric, mean, std = re.fullmatch(
+                r"(\w+) \$(-?[0-9.]+|nan) \\pm (-?[0-9.]+|nan)\$",
+                line).groups()
+            values[metric] = float(mean)
+        if (sorted(values) != ["accuracy", "auroc", "f1_score",
+                               "sensitivity", "specificity"]
+                or not all(0.0 <= v <= 1.0 for v in values.values())):
+            raise RuntimeError(f"phase 10: results_endtoend.csv {lines}")
+        ids = root / "outputs" / "kfold_analysis_endtoend"
+        check_rows(name, max(len(pd.read_csv(ids / f"test_ids_{f:03d}.csv"))
+                             for f in range(FOLDS)), timings["score_rows"])
+        return f"results_endtoend.csv means {values}"
+    if name == "nmmlp":
+        rows = 0
+        for fold in range(FOLDS):
+            fold_dir = model_dir / f"{fold:03d}"
+            diag = pd.read_csv(fold_dir / "diagnosis_results.csv")
+            files = sorted(fold_dir.glob("*/*.csv"))
+            if len(files) != 3 * len(ZOO_DIMS) or not np.isfinite(
+                    diag["Diagnosis"]).all():
+                raise RuntimeError(f"phase 10: nmmlp fold {fold}: {files}")
+            for path in files:
+                frame = pd.read_csv(path)
+                if len(frame) != len(diag) or not np.isfinite(
+                        frame.select_dtypes("number").to_numpy()).all():
+                    raise RuntimeError(f"phase 10: nmmlp {path.name}")
+            rows = max(rows, len(diag))
+        text = (root / "outputs" / "analysis_results"
+                / "performance_metrics.txt").read_text()
+        if "Mean ROC AUC" not in text or not 0.0 <= stats["auc"] <= 1.0:
+            raise RuntimeError(f"phase 10: nmmlp analysis {stats} {text}")
+        check_rows(name, rows, timings["score_rows"])
+        return (f"{FOLDS} x ({3 * len(ZOO_DIMS)} + 1) fold CSVs of up to "
+                f"{rows} rows, AUC {stats['auc']:.4f}")
+    out = root / "regression_outputs"
+    rows = 0
+    for fold in range(FOLDS):
+        pred = np.load(out / f"fold_{fold}_pred.npy")
+        true = np.load(out / f"fold_{fold}_true.npy")
+        if pred.shape != true.shape or pred.shape[1] != 1 or not (
+                np.isfinite(pred).all()):
+            raise RuntimeError(f"phase 10: regression fold {fold} .npy "
+                               f"{pred.shape} {true.shape}")
+        rows = max(rows, len(pred))
+    check_rows(name, rows, timings["score_rows"])
+    roi = sorted(out.glob("deviation_fold_*_roiwise.csv"))
+    if len(roi) != FOLDS * len(DIMS):
+        raise RuntimeError(f"phase 10: regression ROI files {roi}")
+    for path in roi:
+        frame = pd.read_csv(path)
+        if (len(frame) != COHORT_SUBJECTS or frame.columns[0] != "IID"
+                or not np.isfinite(frame.iloc[:, 1:].to_numpy()).all()):
+            raise RuntimeError(f"phase 10: {path.name} {frame.shape}")
+    if timings["roi_rows"] != COHORT_SUBJECTS or list(out.glob("*.png")):
+        raise RuntimeError(f"phase 10: regression ROI rows "
+                           f"{timings['roi_rows']}, files {list(out.iterdir())}")
+    return (f"{FOLDS} .npy pairs of up to {rows} rows, {len(roi)} ROI CSVs "
+            f"of {COHORT_SUBJECTS} rows, no figure; RMSE per fold "
+            f"{[round(float(s['RMSE']), 4) for s in stats]}")
+
+
+def check_rows(name, most, rows):
+    """The scoring call's rows are the largest fold's test rows padded to
+    the 64-row bucket, the rows phase 3 (K1, K2) or this phase held the
+    kernels at."""
+    if rows != -(-most // 64) * 64 or rows != STAGE_ROWS:
+        raise RuntimeError(f"phase 10: {name} scored {rows} rows for "
+                           f"{most} test rows; checked at {STAGE_ROWS}")
+
+
+def run_variants(stats):
+    """Phase 10: the three variant chains on the card, each scoring call
+    held against its plain path, and the regression's new kernel shapes
+    timed. Returns {chain: launches of its scoring}."""
+    from multi_modal_normative_modeling_tpu_torch import kernels
+    from multi_modal_normative_modeling_tpu_torch.cli import (
+        nmmlp,
+        nmpmcont,
+        regression,
+    )
+    from multi_modal_normative_modeling_tpu_torch.data.synthetic import (
+        make_synthetic_resource,
+    )
+
+    modules = {"nmpmcont": nmpmcont, "nmmlp": nmmlp,
+               "regression": regression}
+    chain_launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        base = Path(tmp) / "cohort"
+        make_synthetic_resource(base, "ADNI", with_early_fusion=True,
+                                with_fi=True, **CHAIN_COHORT)
+        for name, flags in VARIANT_CHAINS:
+            root = Path(tmp) / name
+            shutil.copytree(base / "data", root / "data")
+            module = modules[name]
+            args = module.build_parser().parse_args(flags)
+            timings = {}
+            if name == "nmmlp":
+                args.action = "train"
+                nmmlp.main(args, root, timings=timings)
+                args.action = "test"
+            elif name == "nmpmcont":
+                from multi_modal_normative_modeling_tpu_torch.cli import (
+                    common,
+                )
+                common.apply_post_parse_defaults(args, "SE-MoE")
+            # the counts from 0 just before the chain's scoring stage (the
+            # plain trainer launches no kernel), read just after
+            kernels.reset_launch_counts()
+            if name == "nmpmcont":
+                result = nmpmcont.main(args, root, timings=timings)
+            elif name == "nmmlp":
+                nmmlp.main(args, root, timings=timings)
+            else:
+                result = regression.train_and_test(args, root,
+                                                   timings=timings)
+            torch.cuda.synchronize()
+            launches = {k.__name__: k.launches for k in kernels.KERNELS
+                        if k.launches}
+            if name == "nmmlp":
+                args.action = "analyze"
+                result = nmmlp.main(args, root, timings=timings)
+            if launches != VARIANT_LAUNCHES[name]:
+                raise RuntimeError(f"phase 10: the scoring of {name} launched "
+                                   f"{launches}, expected "
+                                   f"{VARIANT_LAUNCHES[name]}")
+            chain_launches[name] = launches
+            summary = check_variant_files(name, root, timings, result)
+            ms = timings["train_run_s"] * 1e3 / timings["train_steps"]
+            walls = ", ".join(f"{k} {v:.3f} s"
+                              for k, v in timings["walls"].items())
+            print(f"phase 10: {name} {' '.join(flags)}: "
+                  f"{timings['train_steps']} plain steps at {ms:.4f} "
+                  f"ms/step; walls {walls}; scoring launches {launches}; "
+                  f"{summary}", flush=True)
+            roi_rows = timings.get("roi_rows")
+            err, call = check_variant_scoring(name, timings["score_rows"],
+                                              roi_rows)
+            print(f"phase 10: {name} scoring call, {FOLDS} folds x "
+                  f"{timings['score_rows']} rows"
+                  + (f" (ROI {roi_rows} rows)" if roi_rows else "")
+                  + f", through the kernels against the plain path in fp64: "
+                  f"max abs err {err:.3e}; launches {call}", flush=True)
+            if name == "regression":
+                time_regression_shapes(timings["score_rows"], roi_rows, stats)
+    return chain_launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1432,6 +1789,9 @@ def main():
         if missing:
             raise RuntimeError(f"phase 9: {name} was not launched by the "
                                f"test stage of {missing}")
+
+    # ---- phase 10: the supervised variants' own CLIs -----------------------
+    variant_launches = run_variants(stats)
     missing = [name for name in sources if not launches.get(name)]
     if missing:
         raise RuntimeError(f"no launch on the main path: {missing}")
@@ -1464,6 +1824,15 @@ def main():
         if any(name in counts for counts in zoo_launches.values()):
             report[-1]["zoo_launches"] = {
                 model: counts[name] for model, counts in zoo_launches.items()}
+        # K1, K2, K3 in the variant CLIs' scoring (phase 10), per chain,
+        # and K1/K3 at the regression's shapes
+        if any(name in counts for counts in variant_launches.values()):
+            report[-1]["variant_launches"] = {
+                chain: counts[name]
+                for chain, counts in variant_launches.items()
+                if name in counts}
+        if "regression" in stats[name]:
+            report[-1]["regression"] = stats[name]["regression"]
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,11 +13,13 @@ jax-free modules; nothing here imports that package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
 import importlib.util
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import List, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import pandas as pd
@@ -37,6 +39,108 @@ def resolve_device(name: str, what: str = 'run') -> torch.device:
                          f'(pass --device cpu to {what} with the plain torch '
                          'versions of the kernels)')
     return device
+
+
+# the JAX variant CLIs' flags with no port yet, each with the queue 1 item
+# that ports it (ROADMAP.md); the port raises instead of ignoring them
+VARIANT_NOT_PORTED = {
+    'packed_xla': "queue 1 items 'Packed layout' and 'Grouped layout'",
+    'ep_mesh': "queue 1 item 'Multi-device'",
+    'mesh': "queue 1 item 'Multi-device'",
+    'checkpoint_every': "queue 1 item 'Resume'",
+    'resume': "queue 1 item 'Resume'",
+}
+
+
+def add_variant_flags(parser: argparse.ArgumentParser,
+                      not_ported: Sequence[str]) -> None:
+    """--device, the no-op --fold_parallel, and the named flags of
+    VARIANT_NOT_PORTED with the JAX CLIs' dests and defaults."""
+    parser.add_argument('--device', dest='device', default='cuda',
+                        help='torch device to run on (default cuda); cuda '
+                             'runs the kernels, cpu their plain versions')
+    parser.add_argument('--fold_parallel', dest='fold_parallel',
+                        action='store_true',
+                        help='accepted for the JAX CLI flag surface: the '
+                             'port always trains every fold at once')
+    kinds = {'packed_xla': {'action': 'store_true'},
+             'ep_mesh': {'default': None},
+             'mesh': {'default': None},
+             'checkpoint_every': {'type': int, 'default': 0},
+             'resume': {'action': 'store_true'}}
+    for flag in not_ported:
+        parser.add_argument(f'--{flag}', dest=flag,
+                            help='not ported yet (raises); see ROADMAP.md',
+                            **kinds[flag])
+
+
+def refuse_not_ported(args, what: str,
+                      flags: Dict[str, str] = VARIANT_NOT_PORTED) -> None:
+    """Exit, citing its queue item, on any of ``flags`` set ({flag: queue
+    item}; VARIANT_NOT_PORTED by default)."""
+    for flag, item in flags.items():
+        if getattr(args, flag, None):
+            raise SystemExit(f'--{flag} is not ported to the torch {what} '
+                             f'yet; see ROADMAP.md, {item}')
+
+
+# the variant CLIs' test hooks: the fold-stacked model's initial weights,
+# and (valid [F, NB], epochs, batch rows, model) -> MultiFoldTrainer.run's
+# replayed draws {eps, keeps, perms}
+InitFn = Callable[[torch.nn.Module], None]
+DrawsFn = Callable[[np.ndarray, int, int, torch.nn.Module], dict]
+
+
+class StageWalls:
+    """Host wall time of a CLI's stages: ``with walls('train'):`` times
+    one; ``report`` prints them all. ``record``, when given, receives the
+    times too (chip_smoke.py reads them there)."""
+
+    def __init__(self, record: Optional[dict] = None):
+        self.walls: Dict[str, float] = {} if record is None else record
+
+    @contextlib.contextmanager
+    def __call__(self, stage: str):
+        start = time.perf_counter()
+        yield
+        self.walls[stage] = time.perf_counter() - start
+
+    def report(self, what: str) -> None:
+        print(f'{what} stage walls: ' + ', '.join(
+            f'{k} {v:.3f} s' for k, v in self.walls.items()), flush=True)
+
+
+def seeded_eps(seed: int, rows: int, z_dim: int) -> np.ndarray:
+    """Scoring noise [rows, z_dim] from a torch.Generator seeded ``seed``
+    (the JAX package draws from PRNGKey(seed); the streams differ, tests
+    replay the JAX draws through a CLI's ``eps_fn``)."""
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn((rows, z_dim), generator=gen).numpy()
+
+
+def init_from_one_fold(model, one) -> None:
+    """Every fold of ``model`` starts from the weights (and buffers) of
+    ``one``, a folds=1 model of the same architecture: the reference
+    re-seeds 42 per fold, so every fold's init is the same draw."""
+    model.load_state_dict({
+        k: v.expand((model.folds,) + v.shape[1:]).clone()
+        for k, v in one.state_dict().items()})
+
+
+def stack_padded(arrays: Sequence[np.ndarray], rows: int,
+                 device) -> torch.Tensor:
+    """[len(arrays), rows, width] float32 on ``device``: each array's rows
+    first, zero rows after (rows are independent through every model)."""
+    out = np.zeros((len(arrays), rows, arrays[0].shape[1]), np.float32)
+    for i, a in enumerate(arrays):
+        out[i, :a.shape[0]] = a
+    return torch.from_numpy(out).to(device)
+
+
+def padded_rows(n: int) -> int:
+    """``n`` rows padded to the scoring call's bucket (infer_row_tile)."""
+    tile = infer_row_tile()
+    return -(-n // tile) * tile
 
 
 def add_common_flags(parser: argparse.ArgumentParser,
@@ -115,25 +219,45 @@ def kfold_split(n_samples: int, n_splits: int, random_state: int = 42):
         yield np.flatnonzero(~test), np.flatnonzero(test)
 
 
-def generate_kfold_ids(hc_group, other_group, oversample_percentage=1,
-                       n_splits=5, project_root=None) -> None:
-    """data/loading.generate_kfold_ids without sklearn: the same split of
-    both groups' concatenation, the same oversampling draws from numpy's
-    global stream, the same train_ids_NNN.csv / test_ids_NNN.csv."""
-    root = Path(project_root) if project_root else Path.cwd()
-    kfold_dir = root / 'outputs' / 'kfold_analysis'
+def _write_fold_ids(kfold_dir: Path, split_frame: pd.DataFrame,
+                    oversample_percentage: float, n_splits: int,
+                    random_state: int = 42) -> None:
+    """data/loading.py::_write_fold_ids without sklearn: the KFold split of
+    ``split_frame``, the oversampling draws from numpy's global stream, one
+    train_ids_NNN.csv / test_ids_NNN.csv pair per fold."""
     kfold_dir.mkdir(parents=True, exist_ok=True)
-    full_group = pd.concat([hc_group, other_group])
     for fold, (train_idx, test_idx) in enumerate(
-            kfold_split(len(full_group), n_splits)):
-        train_ids = full_group.iloc[train_idx]['IID']
-        test_ids = full_group.iloc[test_idx]['IID']
+            kfold_split(len(split_frame), n_splits, random_state)):
+        train_ids = split_frame.iloc[train_idx]['IID']
+        test_ids = split_frame.iloc[test_idx]['IID']
         size = int(len(train_ids) * oversample_percentage)
         oversampled = np.random.choice(train_ids, size=size, replace=True)
         pd.DataFrame({'IID': oversampled}).to_csv(
             kfold_dir / f'train_ids_{fold:03d}.csv', index=False)
         pd.DataFrame({'IID': test_ids}).to_csv(
             kfold_dir / f'test_ids_{fold:03d}.csv', index=False)
+
+
+def generate_kfold_ids(hc_group, other_group, oversample_percentage=1,
+                       n_splits=5, project_root=None) -> None:
+    """data/loading.generate_kfold_ids without sklearn: the split of both
+    groups' concatenation into outputs/kfold_analysis."""
+    root = Path(project_root) if project_root else Path.cwd()
+    _write_fold_ids(root / 'outputs' / 'kfold_analysis',
+                    pd.concat([hc_group, other_group]),
+                    oversample_percentage, n_splits)
+
+
+def generate_kfold_ids_endtoend(hc_group, other_group,
+                                oversample_percentage=1, n_splits=5,
+                                random_state=42, project_root=None) -> None:
+    """data/loading.generate_kfold_ids_endtoend without sklearn: the same
+    split as ``generate_kfold_ids``, written to
+    outputs/kfold_analysis_endtoend (utils.py:19-42)."""
+    root = Path(project_root) if project_root else Path.cwd()
+    _write_fold_ids(root / 'outputs' / 'kfold_analysis_endtoend',
+                    pd.concat([hc_group, other_group]),
+                    oversample_percentage, n_splits, random_state)
 
 
 # The JAX package parses modality tables of at least this many columns with

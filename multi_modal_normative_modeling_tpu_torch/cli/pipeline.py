@@ -54,12 +54,9 @@ def main(args, project_root=None):
         raise ValueError(f'unknown stages {unknown}; choose from '
                          f'{list(STAGES)}')
     # what either device stage refuses is refused before any stage runs
-    not_ported = {**test_supervised._NOT_PORTED_FLAGS,
-                  **train_supervised._NOT_PORTED_FLAGS}
-    for flag, item in not_ported.items():
-        if getattr(args, flag, None):
-            raise SystemExit(f'--{flag} is not ported to the torch pipeline '
-                             f'yet; see ROADMAP.md, {item}')
+    common.refuse_not_ported(args, 'pipeline',
+                             {**test_supervised._NOT_PORTED_FLAGS,
+                              **train_supervised._NOT_PORTED_FLAGS})
     stats = None
     for stage in STAGES:
         if stage not in stages:

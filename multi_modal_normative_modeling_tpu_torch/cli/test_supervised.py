@@ -56,16 +56,12 @@ def default_eps(fold: int, padded_rows: int, z_dim: int) -> np.ndarray:
     streams differ, tests replay the JAX draws through ``eps_fn``).
     ``z_dim`` is the model's ``noise_dim`` (0 for a DMVAE-family model whose
     shared code is empty)."""
-    gen = torch.Generator().manual_seed(1000 + fold)
-    return torch.randn((padded_rows, z_dim), generator=gen).numpy()
+    return common.seeded_eps(1000 + fold, padded_rows, z_dim)
 
 
 def main(args, project_root=None, eps_fn: Optional[EpsFn] = None):
-    for flag, item in _NOT_PORTED_FLAGS.items():
-        if getattr(args, flag, None):
-            raise SystemExit(f'--{flag} is not ported to the torch test stage '
-                             f'yet; see ROADMAP.md, {item}')
-    device = resolve_device(getattr(args, 'device', 'cuda'), 'score')
+    common.refuse_not_ported(args, 'test stage', _NOT_PORTED_FLAGS)
+    device =resolve_device(getattr(args, 'device', 'cuda'), 'score')
     eps_fn = eps_fn or default_eps
 
     project_root = Path(project_root) if project_root else Path.cwd()
@@ -129,16 +125,11 @@ def main(args, project_root=None, eps_fn: Optional[EpsFn] = None):
     if pending:
         # every fold padded to one row bucket; rows are independent through
         # the model, so pad rows change nothing
-        max_rows = max(j['test_data_list'][0].shape[0] for j in pending)
-        tile = common.infer_row_tile()
-        padded_rows = -(-max_rows // tile) * tile
+        padded_rows = common.padded_rows(
+            max(j['test_data_list'][0].shape[0] for j in pending))
 
         def stacked(arrays, rows=padded_rows):
-            out = np.zeros((len(arrays), rows, arrays[0].shape[1]),
-                           np.float32)
-            for i, a in enumerate(arrays):
-                out[i, :a.shape[0]] = a
-            return torch.from_numpy(out).to(device)
+            return common.stack_padded(arrays, rows, device)
 
         model = common.build_model_from_config(config, folds=len(pending))
         params_from_jax(stack_params([j['params'] for j in pending]), model,

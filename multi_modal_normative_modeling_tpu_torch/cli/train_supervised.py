@@ -44,19 +44,14 @@ from . import common
 
 # JAX CLI flags with no port yet: each raises instead of being ignored
 _NOT_PORTED_FLAGS = {
-    'mesh': "queue 1 item 'Multi-device'",
-    'ep_mesh': "queue 1 item 'Multi-device'",
-    'packed_xla': "queue 1 items 'Packed layout' and 'Grouped layout'",
+    **common.VARIANT_NOT_PORTED,
     'stream_shards': "queue 1 item 'Streaming'",
-    'checkpoint_every': "queue 1 item 'Resume'",
-    'resume': "queue 1 item 'Resume'",
     'remat': "queue 1 item 'Trainer'",
     'in_memory_fusion': "queue 1 item 'Main-path CLI chain'",
     'profile_dir': "queue 1 item 'Tooling'",
     'warmup_only': "'Do not port' (a TPU compile-cache warm-up)",
 }
 
-InitFn = Callable[[torch.nn.Module], None]
 EpsFn = Callable[[np.ndarray, int, int, int], np.ndarray]
 
 
@@ -64,16 +59,13 @@ def default_init(model, name: str = 'cVAE_multimodal') -> None:
     """Every fold starts from the same weights, as the reference re-seeds 42
     per fold (train:119): one fold of the registry model ``name`` drawn from
     torch.Generator seeded 42, repeated over the model's folds."""
-    one = build_model(name, model.input_dim_list,
-                      model.hidden_dim, model.latent_dim, model.c_dim,
-                      model.modalities, getattr(model, 'non_linear', True),
-                      folds=1, generator=torch.Generator().manual_seed(42))
-    model.load_state_dict({
-        k: v.expand((model.folds,) + v.shape[1:]).clone()
-        for k, v in one.state_dict().items()})
+    common.init_from_one_fold(model, build_model(
+        name, model.input_dim_list, model.hidden_dim, model.latent_dim,
+        model.c_dim, model.modalities, getattr(model, 'non_linear', True),
+        folds=1, generator=torch.Generator().manual_seed(42)))
 
 
-def main(args, project_root=None, init_fn: Optional[InitFn] = None,
+def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
          eps_fn: Optional[EpsFn] = None):
     """``init_fn(model)`` fills the fold-stacked model's initial weights
     (default: ``default_init``). ``eps_fn(valid [F, NB], epochs, batch rows,
@@ -81,11 +73,8 @@ def main(args, project_root=None, init_fn: Optional[InitFn] = None,
     (tests replay the JAX package's draws; the latent dim is the model's
     ``noise_dim``, the shared code's width for the DMVAE family); by default
     every fold draws from its own generator on the device."""
-    for flag, item in _NOT_PORTED_FLAGS.items():
-        if getattr(args, flag, None):
-            raise SystemExit(f'--{flag} is not ported to the torch trainer '
-                             f'yet; see ROADMAP.md, {item}')
-    fused = getattr(args, 'fused_train_step', False)
+    common.refuse_not_ported(args, 'trainer', _NOT_PORTED_FLAGS)
+    fused =getattr(args, 'fused_train_step', False)
     precision = getattr(args, 'precision', 'fp32')
     if precision != 'fp32' and not fused:
         raise SystemExit(f'--precision {precision} runs only through the '

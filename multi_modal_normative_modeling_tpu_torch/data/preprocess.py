@@ -113,3 +113,8 @@ def one_hot_covariates(covariates: pd.DataFrame, n_bins_age: int = 27,
     one_hot_age = qcut_rank_one_hot(covariates["AGE"], n_bins_age)
     one_hot_gender = qcut_rank_one_hot(covariates["PTGENDER"], n_bins_gender)
     return np.concatenate((one_hot_age, one_hot_gender), axis=1).astype("float32")
+
+
+def binary_labels(dia: pd.Series, hc_label: int) -> np.ndarray:
+    """0 for healthy controls, 1 otherwise (nmpmcont process_dataset:121)."""
+    return (np.asarray(dia) != hc_label).astype(np.int64)

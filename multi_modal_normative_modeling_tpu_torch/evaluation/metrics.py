@@ -351,3 +351,44 @@ def binary_prediction_metrics(all_labels, all_preds) -> dict:
         "specificity": (tn / (tn + fp) if (tn + fp) else float("nan")),
         "f1_score": f1_score(all_labels, all_preds),
     }
+
+
+def _regression_targets(y_true, y_pred):
+    """Both arrays 2-D [n, outputs] in their common floating dtype (float64
+    when neither is floating), as scikit-learn's regression metrics check
+    them (``_check_reg_targets_with_floating_dtype``)."""
+    yt, yp = np.asarray(y_true), np.asarray(y_pred)
+    floating = [a.dtype for a in (yt, yp)
+                if np.issubdtype(a.dtype, np.floating)]
+    dtype = np.result_type(*floating) if floating else np.float64
+    yt, yp = (a.astype(dtype, copy=False) for a in (yt, yp))
+    yt, yp = (a.reshape(-1, 1) if a.ndim == 1 else a for a in (yt, yp))
+    if yt.shape != yp.shape:
+        raise ValueError(f'y_true {yt.shape} and y_pred {yp.shape} differ')
+    return yt, yp
+
+
+def evaluate_regression(y_true, y_pred) -> dict:
+    """RMSE, MAE, R^2 and MAPE of a continuous prediction (JAX
+    cli/regression.py:26-33). RMSE, MAE and R^2 are computed as
+    scikit-learn's mean_squared_error, mean_absolute_error and r2_score
+    compute them (the dtype of the inputs, a mean per output, then the mean
+    over outputs; R^2 1 for a perfect prediction, 0 for a constant target);
+    MAPE is the reference's own formula."""
+    yt, yp = _regression_targets(y_true, y_pred)
+    mse = float(np.average(np.average((yt - yp) ** 2, axis=0)))
+    mae = float(np.average(np.average(np.abs(yp - yt), axis=0)))
+    if yt.shape[0] < 2:
+        warnings.warn('R^2 score is not well-defined with less than two '
+                      'samples.')
+        r2 = float('nan')
+    else:
+        num = np.sum((yt - yp) ** 2, axis=0)
+        den = np.sum((yt - np.average(yt, axis=0)) ** 2, axis=0)
+        scores = np.ones(yt.shape[1], dtype=num.dtype)
+        valid = (num != 0) & (den != 0)
+        scores[valid] = 1 - (num[valid] / den[valid])
+        scores[(num != 0) & (den == 0)] = 0.0
+        r2 = float(np.average(scores))
+    mape = np.mean(np.abs((y_true - y_pred) / (y_true + 1e-6))) * 100
+    return {'RMSE': np.sqrt(mse), 'MAE': mae, 'R2': r2, 'MAPE': mape}

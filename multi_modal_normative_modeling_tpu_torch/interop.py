@@ -11,7 +11,13 @@ The JAX package keeps a multimodal cVAE's parameters as the pytree
 with weights ``[fan_in, fan_out]``. The port's modules store weights
 ``[F, fan_out, fan_in]`` with a fold axis in front; this module is the only
 place that transposes. A module's state-dict key names its tree path:
-``enc.0.hidden.1.weight`` is ``tree["enc"][0]["hidden"][1]["w"]``.
+``enc.0.hidden.1.weight`` is ``tree["enc"][0]["hidden"][1]["w"]``. The
+end-to-end model's tree (models/endtoend.py:62-79) adds ``dec_health``,
+``dec_disease``, ``classifier`` (``{"blocks": [{"linear", "bn_scale",
+"bn_bias"}, ...], "out"}``) and, at the top level, ``bn_state`` (``[{"mean",
+"var"}, ...]``), which the port keeps as the classifier's buffers
+``classifier.state.*``; the regression's (models/regression.py:33-39) adds
+``regressor``, a list of ``{"w", "b"}``.
 
 The packed layout of ``models.stacked`` (all modalities on one axis, the
 layout of the fused train step) keeps the JAX orientation; ``packed_*``
@@ -33,9 +39,14 @@ import torch
 from torch import nn
 
 _LEAF_NAMES = {"weight": "w", "bias": "b"}
+# state-dict key prefixes that sit elsewhere in the JAX tree
+_PREFIXES = {"classifier.state.": "bn_state."}
 
 
 def _tree_path(key: str) -> tuple:
+    for prefix, jax_prefix in _PREFIXES.items():
+        if key.startswith(prefix):
+            key = jax_prefix + key[len(prefix):]
     return tuple(int(p) if p.isdigit() else _LEAF_NAMES.get(p, p)
                  for p in key.split("."))
 

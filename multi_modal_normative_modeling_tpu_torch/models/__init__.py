@@ -1,9 +1,14 @@
 """Model zoo of the port: the reference's registry names
-(multimodal_kfold_train_cvae_supervised.py:150-157)."""
+(multimodal_kfold_train_cvae_supervised.py:150-157), and the two models
+that only their own CLIs build: the end-to-end nm-PM-cont model
+(``EndToEndCVAE``, cli/nmpmcont.py) and the FI regression
+(``RegressionCVAE``, cli/regression.py)."""
 
-from .cvae import Decoder, Encoder, reparameterize  # noqa: F401
+from .cvae import Classifier, Decoder, Encoder, reparameterize  # noqa: F401
 from .dmvae import DMVAEFamily  # noqa: F401
+from .endtoend import EndToEndCVAE  # noqa: F401
 from .multimodal import MultimodalCVAE  # noqa: F401
+from .regression import RegressionCVAE  # noqa: F401
 
 # registry name -> (family, variant)
 REGISTRY = {

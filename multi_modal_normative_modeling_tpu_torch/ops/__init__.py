@@ -6,6 +6,8 @@ from .linear import (  # noqa: F401
     FoldLinear,
     apply_hidden,
     apply_linear,
+    apply_mlp,
     init_linear,
+    init_mlp,
     leaky_relu,
 )

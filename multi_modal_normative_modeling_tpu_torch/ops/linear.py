@@ -59,6 +59,31 @@ def apply_hidden(layers: Sequence[Tuple[torch.Tensor, torch.Tensor]],
     return h
 
 
+def apply_mlp(layers: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+              x: torch.Tensor, activation=None,
+              final_activation=None) -> torch.Tensor:
+    """Apply a stack of (weight, bias) layers; ``activation`` after every
+    layer but the last, ``final_activation`` after the last."""
+    h = x
+    for i, (weight, bias) in enumerate(layers):
+        h = apply_linear(weight, bias, h)
+        if i < len(layers) - 1 and activation is not None:
+            h = activation(h)
+    if final_activation is not None:
+        h = final_activation(h)
+    return h
+
+
+def init_mlp(sizes: Sequence[int], folds: int = 1,
+             generator: Optional[torch.Generator] = None,
+             device=None) -> nn.ModuleList:
+    """A stack of fold-stacked linear layers for the given layer sizes,
+    each layer's weight [F, sizes[i + 1], sizes[i]]."""
+    return nn.ModuleList(
+        FoldLinear(sizes[i], sizes[i + 1], folds, generator, device)
+        for i in range(len(sizes) - 1))
+
+
 class FoldLinear(nn.Module):
     """One linear layer per fold: weight [F, out, in], bias [F, out]."""
 

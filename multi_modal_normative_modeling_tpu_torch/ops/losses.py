@@ -105,3 +105,30 @@ def pairwise_jsd(mus: Sequence[torch.Tensor], logvars: Sequence[torch.Tensor],
                 gaussian_kl_pair(mus[i], logvars[i], mus[j], logvars[j]),
                 mask)
     return total / (n * (n - 1) / 2)
+
+
+def margin_contrastive(deviation_health: torch.Tensor,
+                       deviation_disease: torch.Tensor, labels: torch.Tensor,
+                       margin: float,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The end-to-end model's margin contrastive loss over per-row
+    deviations (cVAE.py:2176-2179): a label-0 row should sit closer to the
+    health decoder, a label-1 row to the disease decoder. deviations and
+    labels [F, B] -> [F]."""
+    labels = labels.to(deviation_health.dtype)
+    zero = deviation_health.new_zeros(())
+    per_row = ((1.0 - labels) * torch.maximum(
+        margin + deviation_health - deviation_disease, zero)
+        + labels * torch.maximum(
+            margin + deviation_disease - deviation_health, zero))
+    return _masked_mean(per_row, mask)
+
+
+def cross_entropy_logits(logits: torch.Tensor, labels: torch.Tensor,
+                         mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean cross-entropy of integer labels (torch F.cross_entropy):
+    logits [F, B, K], labels [F, B] -> [F]."""
+    log_z = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1,
+                          labels.to(torch.int64).unsqueeze(-1)).squeeze(-1)
+    return _masked_mean(log_z - picked, mask)

@@ -19,6 +19,8 @@ from ..train.trainer import (
     DeviceBatches,
     FoldNoise,
     MaskedAdam,
+    ReplayNoise,
+    StateUpdate,
     TrainConfig,
     build_lr_fn,
     make_batches,
@@ -59,10 +61,12 @@ def unstack_params(stacked, n_folds: int) -> List:
 
 def stack_fold_batches(per_fold_data: Sequence[Sequence[np.ndarray]],
                        per_fold_cov: Sequence[Sequence[np.ndarray]],
-                       batch_size: int) -> dict:
+                       batch_size: int,
+                       extras: Optional[Sequence[dict]] = None) -> dict:
     """The [F, NB, B, ...] batches of every fold (numpy). Folds may differ in
     sample count; every fold is padded to the largest fold's batch grid with
-    whole all-padding batches (mask 0, valid False)."""
+    whole all-padding batches (mask 0, valid False). ``extras`` holds one
+    {name: per-sample array} per fold (labels, the FI score)."""
     max_n = max(d[0].shape[0] for d in per_fold_data)
     nb = max(1, -(-max_n // batch_size))
 
@@ -70,9 +74,9 @@ def stack_fold_batches(per_fold_data: Sequence[Sequence[np.ndarray]],
         widths = [(0, nb - a.shape[0])] + [(0, 0)] * (a.ndim - 1)
         return np.pad(a, widths)
 
-    folds = [make_batches(d, c, batch_size)
-             for d, c in zip(per_fold_data, per_fold_cov)]
-    return {
+    folds = [make_batches(d, c, batch_size, extras[f] if extras else None)
+             for f, (d, c) in enumerate(zip(per_fold_data, per_fold_cov))]
+    out = {
         "x": tuple(np.stack([pad(f["x"][m]) for f in folds])
                    for m in range(len(folds[0]["x"]))),
         "c": tuple(np.stack([pad(f["c"][m]) for f in folds])
@@ -80,47 +84,65 @@ def stack_fold_batches(per_fold_data: Sequence[Sequence[np.ndarray]],
         "mask": np.stack([pad(f["mask"]) for f in folds]),
         "valid": np.stack([pad(f["valid"]) for f in folds]),
     }
+    if extras:
+        out["extras"] = {k: np.stack([pad(f["extras"][k]) for f in folds])
+                         for k in folds[0]["extras"]}
+    return out
 
 
 class MultiFoldTrainer:
     """Trains every fold of a fold-stacked model at once: the port's only
-    trainer. The JAX package's per-fold path and its --fold_parallel path
-    follow the same trajectory (train/trainer.py:317-323), so both map onto
-    this one."""
+    plain trainer. The JAX package's per-fold path and its --fold_parallel
+    path follow the same trajectory (train/trainer.py:317-323), so both map
+    onto this one. With ``config.shuffle`` each fold's rows are permuted
+    every epoch over its own batch grid, the JAX package's sequential
+    per-fold numerics (its fold-parallel path falls back to them when fold
+    grids differ, cli/common.py:888-896). ``state_update(aux, valid)``
+    applies non-gradient state after each step (the end-to-end model's
+    BatchNorm running statistics, ``EndToEndCVAE.update_state``)."""
 
     def __init__(self, model, config: TrainConfig, n_samples: int,
-                 loss_fn: Optional[Callable] = None):
-        if config.precision != "fp32" or config.shuffle:
+                 loss_fn: Optional[Callable] = None,
+                 state_update: Optional[StateUpdate] = None):
+        if config.precision != "fp32":
             raise NotImplementedError(
-                "MultiFoldTrainer trains in fp32 without shuffle; see "
-                "ROADMAP.md, queue 1 item 'Trainer'")
+                "MultiFoldTrainer trains in fp32; see ROADMAP.md, queue 1 "
+                "item 'Trainer'")
         self.model = model
         self.config = config
         self.lr_fn = build_lr_fn(config, n_samples)
         self.loss_fn = resolve_loss(model, config, loss_fn)
+        self.state_update = state_update
 
-    def run(self, stacked_batches, eps=None) -> dict:
+    def run(self, stacked_batches, eps=None, keeps=None, perms=None) -> dict:
         """Train ``self.model`` in place, for ``config.epochs`` epochs over
         ``stack_fold_batches`` output (or those batches already uploaded as
-        ``DeviceBatches``). ``eps`` [epochs * NB, F, B, Z] replays given
-        noise (tests; Z is the model's ``noise_dim``); by default each fold
-        draws its own. Returns the logs {key: [F, epochs] numpy} for every
-        key of the model's ``log_keys``."""
+        ``DeviceBatches``). By default each fold draws its own noise, keep
+        masks (a model with ``keep_widths``) and permutations. Tests replay
+        given draws instead: ``eps`` [epochs * NB, F, B, Z] (Z is the
+        model's ``noise_dim``), ``keeps`` one [epochs * NB, F, B, width]
+        per keep width, ``perms`` [epochs, F, NB * B] when shuffling.
+        The batches and the replayed noise take the parameters' dtype.
+        Returns the logs {key: [F, epochs] numpy} for every key of the
+        model's ``log_keys``."""
         params = list(self.model.parameters())
-        device = params[0].device
+        device, dtype = params[0].device, params[0].dtype
         batches = stacked_batches
         if not isinstance(batches, DeviceBatches):
-            batches = DeviceBatches(stacked_batches, device)
-        noise = None
+            batches = DeviceBatches(stacked_batches, device, dtype)
+        keep_widths = getattr(self.model, "keep_widths", ())
         if eps is not None:
-            eps = torch.as_tensor(eps, dtype=torch.float32).to(device)
+            noise = ReplayNoise(eps, device, keeps, perms, dtype)
         else:
-            noise = FoldNoise(batches.folds,
-                              (batches.rows, self.model.noise_dim),
-                              self.config.seed, device)
+            noise = FoldNoise(
+                batches.folds, (batches.rows, self.model.noise_dim),
+                self.config.seed, device, keep_widths,
+                1.0 - getattr(self.model, "dropout_rate", 0.0))
         adam = MaskedAdam(params, self.lr_fn)
         log_keys = self.model.log_keys
         logs = run_epochs(self.loss_fn, params, adam, batches,
-                          self.config.epochs, log_keys, eps=eps, noise=noise)
+                          self.config.epochs, log_keys, noise,
+                          shuffle=self.config.shuffle,
+                          state_update=self.state_update)
         host = logs.cpu().numpy()
         return {k: host[:, i, :].T.copy() for i, k in enumerate(log_keys)}

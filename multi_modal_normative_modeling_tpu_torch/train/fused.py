@@ -36,6 +36,7 @@ from ..models.stacked import StackedMultimodalCVAE
 from .trainer import (
     FoldNoise,
     MaskedAdam,
+    ReplayNoise,
     TrainConfig,
     build_lr_fn,
     run_epochs,
@@ -192,9 +193,8 @@ class FusedFoldTrainer:
         names = self.step._param_names
         wrap = torch.nn.Parameter if through_autograd else (lambda t: t)
         params = [wrap(named[k].detach().float().clone()) for k in names]
-        noise = None
         if eps is not None:
-            eps = torch.as_tensor(eps, dtype=torch.float32).to(device)
+            noise = ReplayNoise(eps, device)
         else:
             noise = FoldNoise(batches.folds, (self.config.batch_size,
                                               self.stacked.latent_dim),
@@ -203,10 +203,10 @@ class FusedFoldTrainer:
         if through_autograd:
             logs = run_epochs(self.step.loss_fn(params), params, adam,
                               batches, self.config.epochs, self.log_keys,
-                              eps=eps, noise=noise)
+                              noise)
         else:
             logs = self._run_flat(dict(zip(names, params)), adam, batches,
-                                  eps, noise)
+                                  noise)
         trained = self.step.unpad_named(
             {k: p.detach() for k, p in zip(names, params)})
         host = logs.cpu().numpy()
@@ -215,7 +215,7 @@ class FusedFoldTrainer:
 
     @torch.no_grad()
     def _run_flat(self, named: dict, adam: MaskedAdam,
-                  batches: PackedDeviceBatches, eps, noise) -> torch.Tensor:
+                  batches: PackedDeviceBatches, noise) -> torch.Tensor:
         """train.trainer.run_epochs without autograd: ``named`` are views
         of ``adam.flat``, and each step's flat gradient updates it."""
         epochs = self.config.epochs
@@ -224,8 +224,7 @@ class FusedFoldTrainer:
         t = 0
         for epoch in range(epochs):
             for i in range(batches.n_batches):
-                noise_t = (eps[t] if eps is not None
-                           else noise.draw(batches.valid_host[i]))
+                noise_t, _ = noise.step(t, batches.valid_host[i])
                 b = batches.step(i)
                 losses, flat = self.step.loss_and_grads_flat(
                     named, b["x"], b["c"], self.step.pad_eps(noise_t),

@@ -12,8 +12,16 @@ Numerics parity with the JAX trainer:
   * A ragged final batch carries a row mask; masked means divide by the
     fold's count of real rows (SURVEY.md Q7). Folds of different sizes are
     padded with whole all-padding batches; on such a batch the fold's
-    parameters, Adam moments, step count and noise stream all stay where
-    they were (train/trainer.py:317-323).
+    parameters, Adam moments, step count, non-gradient state (BatchNorm
+    running statistics) and noise stream all stay where they were
+    (train/trainer.py:315-323).
+  * Per-sample extras (labels, the FI score) ride the batches beside x and
+    c (train/trainer.py:65-94).
+  * The optional per-epoch shuffle (train/trainer.py:326-355) permutes each
+    fold's own padded grid, nb_f * B rows, padding rows included; a fold's
+    trailing all-padding batches, there only to pad it to the largest
+    fold's grid, stay where they are, so ragged folds follow the JAX
+    package's sequential per-fold numerics.
   * Constant LR 1e-4 by default; the cyclic schedule is an opt-in (Q1).
   * The logs are each epoch's first-batch loss terms, before that step's
     update (the reference's print cadence, train:201-209).
@@ -23,6 +31,7 @@ are uploaded once, and the logs are fetched once at the end.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Callable, List, Optional, Sequence, Tuple
 
@@ -45,20 +54,24 @@ class TrainConfig:
     max_lr: float = 5e-3
     gamma: float = 0.98
     seed: int = 42
-    # "bf16" runs only on the fused train step's K6 (train/fused.py); the
-    # per-epoch shuffle is not ported (every trainer refuses True)
+    # "bf16" runs only on the fused train step's K6 (train/fused.py)
     precision: str = "fp32"
+    # the per-epoch reshuffle (the regression trainer's); the fused train
+    # step refuses it
     shuffle: bool = False
 
 
 def make_batches(data_list: Sequence[np.ndarray],
-                 cov_list: Sequence[np.ndarray], batch_size: int) -> dict:
+                 cov_list: Sequence[np.ndarray], batch_size: int,
+                 extras: Optional[dict] = None) -> dict:
     """Pack one fold's per-modality sample arrays into padded batches
     (train/trainer.py:62-95), leading axis n_batches:
-      x:     tuple of [NB, B, D_m] per modality
-      c:     tuple of [NB, B, c_dim] per modality
-      mask:  [NB, B], 1.0 for real rows
-      valid: [NB], True where the batch holds at least one real row
+      x:      tuple of [NB, B, D_m] per modality
+      c:      tuple of [NB, B, c_dim] per modality
+      mask:   [NB, B], 1.0 for real rows
+      valid:  [NB], True where the batch holds at least one real row
+      extras: {name: [NB, B, ...]}, any further per-sample arrays (only
+              when ``extras`` is given)
     """
     n = data_list[0].shape[0]
     nb = max(1, -(-n // batch_size))
@@ -72,12 +85,15 @@ def make_batches(data_list: Sequence[np.ndarray],
 
     mask = np.zeros((padded,), dtype=np.float32)
     mask[:n] = 1.0
-    return {
+    batch = {
         "x": tuple(pack(d) for d in data_list),
         "c": tuple(pack(c) for c in cov_list),
         "mask": mask.reshape(nb, batch_size),
         "valid": mask.reshape(nb, batch_size).sum(axis=1) > 0,
     }
+    if extras:
+        batch["extras"] = {k: pack(v) for k, v in extras.items()}
+    return batch
 
 
 def default_loss_fn(model, config: TrainConfig) -> LossFn:
@@ -185,16 +201,21 @@ class MaskedAdam:
 
 
 class FoldNoise:
-    """The reparameterization noise of each step, one torch generator per
-    fold on the device, all seeded alike (the reference re-seeds 42 per
-    fold, so every fold draws the same stream). A fold draws only on a step
+    """The random draws of each step, one torch generator per fold on the
+    device, all seeded alike (the reference re-seeds 42 per fold, so every
+    fold draws the same stream): the reparameterization noise, the dropout
+    keep masks of a model with dropout, and each epoch's permutation when
+    the trainer shuffles. A fold draws noise and keep masks only on a step
     where its batch is valid, so padding batches leave its stream where it
-    was. Tests replay the JAX package's draws instead (``eps=``)."""
+    was. Tests replay the JAX package's draws instead (``ReplayNoise``)."""
 
     def __init__(self, folds: int, shape: Tuple[int, int], seed: int,
-                 device):
+                 device, keep_widths: Sequence[int] = (),
+                 keep_prob: float = 1.0):
         self.shape = shape
         self.device = device
+        self.keep_widths = tuple(keep_widths)
+        self.keep_prob = keep_prob
         self.gens = [torch.Generator(device=device).manual_seed(seed)
                      for _ in range(folds)]
 
@@ -206,57 +227,159 @@ class FoldNoise:
             else torch.zeros(self.shape, device=self.device)
             for gen, ok in zip(self.gens, valid)])
 
+    def step(self, t: int, valid: np.ndarray):
+        """(noise [F, B, Z], keep masks: one bool [F, B, width] per
+        ``keep_widths``) of global step ``t``; each fold draws its noise,
+        then its masks."""
+        eps = self.draw(valid)
+        rows = self.shape[0]
+        keeps = [torch.zeros((len(self.gens), rows, w), dtype=torch.bool,
+                             device=self.device) for w in self.keep_widths]
+        for f, (gen, ok) in enumerate(zip(self.gens, valid)):
+            if ok:
+                for keep, w in zip(keeps, self.keep_widths):
+                    keep[f] = torch.rand((rows, w), generator=gen,
+                                         device=self.device) < self.keep_prob
+        return eps, keeps
+
+    def permutation(self, epoch: int, fold_rows: Sequence[int],
+                    total: int) -> torch.Tensor:
+        """The epoch's row order [F, total]: each fold's first
+        ``fold_rows[f]`` rows permuted by its own generator, the rest in
+        place."""
+        return torch.stack([
+            torch.cat([torch.randperm(n, generator=gen, device=self.device),
+                       torch.arange(n, total, device=self.device)])
+            for gen, n in zip(self.gens, fold_rows)])
+
+
+class ReplayNoise:
+    """Given draws in the place of FoldNoise's (tests replay the JAX
+    package's threefry draws, which Philox cannot reproduce): ``eps``
+    [steps, F, B, Z], ``keeps`` one [steps, F, B, width] per dropout mask,
+    ``perms`` [epochs, F, NB * B], each epoch's row order of every fold;
+    numpy arrays or tensors on any device."""
+
+    def __init__(self, eps, device, keeps=None, perms=None,
+                 dtype=torch.float32):
+        self.eps = torch.as_tensor(eps).to(device, dtype)
+        self.keeps = [torch.as_tensor(k).to(device, torch.bool)
+                      for k in (keeps or ())]
+        self.perms = (None if perms is None else
+                      torch.as_tensor(perms).to(device, torch.int64))
+
+    def step(self, t: int, valid: np.ndarray):
+        return self.eps[t], [k[t] for k in self.keeps]
+
+    def permutation(self, epoch: int, fold_rows: Sequence[int],
+                    total: int) -> torch.Tensor:
+        if self.perms is None:
+            raise ValueError("a shuffled replay needs the permutations "
+                             "(perms=)")
+        return self.perms[epoch]
+
 
 class DeviceBatches:
     """Stacked batches ([F, NB, B, ...] numpy, as parallel.folds.
     stack_fold_batches builds them) uploaded once, step-major, so each
-    step's slice is a contiguous [F, B, ...] tensor."""
+    step's slice is a contiguous [F, B, ...] tensor of ``dtype`` (the
+    model's)."""
 
-    def __init__(self, batches: dict, device):
+    def __init__(self, batches: dict, device, dtype=torch.float32):
         def up(a):
             return torch.from_numpy(np.ascontiguousarray(
-                np.swapaxes(np.asarray(a, np.float32), 0, 1))).to(device)
+                np.swapaxes(np.asarray(a, np.float32), 0, 1))).to(
+                    device, dtype)
 
         self.x = [up(a) for a in batches["x"]]
         self.c = [up(a) for a in batches["c"]]
         self.mask = up(batches["mask"])
+        self.extras = {k: up(v) for k, v in batches.get("extras", {}).items()}
         self.valid_host = np.asarray(batches["valid"]).T  # [NB, F]
         self.valid = torch.from_numpy(
             self.valid_host.astype(np.float32)).to(device)
         self.n_batches, self.folds, self.rows = self.mask.shape
 
+    def fold_rows(self) -> List[int]:
+        """Each fold's own grid, nb_f * B rows: its valid batches come
+        first (stack_fold_batches pads behind them)."""
+        return [int(n) * self.rows for n in self.valid_host.sum(axis=0)]
+
+    def permuted(self, order: torch.Tensor) -> "DeviceBatches":
+        """These batches with each fold's rows in ``order`` [F, NB * B]
+        (train/trainer.py:326-346 per fold): x, c, mask and the extras
+        move together. ``valid`` stays as it is: a fold's padding is less
+        than one batch and ``order`` keeps its trailing all-padding batches
+        in place, so every batch the fold had real rows in still has some.
+        """
+        nb, folds, rows = self.n_batches, self.folds, self.rows
+        take = torch.arange(folds, device=order.device)[:, None]
+
+        def move(a):
+            flat = a.transpose(0, 1).reshape((folds, nb * rows) + a.shape[3:])
+            return (flat[take, order].reshape((folds, nb, rows) + a.shape[3:])
+                    .transpose(0, 1).contiguous())
+
+        out = copy.copy(self)
+        out.x = [move(a) for a in self.x]
+        out.c = [move(a) for a in self.c]
+        out.mask = move(self.mask)
+        out.extras = {k: move(v) for k, v in self.extras.items()}
+        return out
+
     def step(self, t: int) -> dict:
-        return {"x": [x[t] for x in self.x], "c": [c[t] for c in self.c],
-                "mask": self.mask[t]}
+        batch = {"x": [x[t] for x in self.x], "c": [c[t] for c in self.c],
+                 "mask": self.mask[t]}
+        if self.extras:
+            batch["extras"] = {k: v[t] for k, v in self.extras.items()}
+        return batch
+
+
+StateUpdate = Callable[[dict, torch.Tensor], None]
 
 
 def run_epochs(loss_fn: LossFn, params: List[torch.nn.Parameter],
                adam: MaskedAdam, batches: DeviceBatches, epochs: int,
-               log_keys: Sequence[str],
-               eps: Optional[torch.Tensor] = None,
-               noise: Optional[FoldNoise] = None) -> torch.Tensor:
+               log_keys: Sequence[str], noise, shuffle: bool = False,
+               state_update: Optional[StateUpdate] = None) -> torch.Tensor:
     """The epoch loop: every batch of every epoch is one step for all folds.
-    ``eps`` [epochs * NB, F, B, Z] replays given noise; otherwise ``noise``
-    draws it. Returns the logs [epochs, len(log_keys), F] on the device:
-    the loss terms ``log_keys`` (the model's ``log_keys``: total, kl, ll,
-    and jsd for mmJSD, tc for mvtCAE) of each epoch's first batch.
+    ``noise`` (``FoldNoise``, or ``ReplayNoise`` with given draws) gives
+    each step's noise and dropout keep masks (the latter reach the loss as
+    the batch's ``keep``), and with ``shuffle`` each epoch's row order.
+    Returns the logs [epochs, len(log_keys), F] on the device: the loss
+    terms ``log_keys`` (the model's ``log_keys``: total, kl, ll, and jsd
+    for mmJSD, tc for mvtCAE) of each epoch's first batch.
+
+    ``state_update(aux, valid)`` applies a step's non-gradient state (the
+    BatchNorm running statistics the loss hands back in its aux) after the
+    optimizer step, to the folds whose batch is valid.
 
     A fold whose step is not valid may hand back a NaN loss and gradient
     (mvtCAE's log-sum-exp over an all-padding batch): nothing here scales by
     ``valid``, the optimizer selects, so such a step leaves no trace."""
     logs = torch.empty((epochs, len(log_keys), batches.folds),
                        device=batches.mask.device)
+    fold_rows = batches.fold_rows() if shuffle else None
+    total_rows = batches.n_batches * batches.rows
     t = 0
     for epoch in range(epochs):
+        epoch_batches = batches
+        if shuffle:
+            epoch_batches = batches.permuted(
+                noise.permutation(epoch, fold_rows, total_rows))
         for step in range(batches.n_batches):
-            noise_t = (eps[t] if eps is not None
-                       else noise.draw(batches.valid_host[step]))
-            total, aux = loss_fn(batches.step(step), noise_t)
+            batch = epoch_batches.step(step)
+            noise_t, keeps = noise.step(t, batches.valid_host[step])
+            if keeps:
+                batch["keep"] = keeps
+            total, aux = loss_fn(batch, noise_t)
             grads = torch.autograd.grad(total.sum(), params,
                                         allow_unused=True)
             if step == 0:
                 logs[epoch] = torch.stack([aux[k].detach()
                                            for k in log_keys])
             adam.step(grads, batches.valid[step])
+            if state_update is not None:
+                state_update(aux, batches.valid[step])
             t += 1
     return logs

@@ -32,6 +32,7 @@ from multi_modal_normative_modeling_tpu_torch.data import (
 )
 from multi_modal_normative_modeling_tpu_torch.infer import deviation, emitters
 from multi_modal_normative_modeling_tpu_torch.utils import logging
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 RESOURCES = ("ADNI", "HCP", "ADHD", "PPMI", "HCPimage")
 PROCEDURES = ("SE-PoE", "SE-MoE", "UCA-gPoE", "SM-av45", "VS-PoE")

@@ -41,6 +41,7 @@ from multi_modal_normative_modeling_tpu_torch.evaluation import (
     metrics,
     reports,
 )
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 METHODS = ["roc", "f1", "pr", "cost", "eer"]
 REPORTS = ["result_baseline/result_multimodal.txt",

@@ -47,6 +47,7 @@ from multi_modal_normative_modeling_tpu_torch.train.fused import (
     FusedFoldTrainer,
     select_kernel,
 )
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 from tests.test_torch_train import jax_eps_replay
 from tests.test_torch_train_cli import MODEL_DIR, _jax_init
 

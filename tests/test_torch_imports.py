@@ -3,9 +3,12 @@
 imports jax, flax or the JAX package, absolutely or relatively. Each file
 is parsed with ``ast`` (nothing is executed), one case per file; the modules
 that end the chain on the machine with the GPU (``evaluation/``,
-``cli/group_analysis.py``, ``cli/pipeline.py``) import no scikit-learn
-either, which that machine does not have; a last case runs the whole chain
-in a process where importing any of them fails."""
+``cli/group_analysis.py``, ``cli/pipeline.py``) and the supervised
+variants' CLIs (``cli/nmpmcont.py``, ``cli/nmmlp.py``,
+``cli/regression.py``) import no scikit-learn either, which that machine
+does not have, and those three CLIs no matplotlib; the last cases run the
+whole chain, and the three CLIs, in a process where importing any of them
+fails."""
 import ast
 import subprocess
 import sys
@@ -19,8 +22,12 @@ JAX_PACKAGE = "multi_modal_normative_modeling_tpu"
 FORBIDDEN = ("jax", "flax", "optax", JAX_PACKAGE)
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 # the analysis stage: no scikit-learn, at module level or inside a function
+VARIANT_CLIS = [PORT / "cli" / f"{name}.py"
+                for name in ("nmpmcont", "nmmlp", "regression")]
 NO_SKLEARN = sorted((PORT / "evaluation").glob("*.py")) + [
-    PORT / "cli" / "group_analysis.py", PORT / "cli" / "pipeline.py"]
+    PORT / "cli" / "group_analysis.py", PORT / "cli" / "pipeline.py",
+    PORT / "models" / "endtoend.py",
+    PORT / "models" / "regression.py"] + VARIANT_CLIS
 
 
 def _absolute(path: Path, node: ast.ImportFrom, root: Path) -> str:
@@ -65,6 +72,14 @@ def test_the_analysis_stage_imports_no_sklearn(path):
     assert path.exists()
     bad = [(m, line) for m, line in imported_modules(path)
            if _forbidden(m, ("sklearn",))]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("path", VARIANT_CLIS,
+                         ids=[str(p.relative_to(ROOT)) for p in VARIANT_CLIS])
+def test_the_variant_clis_import_no_matplotlib(path):
+    bad = [(m, line) for m, line in imported_modules(path)
+           if _forbidden(m, ("matplotlib",))]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
@@ -155,3 +170,53 @@ def test_clis_run_where_the_jax_package_cannot_be_imported(tmp_path):
     assert list(tmp_path.glob("deviation/**/*.csv"))
     assert (tmp_path / "cvae_auc_and_std.csv").exists()
     assert len(list(tmp_path.rglob("auc_rocs.csv"))) == 3
+
+
+_BLOCKED_VARIANTS = _BLOCKED_CHAIN.split("import os\n")[0] + """
+import os
+from pathlib import Path
+# absent, as on the machine with the GPU: imports fail, find_spec says None
+sys.modules['matplotlib'] = None
+from multi_modal_normative_modeling_tpu_torch.data.synthetic import (
+    make_synthetic_resource,
+)
+from multi_modal_normative_modeling_tpu_torch.cli import (
+    nmmlp,
+    nmpmcont,
+    regression,
+)
+os.chdir(sys.argv[2])
+make_synthetic_resource(Path('.'), 'ADNI', n_hc=20, n_disease={0: 6, 1: 6},
+                        with_fi=True)
+flags = ['-R', 'ADNI', '-P', 'SE-MoE', '-K', '2', '-H', '8', '8', '4',
+         '-E', '2', '--device', 'cpu']
+metrics = nmpmcont.run(flags + ['-Layers', '8', '4'])
+assert metrics.shape == (2, 5), metrics
+stats = nmmlp.run(['all'] + flags)
+assert stats['auc'] is not None, stats
+scores = regression.run(flags)
+assert len(scores) == 2, scores
+bad = [m for m in sys.modules if m.split('.')[0] in
+       ('jax', 'flax', 'optax', 'sklearn',
+        'multi_modal_normative_modeling_tpu')]
+assert not bad, bad
+print('VARIANTS_OK')
+"""
+
+
+def test_variant_clis_run_without_jax_sklearn_or_matplotlib(tmp_path):
+    """The three variant CLIs on a tiny synthetic cohort on the CPU, in a
+    process that refuses jax, flax, optax, sklearn and the JAX package and
+    has no matplotlib: every file but the loss plots."""
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_VARIANTS, str(ROOT), str(tmp_path)],
+        capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-4000:]
+    assert "VARIANTS_OK" in out.stdout
+    assert (tmp_path / "results_endtoend.csv").exists()
+    assert (tmp_path / "outputs" / "analysis_results"
+            / "performance_metrics.txt").exists()
+    assert len(list(tmp_path.glob("regression_outputs/*.npy"))) == 4
+    assert len(list(tmp_path.glob(
+        "outputs/kfold_analysis/supervised_cvae/*/cVAE_model.ckpt"))) == 2
+    assert not list(tmp_path.rglob("*.png"))

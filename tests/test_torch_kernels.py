@@ -24,6 +24,7 @@ from multi_modal_normative_modeling_tpu.models.cvae import (
 )
 from multi_modal_normative_modeling_tpu_torch import kernels
 from multi_modal_normative_modeling_tpu_torch.kernels import _build, mlp
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 SHAPES = [(7, 90, 29), (300, 270, 29), (16, 3485, 2)]

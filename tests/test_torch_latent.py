@@ -30,6 +30,7 @@ from multi_modal_normative_modeling_tpu_torch.cli import (
     train_supervised as port_train,
 )
 from multi_modal_normative_modeling_tpu_torch.infer import deviation
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 MODEL_DIR = "outputs/kfold_analysis/supervised_cvae"
 LATENT = 6

@@ -25,6 +25,7 @@ from multi_modal_normative_modeling_tpu_torch.models import (
     reparameterize,
 )
 from multi_modal_normative_modeling_tpu_torch.parallel import stack_params
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=2e-4, atol=2e-5)
 DIMS = [90, 90, 90, 270]

@@ -11,6 +11,7 @@ from multi_modal_normative_modeling_tpu.ops import fusion as jfusion
 from multi_modal_normative_modeling_tpu.ops import linear as jlinear
 from multi_modal_normative_modeling_tpu_torch.ops import fusion as tfusion
 from multi_modal_normative_modeling_tpu_torch.ops import linear as tlinear
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 

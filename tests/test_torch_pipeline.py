@@ -32,6 +32,7 @@ from multi_modal_normative_modeling_tpu.data.synthetic import (
 from multi_modal_normative_modeling_tpu_torch.cli import (
     test_supervised as port_test,
 )
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 

@@ -29,6 +29,7 @@ from multi_modal_normative_modeling_tpu_torch.models.stacked import (
     StackedMultimodalCVAE,
 )
 from multi_modal_normative_modeling_tpu_torch.parallel import stack_params
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 DIMS = [24, 40, 16]
 C, Z, B = 5, 6, 9

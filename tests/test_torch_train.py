@@ -73,6 +73,7 @@ from multi_modal_normative_modeling_tpu_torch.train.trainer import (
     MaskedAdam,
     build_lr_fn,
 )
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 DIMS = [24, 40, 16]
 HIDDEN = [12, 12]

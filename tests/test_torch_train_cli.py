@@ -35,6 +35,7 @@ from multi_modal_normative_modeling_tpu_torch.interop import (
     read_flax_checkpoint,
 )
 from multi_modal_normative_modeling_tpu_torch.parallel import stack_params
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 from tests.test_torch_train import jax_eps_replay
 
 MODEL_DIR = "outputs/kfold_analysis/supervised_cvae"

@@ -33,6 +33,7 @@ from multi_modal_normative_modeling_tpu_torch.kernels.train_step_tiled import (
 from multi_modal_normative_modeling_tpu_torch.models.stacked import (
     StackedMultimodalCVAE,
 )
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 from tests.test_train_step_kernel import _make_problem, _reference_loss
 from tests.test_train_step_tiled import _problem as _tiled_problem
 

@@ -52,6 +52,7 @@ from multi_modal_normative_modeling_tpu_torch.ops import fusion, losses
 from multi_modal_normative_modeling_tpu_torch.parallel import stack_params
 from multi_modal_normative_modeling_tpu_torch.train import save_checkpoint
 from multi_modal_normative_modeling_tpu_torch.train.trainer import FoldNoise
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 DIMS = [24, 40, 16]
 HIDDEN = [12, 12]

@@ -39,6 +39,7 @@ from multi_modal_normative_modeling_tpu_torch.kernels import (
     deviation as dev_kernel,
     mlp as mlp_kernel,
 )
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 
 MODELS = ["cVAE_multimodal", "mmJSD", "DMVAE", "WeightedDMVAE", "mvtCAE",
           "mmVAEPlus"]

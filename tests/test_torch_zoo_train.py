@@ -35,6 +35,7 @@ from multi_modal_normative_modeling_tpu_torch.train import (
     TrainConfig,
     default_loss_fn,
 )
+from tests.test_torch_threads import one_torch_thread  # noqa: F401
 from tests.test_torch_train import jax_eps_replay
 from tests.test_torch_zoo import C, DIMS, close_trees, make_pair
 
