@@ -82,7 +82,23 @@ Phases (any failure exits non-zero, with no result line):
      path evaluated in fp64 on the same eps, at phase 4's bound, on seeded
      tensors at the rows the stage gave it; K1 and K3 are held and timed
      at the regression's shapes (c 2, the test rows and the 600-row
-     cohort). Prints ms per plain step and each stage's wall.
+     cohort). Prints ms per plain step and each stage's wall;
+  11. the scoring surfaces on the ensemble phase 8 trained (UCA-gPoE, 5
+     folds, its project kept until now): cli.score over the cohort's 600
+     subjects in this process with --roi_output and --latent (K1 and K2
+     four launches each for the scoring call, K1 four more for the
+     subjects' latent and four for the train cohorts' statistics), its
+     deviation, latent and ROI columns against the plain path evaluated in
+     fp64 on the same eps, at phase 4's bound; then ScoringService and
+     make_server on 127.0.0.1 in a thread: /healthz, and POST /score in ids
+     mode with 1, 64 and 256 subjects, with roi, with latent, and in raw
+     mode with 64, each answer against the plain path in fp64 on the
+     service's noise, ids and raw answers equal; the launches of one
+     request and of one latent request; p50 and p95 latency over 50
+     requests of each size at the HTTP client and inside the service's
+     _score, beside the device time of one request's launches; K1 and K2
+     at the requests' shapes (64 rows, 5 and 10 folds, D = 90 and 270)
+     against their plain versions in fp64, timed beside their bounds.
 
 Beside every kernel time stands the kernel's bound: the least time the
 card could take for the same work (kernels/roofline.py: the larger of its
@@ -249,6 +265,14 @@ VARIANT_LAUNCHES = {
     "regression": {"fused_encoder": 8, "fused_decoder_mean": 8},
 }
 REGRESSION_C = 2
+
+# phase 11: the scoring surfaces on phase 8's trained project. Requests of
+# 1, 64 and 256 subjects, each size LATENCY_REQUESTS times; a request of 1
+# to 64 subjects runs K1 and K2 at B = 64, and the service's default -K 10
+# makes F = 10: (folds, rows, D, C) where K1 and K2 are held and timed
+SERVE_SIZES = (1, 64, 256)
+LATENCY_REQUESTS = 50
+SERVE_SHAPES = [(f, 64, d, C_DIM) for f in (FOLDS, 10) for d in (90, 270)]
 
 
 def cuda_ms(fn, iters=50, warmup=5):
@@ -974,49 +998,48 @@ def train_run(model_dir):
     return end["run_s"] * 1e3 / end["steps"], end["steps"]
 
 
-def run_chain():
+def run_chain(root):
     """Phase 8: train, score and analyse a synthetic cohort in this process
-    through cli.pipeline; returns the chain's kernel launches."""
+    through cli.pipeline, in ``root`` (phase 11 scores its trained
+    ensemble); returns the chain's kernel launches."""
     from multi_modal_normative_modeling_tpu_torch import kernels
     from multi_modal_normative_modeling_tpu_torch.cli import pipeline
     from multi_modal_normative_modeling_tpu_torch.data.synthetic import (
         make_synthetic_resource,
     )
 
-    with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp)
-        t0 = time.perf_counter()
-        make_synthetic_resource(root, "ADNI", with_early_fusion=True,
-                                **CHAIN_COHORT)
-        made = time.perf_counter() - t0
-        kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        stats = pipeline.run(CHAIN_FLAGS, project_root=root)
-        torch.cuda.synchronize()
-        whole = time.perf_counter() - t0
-        launches = {k.__name__: k.launches for k in kernels.KERNELS}
-        for name in ("fused_encoder", "fused_pred_deviation",
-                     "fused_train_step"):
-            if launches[name] == 0:
-                raise RuntimeError(f"phase 8: {name} was not launched by the "
-                                   f"chain: {launches}")
-        texts = check_reports(root, stats)
-        # the analysis stage again, on the same CSVs: the same bytes
-        for rel in texts:
-            (root / rel).unlink()
-        pipeline.run(CHAIN_FLAGS + ["--stages", "analyze"], project_root=root)
-        for rel, text in texts.items():
-            if (root / rel).read_bytes() != text:
-                raise RuntimeError(f"phase 8: {rel} differs when the "
-                                   "analysis runs again")
-        check_stage_rows(root, "phase 8")
-        print(f"phase 8: ADNI cohort of {COHORT_SUBJECTS} "
-              f"subjects made in {made:.3f} s; chain "
-              f"{' '.join(CHAIN_FLAGS)} in one process: {whole:.3f} s in all "
-              f"(the stages' own times above); launches {launches}; AUC per "
-              f"comparison {[round(float(a), 4) for a in stats['auc']]}; "
-              f"{len(texts)} report files in the JAX package's layout, "
-              f"byte-equal when the analysis runs again", flush=True)
+    t0 = time.perf_counter()
+    make_synthetic_resource(root, "ADNI", with_early_fusion=True,
+                            **CHAIN_COHORT)
+    made = time.perf_counter() - t0
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    stats = pipeline.run(CHAIN_FLAGS, project_root=root)
+    torch.cuda.synchronize()
+    whole = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels.KERNELS}
+    for name in ("fused_encoder", "fused_pred_deviation",
+                 "fused_train_step"):
+        if launches[name] == 0:
+            raise RuntimeError(f"phase 8: {name} was not launched by the "
+                               f"chain: {launches}")
+    texts = check_reports(root, stats)
+    # the analysis stage again, on the same CSVs: the same bytes
+    for rel in texts:
+        (root / rel).unlink()
+    pipeline.run(CHAIN_FLAGS + ["--stages", "analyze"], project_root=root)
+    for rel, text in texts.items():
+        if (root / rel).read_bytes() != text:
+            raise RuntimeError(f"phase 8: {rel} differs when the "
+                               "analysis runs again")
+    check_stage_rows(root, "phase 8")
+    print(f"phase 8: ADNI cohort of {COHORT_SUBJECTS} "
+          f"subjects made in {made:.3f} s; chain "
+          f"{' '.join(CHAIN_FLAGS)} in one process: {whole:.3f} s in all "
+          f"(the stages' own times above); launches {launches}; AUC per "
+          f"comparison {[round(float(a), 4) for a in stats['auc']]}; "
+          f"{len(texts)} report files in the JAX package's layout, "
+          f"byte-equal when the analysis runs again", flush=True)
     return launches
 
 
@@ -1485,6 +1508,414 @@ def run_variants(stats):
     return chain_launches
 
 
+def check_serving_shapes(stats):
+    """K1 and K2 where a scoring request puts them (SERVE_SHAPES: 64 rows,
+    5 and 10 folds): each against its plain version evaluated in fp64,
+    event and device ms beside the bound. Fills stats[kernel]["serve"]."""
+    from multi_modal_normative_modeling_tpu_torch.kernels import (
+        deviation,
+        roofline,
+    )
+    from multi_modal_normative_modeling_tpu_torch.models import (
+        Decoder,
+        Encoder,
+    )
+
+    rng = np.random.default_rng(11)
+    gen = torch.Generator().manual_seed(11)
+    for folds, rows, d, c_dim in SERVE_SHAPES:
+        x = torch.from_numpy(rng.standard_normal(
+            (folds, rows, d), dtype=np.float32)).cuda()
+        c = covariates(rng, folds, rows)
+        z = torch.from_numpy(rng.standard_normal(
+            (folds, rows, LATENT), dtype=np.float32)).cuda()
+        enc = Encoder(d, HIDDEN, LATENT, c_dim, folds=folds, generator=gen,
+                      device="cuda")
+        dec = Decoder(d, HIDDEN, LATENT, c_dim, folds=folds, generator=gen,
+                      device="cuda")
+        e1, _, enc_plan = check_encoder(enc, x, c)
+        recon, dev = dec.fused_pred_deviation(z, c, x)
+        want_recon, want_dev = deviation.pred_deviation_reference(
+            [tuple(fp64(*layer)) for layer in dec.hidden_layers()],
+            tuple(fp64(*dec.mean.pair())), *fp64(z, c, x), True)
+        e2 = max(check_close("fused_pred_deviation recon", recon,
+                             want_recon.float(), TOL)[0],
+                 check_close("fused_pred_deviation dev", dev,
+                             want_dev.float(), DEV_TOL)[0])
+        dec_plan = deviation.plan(folds, rows, LATENT + c_dim,
+                                  tuple(HIDDEN[::-1]), d)
+        shape = (folds, rows, d, c_dim, HIDDEN, LATENT)
+        key = f"F={folds} B={rows} D={d} C={c_dim}"
+        with torch.no_grad():
+            for kname, err, fn, plain, work, plan_text in (
+                    ("fused_encoder", e1, lambda: enc.fused(x, c),
+                     lambda: enc(x, c), roofline.fused_encoder(*shape),
+                     f"{enc_plan.tiles} tiles x {enc_plan.splits} K splits"),
+                    ("fused_pred_deviation", e2,
+                     lambda: dec.fused_pred_deviation(z, c, x),
+                     lambda: deviation.reconstruction_deviation(
+                         x, dec(z, c)[0]),
+                     roofline.fused_pred_deviation(*shape),
+                     f"{dec_plan.tiles} tiles x {dec_plan.groups} column "
+                     "groups")):
+                ms, dev_ms = cuda_ms(fn), device_ms(fn)
+                plain_ms, plain_dev = cuda_ms(plain), device_ms(plain)
+                print(f"phase 11: {kname} at {key} ({plan_text}): max abs "
+                      f"err {err:.3e} vs fp64; {ms:.4f} ms (device "
+                      f"{dev_ms:.4f}) vs plain {plain_ms:.4f} ms (device "
+                      f"{plain_dev:.4f}), {bound_text(work, ms)}",
+                      flush=True)
+                s = stats[kname]
+                s["max_abs_err"] = max(s["max_abs_err"], err)
+                s.setdefault("serve", {})[key] = {
+                    "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                    "plain_device_ms": plain_dev, "bound_ms": work.bound_ms}
+
+
+def launch_counts():
+    from multi_modal_normative_modeling_tpu_torch import kernels
+
+    return {k.__name__: k.launches for k in kernels.KERNELS if k.launches}
+
+
+def stack64(arrays, rows):
+    """[len(arrays), rows, width] float64 on the card: each array's rows
+    first, zero rows after (the fp64 counterpart of common.stack_padded)."""
+    out = torch.zeros((len(arrays), rows, arrays[0].shape[1]),
+                      dtype=torch.float64, device="cuda")
+    for i, a in enumerate(arrays):
+        out[i, :len(a)] = torch.from_numpy(np.asarray(a, np.float64))
+    return out
+
+
+def plain_scores64(model, xs, covs, combine, eps):
+    """The plain path evaluated in fp64 on the same eps: (the model in
+    double, recons per modality [K, n, F_m], devs [K, M, n]) of a copy of
+    the fold-stacked model, from fp64 inputs."""
+    model64 = copy.deepcopy(model).double()
+    with torch.no_grad():
+        recons = model64.pred_recon(xs, [covs] * len(xs), combine,
+                                    eps=eps.double())
+    devs = torch.stack([model64.reconstruction_deviation(x, r)
+                        for x, r in zip(xs, recons)], dim=1)
+    return model64, recons, devs
+
+
+def latent_z64(model64, combine, xs, covs, n, fold_data, fold_cov):
+    """The subjects' latent z-scores [K, n, Z] in fp64: the fused latent of
+    the first ``n`` rows against each fold's train cohort (the mean and
+    variance, ddof 0, of its unpadded rows)."""
+    sizes = [len(c) for c in fold_cov]
+    train_x = [stack64([d[m] for d in fold_data], max(sizes))
+               for m in range(len(xs))]
+    train_c = stack64(fold_cov, max(sizes))
+    with torch.no_grad():
+        mu_train, _ = model64.latent_stats(train_x, [train_c] * len(xs),
+                                           combine)
+        mu, var = model64.latent_stats(xs, [covs] * len(xs), combine)
+    mean = torch.stack([mu_train[k, :s].mean(dim=0)
+                        for k, s in enumerate(sizes)])
+    var_train = torch.stack([mu_train[k, :s].var(dim=0, unbiased=False)
+                             for k, s in enumerate(sizes)])
+    return ((mu[:, :n] - mean[:, None])
+            / torch.sqrt(var_train[:, None] + var[:, :n]))
+
+
+def check_score_cli(root):
+    """cli.score over the whole cohort in this process, with --roi_output
+    and --latent: K1 and K2 one launch per modality for the scoring call,
+    K1 one more per modality for the subjects' latent and one for the train
+    cohorts'; the deviation, latent and ROI columns against the plain path
+    evaluated in fp64 on the same eps. Returns (launches, wall s, max abs
+    err)."""
+    import pandas as pd
+
+    from multi_modal_normative_modeling_tpu_torch import kernels, registry
+    from multi_modal_normative_modeling_tpu_torch.cli import common, score
+    from multi_modal_normative_modeling_tpu_torch.data.preprocess import (
+        train_binned_covariates,
+    )
+
+    ids = root / "serve_ids.csv"
+    pd.read_csv(root / "data" / "ADNI" / "y.csv")[["IID"]].to_csv(
+        ids, index=False)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = score.run(["-R", "ADNI", "-P", "UCA-gPoE", "-K", str(FOLDS),
+                     "--ids", str(ids), "--output", str(root / "scores.csv"),
+                     "--roi_output", str(root / "scores_roi.csv"),
+                     "--latent"], project_root=root)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    want = {"fused_encoder": 3 * len(DIMS), "fused_pred_deviation": len(DIMS)}
+    if launches != want:
+        raise RuntimeError(f"phase 11: the score CLI launched {launches}, "
+                           f"expected {want}")
+
+    # the plain path in fp64, from the same prep, covariates and eps
+    kfold_dir = root / "outputs" / "kfold_analysis"
+    names = registry.get_datasets_name("ADNI", "UCA-gPoE")
+    participants = root / "data" / "ADNI" / "y.csv"
+    preps = [[common.prepare_modality(root, "ADNI", name, participants,
+                                      common.fold_paths(kfold_dir, f)[0], ids)
+              for name in names] for f in range(FOLDS)]
+    n = len(out)
+    padded = common.padded_rows(n)
+    xs = [stack64([p[m]["test_data"] for p in preps], padded)
+          for m in range(len(names))]
+    covs = stack64([train_binned_covariates(
+        p[-1]["train_df"][["AGE", "PTGENDER"]],
+        p[-1]["test_df"][["AGE", "PTGENDER"]]) for p in preps], padded)
+    eps = torch.from_numpy(np.stack([common.seeded_eps(42 + f, padded, LATENT)
+                                     for f in range(FOLDS)])).cuda()
+    model, _, config = common.load_model_and_params(
+        [kfold_dir / "supervised_cvae" / f"{f:03d}" for f in range(FOLDS)],
+        "cuda")
+    model64, recons, devs = plain_scores64(model, xs, covs, config["combine"],
+                                           eps)
+    z = latent_z64(model64, config["combine"], xs, covs, n,
+                   [[q["train_data"] for q in p] for p in preps],
+                   [p[-1]["train_cov"] for p in preps])
+    roi = pd.read_csv(root / "scores_roi.csv")
+    if roi.shape != (COHORT_SUBJECTS, 1 + sum(DIMS)) or n != COHORT_SUBJECTS:
+        raise RuntimeError(f"phase 11: score wrote {out.shape}, ROI "
+                           f"{roi.shape}")
+    err = max(check_close(f"score {what}", torch.from_numpy(
+        np.asarray(got, np.float64)), want.cpu(), MODEL_TOL)[0]
+        for what, got, want in (
+            ("deviation", out["deviation"],
+             devs[:, :, :n].mean(dim=1).mean(dim=0)),
+            ("latent_deviation", out["latent_deviation"],
+             (z.abs().sum(dim=2) / LATENT).mean(dim=0)),
+            ("ROI plane", roi.iloc[:, 1:], torch.cat(
+                [(x - r)[:, :n] ** 2 for x, r in zip(xs, recons)],
+                dim=2).mean(dim=0))))
+    return launches, wall, err
+
+
+def serve_reference64(service, features, cov_frame, train):
+    """What the service answers for these subjects, on the plain path
+    evaluated in fp64 with the service's own noise: {key: tensor}.
+    ``train`` holds each fold's train cohort (data per modality, one-hot
+    covariates)."""
+    from multi_modal_normative_modeling_tpu_torch.data.preprocess import (
+        train_binned_covariates,
+    )
+    from multi_modal_normative_modeling_tpu_torch.infer import ensemble
+
+    state = service.state
+    n = features[0].shape[0]
+    padded = -(-n // service.pad_to) * service.pad_to
+    xs = [(stack64([f] * state.n_splits, padded) - c.double()[:, None])
+          / s.double()[:, None]
+          for f, c, s in zip(features, state.centers, state.scales)]
+    covs = stack64([train_binned_covariates(tc, cov_frame)
+                    for tc in state.train_covs], padded)
+    eps = ensemble.fold_eps(state.seeds, padded, LATENT, "cuda")
+    model64, recons, devs = plain_scores64(state.model, xs, covs,
+                                           state.combine, eps)
+    per_mod = devs[:, :, :n].mean(dim=0)
+    z = latent_z64(model64, state.combine, xs, covs, n, *train)
+    out = {"deviation": per_mod.mean(dim=0), "per_modality": per_mod,
+           "roi": torch.cat([(x - r)[:, :n] ** 2
+                             for x, r in zip(xs, recons)], dim=2).mean(0),
+           "latent_deviation": (z.abs().sum(dim=2) / z.shape[2]).mean(dim=0),
+           "latent_per_dim": z.mean(dim=0)}
+    return {k: v.cpu() for k, v in out.items()}
+
+
+def http_call(address, method, path, payload=None):
+    """(status, JSON body, client ms) of one request on a new connection."""
+    import http.client
+
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection(*address, timeout=120)
+    body = None if payload is None else json.dumps(payload).encode()
+    conn.request(method, path, body=body,
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    out = json.loads(resp.read())
+    conn.close()
+    return resp.status, out, (time.perf_counter() - t0) * 1e3
+
+
+def check_service_answers(service, address, train):
+    """Requests over HTTP against the plain path in fp64 on the service's
+    noise: ids of 1, 64 and 256 subjects, 64 with roi and with latent, raw
+    features of the same 64 with roi (which must give the ids answer).
+    Returns the max abs err."""
+    frames, names = service._frames, service.dataset_names
+    all_ids = list(frames[0].index)
+    err, answers = 0.0, {}
+    for mode, size, flags in (("ids", 1, {}), ("ids", 64, {}),
+                              ("ids", 256, {}), ("ids", 64, {"roi": True}),
+                              ("ids", 64, {"latent": True}),
+                              ("raw", 64, {"roi": True})):
+        rows = [f.loc[all_ids[:size]] for f in frames]
+        feats = [r[cols].to_numpy(np.float32)
+                 for r, cols in zip(rows, service.columns)]
+        cov = rows[-1][["AGE", "PTGENDER"]]
+        payload = ({"ids": all_ids[:size]} if mode == "ids" else {
+            "features": {name: f.tolist() for name, f in zip(names, feats)},
+            "covariates": {"AGE": cov["AGE"].tolist(),
+                           "PTGENDER": cov["PTGENDER"].tolist()}})
+        status, body, _ = http_call(address, "POST", "/score",
+                                    dict(payload, **flags))
+        if status != 200:
+            raise RuntimeError(f"phase 11: {mode} {size} {flags}: {status} "
+                               f"{body}")
+        want = serve_reference64(service, feats, cov, train)
+        body["per_modality"] = [body["per_modality"][name] for name in names]
+        for key in ("deviation", "per_modality", "roi", "latent_deviation",
+                    "latent_per_dim"):
+            if key in body:
+                err = max(err, check_close(
+                    f"serve {mode} {size} {flags} {key}",
+                    torch.tensor(body[key], dtype=torch.float64), want[key],
+                    MODEL_TOL)[0])
+        answers[mode, size, tuple(flags)] = body["deviation"]
+    if not np.allclose(answers["ids", 64, ("roi",)],
+                       answers["raw", 64, ("roi",)], rtol=1e-6, atol=0.0):
+        raise RuntimeError("phase 11: raw and ids requests disagree")
+    return err
+
+
+def run_serving(root, stats):
+    """Phase 11: the scoring surfaces on phase 8's trained project: the
+    score CLI, then the resident service over HTTP, each held against the
+    plain path in fp64; the service's launches and latency by request
+    size; K1/K2 at the requests' shapes. Returns the launches by surface:
+    {"score_cli" | "request" | "latent_request": {kernel: launches}}."""
+    import threading
+
+    from multi_modal_normative_modeling_tpu_torch import kernels
+    from multi_modal_normative_modeling_tpu_torch.cli import serve
+    from multi_modal_normative_modeling_tpu_torch.data.preprocess import (
+        train_binned_covariates,
+    )
+    from multi_modal_normative_modeling_tpu_torch.infer import ensemble
+
+    launches, wall, err = check_score_cli(root)
+    print(f"phase 11: cli.score -R ADNI -P UCA-gPoE -K {FOLDS} over "
+          f"{COHORT_SUBJECTS} subjects with --roi_output and --latent: "
+          f"{wall:.3f} s in this process; launches {launches}; deviation, "
+          f"latent and ROI plane max abs err {err:.3e} vs the plain path in "
+          f"fp64", flush=True)
+    serve_launches = {"score_cli": launches}
+
+    t0 = time.perf_counter()
+    service = serve.ScoringService("ADNI", "UCA-gPoE", n_splits=FOLDS,
+                                   project_root=root, device="cuda")
+    startup = time.perf_counter() - t0
+    state = service.state
+    # time spent inside _score (binning, the device work under the lock,
+    # the copies back), around the service's own method
+    score_ms, score_body = [], service._score
+
+    def timed_score(*args, **kwargs):
+        start = time.perf_counter()
+        try:
+            return score_body(*args, **kwargs)
+        finally:
+            score_ms.append((time.perf_counter() - start) * 1e3)
+
+    service._score = timed_score
+    server = serve.make_server(service, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    address = server.server_address[:2]
+    sent = 0
+    try:
+        status, health, _ = http_call(address, "GET", "/healthz")
+        if (status != 200 or health["backend"] != "cuda"
+                or health["device"] != torch.cuda.get_device_name(0)):
+            raise RuntimeError(f"phase 11: /healthz {status} {health}")
+        train = ensemble.train_preps(root, "ADNI", state.dataset_names,
+                                      FOLDS)
+        err = check_service_answers(service, address, (
+            [[p["train_data"] for p in preps] for preps in train],
+            [preps[-1]["train_cov"] for preps in train]))
+        sent += 6
+        print(f"phase 11: ScoringService on {health['device']} "
+              f"({startup:.3f} s to start), 6 requests over HTTP (ids 1, "
+              f"64, 256; ids 64 with roi, with latent; raw 64 with roi) "
+              f"against the plain path in fp64 on the service's noise: max "
+              f"abs err {err:.3e}; raw and ids agree", flush=True)
+
+        ids = list(service._frames[0].index)
+        for name, flags in (("request", {}),
+                            ("latent_request", {"latent": True})):
+            kernels.reset_launch_counts()
+            http_call(address, "POST", "/score", dict({"ids": ids[:64]},
+                                                      **flags))
+            sent += 1
+            serve_launches[name] = launch_counts()
+            want = {"fused_encoder": len(DIMS) * (1 + bool(flags)),
+                    "fused_pred_deviation": len(DIMS)}
+            if serve_launches[name] != want:
+                raise RuntimeError(f"phase 11: a {name} launched "
+                                   f"{serve_launches[name]}, expected {want}")
+
+        for size in SERVE_SIZES:
+            payload = {"ids": ids[:size]}
+            for _ in range(3):
+                http_call(address, "POST", "/score", payload)
+            del score_ms[:]
+            client = [http_call(address, "POST", "/score", payload)[2]
+                      for _ in range(LATENCY_REQUESTS)]
+            sent += 3 + LATENCY_REQUESTS
+            inside = list(score_ms)
+            # the device time of one request's launches: its scoring call
+            # replayed from a CUDA graph on the same tensors
+            padded = -(-size // service.pad_to) * service.pad_to
+            rows = [f.loc[ids[:size]] for f in service._frames]
+            xes = [torch.from_numpy(np.pad(
+                r[cols].to_numpy(np.float32), ((0, padded - size), (0, 0))))
+                .cuda() for r, cols in zip(rows, service.columns)]
+            covs = torch.from_numpy(np.pad(np.stack([
+                train_binned_covariates(tc, rows[-1][["AGE", "PTGENDER"]])
+                .astype(np.float32) for tc in state.train_covs]),
+                ((0, 0), (0, padded - size), (0, 0)))).cuda()
+            eps = ensemble.fold_eps(state.seeds, padded, LATENT, "cuda")
+            dev = device_ms(lambda: ensemble.fold_infer(state, covs, eps,
+                                                        xes))
+            # two parts of _score's time: the covariate binning by the
+            # folds' train cohorts, and the scoring call with its copies
+            # back (host clock, synchronized)
+            cov = rows[-1][["AGE", "PTGENDER"]]
+            binning = wall_ms(lambda: [train_binned_covariates(tc, cov)
+                                       for tc in state.train_covs])
+            call = wall_ms(lambda: [t.cpu() for t in ensemble.fold_infer(
+                state, covs, eps, xes)])
+            p50, p95 = np.percentile(client, [50, 95])
+            q50, q95 = np.percentile(inside, [50, 95])
+            print(f"phase 11: serve {size} subject(s) ({padded} padded rows, "
+                  f"{FOLDS} folds), {LATENCY_REQUESTS} requests: client p50 "
+                  f"{p50:.3f} ms, p95 {p95:.3f} ms; inside _score p50 "
+                  f"{q50:.3f} ms, p95 {q95:.3f} ms (of it the binning "
+                  f"{binning:.3f} ms, the scoring call and its copies back "
+                  f"{call:.3f} ms); launches per request "
+                  f"{serve_launches['request']}; device {dev:.4f} ms for "
+                  f"one request's launches", flush=True)
+            for kname in ("fused_encoder", "fused_pred_deviation"):
+                stats[kname].setdefault("serve_latency", {})[
+                    f"{size} subjects"] = {
+                    "client_p50_ms": p50, "client_p95_ms": p95,
+                    "score_p50_ms": q50, "score_p95_ms": q95,
+                    "binning_ms": binning, "call_ms": call,
+                    "request_device_ms": dev}
+        if service.requests_served != sent:
+            raise RuntimeError(f"phase 11: {service.requests_served} "
+                               f"requests served of {sent} sent")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    check_serving_shapes(stats)
+    return serve_launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1769,7 +2200,10 @@ def main():
     launches["tiled_fused_train_step"] = tiled["tiled_fused_train_step"]
 
     # ---- phase 8: the chain on the card ------------------------------------
-    chain_launches = run_chain()
+    # its project stays for phase 11, which scores the ensemble it trained
+    chain_dir = tempfile.TemporaryDirectory()
+    chain_root = Path(chain_dir.name)
+    chain_launches = run_chain(chain_root)
 
     sources = {"fused_encoder": ("encoder.cu", "mlp.py:121"),
                "fused_pred_deviation": ("pred_deviation.cu",
@@ -1792,6 +2226,10 @@ def main():
 
     # ---- phase 10: the supervised variants' own CLIs -----------------------
     variant_launches = run_variants(stats)
+
+    # ---- phase 11: the scoring surfaces on phase 8's ensemble --------------
+    serve_launches = run_serving(chain_root, stats)
+    chain_dir.cleanup()
     missing = [name for name in sources if not launches.get(name)]
     if missing:
         raise RuntimeError(f"no launch on the main path: {missing}")
@@ -1833,6 +2271,15 @@ def main():
                 if name in counts}
         if "regression" in stats[name]:
             report[-1]["regression"] = stats[name]["regression"]
+        # phase 11: the launches of the score CLI's run, of one request and
+        # of one latent request; K1/K2 at the requests' shapes and the
+        # service's latency by request size
+        report[-1]["serve_launches"] = {
+            surface: counts.get(name, 0)
+            for surface, counts in serve_launches.items()}
+        for extra in ("serve", "serve_latency"):
+            if extra in stats[name]:
+                report[-1][extra] = stats[name][extra]
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

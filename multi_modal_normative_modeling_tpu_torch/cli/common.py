@@ -1,9 +1,10 @@
 """Flags and per-fold data prep for the port's CLIs: the jax-free subset of
 the JAX package's cli/common.py (add_common_flags,
-apply_post_parse_defaults, prepare_modality, prepare_folds, fold_paths,
+apply_post_parse_defaults, prepare_modality, prepare_fold_modalities,
+prepare_folds, fold_paths,
 assert_modalities_aligned, require_test_cov, infer_row_tile,
 uniform_covariates, model_config_dict, build_model_from_config,
-emit_fold_artifacts), without
+load_model_and_params, emit_fold_artifacts), without
 its process-wide memo caches, plus the k-fold id files without sklearn.
 
 The registry and the data layer (loading, scaling, covariate binning) are
@@ -385,33 +386,41 @@ def infer_row_tile() -> int:
     return 64
 
 
+def prepare_fold_modalities(project_root: Path, resource: str,
+                            dataset_names: Sequence[str], participants_path,
+                            id_paths) -> List[List[dict]]:
+    """prepare_modality of every (fold, modality), threaded over both, each
+    table parsed once and shared by the folds (read-only). ``id_paths``
+    holds one (train ids path, test ids path or None) pair per fold.
+    Returns one list of preps per fold, in modality order."""
+    jobs = [(paths, name) for paths in id_paths for name in dataset_names]
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        read = shared_tables(pool, project_root, resource, dataset_names,
+                             participants_path)
+        preps = list(pool.map(
+            lambda job: prepare_modality(project_root, resource, job[1],
+                                         participants_path, *job[0],
+                                         read=read), jobs))
+    n_mod = len(dataset_names)
+    return [preps[i * n_mod:(i + 1) * n_mod] for i in range(len(id_paths))]
+
+
 def prepare_folds(args, project_root: Path, kfold_dir: Path, model_dir: Path,
                   dataset_names: List[str], participants_path):
     """Per-fold train-split prep for the trainer (host side, threaded over
     fold x modality). Creates the per-fold model dirs and returns
     ``(folds, input_dim_list, c_dim)`` where ``folds`` is a list of
     ``(data_list, cov_list)`` per fold."""
-    train_paths = []
     for fold in range(args.n_splits):
-        train_ids_path, _ = fold_paths(kfold_dir, fold)
         (model_dir / f'{fold:03d}').mkdir(exist_ok=True, parents=True)
-        train_paths.append(train_ids_path)
-    jobs = [(ids, name) for ids in train_paths for name in dataset_names]
-    with ThreadPoolExecutor(max_workers=8) as pool:
-        read = shared_tables(pool, project_root, args.dataset_resourse,
-                             dataset_names, participants_path)
-        preps = list(pool.map(
-            lambda job: prepare_modality(project_root, args.dataset_resourse,
-                                         job[1], participants_path, job[0],
-                                         read=read), jobs))
-    n_mod = len(dataset_names)
-    folds = []
-    for f in range(args.n_splits):
-        fold_preps = preps[f * n_mod:(f + 1) * n_mod]
-        folds.append(([p['train_data'] for p in fold_preps],
-                      [p['train_cov'] for p in fold_preps]))
-    input_dim_list = [p['train_data'].shape[1] for p in preps[:n_mod]]
-    c_dim = preps[0]['train_cov'].shape[1]
+    fold_preps = prepare_fold_modalities(
+        project_root, args.dataset_resourse, dataset_names, participants_path,
+        [(fold_paths(kfold_dir, fold)[0], None)
+         for fold in range(args.n_splits)])
+    folds = [([p['train_data'] for p in preps],
+              [p['train_cov'] for p in preps]) for preps in fold_preps]
+    input_dim_list = [p['train_data'].shape[1] for p in fold_preps[0]]
+    c_dim = fold_preps[0][0]['train_cov'].shape[1]
     return folds, input_dim_list, c_dim
 
 
@@ -455,6 +464,30 @@ def build_model_from_config(config: dict, folds: int = 1, device=None,
         config.get('non_linear', True), folds=folds, generator=generator,
         device=device,
     )
+
+
+def load_model_and_params(fold_dirs: Sequence[Path], device=None):
+    """Restore (model, params, config) from fold checkpoint dirs (the JAX
+    package's load_model_and_params, with the fold axis written out):
+    ``model`` holds one fold per dir, in order, on ``device``; ``params``
+    is their JAX-layout tree stacked on a leading fold axis; ``config`` is
+    the first dir's cVAE_model.json, which every other dir must repeat."""
+    from ..interop import params_from_jax, read_flax_checkpoint
+    from ..parallel import stack_params
+
+    params_list, config = [], None
+    for fold_dir in fold_dirs:
+        params, fold_config = read_flax_checkpoint(fold_dir)
+        if config is None:
+            config = fold_config
+        elif fold_config != config:
+            raise ValueError(f'{fold_dir}: cVAE_model.json {fold_config} '
+                             f'differs from the first fold\'s {config}')
+        params_list.append(params)
+    params = stack_params(params_list)
+    model = build_model_from_config(config, folds=len(params_list))
+    params_from_jax(params, model, device)
+    return model, params, config
 
 
 def emit_fold_artifacts(model_dir: Path, per_fold_logs, per_fold_params,

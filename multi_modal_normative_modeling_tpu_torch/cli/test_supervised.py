@@ -24,7 +24,6 @@ predictions, so the CSVs match the JAX ones. ``--emit_latent`` also writes
 from __future__ import annotations
 
 import argparse
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Callable, Optional
 
@@ -35,8 +34,7 @@ from ..infer.deviation import latent_deviation, separate_latent_deviation
 
 from .. import registry
 from ..infer.emitters import DeviationEmitter
-from ..interop import params_from_jax, read_flax_checkpoint
-from ..parallel import stack_params
+from ..train.checkpoints import checkpoint_exists
 from . import common
 from .common import resolve_device
 
@@ -61,7 +59,7 @@ def default_eps(fold: int, padded_rows: int, z_dim: int) -> np.ndarray:
 
 def main(args, project_root=None, eps_fn: Optional[EpsFn] = None):
     common.refuse_not_ported(args, 'test stage', _NOT_PORTED_FLAGS)
-    device =resolve_device(getattr(args, 'device', 'cuda'), 'score')
+    device = resolve_device(getattr(args, 'device', 'cuda'), 'score')
     eps_fn = eps_fn or default_eps
 
     project_root = Path(project_root) if project_root else Path.cwd()
@@ -79,38 +77,26 @@ def main(args, project_root=None, eps_fn: Optional[EpsFn] = None):
         raise ValueError(f'Unknown procedure: {args.procedure}')
     emitter = DeviationEmitter(dataset_names)
 
-    jobs = []
     for fold in range(args.n_splits):
-        train_ids_path, test_ids_path = common.fold_paths(kfold_dir, fold)
         (model_dir / f'{fold:03d}').mkdir(exist_ok=True, parents=True)
-        for dataset_name in dataset_names:
-            jobs.append((dataset_name, train_ids_path, test_ids_path))
-    with ThreadPoolExecutor(max_workers=8) as pool:
-        read = common.shared_tables(pool, project_root, args.dataset_resourse,
-                                    dataset_names, participants_path)
-        all_preps = list(pool.map(
-            lambda j: common.prepare_modality(
-                project_root, args.dataset_resourse, j[0],
-                participants_path, j[1], j[2], read), jobs))
+    fold_preps = common.prepare_fold_modalities(
+        project_root, args.dataset_resourse, dataset_names, participants_path,
+        [common.fold_paths(kfold_dir, fold) for fold in range(args.n_splits)])
 
     # ---- phase 1: per-fold splits + restored params (host side) ----------
     n_mod = len(dataset_names)
     pending = []
-    config = None
-    for fold in range(args.n_splits):
+    for fold, preps in enumerate(fold_preps):
         fold_model_dir = model_dir / f'{fold:03d}'
-        preps = all_preps[fold * n_mod:(fold + 1) * n_mod]
         common.assert_modalities_aligned(
             [p['test_df'] for p in preps], f'test stage fold {fold}')
-        if not (fold_model_dir / 'cVAE_model.ckpt').exists():
+        if not checkpoint_exists(fold_model_dir):
             print('firstly train model')
             continue
         print('load trained model')
-        params, config = read_flax_checkpoint(fold_model_dir)
         pending.append({
             'fold': fold,
             'dir': fold_model_dir,
-            'params': params,
             'test_data_list': [p['test_data'] for p in preps],
             'clinical_df': preps[0]['test_df'],
             'columns_list': [p['columns'] for p in preps],
@@ -131,9 +117,8 @@ def main(args, project_root=None, eps_fn: Optional[EpsFn] = None):
         def stacked(arrays, rows=padded_rows):
             return common.stack_padded(arrays, rows, device)
 
-        model = common.build_model_from_config(config, folds=len(pending))
-        params_from_jax(stack_params([j['params'] for j in pending]), model,
-                        device)
+        model, _, _ = common.load_model_and_params(
+            [j['dir'] for j in pending], device)
         xes = [stacked([j['test_data_list'][m] for j in pending])
                for m in range(n_mod)]
         c = stacked([j['test_cov'] for j in pending])

@@ -11,6 +11,9 @@ Parity notes (SURVEY.md Q5):
     rank(method='first') of AGE (27 bins) and PTGENDER (2 bins)
     (multimodal_kfold_train_cvae_supervised.py:107-126); at test time the
     binning is re-fit on the test set itself (test:93-97), reproduced as-is.
+  * The scoring surfaces (cli/score.py, cli/serve.py) bin new subjects by
+    the fold's train cohort instead (``train_binned_covariates``), so a
+    subject's score does not depend on who else is scored with it.
 """
 from __future__ import annotations
 
@@ -118,3 +121,73 @@ def one_hot_covariates(covariates: pd.DataFrame, n_bins_age: int = 27,
 def binary_labels(dia: pd.Series, hc_label: int) -> np.ndarray:
     """0 for healthy controls, 1 otherwise (nmpmcont process_dataset:121)."""
     return (np.asarray(dia) != hc_label).astype(np.int64)
+
+
+def train_binned_covariates(train_cov: pd.DataFrame, new_cov: pd.DataFrame,
+                            n_bins_age: int = 27,
+                            n_bins_gender: int = 2) -> np.ndarray:
+    """Serving-path covariate one-hot: bin NEW subjects by quantile edges
+    fit on the fold's TRAIN covariates.
+
+    The k-fold evaluation path deliberately re-bins each test split on
+    itself (reference quirk, SURVEY.md Q5) — fine for fixed folds, but for
+    arbitrary scoring cohorts it would make a subject's conditioning (and
+    deviation score) depend on who else is in the ids CSV, and crash for a
+    single-subject list. Train-derived edges are cohort-independent and
+    defined for any batch size.
+    """
+
+    def by_identity(cats, new, q, label):
+        # low-cardinality covariates (string or numeric-coded gender) bin by
+        # value identity, one bin per sorted train category. Quantile edges
+        # are WRONG here: with a majority-low binary (36x'1'/24x'2') the
+        # median edge is 1.0 and side='right' maps both genders into one
+        # bin, silently dropping the conditioning. A value absent from the
+        # train cohort (incl. type skew like numeric-train vs string-
+        # serving) has no meaningful bin, and more train categories than
+        # bins would force two demographics to share an encoding — both
+        # raise rather than silently mis-condition.
+        if len(cats) > q:
+            raise ValueError(
+                f'{label}: {len(cats)} distinct training categories '
+                f'{list(cats)} exceed the {q} covariate bins; cannot bin '
+                'for serving without merging demographics')
+        codes = np.searchsorted(cats, new)
+        bad = (codes >= len(cats)) | (cats[np.minimum(codes, len(cats) - 1)]
+                                      != new)
+        if bad.any():
+            raise ValueError(
+                f'{label}: covariate value(s) {sorted(set(new[bad]))} not '
+                f'in the training cohort categories {list(cats)}; cannot '
+                'bin for serving')
+        return np.eye(q)[codes]
+
+    def one_hot(train_vals, new_vals, q, label):
+        try:
+            train = np.asarray(train_vals, dtype=np.float64)
+            new = np.asarray(new_vals, dtype=np.float64)
+        except (TypeError, ValueError):
+            # categorical covariates (e.g. string PTGENDER), lexicographic
+            # category order (like pandas rank)
+            return by_identity(np.unique(np.asarray(train_vals, dtype=str)),
+                               np.asarray(new_vals, dtype=str), q, label)
+        uniq = np.unique(train)
+        if len(uniq) <= q:
+            # nearest-train-value binning for low-cardinality numerics:
+            # quantile edges collapse a majority-low binary (36x'1'/24x'2'
+            # -> median edge 1.0 maps BOTH genders into one bin, silently
+            # dropping the conditioning), while strict identity would
+            # reject in-between values (a tiny cohort whose AGE has <= q
+            # distinct values must still bin a new age of 70.5)
+            codes = np.argmin(np.abs(new[:, None] - uniq[None, :]), axis=1)
+            return np.eye(q)[codes]
+        edges = np.quantile(train, np.linspace(0.0, 1.0, q + 1)[1:-1])
+        codes = np.searchsorted(edges, new, side="right")
+        return np.eye(q)[codes]
+
+    return np.concatenate(
+        (one_hot(train_cov["AGE"], new_cov["AGE"], n_bins_age, 'AGE'),
+         one_hot(train_cov["PTGENDER"], new_cov["PTGENDER"], n_bins_gender,
+                 'PTGENDER')),
+        axis=1,
+    ).astype("float32")

@@ -205,6 +205,22 @@ class MultimodalCVAE(nn.Module):
         fused_mu, fused_logvar = self.fuse(mus, logvars, combine)
         return fused_mu, torch.exp(fused_logvar)
 
+    def _fused_posterior(self, xes, cs, combine: str):
+        """(fused_mu, fused_logvar), [F, B, Z]: the encoder kernel per
+        modality, each launch covering every fold, then the fusion in
+        torch."""
+        stats = [enc.fused(xes[i], cs[i]) for i, enc in enumerate(self.enc)]
+        return self.fuse(torch.stack([mu for mu, _ in stats]),
+                         torch.stack([lv for _, lv in stats]), combine)
+
+    @torch.no_grad()
+    def latent_stats_fused(self, xes, cs, combine: str):
+        """``latent_stats`` through the encoder kernel: (fused_mu,
+        fused_var), [F, B, Z], no sampling; numerically equivalent to
+        latent_stats. Inference only."""
+        fused_mu, fused_logvar = self._fused_posterior(xes, cs, combine)
+        return fused_mu, torch.exp(fused_logvar)
+
     @torch.no_grad()
     def pred_recon_fused(self, xes, cs, combine: str,
                          eps: Optional[torch.Tensor] = None,
@@ -214,10 +230,7 @@ class MultimodalCVAE(nn.Module):
         launch covering every fold. Returns (recon_means, deviations) lists,
         [F, B, D_m] and [F, B]; numerically equivalent to pred_recon plus
         reconstruction_deviation on the same eps. Inference only."""
-        stats = [enc.fused(xes[i], cs[i]) for i, enc in enumerate(self.enc)]
-        fused_mu, fused_logvar = self.fuse(
-            torch.stack([mu for mu, _ in stats]),
-            torch.stack([lv for _, lv in stats]), combine)
+        fused_mu, fused_logvar = self._fused_posterior(xes, cs, combine)
         z = reparameterize(fused_mu, fused_logvar, eps, generator)
         out = [dec.fused_pred_deviation(z, cs[i], xes[i])
                for i, dec in enumerate(self.dec)]
@@ -232,9 +245,6 @@ class MultimodalCVAE(nn.Module):
         modality, fusion in torch, then the decoder-mean kernel per
         modality (no x, no deviation). Returns the recon means [F, B, D_m];
         numerically equivalent to pred_recon on the same eps."""
-        stats = [enc.fused(xes[i], cs[i]) for i, enc in enumerate(self.enc)]
-        fused_mu, fused_logvar = self.fuse(
-            torch.stack([mu for mu, _ in stats]),
-            torch.stack([lv for _, lv in stats]), combine)
+        fused_mu, fused_logvar = self._fused_posterior(xes, cs, combine)
         z = reparameterize(fused_mu, fused_logvar, eps, generator)
         return [dec.fused_mean(z, cs[i]) for i, dec in enumerate(self.dec)]

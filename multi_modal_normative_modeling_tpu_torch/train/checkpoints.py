@@ -53,6 +53,13 @@ def to_bytes(params) -> bytes:
                          strict_types=True)
 
 
+def checkpoint_exists(directory, name: str = "cVAE_model") -> bool:
+    """Whether ``directory`` holds a checkpoint the port can read (the
+    msgpack ``name``.ckpt; the JAX package also reads an orbax directory,
+    which the port does not)."""
+    return (Path(directory) / f"{name}.ckpt").exists()
+
+
 def save_checkpoint(directory, params, model_config: dict,
                     name: str = "cVAE_model") -> Path:
     """Writes ``name``.json, then ``name``.ckpt, each atomically (a tmp

@@ -211,6 +211,131 @@ def test_zoo_scoring_call_runs_through_the_kernels(cuda, name, combine):
                 xes[m].double(), ref[m]).float(), rtol=2e-4, atol=2e-5)
 
 
+@pytest.mark.parametrize("name,combine", [
+    ("cVAE_multimodal", "gpoe"), ("cVAE_multimodal", "poe"),
+    ("mmJSD", "poe"), ("mvtCAE", "poe")])
+def test_latent_stats_fused_runs_through_the_encoder_kernel(cuda, name,
+                                                            combine):
+    """The scoring surfaces' latent path: one K1 launch per modality at a
+    request's 64 rows over 10 folds, against latent_stats evaluated in fp64
+    at the scoring call's bound."""
+    import copy
+
+    dims = [90, 90, 90, 270]
+    model = build_model(name, dims, [110, 110], 10, 29, 4, folds=10,
+                        generator=torch.Generator().manual_seed(4),
+                        device=cuda)
+    rng = np.random.default_rng(4)
+    xes = [_rows(rng, 10, 64, d).to(cuda) for d in dims]
+    cs = [torch.from_numpy(np.eye(29, dtype=np.float32)[
+        rng.integers(0, 29, (10, 64))]).to(cuda)] * 4
+    kernels.reset_launch_counts()
+    mu, var = model.latent_stats_fused(xes, cs, combine)
+    assert kernels.fused_encoder.launches == 4
+    assert kernels.fused_pred_deviation.launches == 0
+    model64 = copy.deepcopy(model).double()
+    with torch.no_grad():
+        mu64, var64 = model64.latent_stats([x.double() for x in xes],
+                                           [c.double() for c in cs], combine)
+    torch.testing.assert_close(mu, mu64.float(), rtol=2e-4, atol=2e-5)
+    torch.testing.assert_close(var, var64.float(), rtol=2e-4, atol=2e-5)
+
+
+@pytest.fixture(scope="module")
+def scoring_project(tmp_path_factory):
+    """A small UCA-gPoE project trained on the CPU by the port (2 folds),
+    with an ids file of every subject."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import pandas as pd
+
+    from multi_modal_normative_modeling_tpu_torch.cli import train_supervised
+    from multi_modal_normative_modeling_tpu_torch.data.synthetic import (
+        make_synthetic_resource,
+    )
+
+    root = tmp_path_factory.mktemp("scoring_project")
+    make_synthetic_resource(root, "ADNI", n_hc=40, n_disease={0: 16, 1: 16},
+                            with_early_fusion=True)
+    train_supervised.run(["-R", "ADNI", "-P", "UCA-gPoE", "-E", "3", "-K",
+                          "2", "-H", "16", "16", "6", "--device", "cpu"],
+                         project_root=root)
+    pd.read_csv(root / "data" / "ADNI" / "y.csv")[["IID"]].to_csv(
+        root / "ids.csv", index=False)
+    return root
+
+
+def test_score_cli_on_the_card_matches_the_cpu(cuda, scoring_project):
+    """cli/score.py through K1 and K2 (and K1 for the latent column)
+    against --device cpu, on the same noise: one launch of each per
+    modality for the scoring call, two more K1 per modality for --latent."""
+    from multi_modal_normative_modeling_tpu_torch.cli import score
+
+    flags = ["-R", "ADNI", "-P", "UCA-gPoE", "-K", "2", "--ids",
+             str(scoring_project / "ids.csv"), "--output", "", "--latent"]
+    cpu = score.run(flags + ["--device", "cpu"], project_root=scoring_project)
+    kernels.reset_launch_counts()
+    card = score.run(flags + ["--device", "cuda"],
+                     project_root=scoring_project)
+    assert kernels.fused_encoder.launches == 4 + 8
+    assert kernels.fused_pred_deviation.launches == 4
+    for name in ("deviation", "latent_deviation"):
+        np.testing.assert_allclose(card[name], cpu[name], rtol=2e-4,
+                                   atol=2e-5)
+
+
+def test_service_on_the_card_matches_the_cpu(cuda, scoring_project):
+    """ScoringService on the card against the same service on the CPU:
+    ids, raw, roi, fold and latent requests; K1 and K2 once per modality
+    for a request, K1 once more per modality for a latent one."""
+    from multi_modal_normative_modeling_tpu_torch.cli import serve
+
+    services = [serve.ScoringService("ADNI", "UCA-gPoE", n_splits=2,
+                                     project_root=scoring_project,
+                                     device=device)
+                for device in ("cpu", "cuda")]
+    ids = list(services[0]._frames[0].index[:70])
+    assert services[1].health()["backend"] == "cuda"
+    services[1].score_ids(ids[:1], latent=True)   # the latent statistics
+    for kwargs in (dict(), dict(roi=True), dict(fold=1, roi=True),
+                   dict(latent=True)):
+        kernels.reset_launch_counts()
+        card = services[1].score_ids(ids, **kwargs)
+        assert kernels.fused_encoder.launches == 4 * (1 + ("latent" in kwargs))
+        assert kernels.fused_pred_deviation.launches == 4
+        cpu = services[0].score_ids(ids, **kwargs)
+        for key in ("deviation", "roi", "latent_deviation", "latent_per_dim"):
+            if key in cpu:
+                np.testing.assert_allclose(card[key], cpu[key], rtol=2e-4,
+                                           atol=2e-5)
+    frame = services[1]._frames
+    rows = [f.loc[ids[:5]] for f in frame]
+    raw = services[1].score_raw(
+        {name: r[cols].to_numpy(float).tolist() for name, r, cols in zip(
+            services[1].dataset_names, rows, services[1].columns)},
+        {"AGE": rows[-1]["AGE"].tolist(),
+         "PTGENDER": rows[-1]["PTGENDER"].tolist()})
+    np.testing.assert_allclose(raw["deviation"],
+                               services[1].score_ids(ids[:5])["deviation"],
+                               rtol=1e-6)
+    # column-major features (a matrix taken from a frame) reach the
+    # kernels contiguous, with the same answer
+    from multi_modal_normative_modeling_tpu_torch.infer import ensemble
+
+    state = services[1].state
+    feats = [np.asfortranarray(r[cols].to_numpy(np.float32))
+             for r, cols in zip(rows, services[1].columns)]
+    covs = torch.zeros((2, 5, 29), device=cuda)
+    covs[:, :, 0] = covs[:, :, 27] = 1.0
+    eps = ensemble.fold_eps(state.seeds, 5, 6, cuda)
+    got = ensemble.fold_infer(state, covs, eps,
+                              [torch.from_numpy(f).to(cuda) for f in feats])
+    want = ensemble.fold_infer(state, covs, eps, [
+        torch.from_numpy(np.ascontiguousarray(f)).to(cuda) for f in feats])
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("name,latent", [("DMVAE", 10), ("DMVAE", 40),
                                          ("WeightedDMVAE", 40),
                                          ("mmVAEPlus", 10), ("mvtCAE", 10),

@@ -146,6 +146,59 @@ def test_one_hot_covariates_bit_equal(rows, seed, strings):
             cov.iloc[rows // 3:].reset_index(drop=True)))
 
 
+def _train_and_new_cov(kind, rng):
+    """(train cohort, new subjects) covariate frames: ``numeric`` ages over
+    quantile edges (new ages below, between and above the train range),
+    ``low`` a cohort whose AGE has at most 27 distinct values (nearest
+    train value), ``strings`` a string-coded gender (identity)."""
+    n = 60
+    gender = rng.integers(1, 3, n)
+    ages = (np.round(rng.uniform(55, 90, n), 1) if kind != "low"
+            else rng.choice([60.0, 65.0, 70.0, 75.0], n))
+    train = pd.DataFrame({"AGE": ages, "PTGENDER": (
+        np.where(gender == 1, "F", "M") if kind == "strings" else gender)})
+    new_ages = np.array([40.0, 55.0, 61.3, 67.4, 70.0, 88.8, 95.0, 72.5])
+    new_gender = np.array([1, 2, 2, 1, 1, 2, 1, 2])
+    new = pd.DataFrame({"AGE": new_ages, "PTGENDER": (
+        np.where(new_gender == 1, "F", "M") if kind == "strings"
+        else new_gender)})
+    return train, new
+
+
+@pytest.mark.parametrize("kind", ["numeric", "low", "strings"])
+def test_train_binned_covariates_bit_equal(kind):
+    """The scoring surfaces' covariates: new subjects binned by the train
+    cohort's quantile edges, nearest train value, or category identity;
+    one subject at a time gives the rows of the whole batch."""
+    train, new = _train_and_new_cov(kind, np.random.default_rng(7))
+    got = preprocess.train_binned_covariates(train, new)
+    want = jax_preprocess.train_binned_covariates(train, new)
+    assert got.dtype == want.dtype == np.float32 and got.shape == (8, 29)
+    assert np.array_equal(got, want)
+    assert (got.sum(axis=1) == 2.0).all()
+    for i in range(len(new)):
+        one = new.iloc[i:i + 1].reset_index(drop=True)
+        assert np.array_equal(preprocess.train_binned_covariates(train, one),
+                              got[i:i + 1])
+
+
+@pytest.mark.parametrize("case,match", [
+    ("unseen category", "not in the training cohort categories"),
+    ("too many categories", "exceed the 2 covariate bins")])
+def test_train_binned_covariates_errors_equal(case, match):
+    train, new = _train_and_new_cov("strings", np.random.default_rng(8))
+    if case == "unseen category":
+        new.loc[3, "PTGENDER"] = "X"
+    else:
+        train.loc[:2, "PTGENDER"] = ["X", "Y", "Z"]
+    messages = []
+    for module in (preprocess, jax_preprocess):
+        with pytest.raises(ValueError, match=match) as err:
+            module.train_binned_covariates(train, new)
+        messages.append(str(err.value))
+    assert messages[0] == messages[1]
+
+
 # ---- loading ---------------------------------------------------------------------------
 
 def _ids_file(root, rng, tmp_path):

@@ -5,9 +5,10 @@ is parsed with ``ast`` (nothing is executed), one case per file; the modules
 that end the chain on the machine with the GPU (``evaluation/``,
 ``cli/group_analysis.py``, ``cli/pipeline.py``) and the supervised
 variants' CLIs (``cli/nmpmcont.py``, ``cli/nmmlp.py``,
-``cli/regression.py``) import no scikit-learn either, which that machine
+``cli/regression.py``) and the scoring surfaces (``infer/ensemble.py``,
+``cli/score.py``, ``cli/serve.py``) import no scikit-learn either, which that machine
 does not have, and those three CLIs no matplotlib; the last cases run the
-whole chain, and the three CLIs, in a process where importing any of them
+whole chain, the three CLIs, and the scoring surfaces, in a process where importing any of them
 fails."""
 import ast
 import subprocess
@@ -27,7 +28,9 @@ VARIANT_CLIS = [PORT / "cli" / f"{name}.py"
 NO_SKLEARN = sorted((PORT / "evaluation").glob("*.py")) + [
     PORT / "cli" / "group_analysis.py", PORT / "cli" / "pipeline.py",
     PORT / "models" / "endtoend.py",
-    PORT / "models" / "regression.py"] + VARIANT_CLIS
+    PORT / "models" / "regression.py"] + VARIANT_CLIS + [
+    PORT / "infer" / "ensemble.py", PORT / "cli" / "score.py",
+    PORT / "cli" / "serve.py"]
 
 
 def _absolute(path: Path, node: ast.ImportFrom, root: Path) -> str:
@@ -220,3 +223,55 @@ def test_variant_clis_run_without_jax_sklearn_or_matplotlib(tmp_path):
     assert len(list(tmp_path.glob(
         "outputs/kfold_analysis/supervised_cvae/*/cVAE_model.ckpt"))) == 2
     assert not list(tmp_path.rglob("*.png"))
+
+
+_BLOCKED_SCORING = _BLOCKED_CHAIN.split("import os\n")[0] + """
+import os
+from pathlib import Path
+sys.modules['matplotlib'] = None
+import pandas as pd
+from multi_modal_normative_modeling_tpu_torch.data.synthetic import (
+    make_synthetic_resource,
+)
+from multi_modal_normative_modeling_tpu_torch.cli import (
+    score,
+    serve,
+    train_supervised,
+)
+os.chdir(sys.argv[2])
+make_synthetic_resource(Path('.'), 'ADNI', n_hc=20, n_disease={0: 6, 1: 6})
+flags = ['-R', 'ADNI', '-P', 'SE-PoE', '-K', '2', '--device', 'cpu']
+train_supervised.run(flags + ['-E', '2', '-H', '8', '8', '4'])
+pd.read_csv('data/ADNI/y.csv')[['IID']].to_csv('ids.csv', index=False)
+out = score.run(flags + ['--ids', 'ids.csv', '--roi_output', 'roi.csv',
+                         '--latent'])
+assert len(out) == 32, out
+svc = serve.ScoringService('ADNI', 'SE-PoE', n_splits=2, device='cpu')
+got = svc.score_ids(list(out['participant_id'][:3]), roi=True, latent=True)
+assert len(got['latent_deviation']) == 3, got
+bad = [m for m in sys.modules if m.split('.')[0] in
+       ('jax', 'flax', 'optax', 'sklearn',
+        'multi_modal_normative_modeling_tpu')]
+assert not bad, bad
+print('SCORING_OK')
+"""
+
+
+def test_scoring_surfaces_run_without_jax_sklearn_or_matplotlib(tmp_path):
+    """The score CLI and the scoring service on a tiny port-trained cohort
+    on the CPU, in a process that refuses jax, flax, optax, sklearn and the
+    JAX package and has no matplotlib."""
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_SCORING, str(ROOT), str(tmp_path)],
+        capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-4000:]
+    assert "SCORING_OK" in out.stdout
+    assert _data_rows(tmp_path / "deviation_scores.csv") == 32
+    assert _data_rows(tmp_path / "roi.csv") == 32
+    assert (tmp_path / "outputs" / "kfold_analysis"
+            / "serve_all_ids.csv").exists()
+
+
+def _data_rows(path: Path) -> int:
+    """Data rows of a CSV file (its lines less the header)."""
+    return len(path.read_text().splitlines()) - 1

@@ -182,6 +182,36 @@ def test_encoder_plan_at_the_smoke_shapes(shape, splits, k_per):
                              + splits * folds * rows * CS.HIDDEN[0])
 
 
+@pytest.mark.parametrize("shape,splits,groups", [
+    ((5, 64, 90, 29), 4, 1), ((5, 64, 270, 29), 10, 3),
+    ((10, 64, 90, 29), 4, 1), ((10, 64, 270, 29), 10, 3)], ids=str)
+def test_plans_at_the_serving_shapes(shape, splits, groups):
+    """A scoring request of 1 to 64 subjects runs K1 and K2 at B = 64 (two
+    row tiles) over 5 folds or 10 (-K 10, the service's default): every
+    chunk of K1's first layer is a split, and K2 takes column groups at
+    D = 270 only."""
+    assert shape in CS.SERVE_SHAPES
+    folds, rows, d, c_dim = shape
+    p = _check_encoder_plan(folds, rows, d + c_dim, CS.HIDDEN, CS.LATENT)
+    q = _check_deviation_plan(folds, rows, CS.LATENT + c_dim, CS.HIDDEN, d)
+    assert (p.tiles, p.splits, p.k_per) == (2, splits, 32)
+    assert q.groups == groups
+    assert 2 * max(p.smem, q.smem) <= _build.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("rows", [256, 480, 640])
+@pytest.mark.parametrize("d", [90, 270])
+def test_plans_at_the_score_cli_rows(rows, d):
+    """The rest of phase 11's shapes (5 folds): a 256-subject request, the
+    train cohorts of the latent statistics (480 rows) and the score CLI's
+    600 subjects padded to 640."""
+    p = _check_encoder_plan(CS.FOLDS, rows, d + CS.C_DIM, CS.HIDDEN,
+                            CS.LATENT)
+    q = _check_deviation_plan(CS.FOLDS, rows, CS.LATENT + CS.C_DIM,
+                              CS.HIDDEN, d)
+    assert 2 * max(p.smem, q.smem) <= _build.MAX_SMEM_BYTES
+
+
 @pytest.mark.parametrize("shape,hidden,splits", CS.ENCODER_EXTRA, ids=str)
 def test_encoder_plan_at_the_forced_smoke_shapes(shape, hidden, splits):
     folds, rows, d, c_dim = shape
