@@ -98,7 +98,32 @@ Phases (any failure exits non-zero, with no result line):
      requests of each size at the HTTP client and inside the service's
      _score, beside the device time of one request's launches; K1 and K2
      at the requests' shapes (64 rows, 5 and 10 folds, D = 90 and 270)
-     against their plain versions in fp64, timed beside their bounds.
+     against their plain versions in fp64, timed beside their bounds;
+  12. resume and the grid engines. 12a: on phase 8's cohort (UCA-gPoE, 5
+     folds) each training path of the train CLI (plain, --fused_decoder
+     through K4, --fused_train_step through K5, and with --precision bf16
+     through K6) run -E 10 straight twice, then -E 4 --checkpoint_every 2
+     and -E 10 --checkpoint_every 2 --resume in a fresh main: the resumed
+     run's fold checkpoints must equal the straight run's byte for byte when
+     two straight runs do, else be no further apart than those two; the
+     resumed call must launch the path's kernel for 6 of the 10 epochs'
+     steps only; the train state's size, the ms of one save and the ms per
+     step with --checkpoint_every 1 against none; nm-PM-cont (phase 10's
+     flags) straight against killed after epoch 8 and resumed. 12b:
+     cli.sweep_supervised on a synthetic ADHD cohort of 600 subjects (2 x
+     116 ROIs), -K 10, SM-sMRI and SE-gPoE, hidden shapes 110 110 10, 110
+     110 110 10 and 460 460 40, epochs 3 and 6, two lr pairs: 24 records,
+     12 computed points; the counts set to 0 before each point's test stage
+     and read after it (K1 and K2 once per modality); every AUC finite and
+     in [0, 1]; the last point's checkpoints against train_supervised run
+     alone at it; K1 and K2 at the test stages' shapes against fp64, timed.
+     12c: cli.sweep_endtoend, 4 margins x 3 contrastive weights x 5 folds =
+     60 stacked folds, 20 epochs, on phase 10's cohort: 12
+     results_endtoend.csv blocks, the prediction's K1 launches at F = 60;
+     margin 1, weight 0.1 against nmpmcont alone (metrics, and the grid's
+     parameters from the library's SweepTrainer against nmpmcont's
+     checkpoints at the JAX sweep test's bounds); K1 at F = 60 against
+     fp64, timed; ms per grid step beside phase 10's nm-PM-cont step.
 
 Beside every kernel time stands the kernel's bound: the least time the
 card could take for the same work (kernels/roofline.py: the larger of its
@@ -274,6 +299,34 @@ SERVE_SIZES = (1, 64, 256)
 LATENCY_REQUESTS = 50
 SERVE_SHAPES = [(f, 64, d, C_DIM) for f in (FOLDS, 10) for d in (90, 270)]
 
+# phase 12a: resume on phase 8's cohort, each training path run straight
+# (twice), killed after RESUME_KILLED epochs and resumed in a fresh main
+RESUME_FLAGS = ["-R", "ADNI", "-P", "UCA-gPoE", "-K", str(FOLDS)]
+RESUME_PATHS = [("plain", []), ("K4", ["--fused_decoder"]),
+                ("K5", ["--fused_train_step"]),
+                ("K6", ["--fused_train_step", "--precision", "bf16"])]
+RESUME_KERNELS = {"K4": "decoder_nll", "K5": "fused_train_step",
+                  "K6": "tiled_fused_train_step"}
+RESUME_EPOCHS, RESUME_KILLED, RESUME_EVERY = 10, 4, 2
+# phase 12b: commands_list11_adhd.sh's procedures, shapes and lr pairs on a
+# synthetic ADHD cohort (2 x 116 ROIs), epochs cut from 50 500 1000
+ADHD_COHORT = dict(n_hc=300, n_disease={0: 150, 2: 150})
+ADHD_FOLDS = 10
+SWEEP_HZ = [[110, 110, 10], [110, 110, 110, 10], [460, 460, 40]]
+SWEEP_ARGV = ["-R", "ADHD", "-K", str(ADHD_FOLDS), "--procedures", "SM-sMRI",
+              "SE-gPoE", "--hz_grid",
+              ";".join(" ".join(map(str, hz)) for hz in SWEEP_HZ),
+              "--epochs_list", "3", "6", "--lr_grid", "1e-4:5e-3,1e-5:5e-3"]
+SWEEP_LAUNCHES = {"SM-sMRI": 1, "SE-gPoE": 2}   # K1 and K2 each, a point
+# phase 12c: the JAX end-to-end sweep CLI's own example grid (200 epochs
+# cut to 20) on phase 10's cohort: 12 configs x 5 folds = 60 stacked folds
+GRID_FLAGS = ["-R", "ADNI", "-P", "SE-MoE", "-K", str(FOLDS), "-H", "110",
+              "110", "10", "-Layers", "128", "64", "32", "-E", "20"]
+GRID_ARGV = GRID_FLAGS + ["-Margins", "0.25", "0.5", "1", "2",
+                          "-Weightcontrastives", "0.1", "0.5", "1"]
+GRID_PARAM_TOL = dict(rtol=5e-3, atol=5e-4)   # tests/test_sweep.py:46-83
+GRID_METRIC_DIFF = 0.05
+
 
 def cuda_ms(fn, iters=50, warmup=5):
     """Mean device time of fn() in ms, by CUDA events around `iters` calls."""
@@ -356,23 +409,25 @@ def check_close(what, got, want, tol):
     return err.max().item(), rel
 
 
-def one_hot_covariates(rng, rows):
-    """One-hot age (27 bins) + gender (2 bins), as the CLIs feed."""
-    c = np.zeros((rows, C_DIM), np.float32)
+def one_hot_covariates(rng, rows, c_dim=C_DIM):
+    """One-hot age (c_dim - 2 bins, 27 at ADNI's 29) + gender (2 bins), as
+    the CLIs feed."""
+    c = np.zeros((rows, c_dim), np.float32)
     idx = np.arange(rows)
-    c[idx, rng.integers(0, 27, rows)] = 1.0
-    c[idx, 27 + rng.integers(0, 2, rows)] = 1.0
+    c[idx, rng.integers(0, c_dim - 2, rows)] = 1.0
+    c[idx, c_dim - 2 + rng.integers(0, 2, rows)] = 1.0
     return c
 
 
-def covariates(rng, folds, rows):
-    return torch.from_numpy(np.stack([one_hot_covariates(rng, rows)
+def covariates(rng, folds, rows, c_dim=C_DIM):
+    return torch.from_numpy(np.stack([one_hot_covariates(rng, rows, c_dim)
                                       for _ in range(folds)])).cuda()
 
 
-def check_encoder(enc, x, c, splits=None):
-    """K1 against the plain code evaluated in fp64 (rounded to fp32), two
-    calls bit-equal; returns (max abs err, max rel err, its plan)."""
+def check_encoder(enc, x, c, splits=None, tol=TOL):
+    """K1 against the plain code evaluated in fp64 (rounded to fp32) at
+    ``tol``, two calls bit-equal; returns (max abs err, max rel err, its
+    plan)."""
     from multi_modal_normative_modeling_tpu_torch.kernels import mlp
 
     layers = (enc.hidden_layers(), enc.mu.pair(), enc.logvar.pair())
@@ -386,7 +441,7 @@ def check_encoder(enc, x, c, splits=None):
     for name, g, a, w in zip(("mu", "logvar"), got, again, want):
         if not torch.equal(g, a):
             raise RuntimeError(f"fused_encoder {name}: two calls differ")
-        errs.append(check_close(f"fused_encoder {name}", g, w.float(), TOL))
+        errs.append(check_close(f"fused_encoder {name}", g, w.float(), tol))
     folds, rows, d = x.shape
     plan = mlp.plan(folds, rows, d + c.shape[2],
                     tuple(w.shape[1] for w, _ in layers[0]),
@@ -1489,6 +1544,7 @@ def run_variants(stats):
             chain_launches[name] = launches
             summary = check_variant_files(name, root, timings, result)
             ms = timings["train_run_s"] * 1e3 / timings["train_steps"]
+            stats.setdefault("variant_ms_per_step", {})[name] = ms
             walls = ", ".join(f"{k} {v:.3f} s"
                               for k, v in timings["walls"].items())
             print(f"phase 10: {name} {' '.join(flags)}: "
@@ -1510,8 +1566,19 @@ def run_variants(stats):
 
 def check_serving_shapes(stats):
     """K1 and K2 where a scoring request puts them (SERVE_SHAPES: 64 rows,
-    5 and 10 folds): each against its plain version evaluated in fp64,
-    event and device ms beside the bound. Fills stats[kernel]["serve"]."""
+    5 and 10 folds). Fills stats[kernel]["serve"]."""
+    hold_kernel_shapes("phase 11", [shape + (HIDDEN, LATENT)
+                                    for shape in SERVE_SHAPES], stats,
+                       "serve")
+
+
+def hold_kernel_shapes(phase, shapes, stats, slot, k2=True, tol=None,
+                       seed=11):
+    """K1 and (with ``k2``) K2 at each of ``shapes`` (folds, rows, D, C,
+    hidden, latent) on seeded tensors: each against its plain version
+    evaluated in fp64 (at ``tol``; by default the kernel checks' TOL and
+    DEV_TOL), event and device ms beside the bound. Fills
+    stats[kernel][slot]."""
     from multi_modal_normative_modeling_tpu_torch.kernels import (
         deviation,
         roofline,
@@ -1521,53 +1588,55 @@ def check_serving_shapes(stats):
         Encoder,
     )
 
-    rng = np.random.default_rng(11)
-    gen = torch.Generator().manual_seed(11)
-    for folds, rows, d, c_dim in SERVE_SHAPES:
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator().manual_seed(seed)
+    for folds, rows, d, c_dim, hidden, latent in shapes:
         x = torch.from_numpy(rng.standard_normal(
             (folds, rows, d), dtype=np.float32)).cuda()
-        c = covariates(rng, folds, rows)
+        c = covariates(rng, folds, rows, c_dim)
         z = torch.from_numpy(rng.standard_normal(
-            (folds, rows, LATENT), dtype=np.float32)).cuda()
-        enc = Encoder(d, HIDDEN, LATENT, c_dim, folds=folds, generator=gen,
+            (folds, rows, latent), dtype=np.float32)).cuda()
+        enc = Encoder(d, hidden, latent, c_dim, folds=folds, generator=gen,
                       device="cuda")
-        dec = Decoder(d, HIDDEN, LATENT, c_dim, folds=folds, generator=gen,
+        dec = Decoder(d, hidden, latent, c_dim, folds=folds, generator=gen,
                       device="cuda")
-        e1, _, enc_plan = check_encoder(enc, x, c)
-        recon, dev = dec.fused_pred_deviation(z, c, x)
-        want_recon, want_dev = deviation.pred_deviation_reference(
-            [tuple(fp64(*layer)) for layer in dec.hidden_layers()],
-            tuple(fp64(*dec.mean.pair())), *fp64(z, c, x), True)
-        e2 = max(check_close("fused_pred_deviation recon", recon,
-                             want_recon.float(), TOL)[0],
-                 check_close("fused_pred_deviation dev", dev,
-                             want_dev.float(), DEV_TOL)[0])
-        dec_plan = deviation.plan(folds, rows, LATENT + c_dim,
-                                  tuple(HIDDEN[::-1]), d)
-        shape = (folds, rows, d, c_dim, HIDDEN, LATENT)
+        e1, _, enc_plan = check_encoder(enc, x, c, tol=tol or TOL)
+        shape = (folds, rows, d, c_dim, list(hidden), latent)
         key = f"F={folds} B={rows} D={d} C={c_dim}"
+        if list(hidden) != HIDDEN or latent != LATENT:
+            key += f" hidden {list(hidden)} latent {latent}"
+        timed = [("fused_encoder", e1, lambda: enc.fused(x, c),
+                  lambda: enc(x, c), roofline.fused_encoder(*shape),
+                  f"{enc_plan.tiles} tiles x {enc_plan.splits} K splits")]
+        if k2:
+            recon, dev = dec.fused_pred_deviation(z, c, x)
+            want_recon, want_dev = deviation.pred_deviation_reference(
+                [tuple(fp64(*layer)) for layer in dec.hidden_layers()],
+                tuple(fp64(*dec.mean.pair())), *fp64(z, c, x), True)
+            e2 = max(check_close("fused_pred_deviation recon", recon,
+                                 want_recon.float(), tol or TOL)[0],
+                     check_close("fused_pred_deviation dev", dev,
+                                 want_dev.float(), tol or DEV_TOL)[0])
+            dec_plan = deviation.plan(folds, rows, latent + c_dim,
+                                      tuple(hidden[::-1]), d)
+            timed.append((
+                "fused_pred_deviation", e2,
+                lambda: dec.fused_pred_deviation(z, c, x),
+                lambda: deviation.reconstruction_deviation(x, dec(z, c)[0]),
+                roofline.fused_pred_deviation(*shape),
+                f"{dec_plan.tiles} tiles x {dec_plan.groups} column groups"))
         with torch.no_grad():
-            for kname, err, fn, plain, work, plan_text in (
-                    ("fused_encoder", e1, lambda: enc.fused(x, c),
-                     lambda: enc(x, c), roofline.fused_encoder(*shape),
-                     f"{enc_plan.tiles} tiles x {enc_plan.splits} K splits"),
-                    ("fused_pred_deviation", e2,
-                     lambda: dec.fused_pred_deviation(z, c, x),
-                     lambda: deviation.reconstruction_deviation(
-                         x, dec(z, c)[0]),
-                     roofline.fused_pred_deviation(*shape),
-                     f"{dec_plan.tiles} tiles x {dec_plan.groups} column "
-                     "groups")):
+            for kname, err, fn, plain, work, plan_text in timed:
                 ms, dev_ms = cuda_ms(fn), device_ms(fn)
                 plain_ms, plain_dev = cuda_ms(plain), device_ms(plain)
-                print(f"phase 11: {kname} at {key} ({plan_text}): max abs "
+                print(f"{phase}: {kname} at {key} ({plan_text}): max abs "
                       f"err {err:.3e} vs fp64; {ms:.4f} ms (device "
                       f"{dev_ms:.4f}) vs plain {plain_ms:.4f} ms (device "
                       f"{plain_dev:.4f}), {bound_text(work, ms)}",
                       flush=True)
                 s = stats[kname]
                 s["max_abs_err"] = max(s["max_abs_err"], err)
-                s.setdefault("serve", {})[key] = {
+                s.setdefault(slot, {})[key] = {
                     "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
                     "plain_device_ms": plain_dev, "bound_ms": work.bound_ms}
 
@@ -1916,6 +1985,404 @@ def run_serving(root, stats):
     return serve_launches
 
 
+def tree_leaves(tree, path=""):
+    """(path, leaf) of a nested dict/list tree, in order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_leaves(tree[k], f"{path}['{k}']")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_leaves(v, f"{path}[{i}]")
+    else:
+        yield path, np.asarray(tree)
+
+
+def fold_checkpoints(root):
+    return sorted((root / "outputs" / "kfold_analysis" / "supervised_cvae")
+                  .glob("*/cVAE_model.ckpt"))
+
+
+def checkpoint_distance(a, b):
+    """0.0 when two projects wrote byte-equal fold checkpoints, else the
+    largest absolute difference between their parameters."""
+    from multi_modal_normative_modeling_tpu_torch.interop import (
+        read_flax_checkpoint,
+    )
+
+    ca, cb = fold_checkpoints(a), fold_checkpoints(b)
+    if [p.relative_to(a) for p in ca] != [p.relative_to(b) for p in cb] \
+            or not ca:
+        raise RuntimeError(f"checkpoints differ in number: {ca} {cb}")
+    if all(x.read_bytes() == y.read_bytes() for x, y in zip(ca, cb)):
+        return 0.0
+    dist = 0.0
+    for x, y in zip(ca, cb):
+        lx = dict(tree_leaves(read_flax_checkpoint(x.parent)[0]))
+        ly = dict(tree_leaves(read_flax_checkpoint(y.parent)[0]))
+        dist = max(dist, max(float(np.abs(lx[k] - ly[k]).max()) for k in lx))
+    return dist
+
+
+def hold_resumed(what, straight, again, resumed):
+    """A resumed run against the straight one, on the terms two straight
+    runs show: byte-equal checkpoints when they are, else no further apart
+    than they are. Returns (straight-to-straight, straight-to-resumed)."""
+    bound = checkpoint_distance(straight, again)
+    dist = checkpoint_distance(straight, resumed)
+    if dist > bound:
+        raise RuntimeError(f"phase 12a: {what}: the resumed run is {dist:.3e} "
+                           f"from the straight one, two straight runs "
+                           f"{bound:.3e}")
+    return bound, dist
+
+
+def run_resume(stats):
+    """Phase 12a: --checkpoint_every / --resume on every training path of
+    the train CLI and on nm-PM-cont, on phase 8's cohort. Returns {path:
+    launches of the resumed call} and the plain path's straight-run
+    distance (phase 12b holds its sweep at it)."""
+    from multi_modal_normative_modeling_tpu_torch import kernels
+    from multi_modal_normative_modeling_tpu_torch.cli import (
+        nmpmcont,
+        train_supervised,
+    )
+    from multi_modal_normative_modeling_tpu_torch.data.synthetic import (
+        make_synthetic_resource,
+    )
+    from multi_modal_normative_modeling_tpu_torch.train.checkpoints import (
+        load_train_state,
+        peek_train_meta,
+        save_train_state,
+    )
+
+    launches, plain_bound = {}, None
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        make_synthetic_resource(tmp / "cohort", "ADNI",
+                                with_early_fusion=True, with_fi=True,
+                                **CHAIN_COHORT)
+
+        def project(name):
+            root = tmp / name
+            shutil.copytree(tmp / "cohort" / "data", root / "data")
+            return root
+
+        for path, flags in RESUME_PATHS:
+            t0 = time.perf_counter()
+            roots = {k: project(f"{path}-{k}")
+                     for k in ("straight", "again", "resumed", "every1")}
+            argv = RESUME_FLAGS + flags + ["-E", str(RESUME_EPOCHS)]
+            for k in ("straight", "again"):
+                train_supervised.run(argv, project_root=roots[k])
+            train_supervised.run(
+                RESUME_FLAGS + flags + ["-E", str(RESUME_KILLED),
+                                        "--checkpoint_every",
+                                        str(RESUME_EVERY)],
+                project_root=roots["resumed"])
+            # the counts from 0 just before the resumed call, read after
+            kernels.reset_launch_counts()
+            train_supervised.run(argv + ["--checkpoint_every",
+                                         str(RESUME_EVERY), "--resume"],
+                                 project_root=roots["resumed"])
+            torch.cuda.synchronize()
+            launches[path] = launch_counts()
+            bound, dist = hold_resumed(path, roots["straight"],
+                                       roots["again"], roots["resumed"])
+            if path == "plain":
+                plain_bound = bound
+            model_dir = (roots["resumed"] / "outputs" / "kfold_analysis"
+                         / "supervised_cvae")
+            _, steps = train_run(model_dir)
+            resumed_epochs = RESUME_EPOCHS - RESUME_KILLED
+            per_step = {"K4": 2 * len(DIMS)}.get(path, 1)
+            want = ({RESUME_KERNELS[path]: per_step * steps}
+                    if path in RESUME_KERNELS else {})
+            if steps % resumed_epochs or launches[path] != want:
+                raise RuntimeError(f"phase 12a: {path}: the resumed call "
+                                   f"ran {steps} steps and launched "
+                                   f"{launches[path]}, expected {want}")
+            train_supervised.run(argv + ["--checkpoint_every", "1"],
+                                 project_root=roots["every1"])
+            none_ms, n_steps = train_run(roots["straight"] / "outputs"
+                                         / "kfold_analysis"
+                                         / "supervised_cvae")
+            every_ms, _ = train_run(roots["every1"] / "outputs"
+                                    / "kfold_analysis" / "supervised_cvae")
+            state_dir = model_dir / "fused-state" if path in ("K5", "K6") \
+                else model_dir
+            size = (state_dir / "train_state.ckpt").stat().st_size
+            tensors, epoch, logs = load_train_state(state_dir)
+            meta = peek_train_meta(state_dir)
+            on_card = {k: torch.from_numpy(v).cuda()
+                       for k, v in tensors["adam"].items()}
+            saves = []
+            for i in range(5):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                host = {k: v.cpu().numpy() for k, v in on_card.items()}
+                save_train_state(tmp / "save", {**tensors, "adam": host},
+                                 epoch, logs, meta=meta)
+                saves.append((time.perf_counter() - t1) * 1e3)
+            extra_ms = (every_ms - none_ms) * n_steps / RESUME_EPOCHS
+            print(f"phase 12a: {path} -E {RESUME_EPOCHS} "
+                  f"{' '.join(flags)}: resumed from "
+                  f"epoch {RESUME_KILLED} in a fresh main, {steps} steps "
+                  f"({steps // resumed_epochs} a epoch x {resumed_epochs}), "
+                  f"launches {launches[path]}; fold checkpoints "
+                  + ("byte-equal to the straight run's (two straight runs "
+                     "byte-equal)" if bound == 0.0 else
+                     f"{dist:.3e} from the straight run's (two straight runs "
+                     f"{bound:.3e} apart)")
+                  + f"; train state {size} bytes, meta {meta}, one save "
+                  f"{min(saves):.2f} ms (median {sorted(saves)[2]:.2f}, "
+                  f"copy from the card included); ms per step "
+                  f"{none_ms:.4f} without checkpoints, {every_ms:.4f} with "
+                  f"--checkpoint_every 1 ({extra_ms:.2f} ms an epoch more); "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            if path in RESUME_KERNELS:
+                stats[RESUME_KERNELS[path]]["resume"] = {
+                    "state_bytes": size, "save_ms": min(saves),
+                    "ms_per_step": none_ms,
+                    "ms_per_step_checkpoint_every_1": every_ms}
+
+        # nm-PM-cont: BatchNorm state, dropout masks and labels come back
+        t0 = time.perf_counter()
+        flags = VARIANT_CHAINS[0][1]
+        roots = {k: project(f"nmpmcont-{k}")
+                 for k in ("straight", "again", "resumed")}
+        for k in ("straight", "again"):
+            nmpmcont.run(flags, project_root=roots[k])
+        killed = 8
+        nmpmcont.run(flags + ["-E", str(killed), "--checkpoint_every", "4"],
+                     project_root=roots["resumed"])
+        nmpmcont.run(flags + ["--checkpoint_every", "4", "--resume"],
+                     project_root=roots["resumed"])
+        bound, dist = hold_resumed("nmpmcont", roots["straight"],
+                                   roots["again"], roots["resumed"])
+        print(f"phase 12a: nmpmcont {' '.join(flags)}: killed after epoch "
+              f"{killed}, resumed in a fresh main: fold checkpoints "
+              + ("byte-equal to the straight run's (two straight runs "
+                 "byte-equal)" if bound == 0.0 else
+                 f"{dist:.3e} from the straight run's (two straight runs "
+                 f"{bound:.3e} apart)")
+              + f"; {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, plain_bound
+
+
+def run_sweep(stats, plain_bound):
+    """Phase 12b: cli.sweep_supervised on a synthetic ADHD cohort, the
+    launch counts set to 0 before each point's test stage and read after
+    it; the last point against train_supervised run alone; K1 and K2 at the
+    test stages' shapes. Returns {point: launches}."""
+    import pandas as pd
+
+    from multi_modal_normative_modeling_tpu_torch import kernels
+    from multi_modal_normative_modeling_tpu_torch.cli import (
+        common,
+        sweep_supervised,
+        test_supervised,
+        train_supervised,
+    )
+    from multi_modal_normative_modeling_tpu_torch.data.synthetic import (
+        make_synthetic_resource,
+    )
+
+    points = {}
+    stage = test_supervised.main
+
+    def counted(point, **kwargs):
+        kernels.reset_launch_counts()
+        out = stage(point, **kwargs)
+        torch.cuda.synchronize()
+        label = (f"{point.procedure} -H "
+                 f"{' '.join(map(str, point.hz_para_list))} -E {point.epochs}")
+        points[label] = launch_counts()
+        want = SWEEP_LAUNCHES[point.procedure]
+        if points[label] != {"fused_encoder": want,
+                             "fused_pred_deviation": want}:
+            raise RuntimeError(f"phase 12b: the test stage of {label} "
+                               f"launched {points[label]}")
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "adhd"
+        t0 = time.perf_counter()
+        make_synthetic_resource(root, "ADHD", **ADHD_COHORT)
+        made = time.perf_counter() - t0
+        timings = {}
+        test_supervised.main = counted
+        try:
+            records = sweep_supervised.main(
+                sweep_supervised.build_parser().parse_args(SWEEP_ARGV),
+                project_root=root, timings=timings)
+        finally:
+            test_supervised.main = stage
+        whole = time.perf_counter() - t0 - made
+        computed = [r for r in records if "deduped_from" not in r]
+        aucs = [a for r in records for a in r["stats"]["auc"]]
+        if (len(records) != 24 or len(computed) != 12 or len(points) != 12
+                or not all(np.isfinite(a) and 0.0 <= a <= 1.0
+                           for a in aucs)):
+            raise RuntimeError(f"phase 12b: {len(records)} records, "
+                               f"{len(computed)} computed, {len(points)} test "
+                               f"stages, AUCs {aucs}")
+        last = computed[-1]
+        alone = Path(tmp) / "alone"
+        shutil.copytree(root / "data", alone / "data")
+        train_supervised.run(
+            ["-R", "ADHD", "-P", last["procedure"], "-K", str(ADHD_FOLDS),
+             "-H", *map(str, last["hz_para_list"]), "-E",
+             str(last["epochs"])], project_root=alone)
+        dist = checkpoint_distance(alone, root)
+        if dist > plain_bound:
+            raise RuntimeError(f"phase 12b: the last point is {dist:.3e} from "
+                               f"train_supervised alone (two straight plain "
+                               f"runs {plain_bound:.3e})")
+        config = json.loads((fold_checkpoints(root)[0].parent
+                             / "cVAE_model.json").read_text())
+        kfold = root / "outputs" / "kfold_analysis"
+        rows = common.padded_rows(max(
+            len(pd.read_csv(kfold / f"test_ids_{f:03d}.csv"))
+            for f in range(ADHD_FOLDS)))
+        walls = ", ".join(f"{k} {v:.3f} s" for k, v in
+                          timings["walls"].items())
+        print(f"phase 12b: sweep_supervised {' '.join(SWEEP_ARGV)}: ADHD "
+              f"cohort of {sum(ADHD_COHORT['n_disease'].values()) + ADHD_COHORT['n_hc']} "
+              f"subjects made in {made:.3f} s; {len(records)} records, "
+              f"{len(computed)} computed points, 6 training runs in "
+              f"{whole:.1f} s; walls {walls}; AUCs in [{min(aucs):.4f}, "
+              f"{max(aucs):.4f}]; the last point "
+              + ("byte-equal to" if dist == 0.0 else f"{dist:.3e} from")
+              + f" train_supervised alone; test stages at {ADHD_FOLDS} x "
+              f"{rows} rows, widths {config['input_dim_list']}, C "
+              f"{config['c_dim']}; launches per point {points}", flush=True)
+    hold_kernel_shapes(
+        "phase 12b", [(ADHD_FOLDS, rows, d, config["c_dim"], hz[:-1],
+                       hz[-1])
+                      for hz in SWEEP_HZ
+                      for d in sorted(set(config["input_dim_list"]))],
+        stats, "adhd", tol=MODEL_TOL, seed=12)
+    return points
+
+
+def run_grid(stats, nmpmcont_ms):
+    """Phase 12c: cli.sweep_endtoend's 12 x 5 grid in one run of 60
+    stacked folds, its prediction through K1 at F = 60; one config against
+    nmpmcont alone. Returns the grid's launches."""
+    from multi_modal_normative_modeling_tpu_torch import kernels
+    from multi_modal_normative_modeling_tpu_torch.cli import (
+        common,
+        nmpmcont,
+        sweep_endtoend,
+    )
+    from multi_modal_normative_modeling_tpu_torch.data.synthetic import (
+        make_synthetic_resource,
+    )
+    from multi_modal_normative_modeling_tpu_torch.interop import (
+        read_flax_checkpoint,
+    )
+    from multi_modal_normative_modeling_tpu_torch.models.endtoend import (
+        EndToEndCVAE,
+        endtoend_loss_fn,
+    )
+    from multi_modal_normative_modeling_tpu_torch.parallel.sweep import (
+        SweepTrainer,
+    )
+    from multi_modal_normative_modeling_tpu_torch.train import TrainConfig
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        make_synthetic_resource(tmp / "cohort", "ADNI",
+                                with_early_fusion=True, with_fi=True,
+                                **CHAIN_COHORT)
+        roots = {}
+        for name in ("grid", "alone"):
+            roots[name] = tmp / name
+            shutil.copytree(tmp / "cohort" / "data", roots[name] / "data")
+        args = sweep_endtoend.build_parser().parse_args(GRID_ARGV)
+        common.apply_post_parse_defaults(args, default_procedure="SE-MoE")
+        timings = {}
+        kernels.reset_launch_counts()
+        results = sweep_endtoend.main(args, roots["grid"], timings=timings)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        configs = len(args.margins) * len(args.weightcontrastives)
+        text = (roots["grid"] / "results_endtoend.csv").read_text()
+        if (launches != {"fused_encoder": 3} or len(results) != configs
+                or text.count("Namespace(") != configs):
+            raise RuntimeError(f"phase 12c: launches {launches}, "
+                               f"{len(results)} results, "
+                               f"{text.count('Namespace(')} blocks")
+        alone = nmpmcont.run(GRID_FLAGS + ["-Margin", "1",
+                                           "-Weightcontrastive", "0.1"],
+                             project_root=roots["alone"])
+        # the per-fold metrics of argmax predictions: equal, or a few
+        # predictions apart (a fold's test rows are 120)
+        metric_diff = float(np.abs(results[(1.0, 0.1)].to_numpy()
+                                   - alone.to_numpy()).max())
+        if not metric_diff <= GRID_METRIC_DIFF:
+            raise RuntimeError(f"phase 12c: margin 1 weight 0.1: the grid's "
+                               f"metrics are {metric_diff} from nmpmcont "
+                               "alone")
+        # the grid's training again through the library, its (1, 0.1)
+        # folds held against nmpmcont's checkpoints at the bounds of the
+        # JAX package's sweep test; the classifier's pre-BatchNorm biases
+        # and running means (Adam's sign noise, tests/test_torch_endtoend.py)
+        # are left out
+        fold_data, dims, c_dim = nmpmcont.prepare_cohort(
+            args, roots["grid"], common.StageWalls())
+        model = EndToEndCVAE(dims, HIDDEN, LATENT, c_dim, len(dims),
+                             classifier_layers=CLASSIFIER_LAYERS,
+                             dropout_rate=0.5, folds=configs * FOLDS)
+        nmpmcont.default_init(model)
+        model.cuda()
+        hypers = [{"margin": m, "wcon": w} for m in args.margins
+                  for w in args.weightcontrastives]
+        params, _ = SweepTrainer(
+            model, TrainConfig(epochs=args.epochs, batch_size=256,
+                               combine="poe"),
+            fold_data[0]["train_data"][0].shape[0],
+            lambda h: endtoend_loss_fn(model, h["margin"], h["wcon"]),
+            state_update=model.update_state).run(
+                nmpmcont.fold_batches(fold_data, 256), hypers)
+        s = hypers.index({"margin": 1.0, "wcon": 0.1})
+        err, skipped = 0.0, 0
+        for f, ckpt in enumerate(fold_checkpoints(roots["alone"])):
+            want = dict(tree_leaves(read_flax_checkpoint(ckpt.parent)[0]))
+            for path, leaf in tree_leaves(params[s][f]):
+                if (("'blocks'" in path and path.endswith("['linear']['b']"))
+                        or (path.startswith("['bn_state']")
+                            and path.endswith("['mean']"))):
+                    skipped += 1
+                    continue
+                if not np.allclose(leaf, want[path], **GRID_PARAM_TOL):
+                    raise RuntimeError(f"phase 12c: fold {f} {path}: "
+                                       f"{np.abs(leaf - want[path]).max():.3e}"
+                                       " from nmpmcont alone")
+                err = max(err, float(np.abs(leaf - want[path]).max()))
+        ms = timings["train_run_s"] * 1e3 / timings["train_steps"]
+        walls = ", ".join(f"{k} {v:.3f} s"
+                          for k, v in timings["walls"].items())
+        print(f"phase 12c: sweep_endtoend {' '.join(GRID_ARGV)}: {configs} "
+              f"configs x {FOLDS} folds = {configs * FOLDS} stacked folds, "
+              f"{timings['train_steps']} grid steps at {ms:.4f} ms/step "
+              f"(phase 10's nm-PM-cont step, 5 folds: {nmpmcont_ms:.4f} "
+              f"ms); walls {walls}; {configs} results_endtoend.csv blocks; "
+              f"prediction launches {launches} at {configs * FOLDS} x "
+              f"{timings['score_rows']} rows; margin 1 weight 0.1 against "
+              f"nmpmcont alone: per-fold metrics "
+              + ("equal" if metric_diff == 0.0 else
+                 f"at most {metric_diff:.4f} apart")
+              + f", parameters within {err:.3e} ({skipped} sign-noise "
+              f"leaves left out)", flush=True)
+        stats["fused_encoder"]["grid_ms_per_step"] = ms
+        rows = timings["score_rows"]
+    hold_kernel_shapes("phase 12c", [(configs * FOLDS, rows, 90, C_DIM,
+                                      HIDDEN, LATENT)], stats, "grid",
+                       k2=False, tol=MODEL_TOL, seed=13)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2230,6 +2697,17 @@ def main():
     # ---- phase 11: the scoring surfaces on phase 8's ensemble --------------
     serve_launches = run_serving(chain_root, stats)
     chain_dir.cleanup()
+
+    # ---- phase 12: resume, and the two grid CLIs ---------------------------
+    t12 = time.perf_counter()
+    resume_launches, plain_bound = run_resume(stats)
+    t12a = time.perf_counter()
+    sweep_launches = run_sweep(stats, plain_bound)
+    t12b = time.perf_counter()
+    grid_launches = run_grid(
+        stats, stats["variant_ms_per_step"]["nmpmcont"])
+    print(f"phase 12: 12a {t12a - t12:.1f} s, 12b {t12b - t12a:.1f} s, "
+          f"12c {time.perf_counter() - t12b:.1f} s", flush=True)
     missing = [name for name in sources if not launches.get(name)]
     if missing:
         raise RuntimeError(f"no launch on the main path: {missing}")
@@ -2278,6 +2756,20 @@ def main():
             surface: counts.get(name, 0)
             for surface, counts in serve_launches.items()}
         for extra in ("serve", "serve_latency"):
+            if extra in stats[name]:
+                report[-1][extra] = stats[name][extra]
+        # phase 12: the launches of each path's resumed call (6 of 10
+        # epochs) with its state's size and save ms; each sweep point's test
+        # stage and the grid's prediction; K1/K2 at the ADHD test stages'
+        # shapes and K1 at the grid's 60 stacked folds
+        report[-1]["resume_launches"] = {
+            path: counts.get(name, 0)
+            for path, counts in resume_launches.items()}
+        report[-1]["sweep_launches"] = {
+            **{point: counts.get(name, 0)
+               for point, counts in sweep_launches.items()},
+            "sweep_endtoend": grid_launches.get(name, 0)}
+        for extra in ("resume", "adhd", "grid", "grid_ms_per_step"):
             if extra in stats[name]:
                 report[-1][extra] = stats[name][extra]
     print(json.dumps({"kernels": report}))

@@ -4,7 +4,8 @@ apply_post_parse_defaults, prepare_modality, prepare_fold_modalities,
 prepare_folds, fold_paths,
 assert_modalities_aligned, require_test_cov, infer_row_tile,
 uniform_covariates, model_config_dict, build_model_from_config,
-load_model_and_params, emit_fold_artifacts), without
+load_model_and_params, emit_fold_artifacts, add_resume_flags,
+require_checkpoint_for_resume), without
 its process-wide memo caches, plus the k-fold id files without sklearn.
 
 The registry and the data layer (loading, scaling, covariate binning) are
@@ -48,15 +49,14 @@ VARIANT_NOT_PORTED = {
     'packed_xla': "queue 1 items 'Packed layout' and 'Grouped layout'",
     'ep_mesh': "queue 1 item 'Multi-device'",
     'mesh': "queue 1 item 'Multi-device'",
-    'checkpoint_every': "queue 1 item 'Resume'",
-    'resume': "queue 1 item 'Resume'",
 }
 
 
 def add_variant_flags(parser: argparse.ArgumentParser,
                       not_ported: Sequence[str]) -> None:
-    """--device, the no-op --fold_parallel, and the named flags of
-    VARIANT_NOT_PORTED with the JAX CLIs' dests and defaults."""
+    """--device, the no-op --fold_parallel, --checkpoint_every/--resume,
+    and the named flags of VARIANT_NOT_PORTED with the JAX CLIs' dests and
+    defaults."""
     parser.add_argument('--device', dest='device', default='cuda',
                         help='torch device to run on (default cuda); cuda '
                              'runs the kernels, cpu their plain versions')
@@ -66,13 +66,12 @@ def add_variant_flags(parser: argparse.ArgumentParser,
                              'port always trains every fold at once')
     kinds = {'packed_xla': {'action': 'store_true'},
              'ep_mesh': {'default': None},
-             'mesh': {'default': None},
-             'checkpoint_every': {'type': int, 'default': 0},
-             'resume': {'action': 'store_true'}}
+             'mesh': {'default': None}}
     for flag in not_ported:
         parser.add_argument(f'--{flag}', dest=flag,
                             help='not ported yet (raises); see ROADMAP.md',
                             **kinds[flag])
+    add_resume_flags(parser)
 
 
 def refuse_not_ported(args, what: str,
@@ -85,6 +84,62 @@ def refuse_not_ported(args, what: str,
                              f'yet; see ROADMAP.md, {item}')
 
 
+def add_resume_flags(parser: argparse.ArgumentParser) -> None:
+    """--checkpoint_every/--resume of every trainer CLI (cli/common.py:744-
+    755 of the JAX package)."""
+    parser.add_argument('--checkpoint_every', dest='checkpoint_every',
+                        type=int, default=0, metavar='N',
+                        help='write a resumable train-state checkpoint '
+                             '(params + optimizer state + PRNG + epoch '
+                             'cursor) every N epochs; chunked execution is '
+                             'bit-identical to the single-scan run')
+    parser.add_argument('--resume', dest='resume', action='store_true',
+                        help='resume a killed run from its train-state '
+                             'checkpoint (requires --checkpoint_every)')
+
+
+def require_checkpoint_for_resume(args) -> None:
+    """--resume without --checkpoint_every would silently retrain from
+    scratch (the resumable branch is never taken): refuse instead, before
+    any file is written."""
+    if getattr(args, 'resume', False) and not (
+            getattr(args, 'checkpoint_every', 0) or 0):
+        raise SystemExit(
+            '--resume requires --checkpoint_every N: a resumable train '
+            'state is only written (and read) when checkpointing is on')
+
+
+class Resumable:
+    """--checkpoint_every/--resume of one CLI run: ``run`` calls a
+    trainer's ``run`` without checkpoints, else its ``run_resumable`` with
+    one whole-run train state under ``state_dir``; there is no fallback
+    from one to the other."""
+
+    def __init__(self, args):
+        self.every = getattr(args, 'checkpoint_every', 0) or 0
+        self.resume = getattr(args, 'resume', False)
+        self.resumed_from = 0
+
+    def run(self, trainer, *run_args, state_dir: Path, **kwargs):
+        if not self.every:
+            return trainer.run(*run_args, **kwargs)
+        out = trainer.run_resumable(*run_args, state_dir=state_dir,
+                                    checkpoint_every=self.every,
+                                    resume=self.resume, **kwargs)
+        self.resumed_from = trainer.resumed_from
+        if self.resumed_from:
+            print(f'resumed from the train state at epoch '
+                  f'{self.resumed_from} ({state_dir})')
+        return out
+
+    def fields(self) -> dict:
+        """The run log's account of it (nothing without checkpoints)."""
+        if not self.every:
+            return {}
+        return {'checkpoint_every': self.every,
+                'resumed_from': self.resumed_from}
+
+
 # the variant CLIs' test hooks: the fold-stacked model's initial weights,
 # and (valid [F, NB], epochs, batch rows, model) -> MultiFoldTrainer.run's
 # replayed draws {eps, keeps, perms}
@@ -95,16 +150,24 @@ DrawsFn = Callable[[np.ndarray, int, int, torch.nn.Module], dict]
 class StageWalls:
     """Host wall time of a CLI's stages: ``with walls('train'):`` times
     one; ``report`` prints them all. ``record``, when given, receives the
-    times too (chip_smoke.py reads them there)."""
+    times too (chip_smoke.py reads them there). With ``accumulate`` a
+    stage entered again adds to its time (a sweep's per-point stages)."""
 
-    def __init__(self, record: Optional[dict] = None):
+    def __init__(self, record: Optional[dict] = None,
+                 accumulate: bool = False):
         self.walls: Dict[str, float] = {} if record is None else record
+        self.accumulate = accumulate
 
     @contextlib.contextmanager
     def __call__(self, stage: str):
         start = time.perf_counter()
-        yield
-        self.walls[stage] = time.perf_counter() - start
+        try:
+            yield
+        finally:
+            spent = time.perf_counter() - start
+            if self.accumulate:
+                spent += self.walls.get(stage, 0.0)
+            self.walls[stage] = spent
 
     def report(self, what: str) -> None:
         print(f'{what} stage walls: ' + ', '.join(
@@ -491,16 +554,18 @@ def load_model_and_params(fold_dirs: Sequence[Path], device=None):
 
 
 def emit_fold_artifacts(model_dir: Path, per_fold_logs, per_fold_params,
-                        model_config: dict, n_folds: int) -> None:
+                        model_config: dict, n_folds: int,
+                        plot: bool = True) -> None:
     """Per-fold loss plot and checkpoint into ``model_dir/NNN``, threaded
     over folds (the checkpoint writer is atomic; plot_losses uses no pyplot
-    state). Without matplotlib the plots are skipped, and said so; the
-    checkpoints are always written."""
+    state). Without matplotlib, or with ``plot`` off (a sweep's milestones
+    before its last), the plots are skipped; the checkpoints are always
+    written."""
     from ..train.checkpoints import save_checkpoint
     from ..utils.logging import Logger, plot_losses
 
-    plot = importlib.util.find_spec('matplotlib') is not None
-    if not plot:
+    if plot and importlib.util.find_spec('matplotlib') is None:
+        plot = False
         print('matplotlib is not installed: skipping the loss plots '
               '(Losses*.png); checkpoints and the run log are written')
 

@@ -18,6 +18,7 @@ outputs/analysis_results/performance_metrics.txt.
 
     python -m multi_modal_normative_modeling_tpu_torch.cli.nmmlp all \\
         -R ADNI -P SE-MoE -E 200 -K 5 [--device cpu]
+        [--checkpoint_every N [--resume]]
 """
 from __future__ import annotations
 
@@ -145,10 +146,14 @@ def train(args, project_root: Path,
             draws = draws_fn(batches['valid'], config.epochs,
                              config.batch_size, model)
         trainer = MultiFoldTrainer(model, config, folds[0][0][0].shape[0])
+        resumable = common.Resumable(args)
         start = time.perf_counter()
-        logs = trainer.run(batches, **draws)
+        # one whole-run train state in the model dir (the JAX CLI keeps
+        # one per fold on its sequential path)
+        logs = resumable.run(trainer, batches, state_dir=model_dir, **draws)
         timings['train_run_s'] = time.perf_counter() - start
-        timings['train_steps'] = config.epochs * batches['mask'].shape[1]
+        timings['train_steps'] = ((config.epochs - resumable.resumed_from)
+                                  * batches['mask'].shape[1])
     with walls('checkpoints'):
         common.emit_fold_artifacts(
             model_dir, [{k: v[f] for k, v in logs.items()}
@@ -334,8 +339,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help='Number of splits for k-fold cross-validation.')
     parser.add_argument('-O', '--oversample_percentage', type=float, default=1,
                         help='Percentage of oversampling of the training data.')
-    common.add_variant_flags(parser, ['packed_xla', 'mesh',
-                                      'checkpoint_every', 'resume'])
+    common.add_variant_flags(parser, ['packed_xla', 'mesh'])
     return parser
 
 
@@ -349,6 +353,7 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
     the stages' walls and the training steps and seconds. Returns
     ``analyze``'s result when it runs."""
     common.refuse_not_ported(args, 'nm-MLP CLI')
+    common.require_checkpoint_for_resume(args)
     if args.combine is None:
         args.combine = args.procedure.split('-')[1]
     project_root = Path(project_root) if project_root else Path.cwd()

@@ -28,6 +28,7 @@ fold, PoE and the classifier head in torch.
 
     python -m multi_modal_normative_modeling_tpu_torch.cli.nmpmcont \\
         -R ADNI -P SE-MoE -E 200 -K 5 [-Layers 128 64 32] [--device cpu]
+        [--checkpoint_every N [--resume]]
 """
 from __future__ import annotations
 
@@ -94,28 +95,17 @@ def _prep_fold(project_root, resource, names, participants_path,
     return out, train_frames, test_frames
 
 
-def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
-         draws_fn: Optional[common.DrawsFn] = None,
-         timings: Optional[dict] = None):
-    """``init_fn(model)`` fills the fold-stacked model's initial weights
-    (default ``default_init``); ``draws_fn`` gives every training step's
-    noise and dropout keep masks (tests replay the JAX package's); by
-    default every fold draws from its own generator on the device.
-    ``timings``, when given, receives the stages' walls, the training
-    steps and the trainer's seconds. Returns the per-fold metrics."""
-    common.refuse_not_ported(args, 'end-to-end trainer')
-    device = common.resolve_device(getattr(args, 'device', 'cuda'), 'train')
-    timings = {} if timings is None else timings
-    walls = common.StageWalls(timings.setdefault('walls', {}))
-    project_root = Path(project_root) if project_root else Path.cwd()
+def prepare_cohort(args, project_root: Path, walls: common.StageWalls):
+    """The fold ids (written to outputs/kfold_analysis_endtoend, read from
+    outputs/kfold_analysis when it holds ids) and every fold's data
+    (``_prep_fold``): (fold_data, input_dim_list, c_dim), under the 'data'
+    wall. Shared with the end-to-end sweep."""
     output_dir = project_root / 'outputs'
     kfold_dir = output_dir / 'kfold_analysis'
-    model_dir = kfold_dir / 'supervised_cvae'
-    model_dir.mkdir(parents=True, exist_ok=True)
+    kfold_dir.mkdir(parents=True, exist_ok=True)
 
     np.random.seed(42)
     names = registry.get_datasets_name(args.dataset_resourse, args.procedure)
-    modalities = len(names)
     participants_path = project_root / 'data' / args.dataset_resourse / 'y.csv'
     ids_df = pd.read_csv(participants_path)
     hc_label = registry.get_hc_label(args.dataset_resourse)
@@ -132,8 +122,6 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
             print('note: no ids in kfold_analysis, using '
                   'kfold_analysis_endtoend')
         n_folds = args.n_splits
-        for fold in range(n_folds):
-            (model_dir / f'{fold:03d}').mkdir(exist_ok=True)
         with ThreadPoolExecutor(max_workers=8) as pool:
             read = common.shared_tables(pool, project_root,
                                         args.dataset_resourse, names,
@@ -151,6 +139,72 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
             fold_data.append(prep)
         input_dim_list = [d.shape[1] for d in fold_data[0]['train_data']]
         c_dim = fold_data[0]['train_cov'][0].shape[1]
+    return fold_data, input_dim_list, c_dim
+
+
+def fold_batches(fold_data, batch_size: int) -> dict:
+    """Every fold's training batches, the binary labels as an extra."""
+    return stack_fold_batches(
+        [f['train_data'] for f in fold_data],
+        [f['train_cov'] for f in fold_data], batch_size,
+        extras=[{'labels': f['train_labels'].astype(np.float32)[:, None]}
+                for f in fold_data])
+
+
+def test_inputs(fold_data, modalities: int, device, repeats: int = 1):
+    """Every fold's test rows and covariates padded to the scoring bucket,
+    (xes, cs, rows): one [repeats * F, rows, width] tensor per modality,
+    the folds repeated ``repeats`` times along the fold axis (a sweep's
+    configs, config-major)."""
+    rows = common.padded_rows(max(f['test_data'][0].shape[0]
+                                  for f in fold_data))
+    folds = list(fold_data) * repeats
+    xes = [common.stack_padded([f['test_data'][m] for f in folds], rows,
+                               device) for m in range(modalities)]
+    cs = [common.stack_padded([f['test_cov'][m] for f in folds], rows,
+                              device) for m in range(modalities)]
+    return xes, cs, rows
+
+
+def fold_metrics(fold_data, logits: np.ndarray,
+                 verbose: bool = False) -> pd.DataFrame:
+    """The binary prediction metrics of every fold from its test rows'
+    logits [F, rows, 2] (argmax, padding rows dropped), one row a fold."""
+    all_metrics = []
+    for fold, data in enumerate(fold_data):
+        n_rows = data['test_data'][0].shape[0]
+        preds = np.argmax(logits[fold, :n_rows], axis=1)
+        metrics = binary_prediction_metrics(data['test_labels'], preds)
+        if verbose:
+            print(f'Fold {fold} metrics:')
+            print(metrics)
+        all_metrics.append(metrics)
+    return pd.DataFrame(all_metrics)
+
+
+def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
+         draws_fn: Optional[common.DrawsFn] = None,
+         timings: Optional[dict] = None):
+    """``init_fn(model)`` fills the fold-stacked model's initial weights
+    (default ``default_init``); ``draws_fn`` gives every training step's
+    noise and dropout keep masks (tests replay the JAX package's); by
+    default every fold draws from its own generator on the device.
+    ``timings``, when given, receives the stages' walls, the training
+    steps and the trainer's seconds. Returns the per-fold metrics."""
+    common.refuse_not_ported(args, 'end-to-end trainer')
+    common.require_checkpoint_for_resume(args)
+    device = common.resolve_device(getattr(args, 'device', 'cuda'), 'train')
+    timings = {} if timings is None else timings
+    walls = common.StageWalls(timings.setdefault('walls', {}))
+    project_root = Path(project_root) if project_root else Path.cwd()
+    model_dir = project_root / 'outputs' / 'kfold_analysis' / 'supervised_cvae'
+    modalities = len(registry.get_datasets_name(args.dataset_resourse,
+                                                args.procedure))
+    fold_data, input_dim_list, c_dim = prepare_cohort(args, project_root,
+                                                      walls)
+    n_folds = len(fold_data)
+    for fold in range(n_folds):
+        (model_dir / f'{fold:03d}').mkdir(parents=True, exist_ok=True)
 
     h_dim, z_dim = args.hz_para_list[:-1], args.hz_para_list[-1]
     model = EndToEndCVAE(input_dim_list, h_dim, z_dim, c_dim, modalities,
@@ -161,12 +215,9 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
     config = TrainConfig(epochs=args.epochs, batch_size=256,
                          learning_rate=0.0001, combine='poe', shuffle=False,
                          seed=42)
+    resumable = common.Resumable(args)
     with walls('train'):
-        batches = stack_fold_batches(
-            [f['train_data'] for f in fold_data],
-            [f['train_cov'] for f in fold_data], config.batch_size,
-            extras=[{'labels': f['train_labels'].astype(np.float32)[:, None]}
-                    for f in fold_data])
+        batches = fold_batches(fold_data, config.batch_size)
         draws = {}
         if draws_fn is not None:
             draws = draws_fn(batches['valid'], config.epochs,
@@ -179,17 +230,15 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
             state_update=model.update_state)
         print('train model (all folds fold-parallel)')
         start = time.perf_counter()
-        logs = trainer.run(batches, **draws)
+        # one whole-run train state in the model dir (the JAX CLI keeps
+        # one per fold, or one per packed layout)
+        logs = resumable.run(trainer, batches, state_dir=model_dir, **draws)
         timings['train_run_s'] = time.perf_counter() - start
-        timings['train_steps'] = config.epochs * batches['mask'].shape[1]
+        timings['train_steps'] = ((config.epochs - resumable.resumed_from)
+                                  * batches['mask'].shape[1])
 
     with walls('score'):
-        rows = common.padded_rows(max(f['test_data'][0].shape[0]
-                                      for f in fold_data))
-        xes = [common.stack_padded([f['test_data'][m] for f in fold_data],
-                                   rows, device) for m in range(modalities)]
-        cs = [common.stack_padded([f['test_cov'][m] for f in fold_data],
-                                  rows, device) for m in range(modalities)]
+        xes, cs, rows = test_inputs(fold_data, modalities, device)
         all_logits = model.predict(xes, cs).cpu().numpy()
         timings['score_rows'] = rows
 
@@ -204,16 +253,7 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
                 'c_dim': int(c_dim), 'modalities': modalities,
                 'classifier_layers': list(args.layers),
             }, n_folds)
-        all_metrics = []
-        for fold in range(n_folds):
-            n_rows = fold_data[fold]['test_data'][0].shape[0]
-            preds = np.argmax(all_logits[fold, :n_rows], axis=1)
-            metrics = binary_prediction_metrics(fold_data[fold]['test_labels'],
-                                                preds)
-            print(f'Fold {fold} metrics:')
-            print(metrics)
-            all_metrics.append(metrics)
-        all_metrics_df = pd.DataFrame(all_metrics)
+        all_metrics_df = fold_metrics(fold_data, all_logits, verbose=True)
         print(all_metrics_df.mean())
         print(all_metrics_df.std())
         append_endtoend_results(project_root / 'results_endtoend.csv', args,
@@ -244,8 +284,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('-Layers', '--layers', dest='layers', nargs='+',
                         default=[128, 64, 32], type=int,
                         help='Layers for the classifier.')
-    common.add_variant_flags(parser, ['packed_xla', 'ep_mesh', 'mesh',
-                                      'checkpoint_every', 'resume'])
+    common.add_variant_flags(parser, ['packed_xla', 'ep_mesh', 'mesh'])
     return parser
 
 

@@ -12,6 +12,7 @@ three-launch chain (same mains, same args). Usage:
     python -m multi_modal_normative_modeling_tpu_torch.cli.pipeline \\
         -R ADNI -P UCA-gPoE -E 200 -K 5 [--fused_train_step] [--device cpu]
         [-Model mmJSD|mvtCAE|DMVAE|WeightedDMVAE|mmVAEPlus] [--emit_latent]
+        [--checkpoint_every N [--resume]]
 
 Select stages with --stages (comma-separated subset of train,test,analyze).
 """
@@ -57,6 +58,7 @@ def main(args, project_root=None):
     common.refuse_not_ported(args, 'pipeline',
                              {**test_supervised._NOT_PORTED_FLAGS,
                               **train_supervised._NOT_PORTED_FLAGS})
+    common.require_checkpoint_for_resume(args)
     stats = None
     for stage in STAGES:
         if stage not in stages:

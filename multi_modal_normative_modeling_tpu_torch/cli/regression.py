@@ -22,6 +22,7 @@ pair holds its data; ROADMAP.md, queue 3).
 
     python -m multi_modal_normative_modeling_tpu_torch.cli.regression \\
         -R ADNI -P UCA-gPoE -E 500 -K 5 [--device cpu]
+        [--checkpoint_every N [--resume]]
 """
 from __future__ import annotations
 
@@ -102,6 +103,7 @@ def train_and_test(args, project_root=None,
     ``common.seeded_eps``). ``timings``, when given, receives the stages'
     walls and the training steps and seconds."""
     common.refuse_not_ported(args, 'regression trainer')
+    common.require_checkpoint_for_resume(args)
     device = common.resolve_device(getattr(args, 'device', 'cuda'), 'train')
     eps_fn = eps_fn or common.seeded_eps
     timings = {} if timings is None else timings
@@ -148,10 +150,14 @@ def train_and_test(args, project_root=None,
                                for f in fold_data),
             loss_fn=regression_loss_fn(model, config.combine))
         print('train model (all folds fold-parallel, shuffled every epoch)')
+        resumable = common.Resumable(args)
         start = time.perf_counter()
-        logs = trainer.run(batches, **draws)
+        # one whole-run train state in regression_outputs (the JAX CLI
+        # keeps one per fold, or one per packed layout)
+        logs = resumable.run(trainer, batches, state_dir=output_dir, **draws)
         timings['train_run_s'] = time.perf_counter() - start
-        timings['train_steps'] = config.epochs * batches['mask'].shape[1]
+        timings['train_steps'] = ((config.epochs - resumable.resumed_from)
+                                  * batches['mask'].shape[1])
 
     # ---- FI of every fold's test rows: one call over the fold axis -------
     with walls('score FI'):
@@ -243,8 +249,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--batch_size', type=int, default=128)
     parser.add_argument('-BaseLR', '--base_learning_rate', type=float,
                         default=0.0001)
-    common.add_variant_flags(parser, ['packed_xla', 'mesh',
-                                      'checkpoint_every', 'resume'])
+    common.add_variant_flags(parser, ['packed_xla', 'mesh'])
     return parser
 
 

@@ -15,11 +15,15 @@ bf16``); where the JAX CLI falls back to its XLA path for a configuration
 the fused step does not take, this one exits and says why. ``-Model`` takes
 the six registry names (cVAE_multimodal, mmJSD, mvtCAE, DMVAE,
 WeightedDMVAE, mmVAEPlus); both fused paths compute cVAE_multimodal's loss
-and exit for the other five.
+and exit for the other five. ``--checkpoint_every N`` saves a whole-run
+train state every N epochs (``train_state.ckpt`` in the model dir; the
+fused train step's under ``fused-state/``) and ``--resume`` continues it:
+the resumed run's checkpoints equal the uninterrupted run's, byte for byte.
 
     python -m multi_modal_normative_modeling_tpu_torch.cli.train_supervised \\
         -R ADNI -P UCA-gPoE -E 200 -K 5 [--fused_decoder] [--device cpu]
         [--fused_train_step [--precision bf16]] [-Model mvtCAE]
+        [--checkpoint_every N [--resume]]
 """
 from __future__ import annotations
 
@@ -74,7 +78,8 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
     ``noise_dim``, the shared code's width for the DMVAE family); by default
     every fold draws from its own generator on the device."""
     common.refuse_not_ported(args, 'trainer', _NOT_PORTED_FLAGS)
-    fused =getattr(args, 'fused_train_step', False)
+    common.require_checkpoint_for_resume(args)
+    fused = getattr(args, 'fused_train_step', False)
     precision = getattr(args, 'precision', 'fp32')
     if precision != 'fp32' and not fused:
         raise SystemExit(f'--precision {precision} runs only through the '
@@ -150,12 +155,17 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
         default_init(model, config_dict['model'])
     model.to(device)
     max_n = max(f[0][0].shape[0] for f in folds)
+    resumable = common.Resumable(args)
     if fused:
+        # its own state dir: the padded packed layout
         logs, steps, run_s = _train_fused(model, train_config, folds, max_n,
-                                          device, eps_fn)
+                                          device, eps_fn, resumable,
+                                          model_dir / 'fused-state')
     else:
+        # the whole-run state in the model dir, as the JAX CLI's
+        # fold-parallel path keeps it
         logs, steps, run_s = _train(args, model, train_config, folds, max_n,
-                                    eps_fn)
+                                    eps_fn, resumable, model_dir)
     per_fold_logs = [{k: v[f] for k, v in logs.items()}
                      for f in range(n_folds)]
     per_fold_params = [params_to_jax(model, fold=f) for f in range(n_folds)]
@@ -168,9 +178,10 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
               ', '.join(f'{k}: {round(v, 3)}' for k, v in last.items()))
         run_log.event('fold_done', fold=fold, **last)
         print('fold_model_dir:', model_dir / f'{fold:03d}')
-    # the trainer's run alone: batches to the device, every step, the logs'
-    # fetch at the end
-    run_log.event('train_end', folds=n_folds, steps=steps, run_s=run_s)
+    # the trainer's run alone: batches to the device, every step this call
+    # ran (a resumed run's from its stored epoch), the logs' fetch at the end
+    run_log.event('train_end', folds=n_folds, steps=steps, run_s=run_s,
+                  **resumable.fields())
 
 
 def _cvae_only(args, what: str) -> Optional[str]:
@@ -201,9 +212,11 @@ def _fused_flag_conflict(args) -> Optional[str]:
     return None
 
 
-def _train_fused(model, train_config, folds, max_n, device, eps_fn):
+def _train_fused(model, train_config, folds, max_n, device, eps_fn,
+                 resumable: common.Resumable, state_dir: Path):
     """Every fold at once on the fused train step; the trained parameters
-    go back into ``model``. Returns (logs, steps, seconds of the run)."""
+    go back into ``model``. Returns (logs, steps this call ran, seconds of
+    the run)."""
     trainer = FusedFoldTrainer(model, train_config, max_n)
     # one covariate block for every modality (uniform_covariates checked)
     batches = trainer.batches([f[0] for f in folds], [f[1][0] for f in folds],
@@ -217,16 +230,19 @@ def _train_fused(model, train_config, folds, max_n, device, eps_fn):
           f'kernel {kernel})')
     packed = packed_from_model(model, trainer.stacked)
     start = time.perf_counter()
-    trained, logs = trainer.run(packed, batches, eps=eps)
+    trained, logs = resumable.run(trainer, packed, batches, eps=eps,
+                                  state_dir=state_dir)
     run_s = time.perf_counter() - start
     packed_to_model(trained, trainer.stacked, model)
-    return logs, train_config.epochs * batches.n_batches, run_s
+    epochs = train_config.epochs - resumable.resumed_from
+    return logs, epochs * batches.n_batches, run_s
 
 
-def _train(args, model, train_config, folds, max_n, eps_fn):
+def _train(args, model, train_config, folds, max_n, eps_fn,
+           resumable: common.Resumable, state_dir: Path):
     """Every fold at once on MultiFoldTrainer (plain or --fused_decoder
-    loss); trains ``model`` in place. Returns (logs, steps, seconds of the
-    run)."""
+    loss); trains ``model`` in place. Returns (logs, steps this call ran,
+    seconds of the run)."""
     batch_size = train_config.batch_size
     loss_fn = None
     if getattr(args, 'fused_decoder', False):
@@ -241,9 +257,10 @@ def _train(args, model, train_config, folds, max_n, eps_fn):
                      model.noise_dim)
     print('train model (all folds fold-parallel)')
     start = time.perf_counter()
-    logs = trainer.run(batches, eps=eps)
+    logs = resumable.run(trainer, batches, eps=eps, state_dir=state_dir)
     run_s = time.perf_counter() - start
-    return logs, train_config.epochs * batches['mask'].shape[1], run_s
+    epochs = train_config.epochs - resumable.resumed_from
+    return logs, epochs * batches['mask'].shape[1], run_s
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -295,13 +312,12 @@ def build_parser() -> argparse.ArgumentParser:
                         help='fp32; bf16 runs only through the fused train '
                              'step (K6, with --fused_train_step) and raises '
                              'without it')
+    common.add_resume_flags(parser)
     not_ported = 'not ported yet (raises); see ROADMAP.md'
     for flag, kwargs in (('--mesh', {'default': None}),
                          ('--ep_mesh', {'default': None}),
                          ('--packed_xla', {'action': 'store_true'}),
                          ('--stream_shards', {'type': int, 'default': 0}),
-                         ('--checkpoint_every', {'type': int, 'default': 0}),
-                         ('--resume', {'action': 'store_true'}),
                          ('--remat', {'action': 'store_true'}),
                          ('--in_memory_fusion', {'action': 'store_true'}),
                          ('--profile_dir', {'default': None}),

@@ -95,10 +95,11 @@ def params_from_jax(tree, model: nn.Module, device=None) -> nn.Module:
 
 def params_to_jax(model: nn.Module, fold: Optional[int] = None) -> dict:
     """The model's parameters as a JAX-layout tree of numpy arrays:
-    fold-stacked, or only ``fold``'s when it is given."""
+    fold-stacked, or only ``fold``'s when it is given. The arrays are a
+    copy: the model may train on."""
     flat = {}
     for key, t in model.state_dict().items():
-        leaf = t.detach().cpu().numpy()
+        leaf = t.detach().to("cpu", copy=True).numpy()
         if fold is not None:
             leaf = leaf[fold]
         if key.endswith("weight"):

@@ -23,7 +23,7 @@ drawn from a generator.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -36,6 +36,9 @@ from ..ops.losses import (
     margin_contrastive,
 )
 from .cvae import Classifier, Decoder, Encoder, reparameterize
+
+# a loss hyperparameter: one float, or one value per fold [F]
+Hyper = Union[float, torch.Tensor]
 
 LOG_KEYS = ("total_loss", "recon_loss_health", "recon_loss_disease",
             "kl_loss", "classification_loss", "contrastive_loss")
@@ -111,11 +114,13 @@ class EndToEndCVAE(nn.Module):
         }
 
     def loss(self, xes, fwd: dict, labels: torch.Tensor,
-             margin: float = 1.0, weight_contrastive: float = 0.1,
+             margin: Hyper = 1.0, weight_contrastive: Hyper = 0.1,
              weight_kl: float = 0.1, weight_rec: float = 0.1,
              mask: Optional[torch.Tensor] = None) -> dict:
         """The loss terms per fold, each [F] (``log_keys``); ``labels``
-        [F, B] are 0 for a control, 1 for a patient."""
+        [F, B] are 0 for a control, 1 for a patient. ``margin`` and
+        ``weight_contrastive`` are floats, or one value per fold [F] (a
+        sweep's configs stacked on the fold axis)."""
         recon_h = 0.0
         recon_d = 0.0
         dev_h, dev_d = [], []
@@ -165,8 +170,8 @@ class EndToEndCVAE(nn.Module):
         return self.classifier(fused_mu, train=False)[0]
 
 
-def endtoend_loss_fn(model: EndToEndCVAE, margin: float,
-                     weight_contrastive: float):
+def endtoend_loss_fn(model: EndToEndCVAE, margin: Hyper,
+                     weight_contrastive: Hyper):
     """The nm-PM-cont CLI's training loss (cli/nmpmcont.py:154-165 of the
     JAX package): forward in train mode on the step's eps and keep masks,
     then the loss with the default KL and reconstruction weights. The aux

@@ -8,7 +8,7 @@ real rows (cVAE.py:14-15, :1138-1139; SURVEY.md Q7).
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import torch
 
@@ -109,12 +109,15 @@ def pairwise_jsd(mus: Sequence[torch.Tensor], logvars: Sequence[torch.Tensor],
 
 def margin_contrastive(deviation_health: torch.Tensor,
                        deviation_disease: torch.Tensor, labels: torch.Tensor,
-                       margin: float,
+                       margin: Union[float, torch.Tensor],
                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The end-to-end model's margin contrastive loss over per-row
     deviations (cVAE.py:2176-2179): a label-0 row should sit closer to the
     health decoder, a label-1 row to the disease decoder. deviations and
-    labels [F, B] -> [F]."""
+    labels [F, B] -> [F]. ``margin`` is one float, or one per fold [F] (a
+    sweep's stacked configs); equal values give equal results."""
+    if isinstance(margin, torch.Tensor):
+        margin = margin.to(deviation_health.dtype).reshape(-1, 1)
     labels = labels.to(deviation_health.dtype)
     zero = deviation_health.new_zeros(())
     per_row = ((1.0 - labels) * torch.maximum(

@@ -15,6 +15,8 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..interop import params_to_jax
+from ..train.checkpoints import run_chunked
 from ..train.trainer import (
     DeviceBatches,
     FoldNoise,
@@ -22,6 +24,7 @@ from ..train.trainer import (
     ReplayNoise,
     StateUpdate,
     TrainConfig,
+    TrainSession,
     build_lr_fn,
     make_batches,
     resolve_loss,
@@ -99,7 +102,13 @@ class MultiFoldTrainer:
     per-fold numerics (its fold-parallel path falls back to them when fold
     grids differ, cli/common.py:888-896). ``state_update(aux, valid)``
     applies non-gradient state after each step (the end-to-end model's
-    BatchNorm running statistics, ``EndToEndCVAE.update_state``)."""
+    BatchNorm running statistics, ``EndToEndCVAE.update_state``).
+
+    ``run``, ``run_milestones`` and ``run_resumable`` advance one
+    ``TrainSession``: a run in chunks (milestones, checkpoints) is the
+    uninterrupted run, bit for bit. An eager loop compiles nothing, so the
+    JAX package's compile-reuse policy for chunk sizes has no counterpart.
+    """
 
     def __init__(self, model, config: TrainConfig, n_samples: int,
                  loss_fn: Optional[Callable] = None,
@@ -111,20 +120,20 @@ class MultiFoldTrainer:
         self.model = model
         self.config = config
         self.lr_fn = build_lr_fn(config, n_samples)
-        self.loss_fn = resolve_loss(model, config, loss_fn)
+        self.loss_fn, self.loss_meta = resolve_loss(model, config, loss_fn)
         self.state_update = state_update
+        self.resumed_from = 0   # the epoch run_resumable took the run up at
 
-    def run(self, stacked_batches, eps=None, keeps=None, perms=None) -> dict:
-        """Train ``self.model`` in place, for ``config.epochs`` epochs over
+    def session(self, stacked_batches, eps=None, keeps=None,
+                perms=None) -> TrainSession:
+        """A new run of ``self.model`` (trained in place) over
         ``stack_fold_batches`` output (or those batches already uploaded as
         ``DeviceBatches``). By default each fold draws its own noise, keep
         masks (a model with ``keep_widths``) and permutations. Tests replay
         given draws instead: ``eps`` [epochs * NB, F, B, Z] (Z is the
         model's ``noise_dim``), ``keeps`` one [epochs * NB, F, B, width]
         per keep width, ``perms`` [epochs, F, NB * B] when shuffling.
-        The batches and the replayed noise take the parameters' dtype.
-        Returns the logs {key: [F, epochs] numpy} for every key of the
-        model's ``log_keys``."""
+        The batches and the replayed noise take the parameters' dtype."""
         params = list(self.model.parameters())
         device, dtype = params[0].device, params[0].dtype
         batches = stacked_batches
@@ -140,9 +149,50 @@ class MultiFoldTrainer:
                 1.0 - getattr(self.model, "dropout_rate", 0.0))
         adam = MaskedAdam(params, self.lr_fn)
         log_keys = self.model.log_keys
-        logs = run_epochs(self.loss_fn, params, adam, batches,
-                          self.config.epochs, log_keys, noise,
-                          shuffle=self.config.shuffle,
-                          state_update=self.state_update)
-        host = logs.cpu().numpy()
-        return {k: host[:, i, :].T.copy() for i, k in enumerate(log_keys)}
+
+        def chunk(first_epoch, epochs):
+            return run_epochs(self.loss_fn, params, adam, batches, epochs,
+                              log_keys, noise, shuffle=self.config.shuffle,
+                              state_update=self.state_update,
+                              first_epoch=first_epoch)
+
+        return TrainSession(chunk, adam, noise, log_keys,
+                            dict(self.model.named_buffers()))
+
+    def run(self, stacked_batches, **draws) -> dict:
+        """Train ``self.model`` in place for ``config.epochs`` epochs (the
+        arguments are ``session``'s). Returns the logs {key: [F, epochs]
+        numpy} for every key of the model's ``log_keys``."""
+        session = self.session(stacked_batches, **draws)
+        session.advance(self.config.epochs)
+        return session.logs()
+
+    def run_milestones(self, stacked_batches, milestones: Sequence[int],
+                       **draws):
+        """Train to each milestone epoch (ascending) in turn, yielding
+        ``(epoch, per-fold params in the JAX layout, logs)`` after each
+        (parallel/folds.py:245-269): one run to max(milestones) serves every
+        epoch count of a grid, each snapshot equal to the run of that many
+        epochs. The model trains in place; a snapshot is a copy."""
+        session = self.session(stacked_batches, **draws)
+        folds = session.adam.count.shape[0]
+        for m in milestones:
+            if m < session.epoch:
+                raise ValueError(f"milestones must ascend, got {milestones}")
+            session.advance(m - session.epoch)
+            yield (m, [params_to_jax(self.model, fold=f)
+                       for f in range(folds)], session.logs())
+
+    def run_resumable(self, stacked_batches, state_dir,
+                      checkpoint_every: int, resume: bool = True,
+                      **draws) -> dict:
+        """``run`` in chunks of ``checkpoint_every`` epochs, one whole-run
+        train state under ``state_dir`` saved after each
+        (parallel/folds.py:271-310); with ``resume`` a stored state is
+        continued. Returns the whole run's logs; ``resumed_from`` is the
+        epoch this call took the run up at."""
+        session = self.session(stacked_batches, **draws)
+        run_chunked(state_dir, self.config.epochs, checkpoint_every, resume,
+                    session, self.loss_meta)
+        self.resumed_from = session.start_epoch
+        return session.logs()

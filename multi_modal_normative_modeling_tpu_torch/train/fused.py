@@ -33,11 +33,14 @@ from ..kernels.train_step import (
 )
 from ..kernels import _build
 from ..models.stacked import StackedMultimodalCVAE
+from .checkpoints import run_chunked
 from .trainer import (
     FoldNoise,
     MaskedAdam,
     ReplayNoise,
     TrainConfig,
+    TrainSession,
+    add_batch_meta,
     build_lr_fn,
     run_epochs,
 )
@@ -168,18 +171,25 @@ class FusedFoldTrainer:
         else:
             self.step = FusedTrainStep(self.stacked, config.combine)
         self.lr_fn = build_lr_fn(config, n_samples)
+        # the resume fingerprint (train/fused.py:174-182): a state of one
+        # kernel or precision is not continued under the other
+        self.loss_meta = add_batch_meta(
+            {"loss": f"fused_kernel_{kernel}",
+             "precision": config.precision}, config)
+        self.resumed_from = 0   # the epoch run_resumable took the run up at
 
     def batches(self, per_fold_data, per_fold_cov, device):
         return PackedDeviceBatches(make_packed_batches(
             self.step, per_fold_data, per_fold_cov, self.config.batch_size),
             self.step, device)
 
-    def run(self, packed: dict, batches: PackedDeviceBatches,
-            eps=None, through_autograd: bool = False) -> Tuple[dict, dict]:
-        """Train ``packed`` (fold-stacked, on the batches' device) for
-        ``config.epochs`` epochs. ``eps`` [epochs * NB, F, batch_size, Z]
-        replays given noise; by default each fold draws its own. Returns
-        (the trained packed tree, logs {total, kl, ll: [F, epochs]}).
+    def session(self, packed: dict, batches: PackedDeviceBatches,
+                eps=None, through_autograd: bool = False) -> TrainSession:
+        """A new run from ``packed`` (fold-stacked, on the batches' device).
+        ``eps`` [epochs * NB, F, batch_size, Z] replays given noise; by
+        default each fold draws its own. The session's Adam holds the fp32
+        master parameters (``flat``) the step trains, in the padded layout;
+        ``trained(session)`` unpads them.
 
         The loss the trainers minimize is the plain sum of the folds'
         totals, so the step's gradients are the update's: they go from the
@@ -200,28 +210,61 @@ class FusedFoldTrainer:
                                               self.stacked.latent_dim),
                               self.config.seed, device)
         adam = MaskedAdam(params, self.lr_fn)
+        views = dict(zip(names, params))
         if through_autograd:
-            logs = run_epochs(self.step.loss_fn(params), params, adam,
-                              batches, self.config.epochs, self.log_keys,
-                              noise)
+            loss_fn = self.step.loss_fn(params)
+
+            def chunk(first_epoch, epochs):
+                return run_epochs(loss_fn, params, adam, batches, epochs,
+                                  self.log_keys, noise,
+                                  first_epoch=first_epoch)
         else:
-            logs = self._run_flat(dict(zip(names, params)), adam, batches,
-                                  noise)
-        trained = self.step.unpad_named(
-            {k: p.detach() for k, p in zip(names, params)})
-        host = logs.cpu().numpy()
-        return trained, {k: host[:, i, :].T.copy()
-                         for i, k in enumerate(self.log_keys)}
+            def chunk(first_epoch, epochs):
+                return self._run_flat(views, adam, batches, noise, epochs,
+                                      first_epoch)
+
+        return TrainSession(chunk, adam, noise, self.log_keys, params=views)
+
+    def trained(self, session: TrainSession) -> dict:
+        """The session's parameters as the packed tree, unpadded."""
+        return self.step.unpad_named({k: p.detach()
+                                      for k, p in session.params.items()})
+
+    def run(self, packed: dict, batches: PackedDeviceBatches,
+            eps=None, through_autograd: bool = False) -> Tuple[dict, dict]:
+        """Train ``packed`` for ``config.epochs`` epochs (the arguments are
+        ``session``'s). Returns (the trained packed tree, logs {total, kl,
+        ll: [F, epochs]})."""
+        session = self.session(packed, batches, eps, through_autograd)
+        session.advance(self.config.epochs)
+        return self.trained(session), session.logs()
+
+    def run_resumable(self, packed: dict, batches: PackedDeviceBatches,
+                      state_dir, checkpoint_every: int, resume: bool = True,
+                      eps=None) -> Tuple[dict, dict]:
+        """``run`` in chunks of ``checkpoint_every`` epochs
+        (train/fused.py:293-324), one whole-run train state under
+        ``state_dir`` (the fp32 master parameters in the padded layout,
+        Adam's moments and counts, the noise generators, the epoch cursor)
+        saved after each; with ``resume`` a stored state is continued, and
+        one written under another kernel, precision or batch size is
+        refused. ``resumed_from`` is the epoch this call took the run up
+        at."""
+        session = self.session(packed, batches, eps)
+        run_chunked(state_dir, self.config.epochs, checkpoint_every, resume,
+                    session, self.loss_meta)
+        self.resumed_from = session.start_epoch
+        return self.trained(session), session.logs()
 
     @torch.no_grad()
     def _run_flat(self, named: dict, adam: MaskedAdam,
-                  batches: PackedDeviceBatches, noise) -> torch.Tensor:
+                  batches: PackedDeviceBatches, noise, epochs: int,
+                  first_epoch: int = 0) -> torch.Tensor:
         """train.trainer.run_epochs without autograd: ``named`` are views
         of ``adam.flat``, and each step's flat gradient updates it."""
-        epochs = self.config.epochs
         logs = torch.empty((epochs, len(self.log_keys), batches.folds),
                            device=batches.rm.device)
-        t = 0
+        t = first_epoch * batches.n_batches
         for epoch in range(epochs):
             for i in range(batches.n_batches):
                 noise_t, _ = noise.step(t, batches.valid_host[i])
@@ -235,8 +278,3 @@ class FusedFoldTrainer:
                 adam.step_flat(flat, batches.valid[i])
                 t += 1
         return logs
-
-    def run_resumable(self, *args, **kwargs):
-        raise NotImplementedError(
-            "resumable fused training is not ported yet; see ROADMAP.md, "
-            "queue 1 item 'Resume'")

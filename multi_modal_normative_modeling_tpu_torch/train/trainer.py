@@ -26,8 +26,10 @@ Numerics parity with the JAX trainer:
   * The logs are each epoch's first-batch loss terms, before that step's
     update (the reference's print cadence, train:201-209).
 
-Batches, noise and logs stay on the device for the whole run: the batches
-are uploaded once, and the logs are fetched once at the end.
+Batches and noise stay on the device for the whole run: the batches are
+uploaded once, and the logs are fetched once at the end of each chunk of
+epochs (``TrainSession``: the whole run, a sweep's milestone, or the
+stretch between two train-state saves of a resumable run).
 """
 from __future__ import annotations
 
@@ -112,12 +114,35 @@ def default_loss_fn(model, config: TrainConfig) -> LossFn:
     return loss_fn
 
 
-def resolve_loss(model, config: TrainConfig,
-                 loss_fn: Optional[LossFn]) -> LossFn:
-    """The given loss, or the default loss when none is given
-    (train/trainer.py:239-257, without the resume fingerprint: resume is
-    not ported)."""
-    return loss_fn if loss_fn is not None else default_loss_fn(model, config)
+# the reference hardcodes batch 256 (train:197); the resume fingerprint
+# names another batch size only
+DEFAULT_BATCH_SIZE = 256
+
+
+def add_batch_meta(meta: dict, config: TrainConfig) -> dict:
+    """A non-default batch size into a trainer's resume fingerprint
+    (train/trainer.py:227-236): a state resumed under another batch size is
+    another gradient sequence and is refused."""
+    if config.batch_size != DEFAULT_BATCH_SIZE:
+        meta["batch"] = str(config.batch_size)
+    return meta
+
+
+def resolve_loss(model, config: TrainConfig, loss_fn: Optional[LossFn]
+                 ) -> Tuple[LossFn, dict]:
+    """(loss_fn, trajectory fingerprint) of a trainer
+    (train/trainer.py:239-257): the given loss, or the default loss when
+    none is given, and the flat str->str dict the resume guard compares
+    (checkpoints.run_chunked), so that a state is not continued under
+    another loss family (the plain loss against the ``--fused_decoder``
+    one, say) or precision."""
+    if loss_fn is not None:
+        name = getattr(loss_fn, "__qualname__", "custom").split(".")[0]
+    else:
+        name = "default_loss_fn"
+        loss_fn = default_loss_fn(model, config)
+    meta = {"loss": name, "precision": config.precision}
+    return loss_fn, add_batch_meta(meta, config)
 
 
 def build_lr_fn(config: TrainConfig, n_samples: int):
@@ -252,6 +277,17 @@ class FoldNoise:
                        torch.arange(n, total, device=self.device)])
             for gen, n in zip(self.gens, fold_rows)])
 
+    def state(self) -> List[np.ndarray]:
+        """Every fold's generator state (uint8), for a train state."""
+        return [gen.get_state().numpy() for gen in self.gens]
+
+    def set_state(self, states: Sequence[np.ndarray]) -> None:
+        if len(states) != len(self.gens):
+            raise ValueError(f"the stored train state holds {len(states)} "
+                             f"noise generators, this run {len(self.gens)}")
+        for gen, st in zip(self.gens, states):
+            gen.set_state(torch.from_numpy(np.asarray(st, np.uint8).copy()))
+
 
 class ReplayNoise:
     """Given draws in the place of FoldNoise's (tests replay the JAX
@@ -277,6 +313,15 @@ class ReplayNoise:
             raise ValueError("a shuffled replay needs the permutations "
                              "(perms=)")
         return self.perms[epoch]
+
+    def state(self) -> List[np.ndarray]:
+        """Nothing: the draws are indexed by the global step and epoch."""
+        return []
+
+    def set_state(self, states: Sequence[np.ndarray]) -> None:
+        if len(states):
+            raise ValueError("the stored train state holds noise generators; "
+                             "a replay has none")
 
 
 class DeviceBatches:
@@ -341,8 +386,12 @@ StateUpdate = Callable[[dict, torch.Tensor], None]
 def run_epochs(loss_fn: LossFn, params: List[torch.nn.Parameter],
                adam: MaskedAdam, batches: DeviceBatches, epochs: int,
                log_keys: Sequence[str], noise, shuffle: bool = False,
-               state_update: Optional[StateUpdate] = None) -> torch.Tensor:
+               state_update: Optional[StateUpdate] = None,
+               first_epoch: int = 0) -> torch.Tensor:
     """The epoch loop: every batch of every epoch is one step for all folds.
+    It runs epochs ``first_epoch`` to ``first_epoch + epochs - 1`` of the
+    run: the global step ``t`` and the epoch index the noise is asked for
+    continue from there, so consecutive calls are one run.
     ``noise`` (``FoldNoise``, or ``ReplayNoise`` with given draws) gives
     each step's noise and dropout keep masks (the latter reach the loss as
     the batch's ``keep``), and with ``shuffle`` each epoch's row order.
@@ -361,12 +410,12 @@ def run_epochs(loss_fn: LossFn, params: List[torch.nn.Parameter],
                        device=batches.mask.device)
     fold_rows = batches.fold_rows() if shuffle else None
     total_rows = batches.n_batches * batches.rows
-    t = 0
+    t = first_epoch * batches.n_batches
     for epoch in range(epochs):
         epoch_batches = batches
         if shuffle:
-            epoch_batches = batches.permuted(
-                noise.permutation(epoch, fold_rows, total_rows))
+            epoch_batches = batches.permuted(noise.permutation(
+                first_epoch + epoch, fold_rows, total_rows))
         for step in range(batches.n_batches):
             batch = epoch_batches.step(step)
             noise_t, keeps = noise.step(t, batches.valid_host[step])
@@ -383,3 +432,92 @@ def run_epochs(loss_fn: LossFn, params: List[torch.nn.Parameter],
                 state_update(aux, batches.valid[step])
             t += 1
     return logs
+
+
+class TrainSession:
+    """One training run that can be continued: the optimizer, the noise,
+    the non-gradient ``buffers`` (the end-to-end model's BatchNorm running
+    statistics), the epoch cursor and the logs so far. ``run``,
+    ``run_milestones`` and ``run_resumable`` of every trainer advance one
+    of these, so there is one epoch loop, ``chunk(first_epoch, epochs)``
+    (``run_epochs``, or the fused trainer's flat loop), which returns the
+    chunk's logs [epochs, len(log_keys), F] on the device."""
+
+    def __init__(self, chunk: Callable[[int, int], torch.Tensor],
+                 adam: MaskedAdam, noise, log_keys: Sequence[str],
+                 buffers: Optional[dict] = None,
+                 params: Optional[dict] = None):
+        self.chunk = chunk
+        self.adam = adam
+        self.noise = noise
+        self.log_keys = tuple(log_keys)
+        self.buffers = dict(buffers or {})
+        self.params = params   # {name: view of adam.flat}, when kept
+        self.epoch = 0
+        self.start_epoch = 0   # where this process took the run up
+        folds = adam.count.shape[0]
+        self._logs = {k: np.zeros((folds, 0), np.float32)
+                      for k in self.log_keys}
+
+    def advance(self, epochs: int) -> None:
+        """Train ``epochs`` more epochs; their logs are fetched at the end."""
+        if epochs <= 0:
+            return
+        host = self.chunk(self.epoch, epochs).cpu().numpy()
+        self._logs = {k: np.concatenate([self._logs[k], host[:, i, :].T],
+                                        axis=1)
+                      for i, k in enumerate(self.log_keys)}
+        self.epoch += epochs
+
+    def logs(self) -> dict:
+        """{key: [F, epochs so far]} numpy."""
+        return {k: v.copy() for k, v in self._logs.items()}
+
+    def state(self) -> dict:
+        """The tensors of a train state (numpy)."""
+        adam = self.adam
+
+        def host(t):
+            return t.detach().cpu().numpy()
+
+        return {"adam": {"flat": host(adam.flat), "m": host(adam.m),
+                         "v": host(adam.v), "count": host(adam.count)},
+                "noise": self.noise.state(),
+                "buffers": {k: host(v) for k, v in self.buffers.items()}}
+
+    @torch.no_grad()
+    def restore(self, tensors: dict, epoch: int, logs: Optional[dict]
+                ) -> None:
+        """Continue from a stored state. Every tensor is copied into the
+        one it replaces: the parameters are views of ``adam.flat``."""
+        adam = self.adam
+
+        def put(dst: torch.Tensor, src, what: str) -> None:
+            src = np.asarray(src)
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(
+                    f"the stored train state holds {what} of shape "
+                    f"{tuple(src.shape)}, this run's is {tuple(dst.shape)} "
+                    "(another architecture, cohort or fold count)")
+            dst.copy_(torch.from_numpy(src.copy()))
+
+        stored = tensors["adam"]
+        for name in ("flat", "m", "v"):
+            put(getattr(adam, name), stored[name], f"adam.{name}")
+        count = torch.empty_like(adam.count)
+        put(count, stored["count"], "adam.count")
+        adam.count = count
+        buffers = tensors.get("buffers") or {}
+        if sorted(buffers) != sorted(self.buffers):
+            raise ValueError(f"the stored train state holds the buffers "
+                             f"{sorted(buffers)}, this run "
+                             f"{sorted(self.buffers)}")
+        for name, buf in self.buffers.items():
+            put(buf, buffers[name], name)
+        self.noise.set_state(list(tensors.get("noise") or []))
+        self.epoch = self.start_epoch = int(epoch)
+        folds = adam.count.shape[0]
+        logs = logs or {}
+        self._logs = {k: np.asarray(logs.get(k, np.zeros((folds, 0))),
+                                    np.float32).reshape(folds, -1)
+                      for k in self.log_keys}

@@ -404,8 +404,13 @@ def test_pipeline_stages_and_flags(chain, tmp_path):
 def test_pipeline_refuses_unported_flags_before_any_stage(flag, tmp_path):
     """Whatever stage would refuse the flag, the pipeline refuses it first,
     citing the ROADMAP item by name, and writes nothing. (--emit_latent,
-    once in this list, is ported: tests/test_torch_latent.py.)"""
-    with pytest.raises(SystemExit, match=r"ROADMAP\.md, .*'[A-Za-z]"):
+    once in this list, is ported: tests/test_torch_latent.py; --resume is
+    ported too, and refused without --checkpoint_every with the JAX
+    package's message: tests/test_torch_resume.py.)"""
+    match = r"ROADMAP\.md, .*'[A-Za-z]"
+    if flag == "--resume":
+        match = "--resume requires --checkpoint_every N"
+    with pytest.raises(SystemExit, match=match):
         pipeline.run(FLAGS + ["--stages", "analyze", "--device", "cpu", flag],
                      project_root=tmp_path)
     assert not list(tmp_path.iterdir())

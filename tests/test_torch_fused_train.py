@@ -157,7 +157,7 @@ def test_padded_columns_stay_zero_after_three_steps():
     assert all(np.isfinite(v).all() for v in logs.values())
 
 
-def test_bf16_fused_trainer_runs_k6():
+def test_bf16_fused_trainer_runs_k6(tmp_path):
     dims = [20, 12]
     model = build_model("cVAE_multimodal", dims, [10, 8], 4, C, len(dims),
                         folds=2, generator=torch.Generator().manual_seed(0))
@@ -174,8 +174,16 @@ def test_bf16_fused_trainer_runs_k6():
                                 batches)
     assert all(np.isfinite(v).all() and v.shape == (2, 3)
                for v in logs.values())
-    with pytest.raises(NotImplementedError, match="queue 1 item 'Resume'"):
-        trainer.run_resumable()
+    # resumable (ported): in chunks of 2 epochs, one train state, the same
+    # run bit for bit
+    trained_r, logs_r = trainer.run_resumable(
+        packed_from_model(model, trainer.stacked), batches, tmp_path, 2)
+    assert (tmp_path / "train_state.ckpt").exists()
+    for k in logs:
+        assert np.array_equal(logs_r[k], logs[k]), k
+    for a, b in zip(jax.tree_util.tree_leaves(trained_r),
+                    jax.tree_util.tree_leaves(trained)):
+        assert torch.equal(a, b)
 
 
 def test_select_kernel_reasons():

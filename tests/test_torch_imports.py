@@ -6,7 +6,9 @@ that end the chain on the machine with the GPU (``evaluation/``,
 ``cli/group_analysis.py``, ``cli/pipeline.py``) and the supervised
 variants' CLIs (``cli/nmpmcont.py``, ``cli/nmmlp.py``,
 ``cli/regression.py``) and the scoring surfaces (``infer/ensemble.py``,
-``cli/score.py``, ``cli/serve.py``) import no scikit-learn either, which that machine
+``cli/score.py``, ``cli/serve.py``) and the grid engines and train state
+(``cli/sweep_supervised.py``, ``cli/sweep_endtoend.py``,
+``parallel/sweep.py``, ``train/checkpoints.py``) import no scikit-learn either, which that machine
 does not have, and those three CLIs no matplotlib; the last cases run the
 whole chain, the three CLIs, and the scoring surfaces, in a process where importing any of them
 fails."""
@@ -30,7 +32,9 @@ NO_SKLEARN = sorted((PORT / "evaluation").glob("*.py")) + [
     PORT / "models" / "endtoend.py",
     PORT / "models" / "regression.py"] + VARIANT_CLIS + [
     PORT / "infer" / "ensemble.py", PORT / "cli" / "score.py",
-    PORT / "cli" / "serve.py"]
+    PORT / "cli" / "serve.py", PORT / "cli" / "sweep_supervised.py",
+    PORT / "cli" / "sweep_endtoend.py", PORT / "parallel" / "sweep.py",
+    PORT / "train" / "checkpoints.py"]
 
 
 def _absolute(path: Path, node: ast.ImportFrom, root: Path) -> str:
@@ -275,3 +279,61 @@ def test_scoring_surfaces_run_without_jax_sklearn_or_matplotlib(tmp_path):
 def _data_rows(path: Path) -> int:
     """Data rows of a CSV file (its lines less the header)."""
     return len(path.read_text().splitlines()) - 1
+
+
+_BLOCKED_SWEEPS = _BLOCKED_CHAIN.split("import os\n")[0] + """
+import os
+from pathlib import Path
+sys.modules['matplotlib'] = None
+from multi_modal_normative_modeling_tpu_torch.data.synthetic import (
+    make_synthetic_resource,
+)
+from multi_modal_normative_modeling_tpu_torch.cli import (
+    sweep_endtoend,
+    sweep_supervised,
+    train_supervised,
+)
+os.chdir(sys.argv[2])
+make_synthetic_resource(Path('adhd'), 'ADHD', n_hc=20,
+                        n_disease={0: 8, 2: 8})
+records = sweep_supervised.run(
+    ['-R', 'ADHD', '-K', '2', '--procedures', 'SE-gPoE', '--hz_grid',
+     '8 8 4', '--epochs_list', '1', '2', '--device', 'cpu'],
+    project_root=Path('adhd'))
+assert len(records) == 2, records
+make_synthetic_resource(Path('adni'), 'ADNI', n_hc=20,
+                        n_disease={0: 6, 1: 6}, with_fi=True)
+flags = ['-R', 'ADNI', '-P', 'SE-MoE', '-K', '2', '-H', '8', '8', '4',
+         '--device', 'cpu']
+results = sweep_endtoend.run(flags + ['-Layers', '8', '4', '-Margins', '1',
+                                      '2', '-E', '2'],
+                             project_root=Path('adni'))
+assert len(results) == 4, results
+train_supervised.run(flags + ['-E', '1', '--checkpoint_every', '1'],
+                     project_root=Path('adni'))
+train_supervised.run(flags + ['-E', '2', '--checkpoint_every', '1',
+                              '--resume'], project_root=Path('adni'))
+bad = [m for m in sys.modules if m.split('.')[0] in
+       ('jax', 'flax', 'optax', 'sklearn',
+        'multi_modal_normative_modeling_tpu')]
+assert not bad, bad
+print('SWEEPS_OK')
+"""
+
+
+def test_sweeps_and_resume_run_without_jax_sklearn_or_matplotlib(tmp_path):
+    """Both grid CLIs and a killed-and-resumed training run on tiny
+    synthetic cohorts on the CPU, in a process that refuses jax, flax,
+    optax, sklearn and the JAX package and has no matplotlib."""
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_SWEEPS, str(ROOT), str(tmp_path)],
+        capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-4000:]
+    assert "SWEEPS_OK" in out.stdout
+    assert (tmp_path / "adhd" / "outputs"
+            / "sweep_supervised_results.json").exists()
+    assert (tmp_path / "adni" / "results_endtoend.csv").read_text().count(
+        "Namespace(") == 4
+    state = tmp_path / "adni" / "outputs/kfold_analysis/supervised_cvae"
+    assert (state / "train_state.json").read_text() == '{"epoch": 2}'
+    assert not list(tmp_path.rglob("*.png"))

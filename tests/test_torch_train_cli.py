@@ -142,13 +142,26 @@ def test_default_init_repeats_one_seeded_fold():
     ("checkpoint_every", 5), ("resume", True), ("remat", True),
     ("in_memory_fusion", True), ("profile_dir", "trace"),
     ("warmup_only", True), ("precision", "bf16")])
-def test_unported_flags_raise(flag, value, tmp_path):
+def test_unported_flags_raise(flag, value, tmp_path, roots):
     args = _args(device="cpu")
     setattr(args, flag, value)
+    if flag == "checkpoint_every":
+        # ported: the run keeps its train state in the model dir
+        shutil.copytree(roots["jax"] / "data", tmp_path / "data")
+        port_train.main(args, project_root=tmp_path)
+        state = json.loads((tmp_path / MODEL_DIR
+                            / "train_state.json").read_text())
+        assert state == {"epoch": args.epochs}
+        assert (tmp_path / MODEL_DIR / "train_state.ckpt").exists()
+        return
+    match = "ROADMAP.md"
+    if flag == "resume":
+        # ported, and refused without --checkpoint_every (the JAX message)
+        match = "--resume requires --checkpoint_every N"
     if flag == "fused_train_step":
         # the flag is ported; a model variant it does not train is not
         args.model = "mmJSD"
-    with pytest.raises(SystemExit, match="ROADMAP.md"):
+    with pytest.raises(SystemExit, match=match):
         port_train.main(args, project_root=tmp_path)
     assert not (tmp_path / "outputs").exists()
 

@@ -335,14 +335,28 @@ NOT_PORTED = [
 
 @pytest.mark.parametrize("cli,flag,value,item", NOT_PORTED)
 def test_unported_flags_exit_citing_their_queue_item(cli, flag, value, item,
-                                                     tmp_path):
+                                                     tmp_path, cohort):
     args = PORT_CLIS[cli].build_parser().parse_args(
         FLAGS[cli] + ["--device", "cpu"])
+    if cli == "nmpmcont":
+        common.apply_post_parse_defaults(args, default_procedure="SE-MoE")
     setattr(args, flag, value)
     main = (regression.train_and_test if cli == "regression"
             else PORT_CLIS[cli].main)
-    with pytest.raises(SystemExit, match=f"--{flag}.*queue 1 item.*"
-                                         f"{re.escape(item)}"):
+    if flag == "checkpoint_every":
+        # queue 1 item 'Resume' is ported: the run keeps one whole-run
+        # train state in its state dir
+        shutil.copytree(cohort / "data", tmp_path / "data")
+        main(args, tmp_path)
+        state_dir = tmp_path / ("regression_outputs" if cli == "regression"
+                                else MODEL_DIR)
+        assert (state_dir / "train_state.ckpt").exists()
+        return
+    match = f"--{flag}.*queue 1 item.*{re.escape(item)}"
+    if flag == "resume":
+        # ported, and refused without --checkpoint_every (the JAX message)
+        match = "--resume requires --checkpoint_every N"
+    with pytest.raises(SystemExit, match=match):
         main(args, tmp_path)
     assert not list(tmp_path.iterdir())
 
