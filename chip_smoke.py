@@ -248,6 +248,16 @@ FLAT_CHECKED = ("flagship", "ragged widths", "PPMI")
 TILE = 64        # K6's tile in phase 6b: 4 row groups of the flagship batch
 BF16_STEPS = 4   # phase 7's bf16 steps (2 epochs of the flagship cohort)
 
+# phase 13a: the bootstrap chain on phase 8's cohort (no early-fusion CSV:
+# -D 3modalities is fused in memory), 10 replicates, epochs cut from 200;
+# its test stage scores every replicate's out-of-bag rows (404 to 419 on
+# this cohort) padded to 448 in one call, at C 29 and, --unconditioned, 1
+BOOT_REPS = 10
+BOOT_ROWS = 448
+BOOT_FLAGS = ["-R", "ADNI", "-D", "3modalities", "-B", str(BOOT_REPS),
+              "-E", "20", "-H", "110", "110", "10"]
+BOOT_SHAPES = [(BOOT_REPS, BOOT_ROWS, 270, C_DIM), (BOOT_REPS, BOOT_ROWS, 270, 1)]
+
 # phase 8: the chain's flags, and the reports the analysis stage writes
 CHAIN_FLAGS = ["-R", "ADNI", "-P", "UCA-gPoE", "-K", str(FOLDS),
                "-E", str(TRAIN_EPOCHS), "--fused_train_step"]
@@ -411,8 +421,11 @@ def check_close(what, got, want, tol):
 
 def one_hot_covariates(rng, rows, c_dim=C_DIM):
     """One-hot age (c_dim - 2 bins, 27 at ADNI's 29) + gender (2 bins), as
-    the CLIs feed."""
+    the CLIs feed; at c_dim 1 the constant zero column of bootstrap's
+    --unconditioned."""
     c = np.zeros((rows, c_dim), np.float32)
+    if c_dim == 1:
+        return c
     idx = np.arange(rows)
     c[idx, rng.integers(0, c_dim - 2, rows)] = 1.0
     c[idx, c_dim - 2 + rng.integers(0, 2, rows)] = 1.0
@@ -2383,6 +2396,273 @@ def run_grid(stats, nmpmcont_ms):
     return launches
 
 
+def native_data_plane():
+    """The native CSV reader and writer must be there on the card: phase 13
+    asserts they build (g++ into native/_build/) and load."""
+    from multi_modal_normative_modeling_tpu_torch.native import (
+        fastcsv,
+        fastwrite,
+    )
+
+    if not (fastcsv.fastcsv_available() and fastwrite.fastwrite_available()):
+        raise RuntimeError("phase 13: the native CSV reader or writer did "
+                           "not build")
+
+
+def check_wide_tables_native(paths, phase):
+    """No table of ``paths`` (the >= 256-column ones a stage read) may have
+    gone to pandas: ``fast_path_reasons`` holds none of them."""
+    from multi_modal_normative_modeling_tpu_torch.cli import common
+
+    off = {p: common.fast_path_reasons[str(p)] for p in paths
+           if str(p) in common.fast_path_reasons}
+    if off:
+        raise RuntimeError(f"{phase}: the native reader disengaged: {off}")
+
+
+class PandasOnly:
+    """Within it the native reader and writer report themselves missing,
+    so every CSV goes through pandas (the data plane before this port of
+    native/); on leaving, they come back and the disengage memo is
+    cleared."""
+
+    def __enter__(self):
+        from multi_modal_normative_modeling_tpu_torch.native import (
+            fastcsv,
+            fastwrite,
+        )
+
+        self.saved = [(m, m._LIB, m._LIB_FAILED) for m in (fastcsv,
+                                                             fastwrite)]
+        for m, _, _ in self.saved:
+            m._LIB, m._LIB_FAILED = None, True
+
+    def __exit__(self, *exc):
+        from multi_modal_normative_modeling_tpu_torch.cli import common
+
+        for m, lib, failed in self.saved:
+            m._LIB, m._LIB_FAILED = lib, failed
+        common.fast_path_reasons.clear()
+
+
+def run_bootstrap(stats):
+    """Phase 13a: cli.bootstrap all on phase 8's cohort without its
+    early-fusion CSV, conditioned and --unconditioned; the counts set to 0
+    before each test stage and read after it; the deviation CSVs against
+    the plain scoring call in fp64; K1 and K2 at the call's shapes.
+    Returns ({variant: launches}, {variant: walls})."""
+    from multi_modal_normative_modeling_tpu_torch import kernels
+    from multi_modal_normative_modeling_tpu_torch.cli import bootstrap
+    from multi_modal_normative_modeling_tpu_torch.data.synthetic import (
+        make_synthetic_resource,
+    )
+
+    import pandas as pd
+
+    launches, walls = {}, {}
+    stage = bootstrap.test
+
+    def counted(args, **kwargs):
+        kernels.reset_launch_counts()
+        out = stage(args, **kwargs)
+        torch.cuda.synchronize()
+        launches[variant] = launch_counts()
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "adni"
+        make_synthetic_resource(root, "ADNI", **CHAIN_COHORT)
+        fused = root / "data" / "ADNI" / "early_fusion_modalities_ADNI.csv"
+        if fused.exists():
+            raise RuntimeError("phase 13a: the cohort holds the early-fusion "
+                               "CSV")
+        for variant, extra in (("CVAE", []), ("VAE", ["--unconditioned"])):
+            args = bootstrap.build_parser().parse_args(
+                ["all"] + BOOT_FLAGS + extra)
+            timings = {}
+            bootstrap.test = counted
+            try:
+                results = bootstrap.main(args, project_root=root,
+                                         timings=timings)
+            finally:
+                bootstrap.test = stage
+            c_dim = 1 if extra else C_DIM
+            if launches[variant] != {"fused_encoder": 1,
+                                     "fused_pred_deviation": 1}:
+                raise RuntimeError(f"phase 13a: the {variant} test stage "
+                                   f"launched {launches[variant]}")
+            if timings["score_shape"] != (BOOT_REPS, BOOT_ROWS, 270, c_dim):
+                raise RuntimeError(f"phase 13a: the scoring call's shape "
+                                   f"{timings['score_shape']}")
+            aucs = [r[k] for r in results.values()
+                    for k in ("mean", "ci_low", "ci_high")]
+            if (sorted(results) != ["2vs0", "2vs1"]
+                    or any(r["n_replicates"] != BOOT_REPS
+                           for r in results.values())
+                    or not all(np.isfinite(a) and 0 <= a <= 1
+                               for a in aucs)):
+                raise RuntimeError(f"phase 13a: {variant} results {results}")
+            # the CSVs against the plain call evaluated in fp64
+            args.action = "test"
+            jobs, model, xes, cs, eps = bootstrap.score_inputs(
+                args, root, "cuda")
+            _, _, devs64 = plain_scores64(model, [xes.double()],
+                                          cs.double(), "gpoe", eps)
+            err = 0.0
+            for i, job in enumerate(jobs):
+                csv = pd.read_csv(job["dir"] / "deviation_3modalities.csv")
+                got = torch.tensor(csv["Reconstruction deviation"].to_numpy(),
+                                   dtype=torch.float32, device="cuda")
+                err = max(err, check_close(
+                    f"phase 13a {variant} replicate {job['b']} deviation",
+                    got, devs64[i, 0, :len(csv)].float(), MODEL_TOL)[0])
+            for name in ("fused_encoder", "fused_pred_deviation"):
+                stats[name]["max_abs_err"] = max(
+                    stats[name]["max_abs_err"], err)
+            walls[variant] = timings["walls"]
+            print(f"phase 13a: bootstrap {' '.join(BOOT_FLAGS + extra)} "
+                  f"(-D 3modalities fused in memory, no CSV): test stage "
+                  f"launches {launches[variant]} over {BOOT_REPS} replicates "
+                  f"x {BOOT_ROWS} rows, C {c_dim}; deviation CSVs max abs "
+                  f"err {err:.3e} vs the plain call in fp64; walls "
+                  + ", ".join(f"{k} {v:.3f} s" for k, v in
+                              timings["walls"].items())
+                  + "; AUC " + "; ".join(
+                      f"{p} {r['mean']:.4f} (95% CI [{r['ci_low']:.4f}, "
+                      f"{r['ci_high']:.4f}], std {r['std']:.4f})"
+                      for p, r in results.items()), flush=True)
+        # the test stage with the pandas data plane, then native again
+        args = bootstrap.build_parser().parse_args(["test"] + BOOT_FLAGS)
+        for mode in ("pandas", "native"):
+            timings = {}
+            if mode == "pandas":
+                with PandasOnly():
+                    bootstrap.test(args, project_root=root, timings=timings)
+            else:
+                bootstrap.test(args, project_root=root, timings=timings)
+            walls[f"CVAE test, {mode}"] = timings["walls"]
+            print(f"phase 13a: bootstrap test stage again, {mode} CSV "
+                  "plane: " + ", ".join(f"{k} {v:.3f} s" for k, v in
+                                        timings["walls"].items()),
+                  flush=True)
+    hold_kernel_shapes("phase 13a", [shape + (HIDDEN, LATENT)
+                                     for shape in BOOT_SHAPES],
+                       stats, "bootstrap", tol=MODEL_TOL, seed=13)
+    return launches, walls
+
+
+def run_fusion(chain_root):
+    """Phase 13b: phase 8's chain again with --in_memory_fusion, without
+    the early-fusion CSV and with it, each held to phase 8's file-based
+    run (tests/test_uca_pipeline.py:77-79: rtol 1e-5, atol 1e-8). Returns
+    {run: launches}."""
+    import pandas as pd
+
+    from multi_modal_normative_modeling_tpu_torch import kernels
+    from multi_modal_normative_modeling_tpu_torch.cli import pipeline
+
+    fused = "early_fusion_modalities_ADNI"
+    rel = (Path("deviation/supervised_cvae/ADNI/UCA-gPoE/path_model")
+           / fused / f"reconstruction_error_{fused}.csv")
+    names = ["av45", "vbm", "fdg", fused]
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for run, with_csv in (("no CSV", False), ("CSV present", True)):
+            root = Path(tmp) / run.replace(" ", "_")
+            shutil.copytree(chain_root / "data", root / "data")
+            if not with_csv:
+                (root / "data" / "ADNI" / f"{fused}.csv").unlink()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            pipeline.run(CHAIN_FLAGS + ["--in_memory_fusion"],
+                         project_root=root)
+            torch.cuda.synchronize()
+            whole = time.perf_counter() - t0
+            launches[run] = launch_counts()
+            steps = launches[run].get("fused_train_step", 0)
+            if (steps != TRAIN_EPOCHS * 2
+                    or launches[run].get("fused_encoder") != len(names)
+                    or launches[run].get("fused_pred_deviation")
+                    != len(names)):
+                raise RuntimeError(f"phase 13b: {run}: launches "
+                                   f"{launches[run]}")
+            err = 0.0
+            for name in names:
+                path = Path(str(rel).replace(fused, name))
+                got = pd.read_csv(root / path)["Reconstruction error"]
+                want = pd.read_csv(chain_root / path)["Reconstruction error"]
+                if not np.allclose(got, want, rtol=1e-5, atol=1e-8):
+                    raise RuntimeError(f"phase 13b: {run}: {name} differs "
+                                       f"from the file-based run by "
+                                       f"{np.abs(got - want).max():.3e}")
+                err = max(err, float(np.abs(got - want).max()))
+            print(f"phase 13b: the chain {' '.join(CHAIN_FLAGS)} "
+                  f"--in_memory_fusion, {run}: {whole:.3f} s; launches "
+                  f"{launches[run]} (K5 under the fused modality, {steps} "
+                  f"steps); the four modalities' reconstruction errors "
+                  f"within {err:.3e} of phase 8's file-based run (bound "
+                  f"rtol 1e-5, atol 1e-8)", flush=True)
+    return launches
+
+
+def time_test_stage(what, args, root, wide_tables, walls):
+    """One test stage's walls by phase, with the native CSV plane and with
+    pandas, in turns (native, pandas, pandas, native)."""
+    from multi_modal_normative_modeling_tpu_torch.cli import test_supervised
+
+    for mode in ("native", "pandas", "pandas", "native"):
+        timings = {}
+        t0 = time.perf_counter()
+        if mode == "pandas":
+            with PandasOnly():
+                test_supervised.main(args, project_root=root,
+                                     timings=timings)
+        else:
+            test_supervised.main(args, project_root=root, timings=timings)
+            check_wide_tables_native(wide_tables, "phase 13c")
+        whole = time.perf_counter() - t0
+        walls.setdefault(what, []).append(
+            {"mode": mode, "whole": whole, **timings["walls"]})
+        print(f"phase 13c: {what} test stage, {mode} CSV plane: "
+              f"{whole:.3f} s; " + ", ".join(
+                  f"{k} {v:.3f} s" for k, v in timings["walls"].items()),
+              flush=True)
+
+
+def run_test_stage_phases(chain_root):
+    """Phase 13c: phase 8's test stage and one ADHD sweep point's (SE-gPoE,
+    -H 110 110 10, -K 10, 3 epochs) by phase, native against pandas.
+    Returns {stage: [walls]}."""
+    from multi_modal_normative_modeling_tpu_torch.cli import (
+        common,
+        test_supervised,
+        train_supervised,
+    )
+    from multi_modal_normative_modeling_tpu_torch.data.synthetic import (
+        make_synthetic_resource,
+    )
+
+    walls = {}
+    parser = test_supervised.build_parser()
+    fused = chain_root / "data" / "ADNI" / "early_fusion_modalities_ADNI.csv"
+    time_test_stage(
+        "phase 8 (UCA-gPoE, 5 folds)",
+        common.apply_post_parse_defaults(parser.parse_args(
+            ["-R", "ADNI", "-P", "UCA-gPoE", "-K", str(FOLDS)])),
+        chain_root, [fused], walls)
+    point = ["-R", "ADHD", "-P", "SE-gPoE", "-K", str(ADHD_FOLDS), "-H",
+             "110", "110", "10"]
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "adhd"
+        make_synthetic_resource(root, "ADHD", **ADHD_COHORT)
+        train_supervised.run(point + ["-E", "3"], project_root=root)
+        time_test_stage(
+            "an ADHD sweep point (SE-gPoE, 10 folds)",
+            common.apply_post_parse_defaults(parser.parse_args(point)),
+            root, [], walls)
+    return walls
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2696,7 +2976,6 @@ def main():
 
     # ---- phase 11: the scoring surfaces on phase 8's ensemble --------------
     serve_launches = run_serving(chain_root, stats)
-    chain_dir.cleanup()
 
     # ---- phase 12: resume, and the two grid CLIs ---------------------------
     t12 = time.perf_counter()
@@ -2708,6 +2987,18 @@ def main():
         stats, stats["variant_ms_per_step"]["nmpmcont"])
     print(f"phase 12: 12a {t12a - t12:.1f} s, 12b {t12b - t12a:.1f} s, "
           f"12c {time.perf_counter() - t12b:.1f} s", flush=True)
+
+    # ---- phase 13: bootstrap, in-memory fusion, the test stage by phase ----
+    t13 = time.perf_counter()
+    native_data_plane()
+    boot_launches, boot_walls = run_bootstrap(stats)
+    t13a = time.perf_counter()
+    fusion_launches = run_fusion(chain_root)
+    t13b = time.perf_counter()
+    stage_walls = run_test_stage_phases(chain_root)
+    chain_dir.cleanup()
+    print(f"phase 13: 13a {t13a - t13:.1f} s, 13b {t13b - t13a:.1f} s, "
+          f"13c {time.perf_counter() - t13b:.1f} s", flush=True)
     missing = [name for name in sources if not launches.get(name)]
     if missing:
         raise RuntimeError(f"no launch on the main path: {missing}")
@@ -2772,6 +3063,19 @@ def main():
         for extra in ("resume", "adhd", "grid", "grid_ms_per_step"):
             if extra in stats[name]:
                 report[-1][extra] = stats[name][extra]
+        # phase 13: the bootstrap test stages' launches (all 10 replicates
+        # in one call) and K1/K2 at that call's shapes; the in-memory
+        # fusion chains' launches (K5 under the fused modality)
+        report[-1]["bootstrap_launches"] = {
+            variant: counts.get(name, 0)
+            for variant, counts in boot_launches.items()}
+        report[-1]["in_memory_fusion_launches"] = {
+            run: counts.get(name, 0)
+            for run, counts in fusion_launches.items()}
+        if "bootstrap" in stats[name]:
+            report[-1]["bootstrap"] = stats[name]["bootstrap"]
+    print(json.dumps({"test_stage_walls": stage_walls,
+                      "bootstrap_walls": boot_walls}))
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

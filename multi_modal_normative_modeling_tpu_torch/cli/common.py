@@ -1,12 +1,13 @@
 """Flags and per-fold data prep for the port's CLIs: the jax-free subset of
 the JAX package's cli/common.py (add_common_flags,
 apply_post_parse_defaults, prepare_modality, prepare_fold_modalities,
-prepare_folds, fold_paths,
+prepare_folds, fuse_preps, fold_paths,
 assert_modalities_aligned, require_test_cov, infer_row_tile,
 uniform_covariates, model_config_dict, build_model_from_config,
 load_model_and_params, emit_fold_artifacts, add_resume_flags,
-require_checkpoint_for_resume), without
-its process-wide memo caches, plus the k-fold id files without sklearn.
+require_checkpoint_for_resume) and its native read path (``read_csv``
+through native/fastcsv, ``fast_path_reasons``), without its process-wide
+memo caches, plus the k-fold id files without sklearn.
 
 The registry and the data layer (loading, scaling, covariate binning) are
 the port's own copies (``registry``, ``data/``) of the JAX package's
@@ -18,6 +19,7 @@ import argparse
 import contextlib
 import csv
 import importlib.util
+import logging
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -324,20 +326,95 @@ def generate_kfold_ids_endtoend(hc_group, other_group,
                     oversample_percentage, n_splits, random_state)
 
 
-# The JAX package parses modality tables of at least this many columns with
-# its native loader, which rounds every value correctly; pandas' default
-# parser may differ by 1 ulp, its round-trip parser does not.
-_WIDE_TABLE_COLS = 256
+# Wide numeric tables (PPMI is 3485 columns) parse ~6x faster through the
+# native loader; below this width pandas' fixed overhead doesn't matter.
+_FASTCSV_MIN_COLS = 256
+
+_log = logging.getLogger("mmnm.data")
+# why the native fast path disengaged, per path -> (mtime_ns, reason): a
+# user-visible signal + skips re-attempting the native parse for files known
+# to need pandas. Keyed by mtime, so a rewritten (fixed) file gets the fast
+# path back.
+fast_path_reasons: dict = {}
+
+
+def _mtime(path) -> int:
+    try:
+        return Path(path).stat().st_mtime_ns
+    except OSError:
+        return -1
+
+
+def _fast_path_off(path, reason: str, level=None) -> None:
+    key = str(path)
+    entry = (_mtime(path), reason)
+    if fast_path_reasons.get(key) != entry:
+        fast_path_reasons[key] = entry
+        (level or _log.info)("fastcsv fast path disabled for %s: %s",
+                             key, reason)
+
+
+def _read_modality_fast(path) -> "pd.DataFrame | None":
+    """Parse an IID + all-numeric-columns table with the native fastcsv
+    loader (or return None to fall back to pandas, logging why on
+    'mmnm.data'). Values are correctly rounded (std::from_chars); pandas'
+    default parser may differ by 1 ulp. Quoted fields are fully supported
+    (RFC4180 incl. embedded newlines; quote-parity row index)."""
+    memo = fast_path_reasons.get(str(path))
+    if memo is not None:
+        if memo[0] == _mtime(path):
+            return None  # known to need pandas; don't re-parse natively
+        del fast_path_reasons[str(path)]  # file changed: retry natively
+    try:
+        from ..native.fastcsv import FastCSV, fastcsv_available
+    except Exception:
+        _fast_path_off(path, "native loader import failed")
+        return None
+    if not fastcsv_available():
+        _fast_path_off(path, "no C++ toolchain: native library unavailable")
+        return None
+
+    with open(path, newline="") as f:
+        header = next(csv.reader(f))
+    if "IID" not in header:
+        return None  # not a modality table; silently use pandas
+    if len(header) < _FASTCSV_MIN_COLS:
+        _fast_path_off(
+            path, f"narrow table ({len(header)} cols < {_FASTCSV_MIN_COLS}): "
+            "pandas fixed overhead is negligible here", _log.debug)
+        return None
+    value_cols = [c for c in header if c != "IID"]
+    try:
+        reader = FastCSV(path)
+        try:
+            ids = reader.read_string_column("IID")
+            values = reader.read_columns(value_cols)
+        finally:
+            reader.close()
+    except Exception as exc:
+        # e.g. unreadable/degenerate file: never let the fast path be a
+        # correctness hazard — pandas decides what the file really is
+        _fast_path_off(path, f"native parse failed ({exc!r}): "
+                             "deferring to pandas")
+        return None
+    if np.isnan(values).any():
+        # non-numeric or missing cells: pandas' dtype inference is needed.
+        # Memoized, so the file is natively parsed at most once.
+        _fast_path_off(path, "non-numeric or missing cells detected: "
+                             "deferring to pandas dtype inference")
+        return None
+    frame = pd.DataFrame(values, columns=value_cols)
+    frame.insert(header.index("IID"), "IID", ids)
+    return frame
 
 
 def read_csv(path) -> pd.DataFrame:
-    """pd.read_csv, parsing wide modality tables exactly as the JAX package
-    does, so both packages scale identical values."""
-    with open(path, newline="") as f:
-        header = next(csv.reader(f))
-    if "IID" in header and len(header) >= _WIDE_TABLE_COLS:
-        return pd.read_csv(path, float_precision="round_trip")
-    return pd.read_csv(path)
+    """A demographic or modality table, as the JAX package's
+    read_csv_cached parses it: wide modality tables through the native C++
+    loader (native/fastcsv.cpp), everything else, and any table the loader
+    refuses (see ``fast_path_reasons``), through pd.read_csv."""
+    frame = _read_modality_fast(path)
+    return pd.read_csv(path) if frame is None else frame
 
 
 def load_dataset(demographic_path, ids_path, modality_path,
@@ -449,23 +526,80 @@ def infer_row_tile() -> int:
     return 64
 
 
+def fuse_preps(base_preps: List[dict], base_names: List[str],
+               resource: str) -> dict:
+    """Build the UCA early-fusion modality by concatenating the base
+    modalities' already-scaled matrices in memory, instead of reading the
+    early_fusion_modalities_<resource>.csv (cli/common.py:445-475 of the
+    JAX package).
+
+    Numerically identical to the file-based path: RobustScaler is
+    per-column, so scaling the concatenated raw table fit on the same train
+    rows equals concatenating the per-modality scaled blocks; row order
+    follows the base modality CSVs exactly like the offline table writer
+    (cli/early_fusion.py asserts shared IID order).
+    """
+    columns = []
+    for prep, name in zip(base_preps, base_names):
+        columns += [f"{c}_{name}" for c in prep['columns']]
+    fused = {
+        'columns': columns,
+        'train_df': base_preps[0]['train_df'],
+        'train_data': np.concatenate(
+            [p['train_data'] for p in base_preps], axis=1),
+        'train_cov': base_preps[-1]['train_cov'],
+    }
+    if 'test_data' in base_preps[0]:
+        fused['test_df'] = base_preps[0]['test_df']
+        fused['test_data'] = np.concatenate(
+            [p['test_data'] for p in base_preps], axis=1)
+        fused['test_cov'] = base_preps[-1]['test_cov']
+        if 'test_cov_error' in base_preps[-1]:
+            # preserve the qcut failure reason for require_test_cov
+            fused['test_cov_error'] = base_preps[-1]['test_cov_error']
+    return fused
+
+
+def in_memory_fusion(args) -> bool:
+    """Whether ``args`` builds the UCA early-fusion modality in memory
+    (--in_memory_fusion on a UCA procedure; other procedures have no fused
+    modality and ignore the flag, as in the JAX package)."""
+    return bool(getattr(args, 'in_memory_fusion', False)
+                and args.procedure.startswith('UCA'))
+
+
 def prepare_fold_modalities(project_root: Path, resource: str,
                             dataset_names: Sequence[str], participants_path,
-                            id_paths) -> List[List[dict]]:
+                            id_paths, fuse: bool = False,
+                            walls: Optional[StageWalls] = None
+                            ) -> List[List[dict]]:
     """prepare_modality of every (fold, modality), threaded over both, each
     table parsed once and shared by the folds (read-only). ``id_paths``
-    holds one (train ids path, test ids path or None) pair per fold.
-    Returns one list of preps per fold, in modality order."""
-    jobs = [(paths, name) for paths in id_paths for name in dataset_names]
+    holds one (train ids path, test ids path or None) pair per fold. With
+    ``fuse`` the last name (the early-fusion table) is not read: its prep
+    is ``fuse_preps`` of the others'. ``walls``, when given, times the
+    tables' parse ('csv parse') and the merge, scaling and binning
+    ('prep'). Returns one list of preps per fold, in modality order."""
+    walls = walls or StageWalls()
+    load_names = list(dataset_names[:-1] if fuse else dataset_names)
+    jobs = [(paths, name) for paths in id_paths for name in load_names]
     with ThreadPoolExecutor(max_workers=8) as pool:
-        read = shared_tables(pool, project_root, resource, dataset_names,
-                             participants_path)
-        preps = list(pool.map(
-            lambda job: prepare_modality(project_root, resource, job[1],
-                                         participants_path, *job[0],
-                                         read=read), jobs))
-    n_mod = len(dataset_names)
-    return [preps[i * n_mod:(i + 1) * n_mod] for i in range(len(id_paths))]
+        with walls('csv parse'):
+            read = shared_tables(pool, project_root, resource, load_names,
+                                 participants_path)
+        with walls('prep'):
+            preps = list(pool.map(
+                lambda job: prepare_modality(project_root, resource, job[1],
+                                             participants_path, *job[0],
+                                             read=read), jobs))
+            n_mod = len(load_names)
+            per_fold = [preps[i * n_mod:(i + 1) * n_mod]
+                        for i in range(len(id_paths))]
+            if fuse:
+                for fold_preps in per_fold:
+                    fold_preps.append(fuse_preps(fold_preps, load_names,
+                                                 resource))
+    return per_fold
 
 
 def prepare_folds(args, project_root: Path, kfold_dir: Path, model_dir: Path,
@@ -473,13 +607,15 @@ def prepare_folds(args, project_root: Path, kfold_dir: Path, model_dir: Path,
     """Per-fold train-split prep for the trainer (host side, threaded over
     fold x modality). Creates the per-fold model dirs and returns
     ``(folds, input_dim_list, c_dim)`` where ``folds`` is a list of
-    ``(data_list, cov_list)`` per fold."""
+    ``(data_list, cov_list)`` per fold. With ``in_memory_fusion(args)`` the
+    early-fusion modality is built from the scaled base blocks
+    (``fuse_preps``) instead of read from its CSV."""
     for fold in range(args.n_splits):
         (model_dir / f'{fold:03d}').mkdir(exist_ok=True, parents=True)
     fold_preps = prepare_fold_modalities(
         project_root, args.dataset_resourse, dataset_names, participants_path,
         [(fold_paths(kfold_dir, fold)[0], None)
-         for fold in range(args.n_splits)])
+         for fold in range(args.n_splits)], fuse=in_memory_fusion(args))
     folds = [([p['train_data'] for p in preps],
               [p['train_cov'] for p in preps]) for preps in fold_preps]
     input_dim_list = [p['train_data'].shape[1] for p in fold_preps[0]]
@@ -555,12 +691,13 @@ def load_model_and_params(fold_dirs: Sequence[Path], device=None):
 
 def emit_fold_artifacts(model_dir: Path, per_fold_logs, per_fold_params,
                         model_config: dict, n_folds: int,
-                        plot: bool = True) -> None:
+                        plot: bool = True, fold_ids=None) -> None:
     """Per-fold loss plot and checkpoint into ``model_dir/NNN``, threaded
     over folds (the checkpoint writer is atomic; plot_losses uses no pyplot
     state). Without matplotlib, or with ``plot`` off (a sweep's milestones
     before its last), the plots are skipped; the checkpoints are always
-    written."""
+    written. ``fold_ids`` names the dirs when they are not 0..n_folds-1
+    (a bootstrap replicate set may be non-contiguous)."""
     from ..train.checkpoints import save_checkpoint
     from ..utils.logging import Logger, plot_losses
 
@@ -569,8 +706,11 @@ def emit_fold_artifacts(model_dir: Path, per_fold_logs, per_fold_params,
         print('matplotlib is not installed: skipping the loss plots '
               '(Losses*.png); checkpoints and the run log are written')
 
+    if fold_ids is None:
+        fold_ids = range(n_folds)
+
     def emit(i):
-        fold_dir = model_dir / f'{i:03d}'
+        fold_dir = model_dir / f'{fold_ids[i]:03d}'
         fold_dir.mkdir(parents=True, exist_ok=True)
         if plot:
             logger = Logger()

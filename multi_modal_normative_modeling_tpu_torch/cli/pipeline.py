@@ -12,7 +12,7 @@ three-launch chain (same mains, same args). Usage:
     python -m multi_modal_normative_modeling_tpu_torch.cli.pipeline \\
         -R ADNI -P UCA-gPoE -E 200 -K 5 [--fused_train_step] [--device cpu]
         [-Model mmJSD|mvtCAE|DMVAE|WeightedDMVAE|mmVAEPlus] [--emit_latent]
-        [--checkpoint_every N [--resume]]
+        [--checkpoint_every N [--resume]] [--in_memory_fusion]
 
 Select stages with --stages (comma-separated subset of train,test,analyze).
 """

@@ -53,7 +53,6 @@ _NOT_PORTED_FLAGS = {
     'mesh': "queue 1 item 'Multi-device'",
     'ep_mesh': "queue 1 item 'Multi-device'",
     'packed_xla': "queue 1 items 'Packed layout' and 'Grouped layout'",
-    'in_memory_fusion': "queue 1 item 'Main-path CLI chain'",
 }
 
 
@@ -105,7 +104,7 @@ def _point_args(args, procedure: str, hz, epochs: int, base_lr: float,
         training_class=args.training_class,
         lr_schedule=args.lr_schedule,
         precision='fp32',
-        in_memory_fusion=False,
+        in_memory_fusion=getattr(args, 'in_memory_fusion', False),
         emit_latent=False,
         fused_inference=False,
         threshold_method='roc',
@@ -330,9 +329,14 @@ def build_parser() -> argparse.ArgumentParser:
     not_ported = 'not ported yet (raises); see ROADMAP.md'
     for flag, kwargs in (('--mesh', {'default': None}),
                          ('--ep_mesh', {'default': None}),
-                         ('--packed_xla', {'action': 'store_true'}),
-                         ('--in_memory_fusion', {'action': 'store_true'})):
+                         ('--packed_xla', {'action': 'store_true'})):
         parser.add_argument(flag, dest=flag[2:], help=not_ported, **kwargs)
+    parser.add_argument('--in_memory_fusion', dest='in_memory_fusion',
+                        action='store_true',
+                        help='build the UCA early-fusion modality by '
+                             'concatenating the scaled base blocks in memory '
+                             '(numerically identical; skips reading the '
+                             'early_fusion CSV).')
     return parser
 
 

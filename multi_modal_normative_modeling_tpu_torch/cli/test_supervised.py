@@ -17,9 +17,11 @@ has no kernel in the JAX package and none here: it goes through
 float64 on the host from the float64 scaled data and the float32
 predictions, so the CSVs match the JAX ones. ``--emit_latent`` also writes
 ``latent_deviation.csv`` per fold for the models that have ``latent_stats``.
+``--in_memory_fusion`` builds a UCA procedure's early-fusion modality from
+the scaled base modalities instead of reading its CSV.
 
     python -m multi_modal_normative_modeling_tpu_torch.cli.test_supervised \
-        -R ADNI -P UCA-gPoE -K 5 [--emit_latent]
+        -R ADNI -P UCA-gPoE -K 5 [--emit_latent] [--in_memory_fusion]
 """
 from __future__ import annotations
 
@@ -42,7 +44,6 @@ from .common import resolve_device
 _NOT_PORTED_FLAGS = {
     'mesh': "queue 1 item 'Multi-device'",
     'ep_mesh': "queue 1 item 'Multi-device'",
-    'in_memory_fusion': "queue 1 item 'Main-path CLI chain'",
 }
 
 EpsFn = Callable[[int, int, int], np.ndarray]
@@ -57,10 +58,19 @@ def default_eps(fold: int, padded_rows: int, z_dim: int) -> np.ndarray:
     return common.seeded_eps(1000 + fold, padded_rows, z_dim)
 
 
-def main(args, project_root=None, eps_fn: Optional[EpsFn] = None):
+def main(args, project_root=None, eps_fn: Optional[EpsFn] = None,
+         timings: Optional[dict] = None):
+    """``eps_fn(fold, padded rows, latent)`` gives the scoring noise
+    (default ``default_eps``); ``timings``, when given, receives the walls
+    of the stage's phases: 'csv parse', 'prep' (merge, scaling, covariate
+    bins), 'restore', 'scoring call' (the device's part, with the copies
+    to and from it) and 'csv emit' (the host deviation and the CSVs)."""
     common.refuse_not_ported(args, 'test stage', _NOT_PORTED_FLAGS)
     device = resolve_device(getattr(args, 'device', 'cuda'), 'score')
     eps_fn = eps_fn or default_eps
+    walls = common.StageWalls(
+        None if timings is None else timings.setdefault('walls', {}),
+        accumulate=True)
 
     project_root = Path(project_root) if project_root else Path.cwd()
     model_name = 'supervised_cvae'
@@ -79,9 +89,12 @@ def main(args, project_root=None, eps_fn: Optional[EpsFn] = None):
 
     for fold in range(args.n_splits):
         (model_dir / f'{fold:03d}').mkdir(exist_ok=True, parents=True)
+    # with --in_memory_fusion the early-fusion modality's splits are
+    # fuse_preps of the base modalities'; its CSVs keep its dataset name
     fold_preps = common.prepare_fold_modalities(
         project_root, args.dataset_resourse, dataset_names, participants_path,
-        [common.fold_paths(kfold_dir, fold) for fold in range(args.n_splits)])
+        [common.fold_paths(kfold_dir, fold) for fold in range(args.n_splits)],
+        fuse=common.in_memory_fusion(args), walls=walls)
 
     # ---- phase 1: per-fold splits + restored params (host side) ----------
     n_mod = len(dataset_names)
@@ -109,71 +122,83 @@ def main(args, project_root=None, eps_fn: Optional[EpsFn] = None):
 
     # ---- phase 2: one scoring call over the stacked fold axis ------------
     if pending:
-        # every fold padded to one row bucket; rows are independent through
-        # the model, so pad rows change nothing
-        padded_rows = common.padded_rows(
-            max(j['test_data_list'][0].shape[0] for j in pending))
-
-        def stacked(arrays, rows=padded_rows):
-            return common.stack_padded(arrays, rows, device)
-
-        model, _, _ = common.load_model_and_params(
-            [j['dir'] for j in pending], device)
-        xes = [stacked([j['test_data_list'][m] for j in pending])
-               for m in range(n_mod)]
-        c = stacked([j['test_cov'] for j in pending])
-        eps = torch.from_numpy(np.stack([
-            np.asarray(eps_fn(j['fold'], padded_rows, model.noise_dim),
-                       np.float32).reshape(padded_rows, model.noise_dim)
-            for j in pending])).to(device)
-        if hasattr(model, 'pred_recon_fused'):
-            recons, _ = model.pred_recon_fused(xes, [c] * n_mod, args.combine,
-                                               eps=eps)
-        else:
-            with torch.no_grad():
-                recons = model.pred_recon(xes, [c] * n_mod, args.combine,
-                                          eps=eps)
-        host_preds = [r.cpu().numpy() for r in recons]
-        latent = None
-        if (getattr(args, 'emit_latent', False)
-                and hasattr(model, 'latent_stats')):
-            # rows are independent through the encoders and the fusion, so
-            # each fold's padding rows change nothing above them
-            train_rows = max(j['train_data_list'][0].shape[0]
-                             for j in pending)
-            train_xes = [stacked([j['train_data_list'][m] for j in pending],
-                                 train_rows) for m in range(n_mod)]
-            train_c = stacked([j['train_cov'] for j in pending], train_rows)
-            with torch.no_grad():
-                latent = [
-                    tuple(t.cpu().numpy() for t in model.latent_stats(
-                        inputs, [cov] * n_mod, args.combine))
-                    for inputs, cov in ((train_xes, train_c), (xes, c))]
+        with walls('restore'):
+            model, _, _ = common.load_model_and_params(
+                [j['dir'] for j in pending], device)
+        with walls('scoring call'):
+            host_preds, latent = _score(args, model, pending, eps_fn, device)
 
         # ---- phase 3: per-fold float64 deviation + CSV emission ----------
-        for i, job in enumerate(pending):
-            n_rows = job['test_data_list'][0].shape[0]
-            preds = [host_preds[m][i, :n_rows] for m in range(n_mod)]
-            # float64 deviation from the float64 scaled data and float32
-            # predictions (test:113, cVAE.py:1210)
-            deviations = [
-                np.sum((job['test_data_list'][m] - preds[m]) ** 2, axis=1)
-                / job['test_data_list'][m].shape[1]
-                for m in range(n_mod)
-            ]
-            for m, dataset_name in enumerate(dataset_names):
-                emitter.emit_fold(
-                    job['dir'], dataset_name, job['columns_list'][m],
-                    job['clinical_df'][['participant_id', 'DIA', 'AGE',
-                                        'PTGENDER']],
-                    job['test_data_list'][m], preds[m], deviations[m],
-                )
-            if latent is not None:
-                (mu_train, _), (mu_test, var_test) = latent
-                _emit_latent(job['dir'], job['clinical_df'],
-                             mu_train[i, :job['train_data_list'][0].shape[0]],
-                             mu_test[i, :n_rows], var_test[i, :n_rows])
-    emitter.emit_combined(deviation_dir)
+        with walls('csv emit'):
+            for i, job in enumerate(pending):
+                n_rows = job['test_data_list'][0].shape[0]
+                preds = [host_preds[m][i, :n_rows] for m in range(n_mod)]
+                # float64 deviation from the float64 scaled data and float32
+                # predictions (test:113, cVAE.py:1210)
+                deviations = [
+                    np.sum((job['test_data_list'][m] - preds[m]) ** 2,
+                           axis=1) / job['test_data_list'][m].shape[1]
+                    for m in range(n_mod)
+                ]
+                for m, dataset_name in enumerate(dataset_names):
+                    emitter.emit_fold(
+                        job['dir'], dataset_name, job['columns_list'][m],
+                        job['clinical_df'][['participant_id', 'DIA', 'AGE',
+                                            'PTGENDER']],
+                        job['test_data_list'][m], preds[m], deviations[m],
+                    )
+                if latent is not None:
+                    (mu_train, _), (mu_test, var_test) = latent
+                    _emit_latent(
+                        job['dir'], job['clinical_df'],
+                        mu_train[i, :job['train_data_list'][0].shape[0]],
+                        mu_test[i, :n_rows], var_test[i, :n_rows])
+    with walls('csv emit'):
+        emitter.emit_combined(deviation_dir)
+
+
+def _score(args, model, pending, eps_fn: EpsFn, device):
+    """One call over the stacked fold axis: (the recon means per modality,
+    [F, rows, D_m] numpy, and with --emit_latent the train and test
+    splits' latent statistics). Every fold is padded to one row bucket;
+    rows are independent through the model, so pad rows change nothing."""
+    n_mod = len(pending[0]['test_data_list'])
+    padded_rows = common.padded_rows(
+        max(j['test_data_list'][0].shape[0] for j in pending))
+
+    def stacked(arrays, rows=padded_rows):
+        return common.stack_padded(arrays, rows, device)
+
+    xes = [stacked([j['test_data_list'][m] for j in pending])
+           for m in range(n_mod)]
+    c = stacked([j['test_cov'] for j in pending])
+    eps = torch.from_numpy(np.stack([
+        np.asarray(eps_fn(j['fold'], padded_rows, model.noise_dim),
+                   np.float32).reshape(padded_rows, model.noise_dim)
+        for j in pending])).to(device)
+    if hasattr(model, 'pred_recon_fused'):
+        recons, _ = model.pred_recon_fused(xes, [c] * n_mod, args.combine,
+                                           eps=eps)
+    else:
+        with torch.no_grad():
+            recons = model.pred_recon(xes, [c] * n_mod, args.combine,
+                                      eps=eps)
+    host_preds = [r.cpu().numpy() for r in recons]
+    latent = None
+    if (getattr(args, 'emit_latent', False)
+            and hasattr(model, 'latent_stats')):
+        # rows are independent through the encoders and the fusion, so
+        # each fold's padding rows change nothing above them
+        train_rows = max(j['train_data_list'][0].shape[0] for j in pending)
+        train_xes = [stacked([j['train_data_list'][m] for j in pending],
+                             train_rows) for m in range(n_mod)]
+        train_c = stacked([j['train_cov'] for j in pending], train_rows)
+        with torch.no_grad():
+            latent = [
+                tuple(t.cpu().numpy() for t in model.latent_stats(
+                    inputs, [cov] * n_mod, args.combine))
+                for inputs, cov in ((train_xes, train_c), (xes, c))]
+    return host_preds, latent
 
 
 def _emit_latent(fold_model_dir, clinical_df, mu_train, mu_test, var_test):
@@ -216,7 +241,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--ep_mesh', dest='ep_mesh', default=None,
                         metavar='M,D', help=not_ported)
     parser.add_argument('--in_memory_fusion', dest='in_memory_fusion',
-                        action='store_true', help=not_ported)
+                        action='store_true',
+                        help='build the UCA early-fusion modality by '
+                             'concatenating the scaled base blocks in memory '
+                             '(numerically identical; skips reading the '
+                             'early_fusion CSV).')
     parser.add_argument('--emit_latent', dest='emit_latent',
                         action='store_true',
                         help='also write per-fold latent_deviation.csv '

@@ -19,11 +19,14 @@ and exit for the other five. ``--checkpoint_every N`` saves a whole-run
 train state every N epochs (``train_state.ckpt`` in the model dir; the
 fused train step's under ``fused-state/``) and ``--resume`` continues it:
 the resumed run's checkpoints equal the uninterrupted run's, byte for byte.
+``--in_memory_fusion`` builds a UCA procedure's early-fusion modality from
+the scaled base modalities (``common.fuse_preps``) instead of reading its
+CSV, on every path.
 
     python -m multi_modal_normative_modeling_tpu_torch.cli.train_supervised \\
         -R ADNI -P UCA-gPoE -E 200 -K 5 [--fused_decoder] [--device cpu]
         [--fused_train_step [--precision bf16]] [-Model mvtCAE]
-        [--checkpoint_every N [--resume]]
+        [--checkpoint_every N [--resume]] [--in_memory_fusion]
 """
 from __future__ import annotations
 
@@ -51,7 +54,6 @@ _NOT_PORTED_FLAGS = {
     **common.VARIANT_NOT_PORTED,
     'stream_shards': "queue 1 item 'Streaming'",
     'remat': "queue 1 item 'Trainer'",
-    'in_memory_fusion': "queue 1 item 'Main-path CLI chain'",
     'profile_dir': "queue 1 item 'Tooling'",
     'warmup_only': "'Do not port' (a TPU compile-cache warm-up)",
 }
@@ -312,6 +314,12 @@ def build_parser() -> argparse.ArgumentParser:
                         help='fp32; bf16 runs only through the fused train '
                              'step (K6, with --fused_train_step) and raises '
                              'without it')
+    parser.add_argument('--in_memory_fusion', dest='in_memory_fusion',
+                        action='store_true',
+                        help='build the UCA early-fusion modality by '
+                             'concatenating the scaled base blocks in memory '
+                             '(numerically identical; skips reading the '
+                             'early_fusion CSV).')
     common.add_resume_flags(parser)
     not_ported = 'not ported yet (raises); see ROADMAP.md'
     for flag, kwargs in (('--mesh', {'default': None}),
@@ -319,7 +327,6 @@ def build_parser() -> argparse.ArgumentParser:
                          ('--packed_xla', {'action': 'store_true'}),
                          ('--stream_shards', {'type': int, 'default': 0}),
                          ('--remat', {'action': 'store_true'}),
-                         ('--in_memory_fusion', {'action': 'store_true'}),
                          ('--profile_dir', {'default': None}),
                          ('--warmup_only', {'action': 'store_true'})):
         parser.add_argument(flag, dest=flag[2:], help=not_ported, **kwargs)

@@ -23,7 +23,15 @@ from .deviation import reconstruction_deviation_roi
 
 
 def write_csv(path, frame: pd.DataFrame) -> None:
-    """frame.to_csv(path, index=False)."""
+    """frame.to_csv(path, index=False), through the native multithreaded
+    writer when possible (byte-identical output; native/fastwrite.cpp)."""
+    try:
+        from ..native.fastwrite import write_frame
+
+        if write_frame(path, frame):
+            return
+    except Exception:
+        pass
     frame.to_csv(path, index=False)
 
 

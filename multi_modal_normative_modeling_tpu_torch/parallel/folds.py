@@ -125,14 +125,16 @@ class MultiFoldTrainer:
         self.resumed_from = 0   # the epoch run_resumable took the run up at
 
     def session(self, stacked_batches, eps=None, keeps=None,
-                perms=None) -> TrainSession:
+                perms=None, seeds=None) -> TrainSession:
         """A new run of ``self.model`` (trained in place) over
         ``stack_fold_batches`` output (or those batches already uploaded as
         ``DeviceBatches``). By default each fold draws its own noise, keep
-        masks (a model with ``keep_widths``) and permutations. Tests replay
-        given draws instead: ``eps`` [epochs * NB, F, B, Z] (Z is the
-        model's ``noise_dim``), ``keeps`` one [epochs * NB, F, B, width]
-        per keep width, ``perms`` [epochs, F, NB * B] when shuffling.
+        masks (a model with ``keep_widths``) and permutations from a
+        generator seeded ``config.seed``, or ``seeds[f]`` for fold f when
+        ``seeds`` is given (``FoldNoise``). Tests replay given draws
+        instead: ``eps`` [epochs * NB, F, B, Z] (Z is the model's
+        ``noise_dim``), ``keeps`` one [epochs * NB, F, B, width] per keep
+        width, ``perms`` [epochs, F, NB * B] when shuffling.
         The batches and the replayed noise take the parameters' dtype."""
         params = list(self.model.parameters())
         device, dtype = params[0].device, params[0].dtype
@@ -146,7 +148,7 @@ class MultiFoldTrainer:
             noise = FoldNoise(
                 batches.folds, (batches.rows, self.model.noise_dim),
                 self.config.seed, device, keep_widths,
-                1.0 - getattr(self.model, "dropout_rate", 0.0))
+                1.0 - getattr(self.model, "dropout_rate", 0.0), seeds)
         adam = MaskedAdam(params, self.lr_fn)
         log_keys = self.model.log_keys
 
@@ -189,10 +191,15 @@ class MultiFoldTrainer:
         """``run`` in chunks of ``checkpoint_every`` epochs, one whole-run
         train state under ``state_dir`` saved after each
         (parallel/folds.py:271-310); with ``resume`` a stored state is
-        continued. Returns the whole run's logs; ``resumed_from`` is the
-        epoch this call took the run up at."""
+        continued. Per-fold ``seeds`` join the run's fingerprint, so a
+        resume over another replicate set is refused. Returns the whole
+        run's logs; ``resumed_from`` is the epoch this call took the run up
+        at."""
         session = self.session(stacked_batches, **draws)
+        meta = dict(self.loss_meta)
+        if draws.get("seeds") is not None:
+            meta["fold_seeds"] = ",".join(str(int(s)) for s in draws["seeds"])
         run_chunked(state_dir, self.config.epochs, checkpoint_every, resume,
-                    session, self.loss_meta)
+                    session, meta)
         self.resumed_from = session.start_epoch
         return session.logs()

@@ -227,22 +227,29 @@ class MaskedAdam:
 
 class FoldNoise:
     """The random draws of each step, one torch generator per fold on the
-    device, all seeded alike (the reference re-seeds 42 per fold, so every
-    fold draws the same stream): the reparameterization noise, the dropout
-    keep masks of a model with dropout, and each epoch's permutation when
-    the trainer shuffles. A fold draws noise and keep masks only on a step
-    where its batch is valid, so padding batches leave its stream where it
-    was. Tests replay the JAX package's draws instead (``ReplayNoise``)."""
+    device, all seeded ``seed`` by default (the reference re-seeds 42 per
+    fold, so every fold draws the same stream), or fold f seeded
+    ``seeds[f]`` (bootstrap replicate b draws from 1000 + b): the
+    reparameterization noise, the dropout keep masks of a model with
+    dropout, and each epoch's permutation when the trainer shuffles. A fold
+    draws noise and keep masks only on a step where its batch is valid, so
+    padding batches leave its stream where it was. Tests replay the JAX
+    package's draws instead (``ReplayNoise``)."""
 
     def __init__(self, folds: int, shape: Tuple[int, int], seed: int,
                  device, keep_widths: Sequence[int] = (),
-                 keep_prob: float = 1.0):
+                 keep_prob: float = 1.0,
+                 seeds: Optional[Sequence[int]] = None):
         self.shape = shape
         self.device = device
         self.keep_widths = tuple(keep_widths)
         self.keep_prob = keep_prob
-        self.gens = [torch.Generator(device=device).manual_seed(seed)
-                     for _ in range(folds)]
+        if seeds is None:
+            seeds = [seed] * folds
+        elif len(seeds) != folds:
+            raise ValueError(f"{len(seeds)} seeds for {folds} folds")
+        self.gens = [torch.Generator(device=device).manual_seed(int(s))
+                     for s in seeds]
 
     def draw(self, valid: np.ndarray) -> torch.Tensor:
         """Noise [F, B, Z] for a step whose per-fold validity is ``valid``

@@ -855,3 +855,40 @@ def test_fused_trainer_matches_plain_trainer(cuda):
     want = packed_from_model(plain, trainer.stacked)
     for a, b in zip(_packed_leaves(trained), _packed_leaves(want)):
         torch.testing.assert_close(a, b, rtol=5e-3, atol=5e-5)
+
+
+@pytest.mark.parametrize("unconditioned", [False, True],
+                         ids=["cvae", "vae"])
+def test_bootstrap_test_stage_on_the_card_matches_the_cpu(cuda, tmp_path,
+                                                          unconditioned):
+    """cli/bootstrap.py's test stage through K1 and K2, one launch each over
+    every replicate (C 29, and C 1 with --unconditioned), against --device
+    cpu on the same checkpoints and noise."""
+    import pandas as pd
+
+    from multi_modal_normative_modeling_tpu_torch.cli import bootstrap
+    from multi_modal_normative_modeling_tpu_torch.data.synthetic import (
+        make_synthetic_resource,
+    )
+
+    make_synthetic_resource(tmp_path, "ADNI", n_hc=50, n_disease={0: 20})
+    flags = ["-R", "ADNI", "-B", "3", "-E", "2", "-H", "16", "16", "4"] + (
+        ["--unconditioned"] if unconditioned else [])
+    bootstrap.main(["create_ids"] + flags, project_root=tmp_path)
+    bootstrap.main(["train"] + flags + ["--device", "cpu"],
+                   project_root=tmp_path)
+    devs = {}
+    for device in ("cpu", "cuda"):
+        kernels.reset_launch_counts()
+        bootstrap.main(["test"] + flags + ["--device", device],
+                       project_root=tmp_path)
+        launches = (kernels.fused_encoder.launches,
+                    kernels.fused_pred_deviation.launches)
+        assert launches == ((1, 1) if device == "cuda" else (0, 0))
+        model_dir = tmp_path / "outputs" / "bootstrap_analysis" / (
+            "supervised_vae" if unconditioned else "supervised_cvae")
+        devs[device] = [pd.read_csv(
+            model_dir / f"{b:03d}" / "deviation_3modalities.csv")[
+                "Reconstruction deviation"].to_numpy() for b in range(3)]
+    for card, cpu in zip(devs["cuda"], devs["cpu"]):
+        np.testing.assert_allclose(card, cpu, rtol=2e-4, atol=2e-5)

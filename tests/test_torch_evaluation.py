@@ -401,12 +401,31 @@ def test_pipeline_stages_and_flags(chain, tmp_path):
 @pytest.mark.parametrize("flag", ["--ep_mesh=4,2", "--warmup_only",
                                   "--in_memory_fusion", "--resume",
                                   "--profile_dir=x", "--mesh=2,4"])
-def test_pipeline_refuses_unported_flags_before_any_stage(flag, tmp_path):
+def test_pipeline_refuses_unported_flags_before_any_stage(flag, tmp_path,
+                                                         chain):
     """Whatever stage would refuse the flag, the pipeline refuses it first,
     citing the ROADMAP item by name, and writes nothing. (--emit_latent,
     once in this list, is ported: tests/test_torch_latent.py; --resume is
     ported too, and refused without --checkpoint_every with the JAX
-    package's message: tests/test_torch_resume.py.)"""
+    package's message: tests/test_torch_resume.py; --in_memory_fusion is
+    ported, and runs the chain: tests/test_torch_fusion.py.)"""
+    if flag == "--in_memory_fusion":
+        # ported: the chain runs on the early-fusion modality built in
+        # memory, its CSV deleted, as the piped chain did from the CSV
+        shutil.copytree(chain["apart"] / "data", tmp_path / "data")
+        (tmp_path / "data" / "ADNI"
+         / "early_fusion_modalities_ADNI.csv").unlink()
+        stats = pipeline.run(FLAGS + ["-E", "2", "--device", "cpu", flag],
+                             project_root=tmp_path)
+        assert np.isfinite(stats["auc"]).all()
+        rel = ("deviation/supervised_cvae/ADNI/UCA-gPoE/path_model/"
+               "early_fusion_modalities_ADNI/"
+               "reconstruction_error_early_fusion_modalities_ADNI.csv")
+        np.testing.assert_allclose(
+            pd.read_csv(tmp_path / rel)["Reconstruction error"],
+            pd.read_csv(chain["piped"] / rel)["Reconstruction error"],
+            rtol=1e-5, atol=1e-8)
+        return
     match = r"ROADMAP\.md, .*'[A-Za-z]"
     if flag == "--resume":
         match = "--resume requires --checkpoint_every N"

@@ -8,7 +8,9 @@ variants' CLIs (``cli/nmpmcont.py``, ``cli/nmmlp.py``,
 ``cli/regression.py``) and the scoring surfaces (``infer/ensemble.py``,
 ``cli/score.py``, ``cli/serve.py``) and the grid engines and train state
 (``cli/sweep_supervised.py``, ``cli/sweep_endtoend.py``,
-``parallel/sweep.py``, ``train/checkpoints.py``) import no scikit-learn either, which that machine
+``parallel/sweep.py``, ``train/checkpoints.py``), the bootstrap CLI and
+the native data plane (``cli/bootstrap.py``, ``native/``, which imports
+only the standard library, numpy and pandas) import no scikit-learn either, which that machine
 does not have, and those three CLIs no matplotlib; the last cases run the
 whole chain, the three CLIs, and the scoring surfaces, in a process where importing any of them
 fails."""
@@ -34,7 +36,14 @@ NO_SKLEARN = sorted((PORT / "evaluation").glob("*.py")) + [
     PORT / "infer" / "ensemble.py", PORT / "cli" / "score.py",
     PORT / "cli" / "serve.py", PORT / "cli" / "sweep_supervised.py",
     PORT / "cli" / "sweep_endtoend.py", PORT / "parallel" / "sweep.py",
-    PORT / "train" / "checkpoints.py"]
+    PORT / "train" / "checkpoints.py", PORT / "cli" / "bootstrap.py",
+    PORT / "cli" / "common.py", PORT / "infer" / "emitters.py"] + sorted(
+    (PORT / "native").glob("*.py"))
+# the native data plane: the standard library, numpy, pandas and itself
+NATIVE = sorted((PORT / "native").glob("*.py"))
+NATIVE_IMPORTS = ("__future__", "ctypes", "hashlib", "os", "subprocess",
+                  "threading", "pathlib", "typing", "numpy", "pandas",
+                  f"{PORT.name}.native")
 
 
 def _absolute(path: Path, node: ast.ImportFrom, root: Path) -> str:
@@ -88,6 +97,17 @@ def test_the_variant_clis_import_no_matplotlib(path):
     bad = [(m, line) for m, line in imported_modules(path)
            if _forbidden(m, ("matplotlib",))]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("path", NATIVE,
+                         ids=[str(p.relative_to(ROOT)) for p in NATIVE])
+def test_native_imports_only_its_own_copy(path):
+    """native/ is the port's own copy: it imports the standard library,
+    numpy, pandas and itself, nothing of the JAX package."""
+    bad = [(m, line) for m, line in imported_modules(path)
+           if not _forbidden(m, NATIVE_IMPORTS)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+    assert (PORT / "native" / "fastcsv.cpp").exists()
 
 
 def test_the_walk_sees_an_import_inside_a_function(tmp_path):
@@ -289,6 +309,7 @@ from multi_modal_normative_modeling_tpu_torch.data.synthetic import (
     make_synthetic_resource,
 )
 from multi_modal_normative_modeling_tpu_torch.cli import (
+    bootstrap,
     sweep_endtoend,
     sweep_supervised,
     train_supervised,
@@ -313,6 +334,9 @@ train_supervised.run(flags + ['-E', '1', '--checkpoint_every', '1'],
                      project_root=Path('adni'))
 train_supervised.run(flags + ['-E', '2', '--checkpoint_every', '1',
                               '--resume'], project_root=Path('adni'))
+results = bootstrap.main(['all', '-B', '2', '-E', '1', '-H', '8', '8', '4',
+                          '--device', 'cpu'], project_root=Path('adni'))
+assert list(results) == ['2vs0', '2vs1'], results
 bad = [m for m in sys.modules if m.split('.')[0] in
        ('jax', 'flax', 'optax', 'sklearn',
         'multi_modal_normative_modeling_tpu')]
@@ -322,7 +346,8 @@ print('SWEEPS_OK')
 
 
 def test_sweeps_and_resume_run_without_jax_sklearn_or_matplotlib(tmp_path):
-    """Both grid CLIs and a killed-and-resumed training run on tiny
+    """Both grid CLIs, a killed-and-resumed training run and the bootstrap
+    chain (its early-fusion modality built in memory) on tiny
     synthetic cohorts on the CPU, in a process that refuses jax, flax,
     optax, sklearn and the JAX package and has no matplotlib."""
     out = subprocess.run(
@@ -336,4 +361,5 @@ def test_sweeps_and_resume_run_without_jax_sklearn_or_matplotlib(tmp_path):
         "Namespace(") == 4
     state = tmp_path / "adni" / "outputs/kfold_analysis/supervised_cvae"
     assert (state / "train_state.json").read_text() == '{"epoch": 2}'
+    assert (tmp_path / "adni" / "bootstrap_auc.csv").exists()
     assert not list(tmp_path.rglob("*.png"))

@@ -149,8 +149,26 @@ def test_cuda_device_required_by_default(monkeypatch):
 @pytest.mark.parametrize("flag,value", [("mesh", "2,4"), ("ep_mesh", "4,2"),
                                         ("in_memory_fusion", True),
                                         ("emit_latent", True)])
-def test_unported_flags_raise(flag, value, tmp_path):
+def test_unported_flags_raise(flag, value, tmp_path, scored):
     args = _args(device="cpu", **{flag: value})
+    if flag == "in_memory_fusion":
+        # ported: the same checkpoints scored with the early-fusion modality
+        # built in memory, its CSV deleted, match the file-based CSVs at
+        # tests/test_uca_pipeline.py:77-79's bound
+        _, port_root = scored
+        root = tmp_path / "project"
+        shutil.copytree(port_root, root)
+        fused = "early_fusion_modalities_ADNI"
+        (root / "data" / "ADNI" / f"{fused}.csv").unlink()
+        port_test.main(args, project_root=root, eps_fn=_jax_eps)
+        rel = (Path("deviation/supervised_cvae/ADNI/UCA-gPoE/path_model")
+               / fused / f"reconstruction_error_{fused}.csv")
+        got, ref = pd.read_csv(root / rel), pd.read_csv(port_root / rel)
+        assert list(got.columns) == list(ref.columns)
+        np.testing.assert_allclose(got["Reconstruction error"],
+                                   ref["Reconstruction error"], rtol=1e-5,
+                                   atol=1e-8)
+        return
     if flag == "emit_latent":
         # the flag is ported: it passes the gate and the stage goes on to
         # read the project, which this empty directory does not hold

@@ -373,3 +373,16 @@ def test_decoder_nll_nonuniform_cotangent_matches_jax(b, h, d, tol):
                                        np.asarray(r).reshape(t.shape), **tol)
         if a[f] == 0.0:
             assert all(float(t.abs().max()) == 0.0 for t in got)
+
+
+@pytest.mark.parametrize("shape", CS.BOOT_SHAPES, ids=str)
+def test_plans_at_the_bootstrap_test_call(shape):
+    """Phase 13a's bootstrap test stage: 10 replicates as folds of one call,
+    their out-of-bag rows padded to 448, the 270-wide early-fusion
+    modality, with the cohort's 29 covariate columns and with the constant
+    one of --unconditioned (C = 1, a width no other phase gives K1)."""
+    folds, rows, d, c_dim = shape
+    p = _check_encoder_plan(folds, rows, d + c_dim, CS.HIDDEN, CS.LATENT)
+    q = _check_deviation_plan(folds, rows, CS.LATENT + c_dim, CS.HIDDEN, d)
+    assert p.tiles == q.tiles == -(-rows // _build.TILE_ROWS)
+    assert 2 * max(p.smem, q.smem) <= _build.MAX_SMEM_BYTES

@@ -236,7 +236,7 @@ SWEEP_FLAGS = [
     ("--ep_mesh", "2,2,2", "'Multi-device'"),
     ("--packed_xla", None, "'Packed layout' and 'Grouped layout'"),
     ("--precision", "bf16", "'Trainer'"),
-    ("--in_memory_fusion", None, "'Main-path CLI chain'"),
+    ("--in_memory_fusion", None, None),   # ported: the grid runs
 ]
 
 
@@ -245,6 +245,20 @@ SWEEP_FLAGS = [
 def test_sweep_unported_flags_exit_citing_their_item(flag, value, item,
                                                      tmp_path):
     argv = SWEEP + ["--device", "cpu", flag] + ([value] if value else [])
+    if item is None:
+        # a UCA procedure's early-fusion modality built in memory at every
+        # grid point: its CSV is not in this cohort
+        make_synthetic_resource(tmp_path, "ADHD", n_hc=30,
+                                n_disease={0: 12, 2: 12})
+        records = sweep_supervised.run(argv + ["--procedures", "UCA-gPoE"],
+                                       project_root=tmp_path)
+        assert len(records) == 4
+        assert all(np.isfinite(r["stats"]["auc"]).all() for r in records)
+        fused = "early_fusion_modalities_ADHD"
+        assert (tmp_path / "deviation" / "supervised_cvae" / "ADHD"
+                / "UCA-gPoE" / "path_model" / fused
+                / f"reconstruction_error_{fused}.csv").exists()
+        return
     with pytest.raises(SystemExit, match=f"ROADMAP.md, queue 1 items? "
                                          f"{re.escape(item)}"):
         sweep_supervised.run(argv, project_root=tmp_path)

@@ -154,6 +154,19 @@ def test_unported_flags_raise(flag, value, tmp_path, roots):
         assert state == {"epoch": args.epochs}
         assert (tmp_path / MODEL_DIR / "train_state.ckpt").exists()
         return
+    if flag == "in_memory_fusion":
+        # ported: a UCA procedure trains on the early-fusion modality built
+        # from the base modalities, whose CSV this cohort does not hold
+        shutil.copytree(roots["jax"] / "data", tmp_path / "data")
+        assert not (tmp_path / "data" / "ADNI"
+                    / "early_fusion_modalities_ADNI.csv").exists()
+        args.procedure, args.combine = "UCA-gPoE", "gPoE"
+        port_train.main(args, project_root=tmp_path)
+        for fold in range(2):
+            config = json.loads((tmp_path / MODEL_DIR / f"{fold:03d}"
+                                 / "cVAE_model.json").read_text())
+            assert config["input_dim_list"] == [90, 90, 90, 270]
+        return
     match = "ROADMAP.md"
     if flag == "resume":
         # ported, and refused without --checkpoint_every (the JAX message)
