@@ -258,6 +258,30 @@ BOOT_FLAGS = ["-R", "ADNI", "-D", "3modalities", "-B", str(BOOT_REPS),
               "-E", "20", "-H", "110", "110", "10"]
 BOOT_SHAPES = [(BOOT_REPS, BOOT_ROWS, 270, C_DIM), (BOOT_REPS, BOOT_ROWS, 270, 1)]
 
+# phase 14a: the classifier baseline on an ADHD cohort of phase 12b's size
+# and width (600 subjects, fMRI.csv of 116 ROIs) with one patient group:
+# phase 12b's has two (DIA 0 and 2 beside the controls' 1) and the
+# reference classifier two classes. The CLI at the reference defaults, one
+# point of
+# classifier_baseline/tune_parameter.sh, and that script's four (lr,
+# dropout) points at 116 64 32 as one grid against their own runs, at the
+# JAX sweep test's bounds (tests/test_sweep.py:147-180)
+CLASSIFIER_COHORT = dict(n_hc=300, n_disease={0: 300})
+CLASSIFIER_EPOCHS = 1000
+TUNE_POINT = ["--hidden_layers", "256", "128", "64", "--initial_lr", "0.0005",
+              "--dropout", "0.3", "--min_lr", "0.000001"]
+TUNE_GRID = [{"initial_lr": lr, "factor": 0.5, "patience": 10,
+              "min_lr": 1e-6, "dropout": drop}
+             for lr in (5e-4, 1e-4) for drop in (0.1, 0.3)]
+CLASSIFIER_HIDDEN = [116, 64, 32]
+CLASSIFIER_VAL_TOL = dict(rtol=2e-3, atol=0.0)
+CLASSIFIER_PARAM_TOL = dict(rtol=5e-3, atol=5e-5)
+# phase 14b: phase 8's ensemble exported (cpu and cuda programs); the cuda
+# program against ScoringService on the card, the cpu program against it
+EXPORT_TOL = dict(rtol=1e-6, atol=0.0)
+EXPORT_CPU_TOL = dict(rtol=1e-4, atol=1e-5)
+EXPORT_LATENCY_CALLS = 50
+
 # phase 8: the chain's flags, and the reports the analysis stage writes
 CHAIN_FLAGS = ["-R", "ADNI", "-P", "UCA-gPoE", "-K", str(FOLDS),
                "-E", str(TRAIN_EPOCHS), "--fused_train_step"]
@@ -2663,6 +2687,376 @@ def run_test_stage_phases(chain_root):
     return walls
 
 
+def run_classifier(stats):
+    """Phase 14a: the classifier baseline on a 600-subject ADHD cohort: the
+    CLI at the reference defaults and at one tune_parameter.sh point, then
+    that script's four (lr, dropout) points at 116 64 32 as one grid, each
+    against its own train_classifier run. Every epoch loop runs under
+    torch.cuda.set_sync_debug_mode("error"): a host sync inside it fails
+    the phase. Returns the walls and ms per epoch."""
+    import os
+
+    from multi_modal_normative_modeling_tpu_torch.cli import (
+        classifier_baseline,
+    )
+    from multi_modal_normative_modeling_tpu_torch.data.synthetic import (
+        make_synthetic_resource,
+    )
+    from multi_modal_normative_modeling_tpu_torch.interop import (
+        classifier_to_jax,
+    )
+    from multi_modal_normative_modeling_tpu_torch.models import classifier
+
+    loops = []
+    loop = classifier.run_epochs
+
+    def guarded(step, epochs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            loop(step, epochs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        loops.append((time.perf_counter() - t0) * 1e3 / epochs)
+
+    out = {}
+    cwd = os.getcwd()
+    classifier.run_epochs = guarded
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            root = Path(tmp)
+            make_synthetic_resource(root / "adhd", "ADHD",
+                                    **CLASSIFIER_COHORT)
+            data = root / "adhd" / "data" / "ADHD"
+            paths = ["--fmri_path", str(data / "fMRI.csv"),
+                     "--labels_path", str(data / "y.csv")]
+            os.chdir(root)
+            for name, flags in (("defaults", []), ("tune point", TUNE_POINT)):
+                ckpt = root / f"{name.replace(' ', '_')}.pth"
+                t0 = time.perf_counter()
+                metrics = classifier_baseline.run(
+                    paths + flags + ["--checkpoint_path", str(ckpt)])
+                wall = time.perf_counter() - t0
+                written = [ckpt.with_suffix(".ckpt"), ckpt.with_suffix(".json"),
+                           root / f"{ckpt.stem}_metrics.txt",
+                           root / "experiment_results.json",
+                           root / "logs" / "experiment.log"]
+                missing = [p.name for p in written if not p.exists()]
+                if missing or not all(np.isfinite(v) for v in metrics.values()):
+                    raise RuntimeError(f"phase 14a: the CLI ({name}) wrote "
+                                       f"no {missing}; metrics {metrics}")
+                out[name] = {"wall_s": wall, "ms_per_epoch": loops[-1],
+                             "metrics": metrics}
+                print(f"phase 14a: classifier_baseline ({name}: "
+                      f"{' '.join(flags) or '116 64 32, lr 1e-4, dropout 0'},"
+                      f" {CLASSIFIER_EPOCHS} epochs) on an ADHD cohort "
+                      f"{CLASSIFIER_COHORT}: {wall:.3f} s, {loops[-1]:.4f} ms/epoch "
+                      f"with no host sync in the loop; "
+                      + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items()),
+                      flush=True)
+            x, y = classifier_baseline.load_data(str(data / "fMRI.csv"),
+                                                 str(data / "y.csv"))
+            x_tr, x_va, _, y_tr, y_va, _ = classifier_baseline.prepare_splits(
+                x, y)
+            # the defaults' loop again without the sync check, timed alone
+            classifier.run_epochs = loop
+            one = classifier_baseline.init_model(
+                x_tr.shape[1], CLASSIFIER_HIDDEN, 0.0, "cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            classifier.train_classifier(one, x_tr, y_tr, x_va, y_va,
+                                        CLASSIFIER_EPOCHS, 1e-4, 0.5, 10,
+                                        1e-9)
+            unchecked = (time.perf_counter() - t0) * 1e3 / CLASSIFIER_EPOCHS
+            out["defaults"]["ms_per_epoch_unchecked"] = unchecked
+            print(f"phase 14a: the defaults' train_classifier again without "
+                  f"the sync check: {unchecked:.4f} ms/epoch (set-up and "
+                  f"the history's fetch included)", flush=True)
+            classifier.run_epochs = guarded
+            model = classifier_baseline.init_model(
+                x_tr.shape[1], CLASSIFIER_HIDDEN, 0.0, "cuda")
+            t0 = time.perf_counter()
+            best, hists = classifier.sweep_classifiers(
+                model, x_tr, y_tr, x_va, y_va, CLASSIFIER_EPOCHS, TUNE_GRID)
+            grid_wall = time.perf_counter() - t0
+            grid_ms = loops[-1]
+            val_err, param_err, one_ms = 0.0, 0.0, []
+            for s_, cfg in enumerate(TUNE_GRID):
+                one = classifier_baseline.init_model(
+                    x_tr.shape[1], CLASSIFIER_HIDDEN, cfg["dropout"], "cuda")
+                ref_best, ref_hist = classifier.train_classifier(
+                    one, x_tr, y_tr, x_va, y_va, CLASSIFIER_EPOCHS,
+                    cfg["initial_lr"], cfg["factor"], cfg["patience"],
+                    cfg["min_lr"])
+                one_ms.append(loops[-1])
+                check_close(f"phase 14a: grid point {s_} val loss",
+                            torch.from_numpy(hists[s_]["val_loss"]),
+                            torch.from_numpy(ref_hist["val_loss"]),
+                            CLASSIFIER_VAL_TOL)
+                if not np.array_equal(hists[s_]["lr"], ref_hist["lr"]):
+                    raise RuntimeError(f"phase 14a: grid point {s_}: the "
+                                       "learning rates differ")
+                val_err = max(val_err, float(np.max(np.abs(
+                    hists[s_]["val_loss"] - ref_hist["val_loss"]))))
+                for g, w in zip(classifier_to_jax(best, s_),
+                                classifier_to_jax(ref_best, 0)):
+                    for k in ("w", "b"):
+                        check_close(f"phase 14a: grid point {s_} best {k}",
+                                    torch.from_numpy(g[k]),
+                                    torch.from_numpy(w[k]),
+                                    CLASSIFIER_PARAM_TOL)
+                        param_err = max(param_err,
+                                        float(np.max(np.abs(g[k] - w[k]))))
+            out["grid"] = {"wall_s": grid_wall, "ms_per_epoch": grid_ms,
+                           "one_run_ms_per_epoch": one_ms,
+                           "val_loss_max_abs_err": val_err,
+                           "best_param_max_abs_err": param_err}
+            print(f"phase 14a: sweep_classifiers over tune_parameter.sh's "
+                  f"{len(TUNE_GRID)} (lr, dropout) points at "
+                  f"{' '.join(map(str, CLASSIFIER_HIDDEN))}, "
+                  f"{CLASSIFIER_EPOCHS} epochs: {grid_wall:.3f} s, "
+                  f"{grid_ms:.4f} ms/epoch for the grid against "
+                  + ", ".join(f"{m:.4f}" for m in one_ms)
+                  + f" ms/epoch for each point alone; val loss max abs err "
+                  f"{val_err:.3e}, best parameters max abs err "
+                  f"{param_err:.3e} against each point's own run (bounds "
+                  f"rtol 2e-3; rtol 5e-3 / atol 5e-5); no host sync in any "
+                  f"epoch loop", flush=True)
+    finally:
+        classifier.run_epochs = loop
+        os.chdir(cwd)
+    return out
+
+
+_FRESH_SCORER = """
+import importlib.abc, importlib.machinery, io, json, sys, zipfile
+PORT = 'multi_modal_normative_modeling_tpu_torch'
+def blocked(name):
+    parts = name.split('.')
+    return parts[0] in ('jax', 'sklearn', 'multi_modal_normative_modeling_tpu'
+                        ) or (parts[0] == PORT and len(parts) > 1 and
+                              parts[1] in ('models', 'data', 'cli', 'infer'))
+class Refuse(importlib.abc.Loader):
+    def create_module(self, spec):
+        raise ImportError('blocked: ' + spec.name)
+    def exec_module(self, module):
+        pass
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        return (importlib.machinery.ModuleSpec(name, Refuse())
+                if blocked(name) else None)
+sys.meta_path.insert(0, Block())
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+import torch
+import multi_modal_normative_modeling_tpu_torch.kernels as kernels
+with zipfile.ZipFile(sys.argv[2]) as z:
+    meta = json.loads(z.read('meta.json'))
+    program = torch.export.load(io.BytesIO(
+        z.read(meta['programs']['cuda']['scoring']))).module()
+inputs = [torch.from_numpy(np.load(p)).cuda() for p in sys.argv[3:]]
+rows = inputs[0].shape[0]
+eps = torch.stack([torch.randn((rows, meta['latent_dim']),
+                               generator=torch.Generator().manual_seed(s))
+                   for s in meta['seeds']]).cuda()
+with torch.no_grad():
+    devs = program(*inputs, eps)[0]
+assert kernels.fused_encoder.launches > 0
+assert not [m for m in sys.modules if blocked(m)]
+print(json.dumps(devs.mean(dim=(0, 1)).tolist()))
+"""
+
+
+def run_export(root, stats):
+    """Phase 14b: cli.export on phase 8's trained ensemble (cpu and cuda
+    programs); the cuda program's mmnm nodes; requests of 1, 64 and 256
+    subjects through ExportedScorer on the card against ScoringService on
+    the same payload, K1 and K2 counted per call; the cpu program against
+    it; a fresh process that imports torch and the port's kernels alone;
+    p50 of the exported call against the service's, the device ms of one
+    call's launches, and what the custom operator costs a call. Returns the
+    launches by call."""
+    from multi_modal_normative_modeling_tpu_torch import kernels
+    from multi_modal_normative_modeling_tpu_torch.cli import export, serve
+    from multi_modal_normative_modeling_tpu_torch.kernels import mlp
+    from multi_modal_normative_modeling_tpu_torch.models import Encoder
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "model.mmnm"
+        t0 = time.perf_counter()
+        meta = export.run(["-R", "ADNI", "-P", "UCA-gPoE", "-K", str(FOLDS),
+                           "-o", str(path)], project_root=root)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        card = export.load_scorer(path)
+        load_s = time.perf_counter() - t0
+        cpu = export.load_scorer(path, device="cpu")
+        graph = {}
+        for kind, program in card.programs.items():
+            nodes = [str(n.target) for n in program.graph.nodes]
+            graph[kind] = {k: nodes.count(f"mmnm.{k}.default")
+                           for k in ("fused_encoder", "fused_pred_deviation")}
+        if graph != {"scoring": {"fused_encoder": len(DIMS),
+                                 "fused_pred_deviation": len(DIMS)},
+                     "latent": {"fused_encoder": len(DIMS),
+                                "fused_pred_deviation": 0}}:
+            raise RuntimeError(f"phase 14b: the cuda programs' mmnm nodes "
+                               f"{graph}")
+        print(f"phase 14b: cli.export -R ADNI -P UCA-gPoE -K {FOLDS} "
+              f"(platforms {meta['platforms']}): {export_s:.3f} s, "
+              f"{path.stat().st_size / 1e6:.2f} MB; cuda programs loaded in "
+              f"{load_s:.3f} s, their graphs hold {graph}", flush=True)
+        service = serve.ScoringService("ADNI", "UCA-gPoE", n_splits=FOLDS,
+                                       project_root=root, device="cuda")
+        ids = list(service._frames[0].index)
+        launches, errs = {}, {}
+        for size in SERVE_SIZES:
+            rows = [f.loc[ids[:size]] for f in service._frames]
+            features = {name: r[cols].to_numpy(np.float32) for name, r, cols
+                        in zip(service.dataset_names, rows, service.columns)}
+            payload = {"AGE": rows[-1]["AGE"].tolist(),
+                       "PTGENDER": rows[-1]["PTGENDER"].tolist()}
+            want = service.score_raw(features, payload, roi=True,
+                                     latent=True)
+            for name, flags in (("call", {}), ("latent_call",
+                                               {"latent": True})):
+                kernels.reset_launch_counts()
+                got = card.score(features, payload, roi=True, **flags)
+                torch.cuda.synchronize()
+                launches[name] = launch_counts()
+                expect = {"fused_encoder": len(DIMS) * (1 + bool(flags)),
+                          "fused_pred_deviation": len(DIMS)}
+                if launches[name] != expect:
+                    raise RuntimeError(f"phase 14b: an exported {name} "
+                                       f"launched {launches[name]}, expected "
+                                       f"{expect}")
+            on_cpu = cpu.score(features, payload, roi=True, latent=True)
+            rel = 0.0
+            for key in ("deviation", "roi", "latent_deviation",
+                        "latent_per_dim"):
+                g, w = np.asarray(got[key]), np.asarray(want[key])
+                check_close(f"phase 14b: {size} subjects {key}",
+                            torch.from_numpy(g), torch.from_numpy(w),
+                            EXPORT_TOL)
+                check_close(f"phase 14b: {size} subjects {key} (cpu program)",
+                            torch.from_numpy(np.asarray(on_cpu[key])),
+                            torch.from_numpy(w), EXPORT_CPU_TOL)
+                rel = max(rel, float(np.max(np.abs(g - w) / np.maximum(
+                    np.abs(w), 1e-30))))
+            errs[size] = rel
+            # latency: the exported call against the service's, 50 each
+            for _ in range(3):
+                card.score(features, payload)
+                service.score_raw(features, payload)
+            times = {}
+            for name, fn in (("exported", card.score),
+                             ("service", service.score_raw)):
+                ms = []
+                for _ in range(EXPORT_LATENCY_CALLS):
+                    t0 = time.perf_counter()
+                    fn(features, payload)
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                times[name] = float(np.percentile(ms, 50))
+            n = len(rows[-1])
+            padded = -(-n // 64) * 64
+            inputs = [torch.from_numpy(np.ascontiguousarray(np.pad(
+                a, ((0, padded - n),) + ((0, 0),) * (a.ndim - 1)))).cuda()
+                for a in (*features.values(),
+                          np.asarray(payload["AGE"], np.float32),
+                          np.asarray(payload["PTGENDER"], np.float32))]
+            eps = torch.zeros(FOLDS, padded, LATENT, device="cuda")
+            dev = device_ms(lambda: card._modules["scoring"](*inputs, eps))
+            out[f"{size} subjects"] = {
+                "exported_p50_ms": times["exported"],
+                "service_p50_ms": times["service"],
+                "call_device_ms": dev, "max_rel_err": rel}
+            print(f"phase 14b: {size} subject(s) ({padded} padded rows): "
+                  f"ExportedScorer on the card against ScoringService.score_"
+                  f"raw on the same payload: max rel diff {rel:.3e} (bound "
+                  f"rtol 1e-6), the cpu program within rtol 1e-4 / atol "
+                  f"1e-5; launches a call {launches['call']}, a latent call "
+                  f"{launches['latent_call']}; p50 over "
+                  f"{EXPORT_LATENCY_CALLS} calls {times['exported']:.3f} ms "
+                  f"exported, {times['service']:.3f} ms score_raw; device "
+                  f"{dev:.4f} ms for one exported call's launches",
+                  flush=True)
+            if size == 64:
+                paths = []
+                for i, t in enumerate(inputs):
+                    paths.append(str(Path(tmp) / f"in{i}.npy"))
+                    np.save(paths[-1], t.cpu().numpy())
+                t0 = time.perf_counter()
+                fresh = subprocess.run(
+                    [sys.executable, "-c", _FRESH_SCORER, str(ROOT),
+                     str(path), *paths], capture_output=True, text=True,
+                    timeout=300)
+                fresh_s = time.perf_counter() - t0
+                if fresh.returncode != 0:
+                    raise RuntimeError(f"phase 14b: the fresh process failed:"
+                                       f" {fresh.stderr[-3000:]}")
+                standalone = json.loads(fresh.stdout.strip().splitlines()[-1])
+                check_close("phase 14b: the fresh process's deviations",
+                            torch.tensor(standalone[:n]),
+                            torch.tensor(card.score(features,
+                                                    payload)["deviation"]),
+                            EXPORT_TOL)
+                print(f"phase 14b: a fresh process importing torch and the "
+                      f"port's kernels alone (models, data, cli, infer, jax "
+                      f"refused) loaded the cuda program and scored 64 "
+                      f"subjects in {fresh_s:.3f} s, equal to the scorer's",
+                      flush=True)
+        # what the custom operator costs a call: K1 through the dispatcher
+        # against its launch code called directly, at a request's shape
+        gen = torch.Generator().manual_seed(14)
+        for d in (90, 270):
+            enc = Encoder(d, HIDDEN, LATENT, C_DIM, folds=FOLDS,
+                          generator=gen, device="cuda")
+            x = torch.randn(FOLDS, 64, d, generator=gen).cuda()
+            c = covariates(np.random.default_rng(14), FOLDS, 64)
+            pairs = [*enc.hidden_layers(), enc.mu.pair(), enc.logvar.pair()]
+            with torch.no_grad():
+                via_op = cuda_ms(lambda: enc.fused(x, c), iters=200)
+                direct = cuda_ms(lambda: mlp.launch(x, c, pairs, len(HIDDEN),
+                                                    True), iters=200)
+                via_op2 = cuda_ms(lambda: enc.fused(x, c), iters=200)
+            out[f"K1 F={FOLDS} B=64 D={d}"] = {
+                "op_ms": [via_op, via_op2], "launch_ms": direct}
+            print(f"phase 14b: K1 at F={FOLDS} B=64 D={d}: {via_op:.4f} / "
+                  f"{via_op2:.4f} ms a call through mmnm::fused_encoder, "
+                  f"{direct:.4f} ms through its launch code directly (CUDA "
+                  f"events over 200 calls)", flush=True)
+        out["export_s"], out["fresh_process_s"] = export_s, fresh_s
+    stats["export"] = out
+    return launches
+
+
+def run_report(root):
+    """Phase 14c: cli.report on phase 8's project. Returns its sections and
+    line count."""
+    from multi_modal_normative_modeling_tpu_torch.cli import report
+
+    out = root / "experiment_report.md"
+    t0 = time.perf_counter()
+    report.run(["-R", "ADNI", "-P", "UCA-gPoE", "--out", str(out)],
+               project_root=root)
+    wall = time.perf_counter() - t0
+    lines = out.read_text().splitlines()
+    sections = [line for line in lines if line.startswith("#")]
+    for want in ("mean ROC-AUC", "Top deviating ROIs",
+                 "result_multimodal.txt"):
+        if not any(want in line for line in lines):
+            raise RuntimeError(f"phase 14c: the report has no {want!r}: "
+                               f"{sections}")
+    if sum(line.startswith("### ") for line in lines) != len(DIMS):
+        raise RuntimeError(f"phase 14c: ROI tables {sections}")
+    print(f"phase 14c: cli.report on phase 8's project: {len(lines)} lines "
+          f"in {wall:.3f} s; sections {sections}", flush=True)
+    return {"lines": len(lines), "sections": sections, "wall_s": wall}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2996,9 +3390,19 @@ def main():
     fusion_launches = run_fusion(chain_root)
     t13b = time.perf_counter()
     stage_walls = run_test_stage_phases(chain_root)
-    chain_dir.cleanup()
     print(f"phase 13: 13a {t13a - t13:.1f} s, 13b {t13b - t13a:.1f} s, "
           f"13c {time.perf_counter() - t13b:.1f} s", flush=True)
+
+    # ---- phase 14: the classifier baseline, export, the report -------------
+    t14 = time.perf_counter()
+    classifier_runs = run_classifier(stats)
+    t14a = time.perf_counter()
+    export_launches = run_export(chain_root, stats)
+    t14b = time.perf_counter()
+    report_summary = run_report(chain_root)
+    chain_dir.cleanup()
+    print(f"phase 14: 14a {t14a - t14:.1f} s, 14b {t14b - t14a:.1f} s, "
+          f"14c {time.perf_counter() - t14b:.1f} s", flush=True)
     missing = [name for name in sources if not launches.get(name)]
     if missing:
         raise RuntimeError(f"no launch on the main path: {missing}")
@@ -3074,6 +3478,13 @@ def main():
             for run, counts in fusion_launches.items()}
         if "bootstrap" in stats[name]:
             report[-1]["bootstrap"] = stats[name]["bootstrap"]
+        # phase 14b: the launches of one exported scoring call and of one
+        # latent call (the cuda program's mmnm nodes)
+        report[-1]["export_launches"] = {
+            call: counts.get(name, 0)
+            for call, counts in export_launches.items()}
+    print(json.dumps({"classifier": classifier_runs,
+                      "export": stats["export"], "report": report_summary}))
     print(json.dumps({"test_stage_walls": stage_walls,
                       "bootstrap_walls": boot_walls}))
     print(json.dumps({"kernels": report}))

@@ -13,7 +13,9 @@ Parity notes (SURVEY.md Q5):
     binning is re-fit on the test set itself (test:93-97), reproduced as-is.
   * The scoring surfaces (cli/score.py, cli/serve.py) bin new subjects by
     the fold's train cohort instead (``train_binned_covariates``), so a
-    subject's score does not depend on who else is scored with it.
+    subject's score does not depend on who else is scored with it; an
+    exported scoring program (cli/export.py) does the same in its graph
+    (``binned_covariate_graph_spec``, ``apply_binned_covariate_spec``).
 """
 from __future__ import annotations
 
@@ -191,3 +193,90 @@ def train_binned_covariates(train_cov: pd.DataFrame, new_cov: pd.DataFrame,
                  'PTGENDER')),
         axis=1,
     ).astype("float32")
+
+
+def binned_covariate_graph_spec(train_cov: pd.DataFrame,
+                                n_bins_age: int = 27,
+                                n_bins_gender: int = 2) -> list:
+    """Constants for an in-graph (jax-traceable) equivalent of
+    train_binned_covariates, so an AOT-exported scoring program
+    (cli/export.py) can bin NEW subjects' covariates on-device.
+
+    Only numeric covariates can be baked into an exported program — the
+    categorical by-identity path needs string comparison, which has no
+    device representation; such cohorts must be served by cli/serve.py
+    (host-side binning) instead, so they raise here.
+
+    Returns one dict per covariate: ``mode='nearest'`` carries the sorted
+    train uniques (nearest-train-value coding, the <= q-category branch) or
+    ``mode='quantile'`` carries the inner quantile edges (searchsorted
+    side='right') — exactly train_binned_covariates' numeric branches.
+    """
+    spec = []
+    for col, q in (('AGE', n_bins_age), ('PTGENDER', n_bins_gender)):
+        try:
+            train = np.asarray(train_cov[col], dtype=np.float64)
+        except (TypeError, ValueError):
+            raise ValueError(
+                f'{col}: categorical (non-numeric) training covariates '
+                'cannot be compiled into an exported scoring program; '
+                'serve this model with cli/serve.py (host-side binning) '
+                'instead') from None
+        uniq = np.unique(train)
+        if len(uniq) > q:
+            edges = np.quantile(train, np.linspace(0.0, 1.0, q + 1)[1:-1])
+            # the exported program compares in float32: round each float64
+            # edge UP to the nearest float32. For any float32 input x this
+            # makes (edge_f32 <= x) <=> (edge_f64 <= x) — i.e. searchsorted
+            # side='right' bins exactly like the float64 host path
+            # (train_binned_covariates) — because no float32 can lie
+            # strictly between edge_f64 and its round-up. Rounding to
+            # nearest instead would flip edge-adjacent subjects into the
+            # wrong bin.
+            e32 = edges.astype(np.float32)
+            e32 = np.where(e32.astype(np.float64) < edges,
+                           np.nextafter(e32, np.float32(np.inf)), e32)
+            spec.append({'mode': 'quantile', 'values': e32, 'q': q,
+                         'col': col})
+        else:
+            # nearest-train-value coding; float32 rounding of the train
+            # uniques can flip a subject sitting within one float32 ulp of
+            # the midpoint between two adjacent train values — inherent to
+            # an f32 program, and far below covariate measurement noise
+            spec.append({'mode': 'nearest', 'values': uniq, 'q': q,
+                         'col': col})
+    return spec
+
+
+def apply_binned_covariate_spec(spec: list, age, gender):
+    """One-hot covariates [n, n_bins_age + n_bins_gender] from a
+    binned_covariate_graph_spec, in torch ops only (``torch.export``
+    traces them with a symbolic batch): the nearest train value is the
+    first index of the least absolute difference (``torch.argmin``, as
+    ``jnp.argmin``), a quantile bin the count of edges at or below the
+    value (``searchsorted(right=True)``). ``age`` and ``gender`` are [n]
+    tensors; the result is float32 on their device. Matches
+    train_binned_covariates on numeric cohorts up to float32 rounding of
+    the bin edges (tests/test_torch_export.py)."""
+    import torch
+
+    outs = []
+    for entry, new in zip(spec, (age, gender)):
+        vals = torch.as_tensor(np.asarray(entry['values'], np.float32),
+                               device=new.device)
+        outs.append(one_hot_codes(entry['mode'], vals, new, entry['q']))
+    return torch.cat(outs, dim=1)
+
+
+def one_hot_codes(mode: str, vals, new, q: int):
+    """float32 one-hot [n, q] of ``new`` [n] binned by ``vals`` (the train
+    uniques or the inner quantile edges, float32, on ``new``'s device)."""
+    import torch
+
+    new = new.to(torch.float32)
+    if mode == 'nearest':
+        codes = torch.argmin(torch.abs(new[:, None] - vals[None, :]), dim=1)
+    else:
+        codes = torch.searchsorted(vals, new, right=True)
+    bins = torch.arange(q, device=new.device)
+    return (codes[:, None] == bins[None, :]).to(torch.float32)

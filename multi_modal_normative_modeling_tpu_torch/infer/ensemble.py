@@ -275,13 +275,24 @@ def reconstruct(model, xs, cs, combine: str, eps: torch.Tensor):
     return recons, torch.stack(devs, dim=1)
 
 
-def _scaled(state: EnsembleState, xes):
+def scaled(centers, scales, xes):
     """Raw features per modality [n, F_m], broadcast over the folds and
-    scaled by each fold's train scaler: [K, n, F_m], contiguous as the
-    kernels take them (the result of a broadcast keeps the layout of its
-    operand, which may be column-major: a numpy matrix taken from a frame)."""
+    scaled by each fold's train scaler (``centers``, ``scales`` per
+    modality [K, F_m]): [K, n, F_m], contiguous as the kernels take them
+    (the result of a broadcast keeps the layout of its operand, which may
+    be column-major: a numpy matrix taken from a frame)."""
     return [((x - c[:, None]) / s[:, None]).contiguous()
-            for x, c, s in zip(xes, state.centers, state.scales)]
+            for x, c, s in zip(xes, centers, scales)]
+
+
+def score_body(model, combine: str, centers, scales, covs: torch.Tensor,
+               eps: torch.Tensor, xes) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``fold_infer`` on its operands alone (the exported scoring program,
+    cli/export.py, traces it): (devs [K, M, n], roi [K, n, sum F_m])."""
+    xs = scaled(centers, scales, xes)
+    recons, devs = reconstruct(model, xs, [covs] * len(xs), combine, eps)
+    roi = torch.cat([(x - r) ** 2 for x, r in zip(xs, recons)], dim=2)
+    return devs, roi
 
 
 @torch.no_grad()
@@ -293,11 +304,8 @@ def fold_infer(state: EnsembleState, covs: torch.Tensor, eps: torch.Tensor,
     and covariates ([K, n, C]), the per-modality scalar deviations and the
     concatenated per-ROI squared-error plane, all on the device in
     float32. Returns (devs [K, M, n], roi [K, n, sum F_m])."""
-    xs = _scaled(state, xes)
-    recons, devs = reconstruct(state.model, xs, [covs] * len(xs),
-                               state.combine, eps)
-    roi = torch.cat([(x - r) ** 2 for x, r in zip(xs, recons)], dim=2)
-    return devs, roi
+    return score_body(state.model, state.combine, state.centers,
+                      state.scales, covs, eps, xes)
 
 
 @torch.no_grad()
@@ -308,7 +316,8 @@ def fold_latent(state: EnsembleState, covs: torch.Tensor,
     z-score against the fold's train-cohort latent statistics. Returns
     (scalar [K, n], per_dim [K, n, D]), matching latent_deviation /
     separate_latent_deviation (utils_vae.py:155-161)."""
-    return latent_zscores(state.model, state.combine, _scaled(state, xes),
+    return latent_zscores(state.model, state.combine,
+                          scaled(state.centers, state.scales, xes),
                           [covs] * len(xes), state.latent_mean,
                           state.latent_var)
 

@@ -17,7 +17,10 @@ end-to-end model's tree (models/endtoend.py:62-79) adds ``dec_health``,
 "bn_bias"}, ...], "out"}``) and, at the top level, ``bn_state`` (``[{"mean",
 "var"}, ...]``), which the port keeps as the classifier's buffers
 ``classifier.state.*``; the regression's (models/regression.py:33-39) adds
-``regressor``, a list of ``{"w", "b"}``.
+``regressor``, a list of ``{"w", "b"}``. The classifier baseline's
+parameters (models/classifier.py:33-34) are the bare ``init_mlp`` list of
+``{"w", "b"}``; ``classifier_from_jax`` and ``classifier_to_jax`` carry it
+into the port's stacked ``MLPClassifier`` (S configurations) and back.
 
 The packed layout of ``models.stacked`` (all modalities on one axis, the
 layout of the fused train step) keeps the JAX orientation; ``packed_*``
@@ -112,6 +115,28 @@ def params_to_jax(model: nn.Module, fold: Optional[int] = None) -> dict:
             node = node.setdefault(p, {})
         node[path[-1]] = leaf
     return _listify(tree)
+
+
+def classifier_from_jax(params, model: nn.Module, device=None) -> nn.Module:
+    """The JAX classifier's list of ``{"w", "b"}`` into ``model``, an
+    ``MLPClassifier`` of S configurations: one configuration's list goes
+    to every configuration, a list whose leaves carry a leading S axis
+    goes configuration by configuration."""
+    def fit(leaf, ndim):
+        leaf = np.asarray(leaf)
+        if leaf.ndim == ndim:
+            return np.broadcast_to(leaf, (model.configs,) + leaf.shape)
+        return leaf
+
+    tree = {"layers": [{"w": fit(layer["w"], 2), "b": fit(layer["b"], 1)}
+                       for layer in params]}
+    return params_from_jax(tree, model, device)
+
+
+def classifier_to_jax(model: nn.Module, config: Optional[int] = None):
+    """``model``'s parameters as the JAX classifier's list of ``{"w",
+    "b"}``: stacked over the configurations, or only ``config``'s."""
+    return params_to_jax(model, config)["layers"]
 
 
 def packed_from_jax(trees, stacked) -> dict:

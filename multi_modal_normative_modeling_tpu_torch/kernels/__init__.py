@@ -24,10 +24,15 @@ Kernel inventory:
                      with fp32 operands or, on the tensor cores, bf16
                      (train_step_bf16.cu), the weight gradients summed over
                      batch tiles; ``--precision bf16``.
+  * ops.py         — K1, K2 and K3 as custom operators (``mmnm::*``), the
+                     one way their wrappers reach them, so that an
+                     exported scoring program (cli/export.py) holds them
+                     as opaque nodes.
   * roofline.py    — each kernel's FLOP, bytes and bound on one H100.
 
 A wrapper launches its kernel for CUDA tensors and runs the plain version
 for CPU tensors; ``<wrapper>.launches`` counts the kernel's launches.
+Importing the package registers the custom operators.
 Importing this package compiles nothing: the library builds on first launch
 (``_build.py``).
 """
@@ -45,6 +50,7 @@ from .deviation import (  # noqa: F401
     reconstruction_deviation,
 )
 from .mlp import encoder_reference, fused_encoder  # noqa: F401
+from . import ops  # noqa: F401,E402  (registers mmnm::*)
 from .train_step import FusedTrainStep, fused_train_step  # noqa: F401
 from .train_step_tiled import (  # noqa: F401
     TiledFusedTrainStep,

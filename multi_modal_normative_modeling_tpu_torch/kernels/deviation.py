@@ -6,7 +6,9 @@ decode concat(z, c) through the decoder MLP and emit both the
 reconstruction mean and the per-row deviation sum((x - mean)^2) / D, for
 every fold at once (``csrc/pred_deviation.cu``). The Pallas kernel is one
 block with no batch tiling; this one tiles rows, so it has no row limit and
-needs no fallback. A CUDA tensor goes to the kernel; a CPU tensor goes to
+needs no fallback. The wrapper calls the custom operator
+``mmnm::fused_pred_deviation`` (``ops.py``): a CUDA tensor goes to the
+kernel (``launch_pred_deviation``), a CPU tensor to
 ``pred_deviation_reference``.
 
 What bounds the kernel on an H100 is fp32 FFMA, just ahead of the bytes of
@@ -69,14 +71,11 @@ def fused_pred_deviation(hidden: Sequence[Layer], mean_head: Layer,
                          z: torch.Tensor, c: torch.Tensor, x: torch.Tensor,
                          non_linear: bool
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (reconstruction [F, B, D], deviation [F, B])."""
-    if z.device.type == "cpu":
-        return pred_deviation_reference(hidden, mean_head, z, c, x,
-                                        non_linear)
-    out = _launch("fused_pred_deviation", hidden, mean_head, z, c, x,
-                  non_linear)
-    fused_pred_deviation.launches += 1
-    return out
+    """Returns (reconstruction [F, B, D], deviation [F, B]) through the
+    custom operator ``mmnm::fused_pred_deviation`` (``ops.py``)."""
+    layers = [t for layer in (*hidden, mean_head) for t in layer]
+    return torch.ops.mmnm.fused_pred_deviation(z, c, x, layers,
+                                               non_linear)
 
 
 fused_pred_deviation.launches = 0
@@ -85,16 +84,31 @@ fused_pred_deviation.launches = 0
 def fused_decoder_mean(hidden: Sequence[Layer], mean_head: Layer,
                        z: torch.Tensor, c: torch.Tensor,
                        non_linear: bool) -> torch.Tensor:
-    """Returns the reconstruction mean [F, B, D]."""
-    if z.device.type == "cpu":
-        return decode_mean_reference(hidden, mean_head, z, c, non_linear)
-    recon, _ = _launch("fused_decoder_mean", hidden, mean_head, z, c, None,
-                       non_linear)
-    fused_decoder_mean.launches += 1
-    return recon
+    """Returns the reconstruction mean [F, B, D] through the custom
+    operator ``mmnm::fused_decoder_mean`` (``ops.py``)."""
+    layers = [t for layer in (*hidden, mean_head) for t in layer]
+    return torch.ops.mmnm.fused_decoder_mean(z, c, layers, non_linear)
 
 
 fused_decoder_mean.launches = 0
+
+
+def launch_pred_deviation(z, c, x, layers: Sequence[Layer],
+                          non_linear: bool):
+    """The CUDA implementation of ``mmnm::fused_pred_deviation``: one
+    launch of csrc/pred_deviation.cu; ``layers`` the hidden layers, then
+    the mean head."""
+    out = _launch("fused_pred_deviation", layers, z, c, x, non_linear)
+    fused_pred_deviation.launches += 1
+    return out
+
+
+def launch_decoder_mean(z, c, layers: Sequence[Layer], non_linear: bool):
+    """The CUDA implementation of ``mmnm::fused_decoder_mean``: the same
+    kernel without x and the deviation."""
+    recon, _ = _launch("fused_decoder_mean", layers, z, c, None, non_linear)
+    fused_decoder_mean.launches += 1
+    return recon
 
 
 class Plan(NamedTuple):
@@ -163,11 +177,10 @@ def _prepare(name, layers, n_hidden, z, c, x):
     return _build.launch_args(layers, widths), d, p, scratch
 
 
-def _launch(name, hidden, mean_head, z, c, x, non_linear):
+def _launch(name, layers, z, c, x, non_linear):
     """One launch of csrc/pred_deviation.cu; x None: the mean alone."""
     if z.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for {z.device}")
-    layers = [*hidden, mean_head]
     if z.dim() != 3:
         raise ValueError(f"{name}: z must be [F, B, Z], got {tuple(z.shape)}")
     batch = [z, c] if x is None else [z, c, x]
@@ -178,7 +191,7 @@ def _launch(name, hidden, mean_head, z, c, x, non_linear):
            tuple(t.shape for t in batch), z.device)
     found = _calls.get(key)
     if found is None:
-        found = _prepare(name, layers, len(hidden), z, c, x)
+        found = _prepare(name, layers, len(layers) - 1, z, c, x)
         _calls[key] = found
         if len(_calls) > _CACHED_CALLS:
             _calls.popitem(last=False)
@@ -196,7 +209,7 @@ def _launch(name, hidden, mean_head, z, c, x, non_linear):
             z.data_ptr(), c.data_ptr(), None if x is None else x.data_ptr(),
             recon.data_ptr(), None if dev is None else dev.data_ptr(),
             None if scratch is None else scratch.data_ptr(), folds, rows,
-            z_dim, c.shape[2], d, len(hidden), w, b, n, int(non_linear),
+            z_dim, c.shape[2], d, len(layers) - 1, w, b, n, int(non_linear),
             p.groups, _build.stream_of(z.device))
     _build.check_launch(lib, rc, name)
     return recon, dev

@@ -3,8 +3,10 @@
 ``fused_encoder`` replaces the Pallas kernel
 ``multi_modal_normative_modeling_tpu/kernels/mlp.py::fused_encoder``: the
 whole concat(x, c) -> hidden linears (+LeakyReLU) -> mu/logvar chain in one
-launch, for every fold at once (``csrc/encoder.cu``). A CUDA tensor goes to
-the kernel; a CPU tensor goes to ``encoder_reference``.
+launch, for every fold at once (``csrc/encoder.cu``). The wrapper calls the
+custom operator ``mmnm::fused_encoder`` (``ops.py``), whose CUDA
+implementation is ``launch`` and whose CPU implementation is
+``encoder_reference``.
 
 What bounds the kernel on an H100 is fp32 FFMA, nearly all of it in the
 first layer, whose reduction is as long as the input is wide. The grid is
@@ -129,14 +131,24 @@ def fused_encoder(hidden: Sequence[Layer], mu_head: Layer, lv_head: Layer,
                   x: torch.Tensor, c: torch.Tensor, non_linear: bool,
                   splits: Optional[int] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (mu, logvar), each [F, B, Z]. ``splits`` forces the plan's K
-    splits (tests and measurements)."""
-    if x.device.type == "cpu":
-        return encoder_reference(hidden, mu_head, lv_head, x, c, non_linear)
+    """Returns (mu, logvar), each [F, B, Z], through the custom operator
+    ``mmnm::fused_encoder`` (``ops.py``): the kernel for CUDA tensors, its
+    plain version for CPU tensors. ``splits`` forces the plan's K splits
+    (tests and measurements)."""
+    layers = [t for layer in (*hidden, mu_head, lv_head) for t in layer]
+    return torch.ops.mmnm.fused_encoder(x, c, layers, len(hidden),
+                                        non_linear, splits)
+
+
+def launch(x: torch.Tensor, c: torch.Tensor, layers: Sequence[Layer],
+           n_hidden: int, non_linear: bool, splits: Optional[int] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of csrc/encoder.cu: the CUDA implementation of
+    ``mmnm::fused_encoder``. ``layers`` are the hidden layers, then the mu
+    and logvar heads."""
     if x.device.type != "cuda":
         raise ValueError(f"fused_encoder: no kernel for {x.device}")
     name = "fused_encoder"
-    layers = [*hidden, mu_head, lv_head]
     if x.dim() != 3:
         raise ValueError(f"{name}: x must be [F, B, D], got {tuple(x.shape)}")
     _build.check_tensors(name, [x, c], x.device)
@@ -146,7 +158,7 @@ def fused_encoder(hidden: Sequence[Layer], mu_head: Layer, lv_head: Layer,
            x.shape, c.shape, x.device, splits)
     found = _calls.get(key)
     if found is None:
-        found = _prepare(name, layers, len(hidden), x, c, splits)
+        found = _prepare(name, layers, n_hidden, x, c, splits)
         _calls[key] = found
         if len(_calls) > _CACHED_CALLS:
             _calls.popitem(last=False)
@@ -163,7 +175,7 @@ def fused_encoder(hidden: Sequence[Layer], mu_head: Layer, lv_head: Layer,
         rc = lib.mmnm_encoder(
             x.data_ptr(), c.data_ptr(), mu.data_ptr(), lv.data_ptr(),
             None if scratch is None else scratch.data_ptr(), folds, rows, d,
-            c.shape[2], z_dim, len(hidden), w, b, n, int(non_linear),
+            c.shape[2], z_dim, n_hidden, w, b, n, int(non_linear),
             p.splits, p.k_per, _build.stream_of(x.device))
     _build.check_launch(lib, rc, name)
     fused_encoder.launches += 1

@@ -184,7 +184,8 @@ class MaskedAdam:
             p.data = view.view_as(p)
         self.m = torch.zeros_like(self.flat)
         self.v = torch.zeros_like(self.flat)
-        self.count = torch.zeros(folds, device=self.flat.device)
+        self.count = torch.zeros(folds, dtype=self.flat.dtype,
+                                 device=self.flat.device)
         runs = torch.tensor([n // folds for n in sizes for _ in range(folds)],
                             device=self.flat.device)
         self._fold_of = torch.repeat_interleave(

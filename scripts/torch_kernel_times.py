@@ -32,10 +32,19 @@ chip_smoke.py.
   splits K1 at the two timed shapes under forced numbers of K splits:
          device ms and CUDA-event ms of each, beside the plan's own choice.
   check_encode, time_encode: the K1 part of ``check`` and of ``time`` alone.
+  time_request  K1 and K2 at a scoring request's shapes (chip_smoke's
+         SERVE_SHAPES: 64 rows, 5 and 10 folds, D = 90 and 270), CUDA-event
+         ms and device ms in turns (K1, K2, K2, K1): what a wrapper's call
+         costs on the host, to compare two commits' wrappers in one call.
+  serve  ScoringService.score_raw on the card: p50 and p95 of 50 calls at
+         1, 64 and 256 subjects (chip_smoke's SERVE_SIZES), on a project
+         of chip_smoke's 600-subject cohort that the package trains for two
+         epochs (UCA-gPoE, 5 folds) in a temporary directory.
 """
 import argparse
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -292,6 +301,60 @@ def time_decode(kernels, roofline):
               f"CUDA-event ms {ev}; device ms {dv}", flush=True)
 
 
+def time_request():
+    for f, b, d, c_dim in cs.SERVE_SHAPES:
+        full = (f, b, d, c_dim, cs.HIDDEN, cs.LATENT)
+        enc, x, c = encoder_problem(full, 0)
+        dec, z, cz, xz = decoder_problem(full, 0)
+        with torch.no_grad():
+            calls = {"K1": lambda: enc.fused(x, c),
+                     "K2": lambda: dec.fused_pred_deviation(z, cz, xz)}
+            order = ["K1", "K2", "K2", "K1"]
+            ev, dv = {}, {}
+            for name in order:
+                ev.setdefault(name, []).append(event_ms(calls[name]))
+            for name in order:
+                dv.setdefault(name, []).append(round(
+                    cs.device_ms(calls[name]), 4))
+        print(f"request {(f, b, d, c_dim)}: CUDA-event ms {ev}; device ms "
+              f"{dv}", flush=True)
+
+
+def time_serve():
+    import tempfile
+    from importlib import import_module
+    synthetic = import_module(f"{PKG}.data.synthetic")
+    train = import_module(f"{PKG}.cli.train_supervised")
+    serve = import_module(f"{PKG}.cli.serve")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        synthetic.make_synthetic_resource(root, "ADNI", **cs.CHAIN_COHORT,
+                                          with_early_fusion=True)
+        flags = ["-R", "ADNI", "-P", "UCA-gPoE", "-K", str(cs.FOLDS)]
+        train.run(flags + ["-E", "2"], project_root=root)
+        service = serve.ScoringService("ADNI", "UCA-gPoE", n_splits=cs.FOLDS,
+                                       project_root=root, device="cuda")
+        ids = list(service._frames[0].index)
+        for size in cs.SERVE_SIZES:
+            rows = [f.loc[ids[:size]] for f in service._frames]
+            features = {name: r[cols].to_numpy(np.float32).tolist()
+                        for name, r, cols in zip(service.dataset_names, rows,
+                                                 service.columns)}
+            covariates = {"AGE": rows[-1]["AGE"].tolist(),
+                          "PTGENDER": rows[-1]["PTGENDER"].tolist()}
+            for _ in range(3):
+                service.score_raw(features, covariates)
+            ms = []
+            for _ in range(cs.LATENCY_REQUESTS):
+                t0 = time.perf_counter()
+                service.score_raw(features, covariates)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            p50, p95 = np.percentile(ms, [50, 95])
+            print(f"serve {size} subject(s): score_raw p50 {p50:.3f} ms, "
+                  f"p95 {p95:.3f} ms over {cs.LATENCY_REQUESTS} calls",
+                  flush=True)
+
+
 def time_nll(nll, roofline):
     for shape in NLL_TIMED:
         params, x, mask, n, _ = nll_problem(shape, 0)
@@ -414,6 +477,10 @@ def main():
             time_nll(nll, roofline)
         elif mode == "time_encode":
             time_encode(roofline)
+        elif mode == "time_request":
+            time_request()
+        elif mode == "serve":
+            time_serve()
         elif mode == "splits":
             time_splits(kernels)
         elif mode == "parts":

@@ -892,3 +892,103 @@ def test_bootstrap_test_stage_on_the_card_matches_the_cpu(cuda, tmp_path,
                 "Reconstruction deviation"].to_numpy() for b in range(3)]
     for card, cpu in zip(devs["cuda"], devs["cpu"]):
         np.testing.assert_allclose(card, cpu, rtol=2e-4, atol=2e-5)
+
+
+# ---- slice 12: K1, K2, K3 as custom operators; the exported program --------
+
+@pytest.mark.parametrize("op", ["fused_encoder", "fused_pred_deviation",
+                                "fused_decoder_mean"])
+@pytest.mark.parametrize("folds,rows,d,c_dim,hidden", CASES[:3])
+def test_custom_ops_on_the_card_match_fp64(cuda, op, folds, rows, d, c_dim,
+                                           hidden):
+    """torch.ops.mmnm.* on CUDA tensors launch the kernels (one count a
+    call) and agree with the plain code evaluated in fp64 at the kernels'
+    bounds."""
+    rng = np.random.default_rng(rows + d)
+    gen = torch.Generator().manual_seed(0)
+    x, c = _rows(rng, folds, rows, d).to(cuda), _rows(
+        rng, folds, rows, c_dim).to(cuda)
+    z = _rows(rng, folds, rows, 10).to(cuda)
+    if op == "fused_encoder":
+        enc = Encoder(d, hidden, 10, c_dim, folds=folds, generator=gen,
+                      device=cuda)
+        pairs = [*enc.hidden_layers(), enc.mu.pair(), enc.logvar.pair()]
+        args = (x, c, [t for p in pairs for t in p], len(hidden), True)
+        want = kernels.encoder_reference(
+            [tuple(t.double() for t in p) for p in pairs[:-2]],
+            *[tuple(t.double() for t in p) for p in pairs[-2:]],
+            x.double(), c.double(), True)
+        tols = [TOL, TOL]
+    else:
+        dec = Decoder(d, hidden, 10, c_dim, folds=folds, generator=gen,
+                      device=cuda)
+        pairs = [*dec.hidden_layers(), dec.mean.pair()]
+        flat = [t for p in pairs for t in p]
+        pairs64 = [tuple(t.double() for t in p) for p in pairs]
+        if op == "fused_pred_deviation":
+            args = (z, c, x, flat, True)
+            want = kernels.pred_deviation_reference(
+                pairs64[:-1], pairs64[-1], z.double(), c.double(),
+                x.double(), True)
+            tols = [TOL, dict(rtol=1e-4, atol=1e-6)]
+        else:
+            args = (z, c, flat, True)
+            want = (kernels.decode_mean_reference(
+                pairs64[:-1], pairs64[-1], z.double(), c.double(), True),)
+            tols = [TOL]
+    counter = getattr(kernels, op)
+    with torch.no_grad():
+        before = counter.launches
+        got = getattr(torch.ops.mmnm, op)(*args)
+        assert counter.launches == before + 1
+    got = got if isinstance(got, tuple) else (got,)
+    for g, w, tol in zip(got, want, tols):
+        assert g.device.type == "cuda"
+        torch.testing.assert_close(g.double(), w, **tol)
+
+
+def test_exported_cuda_program_matches_the_service(cuda, scoring_project,
+                                                   tmp_path):
+    """cli/export.py --platforms cpu,cuda on the card: the cuda programs
+    hold the mmnm nodes, launch K1 and K2 once per modality a call (K1
+    once more per modality for the latent) and equal ScoringService on
+    the card at rtol 1e-6; the cpu programs within rtol 1e-4 / atol
+    1e-5."""
+    from multi_modal_normative_modeling_tpu_torch.cli import export, serve
+
+    out = tmp_path / "model.mmnm"
+    meta = export.run(["-R", "ADNI", "-P", "UCA-gPoE", "-K", "2", "-o",
+                       str(out)], project_root=scoring_project)
+    assert meta["platforms"] == ["cpu", "cuda"]
+    card = export.load_scorer(out)
+    cpu = export.load_scorer(out, device="cpu")
+    for kind, k1, k2 in (("scoring", 4, 4), ("latent", 4, 0)):
+        targets = [str(n.target) for n in card.programs[kind].graph.nodes]
+        assert targets.count("mmnm.fused_encoder.default") == k1
+        assert targets.count("mmnm.fused_pred_deviation.default") == k2
+    service = serve.ScoringService("ADNI", "UCA-gPoE", n_splits=2,
+                                   project_root=scoring_project,
+                                   device="cuda")
+    ids = list(service._frames[0].index)
+    for n in (1, 64, 70):
+        rows = [f.loc[ids[:n]] for f in service._frames]
+        features = {name: r[cols].to_numpy(np.float32) for name, r, cols
+                    in zip(service.dataset_names, rows, service.columns)}
+        covariates = {"AGE": rows[-1]["AGE"].tolist(),
+                      "PTGENDER": rows[-1]["PTGENDER"].tolist()}
+        want = service.score_raw(features, covariates, roi=True, latent=True)
+        kernels.reset_launch_counts()
+        card.score(features, covariates, roi=True)
+        assert kernels.fused_encoder.launches == 4
+        assert kernels.fused_pred_deviation.launches == 4
+        kernels.reset_launch_counts()
+        got = card.score(features, covariates, roi=True, latent=True)
+        assert kernels.fused_encoder.launches == 8
+        assert kernels.fused_pred_deviation.launches == 4
+        on_cpu = cpu.score(features, covariates, roi=True, latent=True)
+        for key in ("deviation", "roi", "latent_deviation",
+                    "latent_per_dim"):
+            np.testing.assert_allclose(got[key], want[key], rtol=1e-6,
+                                       atol=0, err_msg=key)
+            np.testing.assert_allclose(on_cpu[key], want[key], rtol=1e-4,
+                                       atol=1e-5, err_msg=key)

@@ -4,12 +4,14 @@ and one ``make_synthetic_resource`` project: tables equal, arrays bit-equal,
 frames equal, files byte-equal."""
 import inspect
 import json
+from pathlib import Path
 
 import numpy as np
 import pandas as pd
 import pytest
 
 from multi_modal_normative_modeling_tpu import registry as jax_registry
+from multi_modal_normative_modeling_tpu import viz as jax_viz
 from multi_modal_normative_modeling_tpu.cli import (
     early_fusion as jax_early_fusion,
 )
@@ -23,7 +25,7 @@ from multi_modal_normative_modeling_tpu.infer import (
     emitters as jax_emitters,
 )
 from multi_modal_normative_modeling_tpu.utils import logging as jax_logging
-from multi_modal_normative_modeling_tpu_torch import registry
+from multi_modal_normative_modeling_tpu_torch import registry, viz
 from multi_modal_normative_modeling_tpu_torch.cli import early_fusion
 from multi_modal_normative_modeling_tpu_torch.data import (
     loading,
@@ -294,6 +296,29 @@ def test_deviation_functions_are_the_originals(name):
     tests/test_torch_latent.py compares their values."""
     assert inspect.getsource(getattr(deviation, name)) == \
         inspect.getsource(getattr(jax_deviation, name))
+
+
+# ---- the copies of slice 12: the export's binning spec, viz's tables ------------------------
+
+@pytest.mark.parametrize("module,jax_module,name", [
+    (preprocess, jax_preprocess, "binned_covariate_graph_spec"),
+    (viz, jax_viz, "roi_deviation_table"),
+    (viz, jax_viz, "auc_summary_table"),
+    (viz, jax_viz, "aal90_centroids"),
+    (viz, jax_viz, "brain_outlines")])
+def test_slice_12_copies_are_the_originals(module, jax_module, name):
+    """The text of each copied function is the original's (their values:
+    tests/test_torch_export.py, tests/test_torch_report.py)."""
+    assert inspect.getsource(getattr(module, name)) == \
+        inspect.getsource(getattr(jax_module, name))
+
+
+@pytest.mark.parametrize("name", ["aal90_mni_centroids.json",
+                                  "brain_outline_2d.json"])
+def test_vendored_geometry_byte_equal(name):
+    port = Path(preprocess.__file__).with_name(name)
+    original = Path(jax_preprocess.__file__).with_name(name)
+    assert port.read_bytes() == original.read_bytes()
 
 
 def test_latent_deviation_values_bit_equal():

@@ -10,8 +10,12 @@ variants' CLIs (``cli/nmpmcont.py``, ``cli/nmmlp.py``,
 (``cli/sweep_supervised.py``, ``cli/sweep_endtoend.py``,
 ``parallel/sweep.py``, ``train/checkpoints.py``), the bootstrap CLI and
 the native data plane (``cli/bootstrap.py``, ``native/``, which imports
-only the standard library, numpy and pandas) import no scikit-learn either, which that machine
-does not have, and those three CLIs no matplotlib; the last cases run the
+only the standard library, numpy and pandas), and the custom operators,
+the classifier baseline, export and the report (``kernels/ops.py``,
+``models/classifier.py``, ``data/splits.py``, ``viz.py``,
+``cli/classifier_baseline.py``, ``cli/export.py``, ``cli/report.py``)
+import no scikit-learn either, which that machine does not have, and those
+three CLIs and the last seven no matplotlib; the last cases run the
 whole chain, the three CLIs, and the scoring surfaces, in a process where importing any of them
 fails."""
 import ast
@@ -38,7 +42,13 @@ NO_SKLEARN = sorted((PORT / "evaluation").glob("*.py")) + [
     PORT / "cli" / "sweep_endtoend.py", PORT / "parallel" / "sweep.py",
     PORT / "train" / "checkpoints.py", PORT / "cli" / "bootstrap.py",
     PORT / "cli" / "common.py", PORT / "infer" / "emitters.py"] + sorted(
-    (PORT / "native").glob("*.py"))
+    (PORT / "native").glob("*.py")) + [
+    PORT / "kernels" / "ops.py", PORT / "models" / "classifier.py",
+    PORT / "cli" / "classifier_baseline.py", PORT / "cli" / "export.py",
+    PORT / "cli" / "report.py", PORT / "viz.py", PORT / "data" / "splits.py"]
+# the classifier baseline, export and the report run on the card too: no
+# matplotlib either
+SLICE_12 = NO_SKLEARN[-7:]
 # the native data plane: the standard library, numpy, pandas and itself
 NATIVE = sorted((PORT / "native").glob("*.py"))
 NATIVE_IMPORTS = ("__future__", "ctypes", "hashlib", "os", "subprocess",
@@ -94,6 +104,15 @@ def test_the_analysis_stage_imports_no_sklearn(path):
 @pytest.mark.parametrize("path", VARIANT_CLIS,
                          ids=[str(p.relative_to(ROOT)) for p in VARIANT_CLIS])
 def test_the_variant_clis_import_no_matplotlib(path):
+    bad = [(m, line) for m, line in imported_modules(path)
+           if _forbidden(m, ("matplotlib",))]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("path", SLICE_12,
+                         ids=[str(p.relative_to(ROOT)) for p in SLICE_12])
+def test_the_baseline_export_and_report_import_no_matplotlib(path):
+    assert path.exists()
     bad = [(m, line) for m, line in imported_modules(path)
            if _forbidden(m, ("matplotlib",))]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
