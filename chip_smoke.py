@@ -124,6 +124,25 @@ Phases (any failure exits non-zero, with no result line):
      parameters from the library's SweepTrainer against nmpmcont's
      checkpoints at the JAX sweep test's bounds); K1 at F = 60 against
      fp64, timed; ms per grid step beside phase 10's nm-PM-cont step.
+  13. bootstrap, in-memory fusion and the test stage by phase; 14. the
+     classifier baseline, export and the report (.claude/skills/verify/
+     SKILL.md describes both);
+  15. --packed_xla on a 600-subject cohort (with FI), 10 epochs a run, each
+     packed run held to the per-modality run of the same seed (both draw
+     the same noise): 15a the train CLI at UCA-gPoE (the width-grouped
+     layout) in fp32 (logs rtol 2e-4, parameters rtol 5e-3 / atol 5e-5) and
+     --precision bf16 (logs rtol 2e-2 of fp32), then the test stage (K1 and
+     K2 once per modality), the analysis, the packed-trained ensemble's
+     scoring call against the plain path in fp64, and cli.score; 15b mmJSD
+     and mvtCAE at SE-PoE (the padded layout) and DMVAE at -H 110 110 40
+     (split-latent); 15c nm-PM-cont, nm-MLP and the shuffled regression
+     (rtol 5e-3 / atol 5e-4) with their scoring launches (K1; K1, K2; K1,
+     K3) and one commands_list11_adhd.sh point of cli.sweep_supervised;
+     15d 15a's fp32 run killed after epoch 4 of 10 and resumed in a fresh
+     main, byte-equal; 15e ms per step of the per-modality and the packed
+     trainer in turns (the flagship, 5 folds x 512 subjects, and PPMI
+     width, one fold of 2560; 20 steps a run ending in a fetch, median and
+     spread of five runs) and kernels per step from torch.profiler.
 
 Beside every kernel time stands the kernel's bound: the least time the
 card could take for the same work (kernels/roofline.py: the larger of its
@@ -360,6 +379,38 @@ GRID_ARGV = GRID_FLAGS + ["-Margins", "0.25", "0.5", "1", "2",
                           "-Weightcontrastives", "0.1", "0.5", "1"]
 GRID_PARAM_TOL = dict(rtol=5e-3, atol=5e-4)   # tests/test_sweep.py:46-83
 GRID_METRIC_DIFF = 0.05
+
+# phase 15: --packed_xla on every CLI that takes it, on phase 8's cohort
+# (with FI) in a temporary directory; 10 epochs each, each run held to its
+# per-modality run of the same seed (both layouts draw the same noise)
+PACKED_EPOCHS = 10
+PACKED_BASE = ["-R", "ADNI", "-K", str(FOLDS)]
+PACKED_H = ["-H", "110", "110", "10"]
+PACKED_E = ["-E", str(PACKED_EPOCHS)]
+PACKED_MODEL_DIR = "outputs/kfold_analysis/supervised_cvae"
+# the JAX tests' bounds: tests/test_packed_cli.py:33-50 and, for nm-PM-cont
+# and the regression, tests/test_packed_{endtoend,regression}.py
+PACKED_LOG_TOL = dict(rtol=2e-4, atol=0.0)
+PACKED_PARAM_TOL = dict(rtol=5e-3, atol=5e-5)
+PACKED_VARIANT_TOL = dict(rtol=5e-3, atol=5e-4)
+PACKED_BF16_TOL = dict(rtol=2e-2, atol=0.0)
+PACKED_ZOO = [("mmJSD", [110, 110, 10], "padded"),
+              ("mvtCAE", [110, 110, 10], "padded"),
+              ("DMVAE", [110, 110, 40], "split-latent grouped")]
+PACKED_VARIANTS = [
+    ("nmpmcont", PACKED_BASE + PACKED_H + PACKED_E
+     + ["-P", "SE-MoE", "-Layers", "128", "64", "32"]),
+    ("nmmlp", ["all"] + PACKED_BASE + PACKED_H + PACKED_E + ["-P", "SE-MoE"]),
+    ("regression", PACKED_BASE + PACKED_H + PACKED_E + ["-P", "UCA-gPoE"]),
+]
+# one commands_list11_adhd.sh point (its 50 epochs cut to 10)
+PACKED_SWEEP = ["-R", "ADHD", "-K", str(ADHD_FOLDS), "--procedures",
+                "SE-gPoE", "--hz_grid", "110 110 10", "--epochs_list",
+                str(PACKED_EPOCHS), "--lr_grid", "1e-4:5e-3"]
+# 15e: (cell, widths, subjects per fold): bench.py:29-36 and :45-47
+PACKED_TIMING = [("flagship", DIMS, [512] * FOLDS),
+                 ("PPMI width", PPMI_DIMS, [2560])]
+PACKED_TIMED_STEPS, PACKED_TIMED_RUNS = 20, 5
 
 
 def cuda_ms(fn, iters=50, warmup=5):
@@ -3057,6 +3108,469 @@ def run_report(root):
     return {"lines": len(lines), "sections": sections, "wall_s": wall}
 
 
+# ---- phase 15: the packed layouts (--packed_xla) ----------------------------
+
+def captured_logs(run):
+    """run() with common.emit_fold_artifacts recording the per-fold logs it
+    is handed (the CLIs' losses, [epochs] per key per fold); returns them."""
+    from multi_modal_normative_modeling_tpu_torch.cli import common
+
+    seen = []
+    real = common.emit_fold_artifacts
+
+    def emit(model_dir, per_fold_logs, *args, **kwargs):
+        seen.append([{k: np.asarray(v) for k, v in logs.items()}
+                     for logs in per_fold_logs])
+        return real(model_dir, per_fold_logs, *args, **kwargs)
+
+    common.emit_fold_artifacts = emit
+    try:
+        run()
+    finally:
+        common.emit_fold_artifacts = real
+    return seen[-1]
+
+
+def hold_logs(what, got, want, tol):
+    """Every fold's logged terms against another run's; returns the largest
+    relative difference."""
+    worst = 0.0
+    for f, (a, b) in enumerate(zip(got, want)):
+        if set(a) != set(b):
+            raise RuntimeError(f"phase 15: {what}: log keys {sorted(a)} "
+                               f"against {sorted(b)}")
+        for k in b:
+            if not np.isfinite(a[k]).all() or not np.allclose(
+                    a[k], b[k], **tol):
+                raise RuntimeError(f"phase 15: {what}: fold {f} log {k} "
+                                   f"{a[k]} against {b[k]} over {tol}")
+            worst = max(worst, float(np.max(np.abs(a[k] - b[k])
+                                            / np.maximum(np.abs(b[k]),
+                                                         1e-30))))
+    return worst
+
+
+def sign_noise_leaf(path):
+    """The end-to-end classifier's leaves whose gradient is a rounded zero
+    (a block's linear bias right before BatchNorm, and the running mean
+    that carries it): Adam turns the rounding into steps of about lr in a
+    direction the rounding picks, so two float orders part there
+    (tests/test_torch_endtoend.py)."""
+    return (("'blocks'" in path and path.endswith("['linear']['b']"))
+            or (path.startswith("['bn_state']") and path.endswith("['mean']")))
+
+
+def hold_checkpoints(what, got_root, want_root, tol, skip=None):
+    """Two projects' fold checkpoints, leaf by leaf at ``tol`` (the leaves
+    ``skip(path)`` picks aside); returns the largest absolute
+    difference."""
+    from multi_modal_normative_modeling_tpu_torch.interop import (
+        read_flax_checkpoint,
+    )
+
+    got, want = fold_checkpoints(got_root), fold_checkpoints(want_root)
+    if not got or [p.relative_to(got_root) for p in got] != [
+            p.relative_to(want_root) for p in want]:
+        raise RuntimeError(f"phase 15: {what}: checkpoints {got} {want}")
+    worst = 0.0
+    for x, y in zip(got, want):
+        lx = dict(tree_leaves(read_flax_checkpoint(x.parent)[0]))
+        ly = dict(tree_leaves(read_flax_checkpoint(y.parent)[0]))
+        for k in ly:
+            if skip is not None and skip(k):
+                continue
+            if not np.isfinite(lx[k]).all() or not np.allclose(
+                    lx[k], ly[k], **tol):
+                raise RuntimeError(
+                    f"phase 15: {what}: {x.parent.name} {k}: max abs diff "
+                    f"{np.abs(lx[k] - ly[k]).max():.3e} over {tol}")
+            worst = max(worst, float(np.abs(lx[k] - ly[k]).max()))
+    return worst
+
+
+def hold_trained_scoring(root, rows, seed):
+    """The test stage's scoring call (K1, then K2, once per modality for
+    every fold) on the ensemble ``root`` trained, at the stage's rows,
+    against the plain path evaluated in fp64 on the same eps, at phase 4's
+    bound. Returns (max abs err, launches)."""
+    from multi_modal_normative_modeling_tpu_torch import kernels
+    from multi_modal_normative_modeling_tpu_torch.cli import common
+
+    model, _, config = common.load_model_and_params(
+        [p.parent for p in fold_checkpoints(root)], device="cuda")
+    dims, combine = config["input_dim_list"], config["combine"]
+    rng = np.random.default_rng(seed)
+    xes = [torch.from_numpy(rng.standard_normal(
+        (FOLDS, rows, d), dtype=np.float32)).cuda() for d in dims]
+    cs = [covariates(rng, FOLDS, rows)] * len(dims)
+    eps = torch.randn((FOLDS, rows, model.latent_dim),
+                      generator=torch.Generator().manual_seed(seed)).cuda()
+    kernels.reset_launch_counts()
+    recons, devs = model.pred_recon_fused(xes, cs, combine, eps=eps)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    model64 = copy.deepcopy(model).double()
+    with torch.no_grad():
+        ref = model64.pred_recon(fp64(*xes), fp64(*cs), combine,
+                                 eps=eps.double())
+    err = 0.0
+    for m in range(len(dims)):
+        dev64 = model64.reconstruction_deviation(xes[m].double(), ref[m])
+        err = max(err, check_close(f"phase 15 modality {m} recon", recons[m],
+                                   ref[m].float(), MODEL_TOL)[0],
+                  check_close(f"phase 15 modality {m} deviation", devs[m],
+                              dev64.float(), MODEL_TOL)[0])
+    return err, launches
+
+
+def expect_launches(what, got, want):
+    if got != want:
+        raise RuntimeError(f"phase 15: {what} launched {got}, expected "
+                           f"{want}")
+
+
+def run_packed_flagship(project, stats):
+    """15a: the flagship cohort (UCA-gPoE, mixed widths: the width-grouped
+    layout) with --packed_xla in fp32 and bf16 against the per-modality
+    run; the test stage, the analysis and the score CLI on the packed-
+    trained ensemble. Returns {stage: launches}."""
+    import pandas as pd
+
+    from multi_modal_normative_modeling_tpu_torch import kernels
+    from multi_modal_normative_modeling_tpu_torch.cli import (
+        pipeline,
+        score,
+        train_supervised,
+    )
+
+    argv = PACKED_BASE + PACKED_H + PACKED_E + ["-P", "UCA-gPoE"]
+    runs, logs, walls = {}, {}, {}
+    for name, extra in (("per-modality", []), ("fp32", ["--packed_xla"]),
+                        ("bf16", ["--packed_xla", "--precision", "bf16"])):
+        runs[name] = project(f"flagship-{name}")
+        t0 = time.perf_counter()
+        logs[name] = captured_logs(lambda: train_supervised.run(
+            argv + extra, project_root=runs[name]))
+        walls[name] = time.perf_counter() - t0
+    if not (runs["fp32"] / PACKED_MODEL_DIR / "000").exists():
+        raise RuntimeError("phase 15a: no checkpoint of the packed run")
+    log_err = hold_logs("15a fp32 against per-modality", logs["fp32"],
+                        logs["per-modality"], PACKED_LOG_TOL)
+    param_err = hold_checkpoints("15a fp32 against per-modality",
+                                 runs["fp32"], runs["per-modality"],
+                                 PACKED_PARAM_TOL)
+    bf16_err = hold_logs("15a bf16 against fp32", logs["bf16"],
+                         logs["fp32"], PACKED_BF16_TOL)
+    launches = {}
+    kernels.reset_launch_counts()
+    stats_fp32 = pipeline.run(argv + ["--stages", "test"],
+                              project_root=runs["fp32"])
+    torch.cuda.synchronize()
+    launches["test stage"] = launch_counts()
+    expect_launches("15a: the test stage", launches["test stage"],
+                    {"fused_encoder": len(DIMS),
+                     "fused_pred_deviation": len(DIMS)})
+    check_stage_rows(runs["fp32"], "phase 15a")
+    stats_fp32 = pipeline.run(argv + ["--stages", "analyze"],
+                              project_root=runs["fp32"])
+    aucs = [float(a) for a in stats_fp32["auc"]]
+    if len(aucs) != 3 or not all(np.isfinite(a) and 0.0 <= a <= 1.0
+                                 for a in aucs):
+        raise RuntimeError(f"phase 15a: AUCs {aucs}")
+    err, launches["held"] = hold_trained_scoring(runs["fp32"], STAGE_ROWS,
+                                                 seed=15)
+    stats["packed_scoring_err"] = err
+    ids = runs["fp32"] / "score_ids.csv"
+    pd.read_csv(runs["fp32"] / "data" / "ADNI" / "y.csv")[["IID"]].to_csv(
+        ids, index=False)
+    kernels.reset_launch_counts()
+    out = score.run(["-R", "ADNI", "-P", "UCA-gPoE", "-K", str(FOLDS),
+                     "--ids", str(ids), "--output",
+                     str(runs["fp32"] / "scores.csv")],
+                    project_root=runs["fp32"])
+    torch.cuda.synchronize()
+    launches["score CLI"] = launch_counts()
+    expect_launches("15a: the score CLI", launches["score CLI"],
+                    {"fused_encoder": len(DIMS),
+                     "fused_pred_deviation": len(DIMS)})
+    values = out.select_dtypes("number").to_numpy()
+    if len(out) != COHORT_SUBJECTS or not np.isfinite(values).all():
+        raise RuntimeError(f"phase 15a: the score CLI wrote {out.shape}")
+    print(f"phase 15a: {' '.join(argv)}: per-modality "
+          f"{walls['per-modality']:.3f} s, --packed_xla (width-grouped) "
+          f"{walls['fp32']:.3f} s, bf16 {walls['bf16']:.3f} s; fp32 logs "
+          f"max rel diff {log_err:.3e} "
+          f"(bound {PACKED_LOG_TOL}), params max abs diff {param_err:.3e} "
+          f"(bound {PACKED_PARAM_TOL}); bf16 logs max rel diff from fp32 "
+          f"{bf16_err:.3e} (bound {PACKED_BF16_TOL}); test stage launches "
+          f"{launches['test stage']}, AUC {[round(a, 4) for a in aucs]}; "
+          f"the scoring call on the packed-trained ensemble against fp64: "
+          f"max abs err {err:.3e}, launches {launches['held']}; score CLI "
+          f"launches {launches['score CLI']}, {len(out)} rows", flush=True)
+    return runs["fp32"], launches
+
+
+def run_packed_zoo(project):
+    """15b: mmJSD and mvtCAE at SE-PoE (uniform widths: the padded layout)
+    and DMVAE with a shared code (the split-latent layout), each against
+    its per-modality run."""
+    from multi_modal_normative_modeling_tpu_torch.cli import train_supervised
+
+    for name, hz, layout in PACKED_ZOO:
+        argv = (PACKED_BASE + ["-H"] + [str(h) for h in hz] + PACKED_E
+                + ["-P", "SE-PoE", "-Model", name])
+        roots, logs = {}, {}
+        for run, extra in (("per-modality", []), ("packed", ["--packed_xla"])):
+            roots[run] = project(f"zoo-{name}-{hz[-1]}-{run}")
+            logs[run] = captured_logs(lambda: train_supervised.run(
+                argv + extra, project_root=roots[run]))
+        log_err = hold_logs(f"15b {name}", logs["packed"],
+                            logs["per-modality"], PACKED_LOG_TOL)
+        param_err = hold_checkpoints(f"15b {name}", roots["packed"],
+                                     roots["per-modality"], PACKED_PARAM_TOL)
+        print(f"phase 15b: {name} -H {' '.join(map(str, hz))} ({layout} "
+              f"layout), {PACKED_EPOCHS} epochs: logs max rel diff "
+              f"{log_err:.3e}, params max abs diff {param_err:.3e} from the "
+              f"per-modality run", flush=True)
+
+
+def run_packed_variants(tmp, project):
+    """15c: nm-PM-cont, nm-MLP and the shuffled regression with
+    --packed_xla against their per-modality runs, their scoring launches;
+    one commands_list11_adhd.sh point of the supervised sweep."""
+    from multi_modal_normative_modeling_tpu_torch import kernels
+    from multi_modal_normative_modeling_tpu_torch.cli import (
+        common,
+        nmmlp,
+        nmpmcont,
+        regression,
+        sweep_supervised,
+    )
+    from multi_modal_normative_modeling_tpu_torch.data.synthetic import (
+        make_synthetic_resource,
+    )
+
+    modules = {"nmpmcont": nmpmcont, "nmmlp": nmmlp,
+               "regression": regression}
+    launches = {}
+    for name, flags in PACKED_VARIANTS:
+        roots = {}
+        for run, extra in (("per-modality", []), ("packed", ["--packed_xla"])):
+            roots[run] = project(f"{name}-{run}")
+            args = modules[name].build_parser().parse_args(flags + extra)
+            if name == "nmpmcont":
+                common.apply_post_parse_defaults(args, "SE-MoE")
+            kernels.reset_launch_counts()
+            if name == "regression":
+                regression.train_and_test(args, roots[run])
+            else:
+                modules[name].main(args, roots[run])
+            torch.cuda.synchronize()
+            counts = launch_counts()
+        launches[name] = counts
+        expect_launches(f"15c: {name} --packed_xla", counts,
+                        VARIANT_LAUNCHES[name])
+        # nm-MLP at the skeleton's bound, nm-PM-cont and the regression at
+        # their JAX tests'
+        tol = PACKED_PARAM_TOL if name == "nmmlp" else PACKED_VARIANT_TOL
+        if name == "regression":
+            out = [r / "regression_outputs" for r in
+                   (roots["packed"], roots["per-modality"])]
+            diff = 0.0
+            for f in range(FOLDS):
+                a, b = (np.load(o / f"fold_{f}_pred.npy") for o in out)
+                if not np.allclose(a, b, **tol):
+                    raise RuntimeError(f"phase 15c: regression fold {f} FI "
+                                       f"max abs diff {np.abs(a - b).max()}")
+                diff = max(diff, float(np.abs(a - b).max()))
+        else:
+            diff = hold_checkpoints(
+                f"15c {name}", roots["packed"], roots["per-modality"], tol,
+                skip=sign_noise_leaf if name == "nmpmcont" else None)
+        print(f"phase 15c: {name} {' '.join(flags)} --packed_xla: "
+              f"{'FI' if name == 'regression' else 'params'} max abs diff "
+              f"{diff:.3e} from the per-modality run (bound {tol}); "
+              f"scoring launches {counts}", flush=True)
+
+    make_synthetic_resource(tmp / "adhd", "ADHD", **ADHD_COHORT)
+    records, roots = {}, {}
+    for run, extra in (("per-modality", []), ("packed", ["--packed_xla"])):
+        root = roots[run] = tmp / f"sweep-{run}"
+        shutil.copytree(tmp / "adhd" / "data", root / "data")
+        kernels.reset_launch_counts()
+        records[run] = sweep_supervised.run(PACKED_SWEEP + extra,
+                                            project_root=root)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    launches["sweep"] = counts
+    expect_launches("15c: the sweep point's test stage", counts,
+                    {"fused_encoder": 2, "fused_pred_deviation": 2})
+    diff = hold_checkpoints("15c sweep point", roots["packed"],
+                            roots["per-modality"], PACKED_PARAM_TOL)
+    a, b = records["packed"][0]["stats"], records["per-modality"][0]["stats"]
+    print(f"phase 15c: sweep_supervised {' '.join(PACKED_SWEEP)} "
+          f"--packed_xla: params max abs diff {diff:.3e} from the "
+          f"per-modality grid, AUC {a['auc']} (per-modality {b['auc']}); "
+          f"test stage launches {counts}", flush=True)
+    return launches
+
+
+def run_packed_resume(project, straight):
+    """15d: 15a's fp32 packed run killed after epoch 4 of 10 and resumed in
+    a fresh main: its checkpoints byte-equal to the straight run's."""
+    from multi_modal_normative_modeling_tpu_torch.cli import train_supervised
+
+    argv = PACKED_BASE + PACKED_H + ["-P", "UCA-gPoE", "--packed_xla",
+                                     "--checkpoint_every", "1"]
+    root = project("flagship-resumed")
+    train_supervised.run(argv + ["-E", "4"], project_root=root)
+    train_supervised.run(argv + ["-E", str(PACKED_EPOCHS), "--resume"],
+                         project_root=root)
+    state = root / PACKED_MODEL_DIR / "grouped-state" / "train_state.json"
+    if json.loads(state.read_text()) != {"epoch": PACKED_EPOCHS}:
+        raise RuntimeError(f"phase 15d: {state.read_text()}")
+    dist = checkpoint_distance(straight, root)
+    if dist != 0.0:
+        raise RuntimeError(f"phase 15d: the resumed run's checkpoints are "
+                           f"{dist:.3e} from the straight run's")
+    print(f"phase 15d: --packed_xla --checkpoint_every 1, killed after "
+          f"epoch 4 of {PACKED_EPOCHS} and resumed in a fresh main: fold "
+          f"checkpoints byte-equal to the straight run's", flush=True)
+
+
+def profile_kernels(run, steps):
+    """(device kernels, their device ms) per step of run() under
+    torch.profiler; (None, None) when the trace holds no device rows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not rows:
+        return None, None
+    busy_ms = sum(e.time_range.elapsed_us() for e in rows) / 1e3
+    return len(rows) / steps, busy_ms / steps
+
+
+def time_packed(stats):
+    """15e: ms per step of the per-modality and the packed trainer, in
+    turns in this process, at the flagship (bench.py:29-36: 5 folds x 512
+    seeded subjects, batch 256) and at PPMI width (bench.py:45-47: 3 x
+    3485, one fold of 2560); each run 20 steps ending in the logs' fetch;
+    kernels per step from torch.profiler."""
+    from multi_modal_normative_modeling_tpu_torch.models import build_model
+    from multi_modal_normative_modeling_tpu_torch.parallel import (
+        MultiFoldTrainer,
+        stack_fold_batches,
+    )
+    from multi_modal_normative_modeling_tpu_torch.train import TrainConfig
+    from multi_modal_normative_modeling_tpu_torch.train.grouped import (
+        select_packed_trainer,
+    )
+    from multi_modal_normative_modeling_tpu_torch.train.trainer import (
+        DeviceBatches,
+    )
+
+    out = {}
+    for cell, dims, rows_per_fold in PACKED_TIMING:
+        rng = np.random.default_rng(15)
+        data = [[rng.standard_normal((n, d), dtype=np.float32) for d in dims]
+                for n in rows_per_fold]
+        cov = [[one_hot_covariates(rng, n)] * len(dims)
+               for n in rows_per_fold]
+        host = stack_fold_batches(data, cov, BATCH)
+        nb = host["mask"].shape[1]
+        epochs = PACKED_TIMED_STEPS // nb
+        config = TrainConfig(epochs=epochs, batch_size=BATCH, combine=COMBINE)
+        model = build_model("cVAE_multimodal", dims, HIDDEN, LATENT, C_DIM,
+                            len(dims), folds=len(rows_per_fold),
+                            generator=torch.Generator().manual_seed(15),
+                            device="cuda")
+        packed_cls, layout, _ = select_packed_trainer(model)
+        plain = MultiFoldTrainer(model, config, max(rows_per_fold))
+        trainers = {"per-modality": (plain, DeviceBatches(host, "cuda"))}
+        packed = packed_cls(model, config, max(rows_per_fold))
+        trainers["packed"] = (packed, packed.prepare_batches(host))
+        times = {k: [] for k in trainers}
+        for i in range(PACKED_TIMED_RUNS + 1):
+            for k, (trainer, batches) in trainers.items():
+                # a session packs (and its end unpacks) outside the clock
+                session = trainer.session(batches)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                session.advance(epochs)   # ends in the logs' fetch
+                if i:   # the first turn warms up
+                    times[k].append((time.perf_counter() - t0) * 1e3
+                                    / (epochs * nb))
+        per_step, busy = {}, {}
+        for k, (trainer, batches) in trainers.items():
+            session = trainer.session(batches)
+            per_step[k], busy[k] = profile_kernels(
+                lambda: session.advance(epochs), epochs * nb)
+        out[cell] = {k: {"median_ms": float(np.median(v)),
+                         "min_ms": float(np.min(v)),
+                         "max_ms": float(np.max(v)), "runs": len(v),
+                         "kernels_per_step": per_step[k],
+                         "device_busy_ms_per_step": busy[k]}
+                     for k, v in times.items()}
+        out[cell]["layout"] = layout
+        print(f"phase 15e: {cell}: {len(rows_per_fold)} folds x "
+              f"{rows_per_fold} subjects, widths {dims}, batch {BATCH}, "
+              f"{epochs * nb} steps a run, {PACKED_TIMED_RUNS} runs each in "
+              f"turns: per-modality median "
+              f"{out[cell]['per-modality']['median_ms']:.4f} ms/step "
+              f"[{out[cell]['per-modality']['min_ms']:.4f}, "
+              f"{out[cell]['per-modality']['max_ms']:.4f}], "
+              f"{per_step['per-modality']} kernels/step, device busy "
+              f"{busy['per-modality']} ms/step; {layout} median "
+              f"{out[cell]['packed']['median_ms']:.4f} ms/step "
+              f"[{out[cell]['packed']['min_ms']:.4f}, "
+              f"{out[cell]['packed']['max_ms']:.4f}], "
+              f"{per_step['packed']} kernels/step, device busy "
+              f"{busy['packed']} ms/step", flush=True)
+    stats["packed_timing"] = out
+    return out
+
+
+def run_packed(stats):
+    """Phase 15: --packed_xla on every CLI that takes it, on the card."""
+    from multi_modal_normative_modeling_tpu_torch.data.synthetic import (
+        make_synthetic_resource,
+    )
+
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        make_synthetic_resource(tmp / "cohort", "ADNI",
+                                with_early_fusion=True, with_fi=True,
+                                **CHAIN_COHORT)
+
+        def project(name):
+            root = tmp / name
+            shutil.copytree(tmp / "cohort" / "data", root / "data")
+            return root
+
+        t0 = time.perf_counter()
+        straight, launches["flagship"] = run_packed_flagship(project, stats)
+        t1 = time.perf_counter()
+        run_packed_zoo(project)
+        t2 = time.perf_counter()
+        variant_launches = run_packed_variants(tmp, project)
+        t3 = time.perf_counter()
+        run_packed_resume(project, straight)
+        t4 = time.perf_counter()
+    timing = time_packed(stats)
+    print(f"phase 15: 15a {t1 - t0:.1f} s, 15b {t2 - t1:.1f} s, 15c "
+          f"{t3 - t2:.1f} s, 15d {t4 - t3:.1f} s, 15e "
+          f"{time.perf_counter() - t4:.1f} s", flush=True)
+    print(json.dumps({"packed_timing": timing}), flush=True)
+    return {**{f"flagship {k}": v for k, v in launches["flagship"].items()},
+            **variant_launches}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3403,6 +3917,9 @@ def main():
     chain_dir.cleanup()
     print(f"phase 14: 14a {t14a - t14:.1f} s, 14b {t14b - t14a:.1f} s, "
           f"14c {time.perf_counter() - t14b:.1f} s", flush=True)
+
+    # ---- phase 15: the packed layouts (--packed_xla) ------------------------
+    packed_launches = run_packed(stats)
     missing = [name for name in sources if not launches.get(name)]
     if missing:
         raise RuntimeError(f"no launch on the main path: {missing}")
@@ -3483,6 +4000,13 @@ def main():
         report[-1]["export_launches"] = {
             call: counts.get(name, 0)
             for call, counts in export_launches.items()}
+        # phase 15: the launches of the packed-trained ensembles' scoring:
+        # 15a's test stage, its call held against fp64 and its score CLI
+        # run; the variant CLIs' and the sweep point's scoring after
+        # --packed_xla training
+        report[-1]["packed_launches"] = {
+            run: counts.get(name, 0)
+            for run, counts in packed_launches.items()}
     print(json.dumps({"classifier": classifier_runs,
                       "export": stats["export"], "report": report_summary}))
     print(json.dumps({"test_stage_walls": stage_walls,

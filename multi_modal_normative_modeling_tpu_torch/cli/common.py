@@ -48,7 +48,6 @@ def resolve_device(name: str, what: str = 'run') -> torch.device:
 # the JAX variant CLIs' flags with no port yet, each with the queue 1 item
 # that ports it (ROADMAP.md); the port raises instead of ignoring them
 VARIANT_NOT_PORTED = {
-    'packed_xla': "queue 1 items 'Packed layout' and 'Grouped layout'",
     'ep_mesh': "queue 1 item 'Multi-device'",
     'mesh': "queue 1 item 'Multi-device'",
 }
@@ -57,8 +56,8 @@ VARIANT_NOT_PORTED = {
 def add_variant_flags(parser: argparse.ArgumentParser,
                       not_ported: Sequence[str]) -> None:
     """--device, the no-op --fold_parallel, --checkpoint_every/--resume,
-    and the named flags of VARIANT_NOT_PORTED with the JAX CLIs' dests and
-    defaults."""
+    --packed_xla, and the named flags of VARIANT_NOT_PORTED with the JAX
+    CLIs' dests and defaults."""
     parser.add_argument('--device', dest='device', default='cuda',
                         help='torch device to run on (default cuda); cuda '
                              'runs the kernels, cpu their plain versions')
@@ -66,9 +65,14 @@ def add_variant_flags(parser: argparse.ArgumentParser,
                         action='store_true',
                         help='accepted for the JAX CLI flag surface: the '
                              'port always trains every fold at once')
-    kinds = {'packed_xla': {'action': 'store_true'},
-             'ep_mesh': {'default': None},
-             'mesh': {'default': None}}
+    parser.add_argument('--packed_xla', dest='packed_xla',
+                        action='store_true',
+                        help='train on the packed-modality layout (every '
+                             'layer one batched product over the '
+                             'modalities); where the configuration does not '
+                             'take it, says why and trains the per-modality '
+                             'layout.')
+    kinds = {'ep_mesh': {'default': None}, 'mesh': {'default': None}}
     for flag in not_ported:
         parser.add_argument(f'--{flag}', dest=flag,
                             help='not ported yet (raises); see ROADMAP.md',
@@ -635,6 +639,39 @@ def uniform_covariates(folds):
                 return ('per-modality covariates differ across modalities '
                         '(packed layout shares one block)')
     return None
+
+
+def packed_layout(model, config, folds) -> Optional[tuple]:
+    """``--packed_xla``'s layout for ``model`` (select_packed_trainer's
+    (trainer class, layout name, tag)), or None, printing why, where the
+    JAX package's run_folds(packed=True) trains the per-modality layout
+    (cli/common.py:833-853): packed_supported's reason, or non-uniform
+    covariates."""
+    from ..train.grouped import select_packed_trainer
+    from ..train.packed import packed_supported
+
+    ok, reason = packed_supported(model, config)
+    if ok:
+        reason = uniform_covariates(folds)
+    if reason:
+        print(f'--packed_xla unavailable ({reason}); '
+              'using the per-modality layout')
+        return None
+    return select_packed_trainer(model)
+
+
+def packed_state_dir(root: Path, tag: str, resumable: Resumable) -> Path:
+    """A packed layout's whole-run train-state dir under ``root``, named as
+    the JAX package names its layout's (``packed_state_dirname``); on a
+    resume, the note on a mixed-width cohort's leftover padded state."""
+    from ..train.grouped import (
+        notice_stale_padded_state,
+        packed_state_dirname,
+    )
+
+    if resumable.every and resumable.resume:
+        notice_stale_padded_state(root, tag)
+    return Path(root) / packed_state_dirname(tag)
 
 
 def model_config_dict(args, input_dim_list: List[int], c_dim: int,

@@ -18,7 +18,7 @@ outputs/analysis_results/performance_metrics.txt.
 
     python -m multi_modal_normative_modeling_tpu_torch.cli.nmmlp all \\
         -R ADNI -P SE-MoE -E 200 -K 5 [--device cpu]
-        [--checkpoint_every N [--resume]]
+        [--checkpoint_every N [--resume]] [--packed_xla]
 """
 from __future__ import annotations
 
@@ -145,12 +145,23 @@ def train(args, project_root: Path,
         if draws_fn is not None:
             draws = draws_fn(batches['valid'], config.epochs,
                              config.batch_size, model)
-        trainer = MultiFoldTrainer(model, config, folds[0][0][0].shape[0])
         resumable = common.Resumable(args)
-        start = time.perf_counter()
         # one whole-run train state in the model dir (the JAX CLI keeps
-        # one per fold on its sequential path)
-        logs = resumable.run(trainer, batches, state_dir=model_dir, **draws)
+        # one per fold on its sequential path), a packed layout's in its
+        # own dir
+        state_dir = model_dir
+        packed = (common.packed_layout(model, config, folds)
+                  if getattr(args, 'packed_xla', False) else None)
+        if packed is None:
+            trainer = MultiFoldTrainer(model, config, folds[0][0][0].shape[0])
+        else:
+            cls, layout, tag = packed
+            trainer = cls(model, config, folds[0][0][0].shape[0])
+            state_dir = common.packed_state_dir(model_dir, tag, resumable)
+            print(f'train model (all folds fold-parallel, {layout} '
+                  'modalities)')
+        start = time.perf_counter()
+        logs = resumable.run(trainer, batches, state_dir=state_dir, **draws)
         timings['train_run_s'] = time.perf_counter() - start
         timings['train_steps'] = ((config.epochs - resumable.resumed_from)
                                   * batches['mask'].shape[1])
@@ -339,7 +350,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help='Number of splits for k-fold cross-validation.')
     parser.add_argument('-O', '--oversample_percentage', type=float, default=1,
                         help='Percentage of oversampling of the training data.')
-    common.add_variant_flags(parser, ['packed_xla', 'mesh'])
+    common.add_variant_flags(parser, ['mesh'])
     return parser
 
 

@@ -24,11 +24,13 @@ Reference quirks kept, as the JAX CLI keeps them:
 
 The classification of the test rows is ``EndToEndCVAE.predict``: on CUDA
 each modality's encoder is one launch of the encoder kernel for every
-fold, PoE and the classifier head in torch.
+fold, PoE and the classifier head in torch. ``--packed_xla`` trains on
+the packed dual-bank layout (``train.packed_endtoend``; its train state
+under ``grouped-e2e-state/``).
 
     python -m multi_modal_normative_modeling_tpu_torch.cli.nmpmcont \\
         -R ADNI -P SE-MoE -E 200 -K 5 [-Layers 128 64 32] [--device cpu]
-        [--checkpoint_every N [--resume]]
+        [--checkpoint_every N [--resume]] [--packed_xla]
 """
 from __future__ import annotations
 
@@ -53,6 +55,10 @@ from ..evaluation.reports import append_endtoend_results
 from ..interop import params_to_jax
 from ..models.endtoend import EndToEndCVAE, endtoend_loss_fn
 from ..parallel import MultiFoldTrainer, stack_fold_batches
+from ..train.packed_endtoend import (
+    GroupedEndToEndTrainer,
+    endtoend_state_dirname,
+)
 from ..train import TrainConfig
 from . import common
 
@@ -222,17 +228,34 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
         if draws_fn is not None:
             draws = draws_fn(batches['valid'], config.epochs,
                              config.batch_size, model)
-        trainer = MultiFoldTrainer(
-            model, config, max(f['train_data'][0].shape[0]
-                               for f in fold_data),
-            loss_fn=endtoend_loss_fn(model, args.margin,
-                                     args.weightcontrastive),
-            state_update=model.update_state)
-        print('train model (all folds fold-parallel)')
-        start = time.perf_counter()
+        n_samples = max(f['train_data'][0].shape[0] for f in fold_data)
         # one whole-run train state in the model dir (the JAX CLI keeps
-        # one per fold, or one per packed layout)
-        logs = resumable.run(trainer, batches, state_dir=model_dir, **draws)
+        # one per fold), the packed layout's in its own dir
+        state_dir = model_dir
+        packed = getattr(args, 'packed_xla', False)
+        if packed:
+            cov_reason = common.uniform_covariates(
+                [(f['train_data'], f['train_cov']) for f in fold_data])
+            if cov_reason:
+                print(f'--packed_xla unavailable ({cov_reason}); '
+                      'using the per-modality layout')
+                packed = False
+        if packed:
+            trainer = GroupedEndToEndTrainer(model, config, n_samples,
+                                             args.margin,
+                                             args.weightcontrastive)
+            state_dir = model_dir / endtoend_state_dirname()
+            print('train model (all folds fold-parallel, packed '
+                  'dual-bank endtoend modalities)')
+        else:
+            trainer = MultiFoldTrainer(
+                model, config, n_samples,
+                loss_fn=endtoend_loss_fn(model, args.margin,
+                                         args.weightcontrastive),
+                state_update=model.update_state)
+            print('train model (all folds fold-parallel)')
+        start = time.perf_counter()
+        logs = resumable.run(trainer, batches, state_dir=state_dir, **draws)
         timings['train_run_s'] = time.perf_counter() - start
         timings['train_steps'] = ((config.epochs - resumable.resumed_from)
                                   * batches['mask'].shape[1])
@@ -284,7 +307,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('-Layers', '--layers', dest='layers', nargs='+',
                         default=[128, 64, 32], type=int,
                         help='Layers for the classifier.')
-    common.add_variant_flags(parser, ['packed_xla', 'ep_mesh', 'mesh'])
+    common.add_variant_flags(parser, ['ep_mesh', 'mesh'])
     return parser
 
 

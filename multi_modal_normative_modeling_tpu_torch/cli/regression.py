@@ -20,9 +20,13 @@ Divergence: the JAX CLI also draws fold_<k>_scatter.png with matplotlib,
 which the GPU machine does not have; this CLI draws no figure (the .npy
 pair holds its data; ROADMAP.md, queue 3).
 
+``--packed_xla`` trains on the width-grouped regression layout
+(``train.packed_regression``, shuffled like the per-modality run; its
+train state under ``regression_outputs/grouped-reg-state/``).
+
     python -m multi_modal_normative_modeling_tpu_torch.cli.regression \\
         -R ADNI -P UCA-gPoE -E 500 -K 5 [--device cpu]
-        [--checkpoint_every N [--resume]]
+        [--checkpoint_every N [--resume]] [--packed_xla]
 """
 from __future__ import annotations
 
@@ -41,6 +45,10 @@ from ..evaluation.metrics import evaluate_regression
 from ..infer.emitters import write_csv
 from ..models.regression import RegressionCVAE, regression_loss_fn
 from ..parallel import MultiFoldTrainer, stack_fold_batches
+from ..train.packed_regression import (
+    GroupedRegressionTrainer,
+    regression_state_dirname,
+)
 from ..train import TrainConfig
 from . import common
 
@@ -145,16 +153,31 @@ def train_and_test(args, project_root=None,
         if draws_fn is not None:
             draws = draws_fn(batches['valid'], config.epochs,
                              config.batch_size, model)
-        trainer = MultiFoldTrainer(
-            model, config, max(f['train_data'][0].shape[0]
-                               for f in fold_data),
-            loss_fn=regression_loss_fn(model, config.combine))
-        print('train model (all folds fold-parallel, shuffled every epoch)')
+        n_samples = max(f['train_data'][0].shape[0] for f in fold_data)
+        # one whole-run train state in regression_outputs (the JAX CLI
+        # keeps one per fold), the packed layout's in its own dir; every
+        # fold shuffles its own batch grid on either layout
+        state_dir = output_dir
+        packed = getattr(args, 'packed_xla', False)
+        if packed and config.combine.lower() not in ('poe', 'gpoe', 'moe',
+                                                     'mopoe'):
+            print(f'--packed_xla unavailable (fusion {config.combine!r}); '
+                  'using the per-modality layout')
+            packed = False
+        if packed:
+            trainer = GroupedRegressionTrainer(model, config, n_samples)
+            state_dir = output_dir / regression_state_dirname()
+            print('train model (all folds fold-parallel, width-grouped '
+                  'regression modalities)')
+        else:
+            trainer = MultiFoldTrainer(
+                model, config, n_samples,
+                loss_fn=regression_loss_fn(model, config.combine))
+            print('train model (all folds fold-parallel, shuffled every '
+                  'epoch)')
         resumable = common.Resumable(args)
         start = time.perf_counter()
-        # one whole-run train state in regression_outputs (the JAX CLI
-        # keeps one per fold, or one per packed layout)
-        logs = resumable.run(trainer, batches, state_dir=output_dir, **draws)
+        logs = resumable.run(trainer, batches, state_dir=state_dir, **draws)
         timings['train_run_s'] = time.perf_counter() - start
         timings['train_steps'] = ((config.epochs - resumable.resumed_from)
                                   * batches['mask'].shape[1])
@@ -249,7 +272,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--batch_size', type=int, default=128)
     parser.add_argument('-BaseLR', '--base_learning_rate', type=float,
                         default=0.0001)
-    common.add_variant_flags(parser, ['packed_xla', 'mesh'])
+    common.add_variant_flags(parser, ['mesh'])
     return parser
 
 

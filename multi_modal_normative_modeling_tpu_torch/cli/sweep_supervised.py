@@ -16,7 +16,12 @@ deviation CSVs, result_baseline blocks) with the training deduplicated:
   1e-4) the lr axis is trained once and the other pairs are recorded as
   deduped; with ``--lr_schedule cyclic`` every pair trains;
 * the fold ids and each procedure's data prep and batches are shared by
-  its grid points.
+  its grid points;
+* with ``--packed_xla`` every grid point trains on the packed layout
+  ``train.grouped.select_packed_trainer`` picks (width-grouped for a
+  mixed-width cvae-skeleton procedure, padded for uniform widths,
+  split-latent for the DMVAE family), the packed batches built once per
+  procedure; ``--precision bf16`` runs there for cVAE_multimodal.
 
 At each milestone the port's test stage (``test_supervised.main``: on CUDA
 the encoder and decode+deviation kernels once per modality) and analysis
@@ -28,6 +33,7 @@ run log's sweep_start, point_done and sweep_end events.
         -R ADHD -K 10 --procedures SM-sMRI SE-gPoE \\
         --hz_grid '110 110 10;460 460 40' --epochs_list 50 500 1000 \\
         --lr_grid '1e-4:5e-3,1e-5:5e-3' [--device cpu]
+        [--packed_xla [--precision bf16]]
 """
 from __future__ import annotations
 
@@ -43,6 +49,8 @@ import pandas as pd
 from .. import registry
 from ..parallel import MultiFoldTrainer, stack_fold_batches
 from ..train import TrainConfig
+from ..train.grouped import select_packed_trainer
+from ..train.packed import packed_supported
 from ..train.trainer import DeviceBatches
 from ..utils.logging import RunLog
 from . import common, group_analysis, test_supervised
@@ -52,7 +60,6 @@ from .train_supervised import EpsFn, default_init
 _NOT_PORTED_FLAGS = {
     'mesh': "queue 1 item 'Multi-device'",
     'ep_mesh': "queue 1 item 'Multi-device'",
-    'packed_xla': "queue 1 items 'Packed layout' and 'Grouped layout'",
 }
 
 
@@ -123,10 +130,17 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
     stage's noise (tests replay the JAX package's draws). ``timings``, when
     given, receives the phases' walls. Returns the records."""
     common.refuse_not_ported(args, 'supervised sweep', _NOT_PORTED_FLAGS)
-    if getattr(args, 'precision', 'fp32') != 'fp32':
-        raise SystemExit(f'--precision {args.precision} is not ported to the '
+    packed = getattr(args, 'packed_xla', False)
+    precision = getattr(args, 'precision', 'fp32')
+    if precision != 'fp32' and not packed:
+        raise SystemExit(f'--precision {precision} is not ported to the '
                          'torch supervised sweep yet (the plain trainer is '
-                         "fp32); see ROADMAP.md, queue 1 item 'Trainer'")
+                         'fp32; the packed layouts take bf16 with '
+                         "--packed_xla); see ROADMAP.md, queue 1 item "
+                         "'Trainer'")
+    if packed:
+        print('sweep training runs on the packed-modality layout '
+              '(--packed_xla)')
     device = common.resolve_device(getattr(args, 'device', 'cuda'), 'train')
     procedures = args.procedures
     epochs_list = sorted(set(int(e) for e in args.epochs_list))
@@ -190,7 +204,15 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
             max_n = max(f[0][0].shape[0] for f in folds)
             host_batches = stack_fold_batches(
                 [f[0] for f in folds], [f[1] for f in folds], 256)
-            batches = DeviceBatches(host_batches, device)
+            # the packed path trains on its packed batches alone, built
+            # once per procedure at its first grid point
+            batches = None if packed else DeviceBatches(host_batches, device)
+        if packed:
+            # the packed layouts feed one covariate block to every modality
+            cov_reason = common.uniform_covariates(folds)
+            if cov_reason:
+                raise SystemExit(
+                    f'--packed_xla unavailable ({procedure}): {cov_reason}')
 
         for hz in hz_grid:
             for base_lr, max_lr in lr_points:
@@ -210,8 +232,20 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
                         epochs=max_epochs, batch_size=256,
                         learning_rate=1e-4, combine=pa.combine,
                         lr_schedule=args.lr_schedule, base_lr=base_lr,
-                        max_lr=max_lr, shuffle=False, seed=42)
-                    trainer = MultiFoldTrainer(model, train_config, max_n)
+                        max_lr=max_lr, shuffle=False, seed=42,
+                        precision=precision)
+                    if packed:
+                        ok, reason = packed_supported(model, train_config)
+                        if not ok:
+                            raise SystemExit(f'--packed_xla unavailable '
+                                             f'({reason})')
+                        pk_cls, _, _ = select_packed_trainer(model)
+                        trainer = pk_cls(model, train_config, max_n)
+                        if batches is None:
+                            batches = trainer.prepare_batches(host_batches)
+                    else:
+                        trainer = MultiFoldTrainer(model, train_config,
+                                                   max_n)
                     draws = {}
                     if eps_fn is not None:
                         draws['eps'] = eps_fn(host_batches['valid'],
@@ -316,7 +350,9 @@ def build_parser() -> argparse.ArgumentParser:
                         default='constant', choices=['constant', 'cyclic'])
     parser.add_argument('--precision', dest='precision', default='fp32',
                         choices=['fp32', 'bf16'],
-                        help='fp32; bf16 is not ported to the sweep (raises)')
+                        help='fp32; bf16 runs on the packed layouts of '
+                             'cVAE_multimodal (with --packed_xla) and raises '
+                             'otherwise')
     parser.add_argument('--device', dest='device', default='cuda',
                         help='torch device to run on (default cuda); cuda '
                              'runs the kernels, cpu their plain versions')
@@ -327,10 +363,17 @@ def build_parser() -> argparse.ArgumentParser:
                              'two products (the same math as the merged '
                              'head)')
     not_ported = 'not ported yet (raises); see ROADMAP.md'
-    for flag, kwargs in (('--mesh', {'default': None}),
-                         ('--ep_mesh', {'default': None}),
-                         ('--packed_xla', {'action': 'store_true'})):
-        parser.add_argument(flag, dest=flag[2:], help=not_ported, **kwargs)
+    for flag in ('--mesh', '--ep_mesh'):
+        parser.add_argument(flag, dest=flag[2:], default=None,
+                            help=not_ported)
+    parser.add_argument('--packed_xla', dest='packed_xla',
+                        action='store_true',
+                        help='train every grid point on the packed-modality '
+                             'layout (mixed-width cvae-skeleton procedures '
+                             'on the pad-free width-grouped layout, uniform '
+                             'widths padded, the DMVAE family '
+                             'split-latent); the packed batches are built '
+                             'once per procedure.')
     parser.add_argument('--in_memory_fusion', dest='in_memory_fusion',
                         action='store_true',
                         help='build the UCA early-fusion modality by '

@@ -19,7 +19,13 @@ and exit for the other five. ``--checkpoint_every N`` saves a whole-run
 train state every N epochs (``train_state.ckpt`` in the model dir; the
 fused train step's under ``fused-state/``) and ``--resume`` continues it:
 the resumed run's checkpoints equal the uninterrupted run's, byte for byte.
-``--in_memory_fusion`` builds a UCA procedure's early-fusion modality from
+``--packed_xla`` trains every fold at once on a packed-modality layout
+(``train.grouped.select_packed_trainer``: width-grouped for a mixed-width
+cvae-skeleton cohort, padded for uniform widths, split-latent for the DMVAE
+family; its train state under that layout's own directory, e.g.
+``grouped-state/``), in fp32 or, for cVAE_multimodal, ``--precision bf16``;
+where the JAX CLI does not take the packed layout it says why and trains
+the per-modality layout, as the JAX CLI does. ``--in_memory_fusion`` builds a UCA procedure's early-fusion modality from
 the scaled base modalities (``common.fuse_preps``) instead of reading its
 CSV, on every path.
 
@@ -27,6 +33,7 @@ CSV, on every path.
         -R ADNI -P UCA-gPoE -E 200 -K 5 [--fused_decoder] [--device cpu]
         [--fused_train_step [--precision bf16]] [-Model mvtCAE]
         [--checkpoint_every N [--resume]] [--in_memory_fusion]
+        [--packed_xla [--precision bf16]]
 """
 from __future__ import annotations
 
@@ -46,6 +53,8 @@ from ..models import REGISTRY, build_model
 from ..parallel import MultiFoldTrainer, stack_fold_batches
 from ..train import TrainConfig
 from ..train.fused import FusedFoldTrainer, supported
+from ..train.grouped import select_packed_trainer
+from ..train.packed import packed_supported
 from ..utils.logging import RunLog
 from . import common
 
@@ -82,17 +91,17 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
     common.refuse_not_ported(args, 'trainer', _NOT_PORTED_FLAGS)
     common.require_checkpoint_for_resume(args)
     fused = getattr(args, 'fused_train_step', False)
+    # the fused train step takes precedence over --packed_xla, as in JAX
+    packed_flag = getattr(args, 'packed_xla', False) and not fused
     precision = getattr(args, 'precision', 'fp32')
-    if precision != 'fp32' and not fused:
-        raise SystemExit(f'--precision {precision} runs only through the '
-                         'fused train step (K6): add --fused_train_step; '
-                         'bf16 for the plain trainer is not ported yet, see '
-                         "ROADMAP.md, queue 1 item 'Trainer'")
+    if precision != 'fp32' and not fused and not (
+            packed_flag and _variant(args) == 'cvae'):
+        _refuse_precision(precision)
     if fused:
         unsupported = _fused_flag_conflict(args)
         if unsupported:
             raise SystemExit(f'fused train step unavailable ({unsupported})')
-    elif getattr(args, 'fused_decoder', False):
+    elif getattr(args, 'fused_decoder', False) and not packed_flag:
         unsupported = _cvae_only(args, 'the decoder_nll kernel pair')
         if unsupported:
             raise SystemExit(f'fused decoder unavailable ({unsupported})')
@@ -151,6 +160,29 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
             ok = reason is None
         if not ok:
             raise SystemExit(f'fused train step unavailable ({reason})')
+    packed = None
+    if packed_flag:
+        ok, reason = packed_supported(model, train_config)
+        if ok:
+            reason = common.uniform_covariates(folds)
+            ok = reason is None
+        if ok:
+            packed = select_packed_trainer(model)
+        else:
+            print(f'packed XLA path unavailable ({reason}); '
+                  'using the per-modality path')
+    if packed is None and precision != 'fp32' and not fused:
+        _refuse_precision(precision)
+    fused_decoder = getattr(args, 'fused_decoder', False)
+    if packed is not None and fused_decoder:
+        print('fused decoder unavailable (mutually exclusive with '
+              '--packed_xla); using the plain loss')
+        fused_decoder = False
+    elif fused_decoder and packed_flag:
+        # checked here: the packed layout was not taken after all
+        unsupported = _cvae_only(args, 'the decoder_nll kernel pair')
+        if unsupported:
+            raise SystemExit(f'fused decoder unavailable ({unsupported})')
     if init_fn is not None:
         init_fn(model)
     else:
@@ -165,9 +197,10 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
                                           model_dir / 'fused-state')
     else:
         # the whole-run state in the model dir, as the JAX CLI's
-        # fold-parallel path keeps it
-        logs, steps, run_s = _train(args, model, train_config, folds, max_n,
-                                    eps_fn, resumable, model_dir)
+        # fold-parallel path keeps it; a packed layout's in its own dir
+        logs, steps, run_s = _train(fused_decoder, model, train_config,
+                                    folds, max_n, eps_fn, resumable,
+                                    model_dir, packed)
     per_fold_logs = [{k: v[f] for k, v in logs.items()}
                      for f in range(n_folds)]
     per_fold_params = [params_to_jax(model, fold=f) for f in range(n_folds)]
@@ -184,6 +217,20 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
     # ran (a resumed run's from its stored epoch), the logs' fetch at the end
     run_log.event('train_end', folds=n_folds, steps=steps, run_s=run_s,
                   **resumable.fields())
+
+
+def _variant(args) -> Optional[str]:
+    """The variant of ``args.model`` (None for an unknown name)."""
+    return REGISTRY.get(getattr(args, 'model', 'cVAE_multimodal'),
+                        (None, None))[1]
+
+
+def _refuse_precision(precision: str) -> None:
+    raise SystemExit(f'--precision {precision} runs only through the fused '
+                     'train step (K6, --fused_train_step) or the packed '
+                     'layouts of cVAE_multimodal (--packed_xla); bf16 for '
+                     'the per-modality trainer is not ported yet, see '
+                     "ROADMAP.md, queue 1 item 'Trainer'")
 
 
 def _cvae_only(args, what: str) -> Optional[str]:
@@ -240,24 +287,32 @@ def _train_fused(model, train_config, folds, max_n, device, eps_fn,
     return logs, epochs * batches.n_batches, run_s
 
 
-def _train(args, model, train_config, folds, max_n, eps_fn,
-           resumable: common.Resumable, state_dir: Path):
+def _train(fused_decoder: bool, model, train_config, folds, max_n, eps_fn,
+           resumable: common.Resumable, state_dir: Path, packed=None):
     """Every fold at once on MultiFoldTrainer (plain or --fused_decoder
-    loss); trains ``model`` in place. Returns (logs, steps this call ran,
+    loss), or on the layout of ``packed`` (select_packed_trainer's
+    choice); trains ``model`` in place. Returns (logs, steps this call ran,
     seconds of the run)."""
     batch_size = train_config.batch_size
     loss_fn = None
-    if getattr(args, 'fused_decoder', False):
+    if fused_decoder:
         loss_fn = fused_decoder_loss_fn(model, train_config)
         print('train model (fused decoder+NLL CUDA kernel pair)')
-    trainer = MultiFoldTrainer(model, train_config, max_n, loss_fn=loss_fn)
+    if packed is None:
+        trainer = MultiFoldTrainer(model, train_config, max_n,
+                                   loss_fn=loss_fn)
+    else:
+        cls, layout, tag = packed
+        trainer = cls(model, train_config, max_n)
+        state_dir = common.packed_state_dir(state_dir, tag, resumable)
     batches = stack_fold_batches([f[0] for f in folds], [f[1] for f in folds],
                                  batch_size)
     eps = None
     if eps_fn is not None:
         eps = eps_fn(batches['valid'], train_config.epochs, batch_size,
                      model.noise_dim)
-    print('train model (all folds fold-parallel)')
+    print('train model (all folds fold-parallel'
+          + ('' if packed is None else f', {layout} modalities') + ')')
     start = time.perf_counter()
     logs = resumable.run(trainer, batches, eps=eps, state_dir=state_dir)
     run_s = time.perf_counter() - start
@@ -311,9 +366,20 @@ def build_parser() -> argparse.ArgumentParser:
                              'does not take.')
     parser.add_argument('--precision', dest='precision', default='fp32',
                         choices=['fp32', 'bf16'],
-                        help='fp32; bf16 runs only through the fused train '
-                             'step (K6, with --fused_train_step) and raises '
-                             'without it')
+                        help='fp32; bf16 runs through the fused train step '
+                             '(K6, with --fused_train_step) or the packed '
+                             'layouts of cVAE_multimodal (--packed_xla: bf16 '
+                             'forward, fp32 master weights), and raises '
+                             'otherwise')
+    parser.add_argument('--packed_xla', dest='packed_xla',
+                        action='store_true',
+                        help='train on a packed-modality layout: every '
+                             'layer one batched product over the modalities '
+                             '(mixed-width cvae-skeleton cohorts on the '
+                             'pad-free width-grouped layout, uniform widths '
+                             'padded, the DMVAE family split-latent); where '
+                             'the configuration does not take it, says why '
+                             'and trains the per-modality layout.')
     parser.add_argument('--in_memory_fusion', dest='in_memory_fusion',
                         action='store_true',
                         help='build the UCA early-fusion modality by '
@@ -324,7 +390,6 @@ def build_parser() -> argparse.ArgumentParser:
     not_ported = 'not ported yet (raises); see ROADMAP.md'
     for flag, kwargs in (('--mesh', {'default': None}),
                          ('--ep_mesh', {'default': None}),
-                         ('--packed_xla', {'action': 'store_true'}),
                          ('--stream_shards', {'type': int, 'default': 0}),
                          ('--remat', {'action': 'store_true'}),
                          ('--profile_dir', {'default': None}),

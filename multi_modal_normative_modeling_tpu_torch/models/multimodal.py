@@ -44,6 +44,7 @@ from ..ops.losses import (
 from .cvae import Decoder, Encoder, reparameterize
 
 VARIANTS = ("cvae", "mmjsd", "mvtcae", "nmmlp")
+MVTCAE_BETA = 0.0001  # cVAE.py:1771
 
 
 def total_correlation(mus_stack: torch.Tensor,
@@ -79,7 +80,7 @@ class MultimodalCVAE(nn.Module):
         self.non_linear = non_linear
         self.variant = variant
         self.jsd_on_fused = jsd_on_fused
-        self.mvtcae_beta = 0.0001  # cVAE.py:1771
+        self.mvtcae_beta = MVTCAE_BETA
         self.folds = folds
         # the width of the reparameterization noise, and the loss terms the
         # trainers log, in the order they log them

@@ -1,10 +1,16 @@
-"""The packed-modality cVAE (counterpart of models/stacked.py, variant cvae).
+"""The packed-modality cVAE (counterpart of models/stacked.py).
 
 All M modalities sit on one leading axis behind the fold axis: inputs are
 zero-padded to the widest modality, x [F, M, B, d_max], parameters are
 stacked [F, M, ...], and each layer is one batched product over (fold,
 modality). Padded input columns carry zero weights and zero data, so the
 math is the per-modality model's; padded entries get zero gradients.
+
+``variant`` covers the cvae skeleton of the zoo (models/multimodal.py):
+cvae, mmjsd, mvtcae and nmmlp share the encoder and decoder MLPs and differ
+only in the fusion (``skeleton_fuse``) and the loss composition
+(``skeleton_total``), which the width-grouped layout (models/grouped.py)
+shares.
 
 The packed tree keeps the JAX package's orientation, weights
 ``[fan_in, fan_out]`` ([F, M, in, out]), so a fold's slice of it is
@@ -33,38 +39,85 @@ import torch
 
 from ..ops import fusion
 from ..ops.linear import leaky_relu
-from ..ops.losses import HALF_LOG_2PI, kl_standard_normal
+from ..ops.losses import HALF_LOG_2PI, kl_standard_normal, pairwise_jsd
+from .multimodal import MVTCAE_BETA, VARIANTS, total_correlation
 
-SKELETON_VARIANTS = {"cVAE_multimodal": "cvae"}
-
-
-def _not_ported(variant: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"packed variant {variant!r} is not ported yet; see ROADMAP.md, "
-        "queue 1 item 'Zoo'")
+# registry name -> packed variant of the cvae-skeleton zoo; the DMVAE
+# family packs on its own split-latent layout (models/grouped_dmvae.py)
+SKELETON_VARIANTS = {
+    "cVAE_multimodal": "cvae",
+    "mmJSD": "mmjsd",
+    "mvtCAE": "mvtcae",
+}
 
 
 def skeleton_fuse(variant: str, params, mus: torch.Tensor,
                   logvars: torch.Tensor, combine: str):
-    """Fusion of the stacked expert statistics [F, M, B, Z] (the cvae branch
-    of the JAX skeleton_fuse); returns (fused_mu, fused_logvar) [F, B, Z]."""
-    if variant != "cvae":
-        raise _not_ported(variant)
+    """The variant's fusion of the stacked expert statistics [F, M, B, Z],
+    branch for branch MultimodalCVAE.fuse (the mvtcae ProductOfExperts2
+    quirk and variance clamp included); returns (fused_mu, fused_logvar)
+    [F, B, Z]. Every fusion reduces the modality axis with sums, so the
+    padded and the width-grouped (permuted) layouts share it."""
     # the port's fusion ops reduce axis 0 and take alpha [F, M]
+    mus, logvars = mus.movedim(1, 0), logvars.movedim(1, 0)
+    if variant == "mmjsd":
+        fused_mu, fused_var = fusion.product_of_experts(mus,
+                                                        torch.exp(logvars))
+        return fused_mu, torch.log(fused_var)
+    variances = torch.exp(logvars)
+    if variant == "mvtcae":
+        if combine.lower() == "poe":
+            fused_mu, fused_var = fusion.poe_logvar(mus, variances)
+        else:
+            fused_mu, fused_var = fusion.combine_latent(
+                mus, variances, combine, params["alpha"],
+                single_modality_shortcut=False)
+        return fused_mu, torch.log(torch.clamp(fused_var, min=1e-6))
     fused_mu, fused_var = fusion.combine_latent(
-        mus.movedim(1, 0), torch.exp(logvars.movedim(1, 0)), combine,
-        params["alpha"])
+        mus, variances, combine, params["alpha"],
+        single_modality_shortcut=(variant != "nmmlp"))
     return fused_mu, torch.log(fused_var)
 
 
 def skeleton_total(variant: str, m_count: int, kl: torch.Tensor,
-                   ll: torch.Tensor) -> dict:
-    """Loss composition (the cvae branch of the JAX skeleton_total): ``ll``
-    is the per-modality ll [F, M], ``kl`` the fused KL [F]."""
-    if variant != "cvae":
-        raise _not_ported(variant)
+                   ll: torch.Tensor, mu=None, logvar=None, mus=None,
+                   logvars=None, mask: Optional[torch.Tensor] = None,
+                   jsd_on_fused: bool = True) -> dict:
+    """The variant's loss composition, per fold: ``kl`` the fused KL [F],
+    ``ll`` the per-modality ll [F, M]; ``mu``/``logvar`` the fused
+    statistics [F, B, Z] and ``mus``/``logvars`` the experts' [F, M, B, Z]
+    in the cohort's modality order (mmJSD's pairwise KL runs over ordered
+    pairs i < j, so the grouped layout un-permutes before calling)."""
     ll_sum = torch.sum(ll, dim=1)
-    return {"kl": m_count * kl, "ll": ll_sum, "total": m_count * kl - ll_sum}
+    out = {"kl": m_count * kl, "ll": ll_sum}
+    if variant == "mmjsd":
+        if jsd_on_fused:
+            stats, lvs = [mu] * m_count, [logvar] * m_count
+        else:
+            stats = [mus[:, m] for m in range(m_count)]
+            lvs = [logvars[:, m] for m in range(m_count)]
+        out["jsd"] = jsd = pairwise_jsd(stats, lvs, mask)
+        out["total"] = m_count * (kl + jsd) - ll_sum
+    elif variant == "mvtcae":
+        tc = total_correlation(mus.movedim(1, 0), mask)
+        out["tc"] = tc * m_count
+        out["total"] = (m_count * kl + 0.00001 * ll_sum
+                        + m_count * MVTCAE_BETA * tc)
+    else:
+        out["total"] = m_count * kl - ll_sum
+    return out
+
+
+def neg_mse_rows(sq: torch.Tensor, dims: torch.Tensor,
+                 mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """nm-MLP's ll, -MSE over each modality's true elements: ``sq``
+    [F, M, B, d] squared residuals (zero on padded columns), ``dims`` [M]
+    the true widths -> [F, M]."""
+    if mask is None:
+        return -torch.sum(sq, dim=(2, 3)) / (sq.shape[2] * dims)
+    w = mask.to(sq.dtype)
+    n = torch.clamp(torch.sum(w, dim=1), min=1.0)[:, None]
+    return -torch.sum(sq * w[:, None, :, None], dim=(2, 3)) / (n * dims)
 
 
 def _as_tensor(a) -> torch.Tensor:
@@ -83,12 +136,14 @@ class StackedMultimodalCVAE:
     def __init__(self, input_dim_list: Sequence[int],
                  hidden_dim: Sequence[int], latent_dim: int, c_dim: int,
                  modalities: int, non_linear: bool = True,
-                 variant: str = "cvae"):
+                 variant: str = "cvae", jsd_on_fused: bool = True):
         if len(hidden_dim) < 1:
             raise ValueError("at least one hidden layer")
-        if variant != "cvae":
-            raise _not_ported(variant)
+        if variant not in VARIANTS:
+            raise ValueError(f"packed variant {variant!r} is not one of "
+                             f"{VARIANTS}")
         self.variant = variant
+        self.jsd_on_fused = jsd_on_fused
         self.input_dim_list = list(input_dim_list)
         self.d_max = max(input_dim_list)
         self.hidden_dim = list(hidden_dim)
@@ -179,9 +234,9 @@ class StackedMultimodalCVAE:
 
     # -- data packing ----------------------------------------------------------
     def pack_inputs(self, xes: Sequence) -> torch.Tensor:
-        """list of [F, B, D_m] -> [F, M, B, d_max], zero-padded."""
+        """list of [..., B, D_m] -> [..., M, B, d_max], zero-padded."""
         xes = [_as_tensor(x) for x in xes]
-        return torch.stack([_pad_last(x, self.d_max) for x in xes], dim=1)
+        return torch.stack([_pad_last(x, self.d_max) for x in xes], dim=-3)
 
     def col_mask(self, device=None) -> torch.Tensor:
         """[M, d_max], 1.0 over each modality's true features."""
@@ -206,7 +261,7 @@ class StackedMultimodalCVAE:
 
         fused_mu, fused_logvar = skeleton_fuse(self.variant, params, mus,
                                                logvars, combine)
-        z = fused_mu + eps * torch.exp(0.5 * fused_logvar)
+        z = fused_mu + eps.to(fused_mu.dtype) * torch.exp(0.5 * fused_logvar)
 
         d = params["dec"]
         g = torch.cat([z, c], dim=2)[:, None]            # [F, 1, B, Z+C]
@@ -224,23 +279,42 @@ class StackedMultimodalCVAE:
 
     def loss(self, params, x_packed: torch.Tensor, fwd: dict,
              mask: Optional[torch.Tensor] = None) -> dict:
-        """The cvae ELBO per fold, each term [F]: per-modality Gaussian ll
-        over each modality's true features, the fused KL, total = M * KL -
-        sum_m ll_m. ``mask`` [F, B] marks the valid rows."""
+        """The variant's loss per fold, each term [F]: per-modality ll
+        (Gaussian, or -MSE for nmmlp) over each modality's true features,
+        the fused KL and the variant's regularizer (mmJSD's pairwise KL,
+        mvtCAE's TC). ``mask`` [F, B] marks the valid rows."""
         col = self.col_mask(x_packed.device)[None, :, None, :]
-        lvo = params["dec"]["lvo"][:, :, None, :]          # [F, M, 1, d_max]
-        ll_elem = (-0.5 * (x_packed - fwd["recon_means"]) ** 2
-                   * torch.exp(-lvo) - 0.5 * lvo - HALF_LOG_2PI) * col
-        ll_rows = torch.sum(ll_elem, dim=3)                # [F, M, B]
-        if mask is None:
-            ll = torch.mean(ll_rows, dim=2)
+        sq = (x_packed - fwd["recon_means"]) ** 2
+        if self.variant == "nmmlp":
+            dims = torch.tensor(self.input_dim_list, dtype=sq.dtype,
+                                device=sq.device)
+            ll = neg_mse_rows(sq * col, dims, mask)
         else:
-            w = mask.to(ll_rows.dtype)[:, None, :]
-            ll = (torch.sum(ll_rows * w, dim=2)
-                  / torch.clamp(torch.sum(w, dim=2), min=1.0))
-        kl = kl_standard_normal(fwd["mu_multimodal"],
-                                fwd["logvar_multimodal"], mask)
-        return skeleton_total(self.variant, self.modalities, kl, ll)
+            lvo = params["dec"]["lvo"][:, :, None, :]      # [F, M, 1, d_max]
+            ll_elem = (-0.5 * sq * torch.exp(-lvo) - 0.5 * lvo
+                       - HALF_LOG_2PI) * col
+            ll_rows = torch.sum(ll_elem, dim=3)            # [F, M, B]
+            if mask is None:
+                ll = torch.mean(ll_rows, dim=2)
+            else:
+                w = mask.to(ll_rows.dtype)[:, None, :]
+                ll = (torch.sum(ll_rows * w, dim=2)
+                      / torch.clamp(torch.sum(w, dim=2), min=1.0))
+        mu, logvar = fwd["mu_multimodal"], fwd["logvar_multimodal"]
+        kl = kl_standard_normal(mu, logvar, mask)
+        return skeleton_total(self.variant, self.modalities, kl, ll, mu,
+                              logvar, fwd.get("mus"), fwd.get("logvars"),
+                              mask, self.jsd_on_fused)
 
     def pred_recon(self, params, x_packed, c, combine: str, eps):
         return self.forward(params, x_packed, c, combine, eps)["recon_means"]
+
+    def reconstruction_deviation(self, x_packed: torch.Tensor,
+                                 recon: torch.Tensor) -> torch.Tensor:
+        """Per-modality per-subject MSE over each modality's true features,
+        [F, M, B]."""
+        col = self.col_mask(x_packed.device)[None, :, None, :]
+        dims = torch.tensor(self.input_dim_list, dtype=recon.dtype,
+                            device=recon.device)
+        return (torch.sum((x_packed - recon) ** 2 * col, dim=3)
+                / dims[None, :, None])

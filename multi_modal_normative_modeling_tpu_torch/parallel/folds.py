@@ -19,13 +19,12 @@ from ..interop import params_to_jax
 from ..train.checkpoints import run_chunked
 from ..train.trainer import (
     DeviceBatches,
-    FoldNoise,
     MaskedAdam,
-    ReplayNoise,
     StateUpdate,
     TrainConfig,
     TrainSession,
     build_lr_fn,
+    fold_noise,
     make_batches,
     resolve_loss,
     run_epochs,
@@ -141,14 +140,8 @@ class MultiFoldTrainer:
         batches = stacked_batches
         if not isinstance(batches, DeviceBatches):
             batches = DeviceBatches(stacked_batches, device, dtype)
-        keep_widths = getattr(self.model, "keep_widths", ())
-        if eps is not None:
-            noise = ReplayNoise(eps, device, keeps, perms, dtype)
-        else:
-            noise = FoldNoise(
-                batches.folds, (batches.rows, self.model.noise_dim),
-                self.config.seed, device, keep_widths,
-                1.0 - getattr(self.model, "dropout_rate", 0.0), seeds)
+        noise = fold_noise(self.model, self.config, batches, device, dtype,
+                           eps, keeps, perms, seeds)
         adam = MaskedAdam(params, self.lr_fn)
         log_keys = self.model.log_keys
 

@@ -332,6 +332,23 @@ class ReplayNoise:
                              "a replay has none")
 
 
+def fold_noise(model, config: TrainConfig, batches, device,
+               dtype=torch.float32, eps=None, keeps=None, perms=None,
+               seeds=None):
+    """The noise of a run over ``batches`` (``DeviceBatches`` or a packed
+    layout's): given draws replayed (``ReplayNoise``), or each fold's own
+    generator (``FoldNoise``) at the model's ``noise_dim``, with its
+    dropout keep masks (``keep_widths``) and ``seeds``. Every trainer of a
+    model draws through here, so the padded, grouped and per-modality
+    layouts see the same draws."""
+    if eps is not None:
+        return ReplayNoise(eps, device, keeps, perms, dtype)
+    return FoldNoise(
+        batches.folds, (batches.rows, model.noise_dim), config.seed, device,
+        getattr(model, "keep_widths", ()),
+        1.0 - getattr(model, "dropout_rate", 0.0), seeds)
+
+
 class DeviceBatches:
     """Stacked batches ([F, NB, B, ...] numpy, as parallel.folds.
     stack_fold_batches builds them) uploaded once, step-major, so each
@@ -374,11 +391,16 @@ class DeviceBatches:
                     .transpose(0, 1).contiguous())
 
         out = copy.copy(self)
-        out.x = [move(a) for a in self.x]
+        out.x = self._move_x(move)
         out.c = [move(a) for a in self.c]
         out.mask = move(self.mask)
         out.extras = {k: move(v) for k, v in self.extras.items()}
         return out
+
+    def _move_x(self, move) -> list:
+        """The features with their rows in the permuted order: ``move``
+        permutes the rows of an [NB, F, B, ...] tensor."""
+        return [move(a) for a in self.x]
 
     def step(self, t: int) -> dict:
         batch = {"x": [x[t] for x in self.x], "c": [c[t] for c in self.c],

@@ -992,3 +992,129 @@ def test_exported_cuda_program_matches_the_service(cuda, scoring_project,
                                        atol=0, err_msg=key)
             np.testing.assert_allclose(on_cpu[key], want[key], rtol=1e-4,
                                        atol=1e-5, err_msg=key)
+
+
+# the packed layouts (train/packed.py and its siblings): case -> (model
+# factory, trainer factory, batch extras, shuffle)
+def _packed_cases():
+    from multi_modal_normative_modeling_tpu_torch.models import (
+        EndToEndCVAE,
+        RegressionCVAE,
+    )
+    from multi_modal_normative_modeling_tpu_torch.train.grouped import (
+        select_packed_trainer,
+    )
+    from multi_modal_normative_modeling_tpu_torch.train.packed_endtoend import (
+        GroupedEndToEndTrainer,
+    )
+    from multi_modal_normative_modeling_tpu_torch.train.packed_regression import (
+        GroupedRegressionTrainer,
+    )
+
+    gen = lambda: torch.Generator().manual_seed(3)  # noqa: E731
+    mixed, uniform = [90, 90, 90, 270], [90, 90, 90]
+    routed = lambda m, cfg: select_packed_trainer(m)[0](m, cfg, 40)  # noqa
+    return {
+        "padded-mvtcae": (lambda: build_model(
+            "mvtCAE", uniform, [110, 110], 10, 29, 3, folds=2,
+            generator=gen()), routed, None, False),
+        "grouped-cvae": (lambda: build_model(
+            "cVAE_multimodal", mixed, [110, 110], 10, 29, 4, folds=2,
+            generator=gen()), routed, None, False),
+        "dmvae": (lambda: build_model(
+            "DMVAE", uniform, [110, 110], 40, 29, 3, folds=2,
+            generator=gen()), routed, None, False),
+        "endtoend": (lambda: EndToEndCVAE(
+            uniform, [110, 110], 10, 29, 3, classifier_layers=(32, 16),
+            folds=2, generator=gen()),
+            lambda m, cfg: GroupedEndToEndTrainer(m, cfg, 40, 1.0, 0.1),
+            "labels", False),
+        "regression": (lambda: RegressionCVAE(
+            mixed, [110, 110], 10, 2, 4, folds=2, generator=gen()),
+            lambda m, cfg: GroupedRegressionTrainer(m, cfg, 40), "fi", True),
+    }
+
+
+PACKED_CASES = ["padded-mvtcae", "grouped-cvae", "dmvae", "endtoend",
+                "regression", "grouped-cvae-bf16"]
+
+
+@pytest.mark.parametrize("case", PACKED_CASES)
+def test_packed_trainer_on_the_card_matches_the_cpu(cuda, case):
+    """Three epochs of a packed layout's trainer on CUDA tensors against
+    the same run on the CPU, on the same replayed noise (and keep masks,
+    and permutations): logs rtol 1e-4 (2e-2 in bf16), parameters rtol
+    5e-3 / atol 5e-5."""
+    from multi_modal_normative_modeling_tpu_torch.interop import (
+        params_to_jax,
+    )
+    from multi_modal_normative_modeling_tpu_torch.parallel import (
+        stack_fold_batches,
+    )
+    from multi_modal_normative_modeling_tpu_torch.train import TrainConfig
+
+    bf16 = case.endswith("-bf16")
+    new_model, new_trainer, extra, shuffle = _packed_cases()[
+        case.replace("-bf16", "")]
+    rng = np.random.default_rng(11)
+    model = new_model()
+    c_dim = 2 if extra == "fi" else 29
+    data, cov, extras = [], [], []
+    for n in (40, 23):
+        data.append([rng.standard_normal((n, d), dtype=np.float32)
+                     for d in model.input_dim_list])
+        cov.append([rng.standard_normal((n, c_dim), dtype=np.float32)]
+                   * model.modalities)
+        extras.append({extra: rng.integers(0, 2, (n, 1)).astype(np.float32)}
+                      if extra else {})
+    batches = stack_fold_batches(data, cov, 16,
+                                 extras=extras if extra else None)
+    epochs, nb = 3, batches["mask"].shape[1]
+    draws = {"eps": rng.standard_normal((epochs * nb, 2, 16,
+                                         model.noise_dim), dtype=np.float32)}
+    if extra == "labels":
+        draws["keeps"] = [rng.random((epochs * nb, 2, 16, w)) < 0.5
+                          for w in model.keep_widths]
+    if shuffle:
+        draws["perms"] = np.stack([np.stack([
+            np.concatenate([rng.permutation(own), np.arange(own, nb * 16)])
+            for own in (48, 32)]) for _ in range(epochs)])
+    config = TrainConfig(epochs=epochs, batch_size=16, combine="gpoe",
+                         shuffle=shuffle,
+                         precision="bf16" if bf16 else "fp32")
+    runs = []
+    for device in ("cpu", cuda):
+        model = new_model().to(device)
+        logs = new_trainer(model, config).run(batches, **draws)
+        runs.append((logs, params_to_jax(model)))
+    (cpu_logs, cpu_params), (gpu_logs, gpu_params) = runs
+    for k in cpu_logs:
+        np.testing.assert_allclose(gpu_logs[k], cpu_logs[k],
+                                   rtol=2e-2 if bf16 else 1e-4, err_msg=k)
+    for (path, a), (_, b) in zip(_tree_leaves(gpu_params),
+                                 _tree_leaves(cpu_params)):
+        if extra == "labels" and _sign_noise_leaf(path):
+            continue
+        np.testing.assert_allclose(a, b, rtol=5e-3 if not bf16 else 5e-2,
+                                   atol=5e-5 if not bf16 else 5e-3,
+                                   err_msg=path)
+
+
+def _tree_leaves(tree, path="") -> list:
+    """(path, leaf) of a JAX-layout tree of numpy arrays, in key order (the
+    card has no jax to walk it)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree)
+                for leaf in _tree_leaves(tree[k], f"{path}['{k}']")]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for i, v in enumerate(tree)
+                for leaf in _tree_leaves(v, f"{path}[{i}]")]
+    return [(path, tree)]
+
+
+def _sign_noise_leaf(path: str) -> bool:
+    """The end-to-end classifier's leaves whose gradient is a rounded zero
+    (a block's linear bias before BatchNorm, and the running mean carrying
+    it): two float orders part there (tests/test_torch_endtoend.py)."""
+    return (("'blocks'" in path and path.endswith("['linear']['b']"))
+            or (path.startswith("['bn_state']") and path.endswith("['mean']")))

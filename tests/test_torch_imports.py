@@ -382,3 +382,78 @@ def test_sweeps_and_resume_run_without_jax_sklearn_or_matplotlib(tmp_path):
     assert (state / "train_state.json").read_text() == '{"epoch": 2}'
     assert (tmp_path / "adni" / "bootstrap_auc.csv").exists()
     assert not list(tmp_path.rglob("*.png"))
+
+
+_BLOCKED_PACKED = _BLOCKED_CHAIN.split("import os\n")[0] + """
+import os
+from pathlib import Path
+sys.modules['matplotlib'] = None
+from multi_modal_normative_modeling_tpu_torch.data.synthetic import (
+    make_synthetic_resource,
+)
+from multi_modal_normative_modeling_tpu_torch.cli import (
+    nmmlp,
+    nmpmcont,
+    pipeline,
+    regression,
+    sweep_supervised,
+    train_supervised,
+)
+os.chdir(sys.argv[2])
+make_synthetic_resource(Path('adni'), 'ADNI', n_hc=20, n_disease={0: 6, 1: 6},
+                        with_fi=True)
+flags = ['-R', 'ADNI', '-K', '2', '-H', '8', '8', '4', '--device', 'cpu',
+         '--packed_xla']
+uca = flags + ['-P', 'UCA-gPoE', '--in_memory_fusion']
+stats = pipeline.run(uca + ['-E', '2', '--precision', 'bf16'],
+                     project_root=Path('adni'))
+assert len(stats['auc']) == 3, stats
+train_supervised.run(uca + ['-E', '1', '--checkpoint_every', '1'],
+                     project_root=Path('adni'))
+train_supervised.run(uca + ['-E', '2', '--checkpoint_every', '1',
+                            '--resume'], project_root=Path('adni'))
+train_supervised.run(flags + ['-P', 'SE-PoE', '-E', '1', '-Model', 'DMVAE'],
+                     project_root=Path('adni'))
+os.chdir('adni')
+se = flags + ['-P', 'SE-MoE', '-E', '2']
+metrics = nmpmcont.run(se + ['-Layers', '8', '4'])
+assert metrics.shape == (2, 5), metrics
+assert nmmlp.run(['all'] + se)['auc'] is not None
+assert len(regression.run(se)) == 2
+os.chdir('..')
+make_synthetic_resource(Path('adhd'), 'ADHD', n_hc=20,
+                        n_disease={0: 8, 2: 8})
+records = sweep_supervised.run(
+    ['-R', 'ADHD', '-K', '2', '--procedures', 'SE-gPoE', '--hz_grid',
+     '8 8 4', '--epochs_list', '1', '2', '--device', 'cpu', '--packed_xla'],
+    project_root=Path('adhd'))
+assert len(records) == 2, records
+bad = [m for m in sys.modules if m.split('.')[0] in
+       ('jax', 'flax', 'optax', 'sklearn',
+        'multi_modal_normative_modeling_tpu')]
+assert not bad, bad
+print('PACKED_OK')
+"""
+
+
+def test_packed_layouts_run_without_jax_sklearn_or_matplotlib(tmp_path):
+    """--packed_xla on the train CLI (the width-grouped chain in bf16, a
+    killed-and-resumed run, the split-latent DMVAE), the three variant
+    CLIs and the supervised sweep, on tiny synthetic cohorts on the CPU, in
+    a process that refuses jax, flax, optax, sklearn and the JAX package
+    and has no matplotlib."""
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_PACKED, str(ROOT), str(tmp_path)],
+        capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-4000:]
+    assert "PACKED_OK" in out.stdout
+    model_dir = tmp_path / "adni" / "outputs/kfold_analysis/supervised_cvae"
+    assert (model_dir / "grouped-state" / "train_state.json").read_text() \
+        == '{"epoch": 2}'
+    for state in ("grouped-e2e-state", "packed-state"):
+        assert not (model_dir / state).exists()
+    assert (tmp_path / "adni" / "results_endtoend.csv").exists()
+    assert len(list(tmp_path.glob("adni/regression_outputs/*.npy"))) == 4
+    assert (tmp_path / "adhd" / "outputs"
+            / "sweep_supervised_results.json").exists()
+    assert not list(tmp_path.rglob("*.png"))

@@ -234,7 +234,7 @@ def test_one_config_of_the_grid_equals_nmpmcont_alone(endtoend):
 SWEEP_FLAGS = [
     ("--mesh", "2,2", "'Multi-device'"),
     ("--ep_mesh", "2,2,2", "'Multi-device'"),
-    ("--packed_xla", None, "'Packed layout' and 'Grouped layout'"),
+    ("--packed_xla", None, None),         # ported: the grid runs packed
     ("--precision", "bf16", "'Trainer'"),
     ("--in_memory_fusion", None, None),   # ported: the grid runs
 ]
@@ -246,10 +246,20 @@ def test_sweep_unported_flags_exit_citing_their_item(flag, value, item,
                                                      tmp_path):
     argv = SWEEP + ["--device", "cpu", flag] + ([value] if value else [])
     if item is None:
-        # a UCA procedure's early-fusion modality built in memory at every
-        # grid point: its CSV is not in this cohort
         make_synthetic_resource(tmp_path, "ADHD", n_hc=30,
                                 n_disease={0: 12, 2: 12})
+        if flag == "--packed_xla":
+            # every grid point on the packed layout
+            # (tests/test_torch_packed_variants.py holds it to the
+            # per-modality grid)
+            records = sweep_supervised.run(
+                argv + ["--procedures", "SE-gPoE"], project_root=tmp_path)
+            assert len(records) == 4
+            assert all(np.isfinite(r["stats"]["auc"]).all()
+                       for r in records)
+            return
+        # a UCA procedure's early-fusion modality built in memory at every
+        # grid point: its CSV is not in this cohort
         records = sweep_supervised.run(argv + ["--procedures", "UCA-gPoE"],
                                        project_root=tmp_path)
         assert len(records) == 4

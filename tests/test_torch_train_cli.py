@@ -154,6 +154,15 @@ def test_unported_flags_raise(flag, value, tmp_path, roots):
         assert state == {"epoch": args.epochs}
         assert (tmp_path / MODEL_DIR / "train_state.ckpt").exists()
         return
+    if flag == "packed_xla":
+        # ported: the uniform-width SE-MoE cohort trains on the padded
+        # packed layout (tests/test_torch_packed.py holds it to JAX's)
+        shutil.copytree(roots["jax"] / "data", tmp_path / "data")
+        port_train.main(args, project_root=tmp_path)
+        for fold in range(2):
+            assert (tmp_path / MODEL_DIR / f"{fold:03d}"
+                    / "cVAE_model.ckpt").exists()
+        return
     if flag == "in_memory_fusion":
         # ported: a UCA procedure trains on the early-fusion modality built
         # from the base modalities, whose CSV this cohort does not hold

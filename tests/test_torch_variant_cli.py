@@ -352,6 +352,21 @@ def test_unported_flags_exit_citing_their_queue_item(cli, flag, value, item,
                                 else MODEL_DIR)
         assert (state_dir / "train_state.ckpt").exists()
         return
+    if flag == "packed_xla":
+        # queue 1 items 'Packed layout' and 'Grouped layout' are ported:
+        # the run trains on its packed layout
+        # (tests/test_torch_packed_variants.py holds it to the per-modality
+        # run)
+        shutil.copytree(cohort / "data", tmp_path / "data")
+        main(args, tmp_path)
+        if cli == "regression":
+            assert len(list((tmp_path / "regression_outputs")
+                            .glob("fold_*_pred.npy"))) == 2
+        else:
+            for fold in range(2):
+                assert (tmp_path / MODEL_DIR / f"{fold:03d}"
+                        / "cVAE_model.ckpt").exists()
+        return
     match = f"--{flag}.*queue 1 item.*{re.escape(item)}"
     if flag == "resume":
         # ported, and refused without --checkpoint_every (the JAX message)
