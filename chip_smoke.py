@@ -143,6 +143,32 @@ Phases (any failure exits non-zero, with no result line):
      trainer in turns (the flagship, 5 folds x 512 subjects, and PPMI
      width, one fold of 2560; 20 steps a run ending in a fetch, median and
      spread of five runs) and kernels per step from torch.profiler.
+  16. out-of-core streamed training and the rest of slice 14 (TF32 off):
+     16a StreamingFoldTrainer against MultiFoldTrainer, logs and parameters
+     torch.equal, at PPMI width (3 x 3485, one fold of 2560, batch 256, 3
+     epochs) at S = 1, 3, 10 and 16 (clamped to 10) on the plain loss and
+     at S = 3 with --fused_decoder (K4's launches counted: a pair per
+     modality and step), and at the flagship (5 folds) at S = 2; 16b one
+     epoch over 100 000 seeded subjects at PPMI width (4.18 GB of
+     features), resident and at S = 8 with --fused_decoder, in turns
+     (resident, streamed, streamed, resident): parameters torch.equal, the
+     peak of allocated bytes over each run less the model's and
+     optimizer's (the streamed one at most 2/8 of the features plus 256
+     MiB), epoch walls, ms per step, the upload rate of one shard; 16c
+     the train CLI on phase 8's cohort (UCA-gPoE, 5 folds, 10 epochs,
+     --fused_decoder): --stream_shards 2 byte-equal to the resident
+     run, killed at epoch 4 on one path and resumed on the other both ways
+     byte-equal, the test stage of the streamed checkpoints launching K1 4
+     and K2 4, --stream_shards -1's auto line and --profile_dir's trace;
+     16d a streamed --fused_decoder run at PPMI width under
+     utils.profiling.trace: K4's kernels named in the trace, the shards'
+     host-to-device copies on a stream other than the kernels' and at
+     least one overlapping a kernel; 16e --remat bit-equal to the plain
+     run and bf16 within rtol 2e-2 of fp32 at PPMI width (10 epochs), ms
+     per step of each, each trained model's scoring call launching K1 and
+     K2; 16f the doctor --json, exit 0, every section OK; 16g the
+     reference's training loop verbatim through compat.cVAE_multimodal (5
+     epochs), torch.save / torch.load round trip.
 
 Beside every kernel time stands the kernel's bound: the least time the
 card could take for the same work (kernels/roofline.py: the larger of its
@@ -3571,6 +3597,582 @@ def run_packed(stats):
             **variant_launches}
 
 
+# ---- phase 16: streamed training, remat and bf16, profiling, doctor, facade
+
+# 16a: PPMI width (bench.py:45-47: 3 x 3485, one fold of 2560, batch 256,
+# NB 10) and the flagship (bench.py:29-36) against the resident trainer
+STREAM_EPOCHS = 3
+STREAM_SHARDS = (1, 3, 10, 16)
+STREAM_FUSED_SHARDS = 3
+STREAM_FLAGSHIP_SHARDS = 2
+PPMI_N = 2560
+# 16b: a cohort whose features are gigabytes, one fold, one epoch
+BIG_SUBJECTS = 100_000
+BIG_SHARDS = 8
+BIG_SLACK = 256 * 2**20
+# 16c: the train CLI on phase 8's cohort
+STREAM_CLI = ["-R", "ADNI", "-P", "UCA-gPoE", "-K", str(FOLDS)]
+STREAM_CLI_EPOCHS, STREAM_CLI_KILLED, STREAM_CLI_EVERY = 10, 4, 2
+# 16d: the profiled run
+PROFILE_EPOCHS, PROFILE_SHARDS = 2, 3
+# 16e: --remat and bf16 at PPMI width
+PRECISION_EPOCHS = 10
+# 16g: the facade's reference loop
+FACADE_EPOCHS, FACADE_ROWS = 5, 512
+
+
+def stream_cohort(dims, rows_per_fold, seed):
+    """Seeded stacked batches (numpy) of ``rows_per_fold`` subjects a fold
+    at ``dims``, one-hot covariates."""
+    from multi_modal_normative_modeling_tpu_torch.parallel import (
+        stack_fold_batches,
+    )
+
+    rng = np.random.default_rng(seed)
+    data = [[rng.standard_normal((n, d), dtype=np.float32) for d in dims]
+            for n in rows_per_fold]
+    cov = [[one_hot_covariates(rng, n)] * len(dims) for n in rows_per_fold]
+    return stack_fold_batches(data, cov, BATCH)
+
+
+def stream_trainer(dims, folds, max_n, seed, epochs, shards=None,
+                   fused=False, **config):
+    """A seeded model on the card and its trainer: resident
+    (MultiFoldTrainer) without ``shards``, else StreamingFoldTrainer; the
+    --fused_decoder loss (K4) with ``fused``. Both draw FoldNoise's seeded
+    generators, so runs of one seed see the same noise."""
+    from multi_modal_normative_modeling_tpu_torch.kernels.decoder_nll import (
+        fused_decoder_loss_fn,
+    )
+    from multi_modal_normative_modeling_tpu_torch.models import build_model
+    from multi_modal_normative_modeling_tpu_torch.parallel import (
+        MultiFoldTrainer,
+    )
+    from multi_modal_normative_modeling_tpu_torch.train import TrainConfig
+    from multi_modal_normative_modeling_tpu_torch.train.streaming import (
+        StreamingFoldTrainer,
+    )
+
+    model = build_model("cVAE_multimodal", dims, HIDDEN, LATENT, C_DIM,
+                        len(dims), folds=folds,
+                        generator=torch.Generator().manual_seed(seed),
+                        device="cuda")
+    cfg = TrainConfig(epochs=epochs, batch_size=BATCH, combine=COMBINE,
+                      **config)
+    loss = fused_decoder_loss_fn(model, cfg) if fused else None
+    if shards is None:
+        return model, MultiFoldTrainer(model, cfg, max_n, loss_fn=loss)
+    return model, StreamingFoldTrainer(model, cfg, max_n, shards=shards,
+                                       loss_fn=loss)
+
+
+def timed_run(trainer, batches):
+    """(logs, ms per step) of trainer.run(batches), which ends in a fetch."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logs = trainer.run(batches)
+    steps = trainer.config.epochs * (batches.n_batches if hasattr(
+        batches, "n_batches") else batches["mask"].shape[1])
+    return logs, (time.perf_counter() - t0) * 1e3 / steps
+
+
+def hold_equal_runs(what, got, want):
+    """Two (model, logs) runs bit for bit: every log and parameter
+    torch.equal."""
+    (m_got, l_got), (m_want, l_want) = got, want
+    for k in l_want:
+        if not np.array_equal(l_got[k], l_want[k]):
+            raise RuntimeError(f"phase 16: {what}: log {k} differs, max "
+                               f"{np.abs(l_got[k] - l_want[k]).max():.3e}")
+    for (k, a), b in zip(m_got.state_dict().items(),
+                         m_want.state_dict().values()):
+        if not torch.equal(a, b):
+            raise RuntimeError(f"phase 16: {what}: parameter {k} differs, "
+                               f"max {(a - b).abs().max().item():.3e}")
+
+
+def run_stream_equality(launches):
+    """16a: the streamed trainer against the resident one, bit for bit."""
+    from multi_modal_normative_modeling_tpu_torch import kernels
+
+    ppmi = stream_cohort(PPMI_DIMS, [PPMI_N], seed=160)
+    nb = ppmi["mask"].shape[1]
+    model, trainer = stream_trainer(PPMI_DIMS, 1, PPMI_N, 161, STREAM_EPOCHS)
+    want = (model, trainer.run(ppmi))
+    for shards in STREAM_SHARDS:
+        model, trainer = stream_trainer(PPMI_DIMS, 1, PPMI_N, 161,
+                                        STREAM_EPOCHS, shards=shards)
+        hold_equal_runs(f"PPMI S={shards}", (model, trainer.run(ppmi)), want)
+    model, trainer = stream_trainer(PPMI_DIMS, 1, PPMI_N, 161, STREAM_EPOCHS,
+                                    fused=True)
+    want_k4 = (model, trainer.run(ppmi))
+    model, trainer = stream_trainer(PPMI_DIMS, 1, PPMI_N, 161, STREAM_EPOCHS,
+                                    shards=STREAM_FUSED_SHARDS, fused=True)
+    kernels.reset_launch_counts()
+    got = (model, trainer.run(ppmi))
+    torch.cuda.synchronize()
+    launches["16a streamed K4"] = counts = launch_counts()
+    pairs = len(PPMI_DIMS) * STREAM_EPOCHS * nb
+    if counts != {"decoder_nll": 2 * pairs}:
+        raise RuntimeError(f"phase 16a: the streamed --fused_decoder run "
+                           f"launched {counts}, expected {2 * pairs} "
+                           "decoder_nll launches")
+    hold_equal_runs(f"PPMI S={STREAM_FUSED_SHARDS} --fused_decoder", got,
+                    want_k4)
+    flagship = stream_cohort(DIMS, TRAIN_ROWS, seed=162)
+    model, trainer = stream_trainer(DIMS, FOLDS, max(TRAIN_ROWS), 163,
+                                    STREAM_EPOCHS)
+    want = (model, trainer.run(flagship))
+    model, trainer = stream_trainer(DIMS, FOLDS, max(TRAIN_ROWS), 163,
+                                    STREAM_EPOCHS,
+                                    shards=STREAM_FLAGSHIP_SHARDS)
+    hold_equal_runs("flagship", (model, trainer.run(flagship)), want)
+    print(f"phase 16a: PPMI width {PPMI_DIMS}, 1 fold x {PPMI_N}, batch "
+          f"{BATCH} ({nb} batches), {STREAM_EPOCHS} epochs: the streamed "
+          f"trainer at S = {', '.join(map(str, STREAM_SHARDS))} (16 clamped "
+          f"to {nb}) bit-equal to the resident one (logs and parameters "
+          f"torch.equal); --fused_decoder at S = {STREAM_FUSED_SHARDS} "
+          f"bit-equal, launches {counts} ({pairs} pairs); flagship "
+          f"{DIMS}, {FOLDS} folds x {TRAIN_ROWS} at S = "
+          f"{STREAM_FLAGSHIP_SHARDS} bit-equal", flush=True)
+
+
+def upload_rate(streamed):
+    """GB/s of one shard's pinned-to-device copies on a side stream, timed
+    by CUDA events."""
+    host = streamed._host[0]
+    dst = {k: torch.empty(v.shape, device="cuda") for k, v in host.items()}
+    side = torch.cuda.Stream()
+    rates = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(side):
+            start.record()
+            for k, v in host.items():
+                dst[k].copy_(v, non_blocking=True)
+            end.record()
+        end.synchronize()
+        nbytes = sum(v.numel() * 4 for v in host.values())
+        rates.append(nbytes / (start.elapsed_time(end) * 1e6))
+    return max(rates), nbytes
+
+
+def run_out_of_core(stats):
+    """16b: one epoch over a cohort of gigabytes, resident and streamed."""
+    from multi_modal_normative_modeling_tpu_torch.parallel import (
+        stack_fold_batches,
+    )
+    from multi_modal_normative_modeling_tpu_torch.train.streaming import (
+        StreamedBatches,
+    )
+    from multi_modal_normative_modeling_tpu_torch.train.trainer import (
+        DeviceBatches,
+    )
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(164)
+    data = [torch.randn((BIG_SUBJECTS, d), generator=gen,
+                        device="cuda").cpu().numpy() for d in PPMI_DIMS]
+    cov = one_hot_covariates(np.random.default_rng(165), BIG_SUBJECTS)
+    batches = stack_fold_batches([data], [[cov] * len(PPMI_DIMS)], BATCH)
+    del data
+    feature_bytes = BIG_SUBJECTS * sum(PPMI_DIMS) * 4
+    made = time.perf_counter() - t0
+    # resident, streamed, streamed, resident: the epoch walls in turns
+    runs = {"resident": [], "streamed": []}
+    first = {}
+    for name in ("resident", "streamed", "streamed", "resident"):
+        shards = BIG_SHARDS if name == "streamed" else None
+        model, trainer = stream_trainer(PPMI_DIMS, 1, BIG_SUBJECTS, 166, 1,
+                                        shards=shards, fused=True)
+        param_bytes = sum(p.numel() * 4 for p in model.parameters())
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        if shards is None:
+            prepared = DeviceBatches(batches, "cuda")
+        else:
+            prepared = StreamedBatches(batches, shards, "cuda")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t1
+        logs, ms = timed_run(trainer, prepared)
+        # the model's parameters and MaskedAdam's flat buffer and moments
+        peak = torch.cuda.max_memory_allocated() - base - 2 * param_bytes
+        if not all(np.isfinite(v).all() for v in logs.values()):
+            raise RuntimeError(f"phase 16b: {name}: non-finite logs")
+        runs[name].append(dict(ms=ms, setup_s=setup_s, peak=peak,
+                               epoch_s=ms * prepared.n_batches / 1e3))
+        if name not in first:
+            first[name] = (model, logs, prepared if shards else None)
+        del prepared
+    hold_equal_runs("16b streamed", first["streamed"][:2],
+                    first["resident"][:2])
+    streamed = first["streamed"][2]
+    peaks = {name: max(r["peak"] for r in rs) for name, rs in runs.items()}
+    limit = 2 * feature_bytes / BIG_SHARDS + BIG_SLACK
+    if peaks["streamed"] > limit:
+        raise RuntimeError(f"phase 16b: the streamed run's peak batch bytes "
+                           f"{peaks['streamed']} exceed {limit:.0f}")
+    gbs, shard_bytes = upload_rate(streamed)
+    epochs = {name: [r["epoch_s"] for r in rs] for name, rs in runs.items()}
+    ratio = sum(epochs["streamed"]) / sum(epochs["resident"])
+    out = {name: {"peak_batch_bytes": peaks[name], "epoch_s": epochs[name],
+                  "ms_per_step": [r["ms"] for r in rs],
+                  "setup_s": [r["setup_s"] for r in rs]}
+           for name, rs in runs.items()}
+    out.update(feature_bytes=feature_bytes, shards=BIG_SHARDS,
+               uploads=streamed.uploads, upload_bytes=streamed.upload_bytes,
+               upload_gb_s=gbs, shard_bytes=shard_bytes,
+               epoch_ratio=ratio, cohort_s=made)
+    stats["decoder_nll"]["out_of_core"] = out
+
+    def walls(name):
+        return ", ".join(f"{r['epoch_s']:.3f} s ({r['ms']:.4f} ms/step)"
+                         for r in runs[name])
+
+    print(f"phase 16b: {BIG_SUBJECTS} subjects x {PPMI_DIMS} fp32 "
+          f"({feature_bytes / 1e9:.3f} GB of features), 1 fold, C "
+          f"{C_DIM}, one epoch of {streamed.n_batches} steps, "
+          f"--fused_decoder: streamed S={BIG_SHARDS} parameters torch.equal "
+          f"to the resident run's; peak batch bytes resident "
+          f"{peaks['resident'] / 1e9:.4f} GB, streamed "
+          f"{peaks['streamed'] / 1e9:.4f} GB (limit {limit / 1e9:.4f} GB); "
+          f"in turns resident, streamed, streamed, resident: epochs resident "
+          f"{walls('resident')} (upload "
+          f"{max(r['setup_s'] for r in runs['resident']):.2f} s before "
+          f"each at most), streamed {walls('streamed')} (pinning "
+          f"{max(r['setup_s'] for r in runs['streamed']):.2f} s before each "
+          f"at most), ratio of the sums {ratio:.4f}; {streamed.uploads} "
+          f"shard uploads, {streamed.upload_bytes / 1e9:.3f} GB; one shard "
+          f"({shard_bytes / 1e9:.4f} GB) uploads at {gbs:.2f} GB/s; cohort "
+          f"made in {made:.1f} s", flush=True)
+    return out
+
+
+def run_stream_cli(launches):
+    """16c: --stream_shards through the train CLI on phase 8's cohort:
+    byte-equal to the resident run, resumed across the two paths, the test
+    stage's launches, the auto shard count."""
+    import contextlib
+    import io
+
+    from multi_modal_normative_modeling_tpu_torch import kernels
+    from multi_modal_normative_modeling_tpu_torch.cli import (
+        test_supervised,
+        train_supervised,
+    )
+    from multi_modal_normative_modeling_tpu_torch.data.synthetic import (
+        make_synthetic_resource,
+    )
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        make_synthetic_resource(tmp / "cohort", "ADNI",
+                                with_early_fusion=True, **CHAIN_COHORT)
+
+        def project(name):
+            root = tmp / name
+            shutil.copytree(tmp / "cohort" / "data", root / "data")
+            return root
+
+        k4 = STREAM_CLI + ["--fused_decoder"]
+        every = ["--checkpoint_every", str(STREAM_CLI_EVERY)]
+        full = ["-E", str(STREAM_CLI_EPOCHS)]
+        killed = ["-E", str(STREAM_CLI_KILLED)]
+        stream = ["--stream_shards", "2"]
+        roots = {k: project(k) for k in ("resident", "streamed",
+                                         "resident_then_streamed",
+                                         "streamed_then_resident", "auto")}
+        train_supervised.run(k4 + full, project_root=roots["resident"])
+        train_supervised.run(k4 + full + stream,
+                             project_root=roots["streamed"])
+        train_supervised.run(k4 + killed + every,
+                             project_root=roots["resident_then_streamed"])
+        train_supervised.run(k4 + full + every + stream + ["--resume"],
+                             project_root=roots["resident_then_streamed"])
+        train_supervised.run(k4 + killed + every + stream,
+                             project_root=roots["streamed_then_resident"])
+        train_supervised.run(k4 + full + every + ["--resume"],
+                             project_root=roots["streamed_then_resident"])
+        for name in ("streamed", "resident_then_streamed",
+                     "streamed_then_resident"):
+            dist = checkpoint_distance(roots["resident"], roots[name])
+            if dist != 0.0:
+                raise RuntimeError(f"phase 16c: {name}: fold checkpoints "
+                                   f"{dist:.3e} from the resident run's")
+        kernels.reset_launch_counts()
+        test_supervised.run(STREAM_CLI, project_root=roots["streamed"])
+        torch.cuda.synchronize()
+        launches["16c test stage"] = counts = launch_counts()
+        want = {"fused_encoder": 4, "fused_pred_deviation": 4}
+        if counts != want:
+            raise RuntimeError(f"phase 16c: the test stage launched "
+                               f"{counts}, expected {want}")
+        trace_dir = tmp / "trace"
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            train_supervised.run(STREAM_CLI + ["-E", "2", "--stream_shards",
+                                               "-1", "--profile_dir",
+                                               str(trace_dir)],
+                                 project_root=roots["auto"])
+        auto = [line for line in out.getvalue().splitlines()
+                if line.startswith("--stream_shards auto:")]
+        traces = list(trace_dir.glob("*.json"))
+        if len(auto) != 1 or len(traces) != 1:
+            raise RuntimeError(f"phase 16c: --stream_shards -1 printed "
+                               f"{auto}, --profile_dir wrote {traces}")
+        kinds = trace_kinds(traces[0])
+        if not kinds.get("kernel"):
+            raise RuntimeError(f"phase 16c: the CLI's trace holds no device "
+                               f"kernels: {kinds}")
+    print(f"phase 16c: the train CLI on phase 8's cohort ({' '.join(k4)}, "
+          f"-E {STREAM_CLI_EPOCHS}): --stream_shards 2 fold checkpoints "
+          f"byte-equal to the resident run's; killed at epoch "
+          f"{STREAM_CLI_KILLED} (--checkpoint_every {STREAM_CLI_EVERY}) on "
+          f"one path and resumed on the other, both ways byte-equal; the "
+          f"test stage of the streamed checkpoints launched {counts}; "
+          f"{auto[0]}; --profile_dir wrote {traces[0].name} "
+          f"({kinds})", flush=True)
+
+
+def trace_kinds(path):
+    """{event category: count} of a Chrome trace."""
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    kinds = {}
+    for e in events:
+        kinds[e.get("cat", "")] = kinds.get(e.get("cat", ""), 0) + 1
+    return {k: v for k, v in kinds.items() if k in ("kernel", "gpu_memcpy")}
+
+
+def run_stream_profile(stats):
+    """16d: a streamed --fused_decoder run under utils.profiling.trace (what
+    --profile_dir wraps a run in): K4's kernels in the trace, the shards'
+    host-to-device copies on another stream than the kernels', and at
+    least one of them overlapping a kernel."""
+    from multi_modal_normative_modeling_tpu_torch.utils.profiling import trace
+
+    ppmi = stream_cohort(PPMI_DIMS, [PPMI_N], seed=167)
+    model, trainer = stream_trainer(PPMI_DIMS, 1, PPMI_N, 168,
+                                    PROFILE_EPOCHS, shards=PROFILE_SHARDS,
+                                    fused=True)
+    streamed = trainer.streamed(ppmi)
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp, cuda=True):
+            trainer.run(streamed)
+        events = json.loads(Path(trace.last).read_text())["traceEvents"]
+        size = Path(trace.last).stat().st_size
+    spans = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    kernels = [e for e in spans if e.get("cat") == "kernel"]
+    copies = [e for e in spans if e.get("cat") == "gpu_memcpy"
+              and "HtoD" in e.get("name", "")]
+    totals = {}
+    for e in kernels:
+        totals[e["name"]] = totals.get(e["name"], 0.0) + e["dur"]
+    named = {k: sum(v for n, v in totals.items() if k in n)
+             for k in ("nll_fwd_kernel", "nll_bwd_kernel")}
+    if not all(named.values()):
+        raise RuntimeError(f"phase 16d: the trace names no {named} "
+                           f"({len(kernels)} kernels, {len(events)} events)")
+    k4_streams = {e["args"].get("stream") for e in kernels
+                  if "nll_" in e["name"]}
+    side = [e for e in copies if e["args"].get("stream") not in k4_streams]
+    busy = sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels
+                  if e["args"].get("stream") in k4_streams)
+    overlap_us, overlapping = 0.0, 0
+    for c in side:
+        lo, hi = c["ts"], c["ts"] + c["dur"]
+        covered = sum(max(0.0, min(hi, b) - max(lo, a)) for a, b in busy
+                      if a < hi and b > lo)
+        if covered > 0:
+            overlapping += 1
+            overlap_us += covered
+    if not side or not overlapping:
+        raise RuntimeError(f"phase 16d: {len(copies)} host-to-device copies, "
+                           f"{len(side)} on a stream other than the "
+                           f"kernels' {k4_streams}, {overlapping} overlapping "
+                           "a kernel: the uploads do not overlap the compute")
+    top = sorted(totals.items(), key=lambda kv: -kv[1])[:6]
+    kernel_ms = sum(totals.values()) / 1e3
+    stats["decoder_nll"]["profile"] = {
+        "kernel_ms": kernel_ms, "copies": len(copies),
+        "side_copies": len(side), "overlapping": overlapping,
+        "overlap_ms": overlap_us / 1e3,
+        "copy_ms": sum(c["dur"] for c in side) / 1e3}
+    print(f"phase 16d: utils.profiling.trace of {PROFILE_EPOCHS} epochs at "
+          f"PPMI width, S={PROFILE_SHARDS}, --fused_decoder ({size} bytes): "
+          f"{len(kernels)} kernels, {kernel_ms:.3f} ms of them; "
+          f"nll_fwd_kernel {named['nll_fwd_kernel'] / 1e3:.3f} ms, "
+          f"nll_bwd_kernel {named['nll_bwd_kernel'] / 1e3:.3f} ms; top "
+          + ", ".join(f"{n[:40]} {v / 1e3:.3f} ms" for n, v in top)
+          + f"; {len(copies)} host-to-device copies, {len(side)} on a side "
+          f"stream ({sum(c['dur'] for c in side) / 1e3:.3f} ms), "
+          f"{overlapping} of them overlapping the kernels' stream for "
+          f"{overlap_us / 1e3:.3f} ms", flush=True)
+
+
+def run_remat_bf16(launches):
+    """16e: --remat bit-equal to the plain run, bf16 within rtol 2e-2 of
+    fp32, at PPMI width; each trained model's scoring call through K1 and
+    K2."""
+    from multi_modal_normative_modeling_tpu_torch import kernels
+
+    ppmi = stream_cohort(PPMI_DIMS, [PPMI_N], seed=169)
+    rng = np.random.default_rng(170)
+    xes = [torch.from_numpy(rng.standard_normal((1, BATCH, d),
+                                                dtype=np.float32)).cuda()
+           for d in PPMI_DIMS]
+    cs = [covariates(rng, 1, BATCH)] * len(PPMI_DIMS)
+    eps = torch.randn((1, BATCH, LATENT),
+                      generator=torch.Generator().manual_seed(171)).cuda()
+    runs = {}
+    for name, config in (("fp32", {}), ("remat", {"remat": True}),
+                         ("bf16", {"precision": "bf16"})):
+        model, trainer = stream_trainer(PPMI_DIMS, 1, PPMI_N, 172,
+                                        PRECISION_EPOCHS, **config)
+        logs, ms = timed_run(trainer, ppmi)
+        kernels.reset_launch_counts()
+        recons, devs = model.pred_recon_fused(xes, cs, COMBINE, eps=eps)
+        torch.cuda.synchronize()
+        launches[f"16e {name} scoring"] = counts = launch_counts()
+        want = {"fused_encoder": 3, "fused_pred_deviation": 3}
+        if counts != want:
+            raise RuntimeError(f"phase 16e: {name}: the scoring call "
+                               f"launched {counts}, expected {want}")
+        with torch.no_grad():
+            ref = model.pred_recon(xes, cs, COMBINE, eps=eps)
+        for m in range(len(PPMI_DIMS)):
+            check_close(f"16e {name} recon {m}", recons[m], ref[m],
+                        MODEL_TOL)
+        runs[name] = (model, logs, ms)
+    hold_equal_runs("--remat", runs["remat"][:2], runs["fp32"][:2])
+    for k in runs["fp32"][1]:
+        check_close(f"16e bf16 log {k}", torch.from_numpy(runs["bf16"][1][k]),
+                    torch.from_numpy(runs["fp32"][1][k]), PACKED_BF16_TOL)
+    worst = max(float(np.max(np.abs(runs["bf16"][1][k] - runs["fp32"][1][k])
+                             / np.abs(runs["fp32"][1][k])))
+                for k in runs["fp32"][1])
+    timing = {name: r[2] for name, r in runs.items()}
+    stats_line = {"ms_per_step": timing, "bf16_max_rel": worst}
+    print(f"phase 16e: PPMI width, 1 fold x {PPMI_N}, {PRECISION_EPOCHS} "
+          f"epochs, plain loss: --remat bit-equal to the plain run; bf16 "
+          f"logs within {worst:.3e} (rel) of fp32 (bound "
+          f"{PACKED_BF16_TOL['rtol']}); ms per step fp32 "
+          f"{timing['fp32']:.4f}, remat {timing['remat']:.4f} "
+          f"({timing['remat'] / timing['fp32']:.3f}x), bf16 "
+          f"{timing['bf16']:.4f} ({timing['bf16'] / timing['fp32']:.3f}x); "
+          f"each trained model's scoring call launched K1 3 and K2 3",
+          flush=True)
+    return stats_line
+
+
+def run_doctor():
+    """16f: the doctor on the card: exit 0, every section OK, kernel-build
+    naming sm_90a and nvcc's release."""
+    import contextlib
+    import io
+
+    from multi_modal_normative_modeling_tpu_torch.cli import doctor
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = doctor.run(["--json"])
+    results = json.loads(out.getvalue())
+    bad = [r for r in results if r["status"] != "OK"]
+    build = [r["detail"] for r in results if r["section"] == "kernel-build"]
+    if rc != 0 or bad or len(build) != 1 or "sm_90a" not in build[0] \
+            or "release" not in build[0]:
+        raise RuntimeError(f"phase 16f: doctor exit {rc}: {results}")
+    print(f"phase 16f: doctor --json exit 0, sections "
+          f"{[r['section'] for r in results]} all OK; kernel-build: "
+          f"{build[0]}", flush=True)
+
+
+def run_facade():
+    """16g: the reference's hot loop verbatim on the card through the
+    imperative facade, then torch.save / torch.load."""
+    import io
+
+    from torch.utils.data import DataLoader, TensorDataset
+
+    from multi_modal_normative_modeling_tpu_torch import compat
+
+    rng = np.random.default_rng(173)
+    xes = [rng.standard_normal((FACADE_ROWS, d), dtype=np.float32)
+           for d in DIMS]
+    cov = one_hot_covariates(rng, FACADE_ROWS)
+    loaders = [DataLoader(TensorDataset(torch.from_numpy(x),
+                                        torch.from_numpy(cov)),
+                          batch_size=BATCH, shuffle=False) for x in xes]
+    model = compat.cVAE_multimodal(
+        input_dim_list=DIMS, hidden_dim=HIDDEN, latent_dim=LATENT,
+        c_dim=C_DIM, learning_rate=0.0001, modalities=len(DIMS),
+        non_linear=True).to(compat.DEVICE)
+    t0 = time.perf_counter()
+    losses = []
+    for epoch in range(FACADE_EPOCHS):
+        for batch_idx, batch in enumerate(zip(*loaders)):
+            x_list = [b[0].to(compat.DEVICE) for b in batch]
+            c_list = [b[1].to(compat.DEVICE) for b in batch]
+            fwd = model.forward_multimodal(x_list, c_list, "gPoE")
+            loss = model.loss_function_multimodal(x_list, fwd)
+            model.optimizer1.lr = 0.5   # the reference's dead write (Q1)
+            model.optimizer1.zero_grad()
+            loss["total"].backward()
+            model.optimizer1.step()
+            losses.append(loss["total"].item())
+    wall = time.perf_counter() - t0
+    if not np.isfinite(losses).all():
+        raise RuntimeError(f"phase 16g: losses {losses}")
+    buf = io.BytesIO()
+    torch.save(model, buf)
+    buf.seek(0)
+    restored = torch.load(buf, weights_only=False)
+    frames = [x[:BATCH] for x in xes]
+    again = restored.pred_recon(frames, cov[:BATCH], compat.DEVICE, "gPoE")
+    first = model.pred_recon(frames, cov[:BATCH], compat.DEVICE, "gPoE")
+    if not all(np.array_equal(a, b) for a, b in zip(first, again)):
+        raise RuntimeError("phase 16g: the restored facade's pred_recon "
+                           "differs under the same generator state")
+    print(f"phase 16g: compat.cVAE_multimodal at {DIMS}, hidden {HIDDEN}, "
+          f"latent {LATENT}, batch {BATCH}: the reference loop, "
+          f"{FACADE_EPOCHS} epochs x {len(losses) // FACADE_EPOCHS} steps "
+          f"in {wall:.2f} s, losses finite (first {losses[0]:.3f}, last "
+          f"{losses[-1]:.3f}); torch.save / torch.load round trip, "
+          f"pred_recon equal under the same generator state", flush=True)
+
+
+def run_streaming(stats):
+    """Phase 16: streamed training, --remat and bf16, the profiler, the
+    doctor and the imperative facade on the card. Returns {run: launches}
+    of the phase's counted runs."""
+    launches = {}
+    t = [time.perf_counter()]
+    run_stream_equality(launches)
+    t.append(time.perf_counter())
+    run_out_of_core(stats)
+    t.append(time.perf_counter())
+    run_stream_cli(launches)
+    t.append(time.perf_counter())
+    run_stream_profile(stats)
+    t.append(time.perf_counter())
+    precision = run_remat_bf16(launches)
+    t.append(time.perf_counter())
+    run_doctor()
+    t.append(time.perf_counter())
+    run_facade()
+    t.append(time.perf_counter())
+    walls = {f"16{p}": round(b - a, 1)
+             for p, a, b in zip("abcdefg", t[:-1], t[1:])}
+    print(f"phase 16: {walls}", flush=True)
+    print(json.dumps({"streaming": {
+        "out_of_core": stats["decoder_nll"].get("out_of_core"),
+        "profile": stats["decoder_nll"].get("profile"),
+        "remat_bf16": precision, "walls_s": walls}}), flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3920,6 +4522,11 @@ def main():
 
     # ---- phase 15: the packed layouts (--packed_xla) ------------------------
     packed_launches = run_packed(stats)
+
+    # ---- phase 16: streamed training, remat/bf16, profiler, doctor, facade
+    t16 = time.perf_counter()
+    stream_launches = run_streaming(stats)
+    print(f"phase 16: {time.perf_counter() - t16:.1f} s", flush=True)
     missing = [name for name in sources if not launches.get(name)]
     if missing:
         raise RuntimeError(f"no launch on the main path: {missing}")
@@ -4007,6 +4614,15 @@ def main():
         report[-1]["packed_launches"] = {
             run: counts.get(name, 0)
             for run, counts in packed_launches.items()}
+        # phase 16: K4 in 16a's streamed --fused_decoder run (a forward and
+        # a backward per modality and step), K1/K2 in 16c's test stage of
+        # the streamed checkpoints and in 16e's scoring calls
+        report[-1]["stream_launches"] = {
+            run: counts.get(name, 0)
+            for run, counts in stream_launches.items()}
+        for extra in ("out_of_core", "profile"):
+            if extra in stats[name]:
+                report[-1][extra] = stats[name][extra]
     print(json.dumps({"classifier": classifier_runs,
                       "export": stats["export"], "report": report_summary}))
     print(json.dumps({"test_stage_walls": stage_walls,

@@ -90,6 +90,22 @@ def refuse_not_ported(args, what: str,
                              f'yet; see ROADMAP.md, {item}')
 
 
+@contextlib.contextmanager
+def profiled(args):
+    """``--profile_dir DIR``: the run inside a torch.profiler trace written
+    under DIR (utils.profiling.trace; JAX cli/train_supervised.py:766-770,
+    cli/pipeline.py:77-81); nothing without the flag."""
+    log_dir = getattr(args, 'profile_dir', None)
+    if not log_dir:
+        yield
+        return
+    from ..utils.profiling import trace
+
+    with trace(log_dir):
+        yield
+    print(f'profile: {trace.last}')
+
+
 def add_resume_flags(parser: argparse.ArgumentParser) -> None:
     """--checkpoint_every/--resume of every trainer CLI (cli/common.py:744-
     755 of the JAX package)."""

@@ -13,6 +13,7 @@ three-launch chain (same mains, same args). Usage:
         -R ADNI -P UCA-gPoE -E 200 -K 5 [--fused_train_step] [--device cpu]
         [-Model mmJSD|mvtCAE|DMVAE|WeightedDMVAE|mmVAEPlus] [--emit_latent]
         [--checkpoint_every N [--resume]] [--in_memory_fusion]
+        [--stream_shards S] [--remat] [--profile_dir DIR]
 
 Select stages with --stages (comma-separated subset of train,test,analyze).
 """
@@ -79,7 +80,8 @@ def main(args, project_root=None):
 def run(argv=None, project_root=None):
     args = build_parser().parse_args(argv)
     common.apply_post_parse_defaults(args)
-    return main(args, project_root=project_root)
+    with common.profiled(args):
+        return main(args, project_root=project_root)
 
 
 if __name__ == '__main__':

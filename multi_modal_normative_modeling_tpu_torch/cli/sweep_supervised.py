@@ -21,7 +21,9 @@ deviation CSVs, result_baseline blocks) with the training deduplicated:
   ``train.grouped.select_packed_trainer`` picks (width-grouped for a
   mixed-width cvae-skeleton procedure, padded for uniform widths,
   split-latent for the DMVAE family), the packed batches built once per
-  procedure; ``--precision bf16`` runs there for cVAE_multimodal.
+  procedure; ``--precision bf16`` runs there for cVAE_multimodal;
+* without ``--packed_xla``, ``--precision bf16`` trains the per-modality
+  layout with its forward in bfloat16 (fp32 master weights), every model.
 
 At each milestone the port's test stage (``test_supervised.main``: on CUDA
 the encoder and decode+deviation kernels once per modality) and analysis
@@ -33,7 +35,7 @@ run log's sweep_start, point_done and sweep_end events.
         -R ADHD -K 10 --procedures SM-sMRI SE-gPoE \\
         --hz_grid '110 110 10;460 460 40' --epochs_list 50 500 1000 \\
         --lr_grid '1e-4:5e-3,1e-5:5e-3' [--device cpu]
-        [--packed_xla [--precision bf16]]
+        [--packed_xla] [--precision bf16]
 """
 from __future__ import annotations
 
@@ -110,7 +112,7 @@ def _point_args(args, procedure: str, hz, epochs: int, base_lr: float,
         max_learning_rate=max_lr,
         training_class=args.training_class,
         lr_schedule=args.lr_schedule,
-        precision='fp32',
+        precision=getattr(args, 'precision', 'fp32'),
         in_memory_fusion=getattr(args, 'in_memory_fusion', False),
         emit_latent=False,
         fused_inference=False,
@@ -132,12 +134,6 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
     common.refuse_not_ported(args, 'supervised sweep', _NOT_PORTED_FLAGS)
     packed = getattr(args, 'packed_xla', False)
     precision = getattr(args, 'precision', 'fp32')
-    if precision != 'fp32' and not packed:
-        raise SystemExit(f'--precision {precision} is not ported to the '
-                         'torch supervised sweep yet (the plain trainer is '
-                         'fp32; the packed layouts take bf16 with '
-                         "--packed_xla); see ROADMAP.md, queue 1 item "
-                         "'Trainer'")
     if packed:
         print('sweep training runs on the packed-modality layout '
               '(--packed_xla)')
@@ -350,9 +346,10 @@ def build_parser() -> argparse.ArgumentParser:
                         default='constant', choices=['constant', 'cyclic'])
     parser.add_argument('--precision', dest='precision', default='fp32',
                         choices=['fp32', 'bf16'],
-                        help='fp32; bf16 runs on the packed layouts of '
-                             'cVAE_multimodal (with --packed_xla) and raises '
-                             'otherwise')
+                        help='bf16 runs the forward in bfloat16 with fp32 '
+                             'master weights (the per-modality layout, or '
+                             'with --packed_xla the packed layouts of '
+                             'cVAE_multimodal)')
     parser.add_argument('--device', dest='device', default='cuda',
                         help='torch device to run on (default cuda); cuda '
                              'runs the kernels, cpu their plain versions')

@@ -25,15 +25,24 @@ cvae-skeleton cohort, padded for uniform widths, split-latent for the DMVAE
 family; its train state under that layout's own directory, e.g.
 ``grouped-state/``), in fp32 or, for cVAE_multimodal, ``--precision bf16``;
 where the JAX CLI does not take the packed layout it says why and trains
-the per-modality layout, as the JAX CLI does. ``--in_memory_fusion`` builds a UCA procedure's early-fusion modality from
-the scaled base modalities (``common.fuse_preps``) instead of reading its
-CSV, on every path.
+the per-modality layout, as the JAX CLI does. ``--in_memory_fusion`` builds
+a UCA procedure's early-fusion modality from the scaled base modalities
+(``common.fuse_preps``) instead of reading its CSV, on every path.
+``--stream_shards S`` trains the per-modality layout out of core
+(``train.streaming.StreamingFoldTrainer``: the batches in S shards, one
+uploading while the one before it computes; -1 sizes S from the card's
+memory); its checkpoints and train state are the resident run's, byte for
+byte. ``--precision bf16`` without ``--packed_xla`` or
+``--fused_train_step`` runs the per-modality forward in bfloat16 (fp32
+master weights), ``--remat`` recomputes it in the backward, and
+``--profile_dir DIR`` writes a torch.profiler trace of the run.
 
     python -m multi_modal_normative_modeling_tpu_torch.cli.train_supervised \\
         -R ADNI -P UCA-gPoE -E 200 -K 5 [--fused_decoder] [--device cpu]
         [--fused_train_step [--precision bf16]] [-Model mvtCAE]
         [--checkpoint_every N [--resume]] [--in_memory_fusion]
-        [--packed_xla [--precision bf16]]
+        [--packed_xla [--precision bf16]] [--stream_shards S]
+        [--precision bf16] [--remat] [--profile_dir DIR]
 """
 from __future__ import annotations
 
@@ -55,15 +64,13 @@ from ..train import TrainConfig
 from ..train.fused import FusedFoldTrainer, supported
 from ..train.grouped import select_packed_trainer
 from ..train.packed import packed_supported
+from ..train.streaming import StreamingFoldTrainer, shard_plan
 from ..utils.logging import RunLog
 from . import common
 
 # JAX CLI flags with no port yet: each raises instead of being ignored
 _NOT_PORTED_FLAGS = {
     **common.VARIANT_NOT_PORTED,
-    'stream_shards': "queue 1 item 'Streaming'",
-    'remat': "queue 1 item 'Trainer'",
-    'profile_dir': "queue 1 item 'Tooling'",
     'warmup_only': "'Do not port' (a TPU compile-cache warm-up)",
 }
 
@@ -94,17 +101,19 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
     # the fused train step takes precedence over --packed_xla, as in JAX
     packed_flag = getattr(args, 'packed_xla', False) and not fused
     precision = getattr(args, 'precision', 'fp32')
-    if precision != 'fp32' and not fused and not (
-            packed_flag and _variant(args) == 'cvae'):
-        _refuse_precision(precision)
     if fused:
         unsupported = _fused_flag_conflict(args)
         if unsupported:
             raise SystemExit(f'fused train step unavailable ({unsupported})')
     elif getattr(args, 'fused_decoder', False) and not packed_flag:
-        unsupported = _cvae_only(args, 'the decoder_nll kernel pair')
+        unsupported = (_cvae_only(args, 'the decoder_nll kernel pair')
+                       or _fp32_only(precision))
         if unsupported:
             raise SystemExit(f'fused decoder unavailable ({unsupported})')
+    remat = getattr(args, 'remat', False)
+    if remat and (fused or getattr(args, 'packed_xla', False)):
+        print('--remat applies to the standard XLA loss; ignoring it for '
+              '--fused_train_step/--packed_xla/--ep_mesh')
     device = common.resolve_device(getattr(args, 'device', 'cuda'), 'train')
 
     project_root = Path(project_root) if project_root else Path.cwd()
@@ -150,6 +159,7 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
         max_lr=args.max_learning_rate,
         seed=42,
         precision=precision,
+        remat=remat,
     )
 
     model = common.build_model_from_config(config_dict, folds=n_folds)
@@ -171,8 +181,6 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
         else:
             print(f'packed XLA path unavailable ({reason}); '
                   'using the per-modality path')
-    if packed is None and precision != 'fp32' and not fused:
-        _refuse_precision(precision)
     fused_decoder = getattr(args, 'fused_decoder', False)
     if packed is not None and fused_decoder:
         print('fused decoder unavailable (mutually exclusive with '
@@ -180,9 +188,12 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
         fused_decoder = False
     elif fused_decoder and packed_flag:
         # checked here: the packed layout was not taken after all
-        unsupported = _cvae_only(args, 'the decoder_nll kernel pair')
+        unsupported = (_cvae_only(args, 'the decoder_nll kernel pair')
+                       or _fp32_only(precision))
         if unsupported:
             raise SystemExit(f'fused decoder unavailable ({unsupported})')
+    stream_shards = _stream_shards(args, folds, device,
+                                   packed is not None, fused)
     if init_fn is not None:
         init_fn(model)
     else:
@@ -200,7 +211,7 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
         # fold-parallel path keeps it; a packed layout's in its own dir
         logs, steps, run_s = _train(fused_decoder, model, train_config,
                                     folds, max_n, eps_fn, resumable,
-                                    model_dir, packed)
+                                    model_dir, packed, stream_shards)
     per_fold_logs = [{k: v[f] for k, v in logs.items()}
                      for f in range(n_folds)]
     per_fold_params = [params_to_jax(model, fold=f) for f in range(n_folds)]
@@ -219,18 +230,49 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
                   **resumable.fields())
 
 
-def _variant(args) -> Optional[str]:
-    """The variant of ``args.model`` (None for an unknown name)."""
-    return REGISTRY.get(getattr(args, 'model', 'cVAE_multimodal'),
-                        (None, None))[1]
+def _fp32_only(precision: str) -> Optional[str]:
+    """Why the decoder_nll kernel pair cannot train at ``precision``, or
+    None: K4 takes fp32 only."""
+    if precision == 'fp32':
+        return None
+    return ('cvae variant, fp32 only: the decoder_nll kernel pair takes '
+            f'fp32 operands; the JAX package trains --precision {precision} '
+            'on its plain loss here, this CLI exits instead (ROADMAP.md, '
+            '"Stated divergences"). Train without --fused_decoder')
 
 
-def _refuse_precision(precision: str) -> None:
-    raise SystemExit(f'--precision {precision} runs only through the fused '
-                     'train step (K6, --fused_train_step) or the packed '
-                     'layouts of cVAE_multimodal (--packed_xla); bf16 for '
-                     'the per-modality trainer is not ported yet, see '
-                     "ROADMAP.md, queue 1 item 'Trainer'")
+def _stream_shards(args, folds, device, packed: bool, fused: bool) -> int:
+    """--stream_shards resolved (JAX cli/train_supervised.py:301-311,
+    :533-558): 0 trains resident, -1 sizes the shard count so that two
+    shards of fold 0's batch data fit in half the device's memory. Exits on
+    the JAX CLI's conflicts and on a value below -1."""
+    shards = getattr(args, 'stream_shards', 0) or 0
+    if not shards:
+        return 0
+    conflicts = [name for name, on in [
+        ('--fold_parallel', getattr(args, 'fold_parallel', False)),
+        ('--packed_xla', packed),
+        ('--fused_train_step', fused),
+    ] if on]
+    if conflicts:
+        raise SystemExit('--stream_shards is mutually exclusive with '
+                         + ', '.join(conflicts)
+                         + ' (out-of-core streaming is a sequential '
+                           'whole-fold path)')
+    if shards == -1:
+        hbm = (torch.cuda.mem_get_info(device)[1] if device.type == 'cuda'
+               else 16 * 2**30)
+        budget = hbm // 2
+        total = sum(int(np.asarray(a).nbytes)
+                    for a in list(folds[0][0]) + list(folds[0][1]))
+        shards = shard_plan(total, budget)
+        print(f'--stream_shards auto: {total / 2**20:.0f} MiB '
+              f'batch data vs {budget / 2**20:.0f} MiB budget '
+              f'-> {shards} shard(s)')
+    elif shards < 1:
+        raise SystemExit(f'--stream_shards must be >= 1 (or -1 for auto), '
+                         f'got {shards}')
+    return shards
 
 
 def _cvae_only(args, what: str) -> Optional[str]:
@@ -288,17 +330,31 @@ def _train_fused(model, train_config, folds, max_n, device, eps_fn,
 
 
 def _train(fused_decoder: bool, model, train_config, folds, max_n, eps_fn,
-           resumable: common.Resumable, state_dir: Path, packed=None):
+           resumable: common.Resumable, state_dir: Path, packed=None,
+           stream_shards: int = 0):
     """Every fold at once on MultiFoldTrainer (plain or --fused_decoder
-    loss), or on the layout of ``packed`` (select_packed_trainer's
-    choice); trains ``model`` in place. Returns (logs, steps this call ran,
-    seconds of the run)."""
+    loss; streamed in ``stream_shards`` shards when that is not 0), or on
+    the layout of ``packed`` (select_packed_trainer's choice); trains
+    ``model`` in place. The streamed run keeps its train state where the
+    resident run does: either resumes the other's. Returns (logs, steps
+    this call ran, seconds of the run)."""
     batch_size = train_config.batch_size
     loss_fn = None
     if fused_decoder:
+        if train_config.remat:
+            print('--remat applies to the standard XLA loss; ignoring it '
+                  'for --fused_decoder')
         loss_fn = fused_decoder_loss_fn(model, train_config)
         print('train model (fused decoder+NLL CUDA kernel pair)')
-    if packed is None:
+    if stream_shards:
+        try:
+            trainer = StreamingFoldTrainer(model, train_config, max_n,
+                                           shards=stream_shards,
+                                           loss_fn=loss_fn)
+        except ValueError as exc:
+            raise SystemExit(f'--stream_shards: {exc}')
+        print(f'train model (streamed, {stream_shards} batch shards)')
+    elif packed is None:
         trainer = MultiFoldTrainer(model, train_config, max_n,
                                    loss_fn=loss_fn)
     else:
@@ -311,8 +367,9 @@ def _train(fused_decoder: bool, model, train_config, folds, max_n, eps_fn,
     if eps_fn is not None:
         eps = eps_fn(batches['valid'], train_config.epochs, batch_size,
                      model.noise_dim)
-    print('train model (all folds fold-parallel'
-          + ('' if packed is None else f', {layout} modalities') + ')')
+    if not stream_shards:
+        print('train model (all folds fold-parallel'
+              + ('' if packed is None else f', {layout} modalities') + ')')
     start = time.perf_counter()
     logs = resumable.run(trainer, batches, eps=eps, state_dir=state_dir)
     run_s = time.perf_counter() - start
@@ -366,11 +423,32 @@ def build_parser() -> argparse.ArgumentParser:
                              'does not take.')
     parser.add_argument('--precision', dest='precision', default='fp32',
                         choices=['fp32', 'bf16'],
-                        help='fp32; bf16 runs through the fused train step '
-                             '(K6, with --fused_train_step) or the packed '
-                             'layouts of cVAE_multimodal (--packed_xla: bf16 '
-                             'forward, fp32 master weights), and raises '
-                             'otherwise')
+                        help='bf16 runs the forward in bfloat16 with fp32 '
+                             'master weights and loss reductions (the '
+                             'per-modality and packed layouts); with '
+                             '--fused_train_step it runs K6. Exits with '
+                             '--fused_decoder (K4 takes fp32).')
+    parser.add_argument('--remat', dest='remat', action='store_true',
+                        help='recompute the forward inside the backward '
+                             '(torch.utils.checkpoint): activation memory '
+                             'for compute; the same values bit for bit. '
+                             'The plain loss only.')
+    parser.add_argument('--stream_shards', dest='stream_shards', type=int,
+                        default=0,
+                        help='out-of-core training for cohorts whose batches '
+                             'do not fit the card: split each epoch into S '
+                             'contiguous batch shards, pinned on the host, '
+                             'and upload shard i+1 on a side CUDA stream '
+                             'while shard i computes (peak batch memory ~2/S '
+                             'of the cohort). Bit-equal to the resident '
+                             'trainer; not with --fold_parallel, '
+                             '--packed_xla or --fused_train_step. 0 '
+                             "disables; -1 sizes S from the card's "
+                             'memory.')
+    parser.add_argument('--profile_dir', dest='profile_dir', default=None,
+                        help='write a torch.profiler trace (Chrome trace '
+                             "JSON: CPU activity, and the card's kernels "
+                             'and copies) of the run into this directory.')
     parser.add_argument('--packed_xla', dest='packed_xla',
                         action='store_true',
                         help='train on a packed-modality layout: every '
@@ -390,9 +468,6 @@ def build_parser() -> argparse.ArgumentParser:
     not_ported = 'not ported yet (raises); see ROADMAP.md'
     for flag, kwargs in (('--mesh', {'default': None}),
                          ('--ep_mesh', {'default': None}),
-                         ('--stream_shards', {'type': int, 'default': 0}),
-                         ('--remat', {'action': 'store_true'}),
-                         ('--profile_dir', {'default': None}),
                          ('--warmup_only', {'action': 'store_true'})):
         parser.add_argument(flag, dest=flag[2:], help=not_ported, **kwargs)
     return parser
@@ -401,7 +476,8 @@ def build_parser() -> argparse.ArgumentParser:
 def run(argv=None, project_root=None):
     args = build_parser().parse_args(argv)
     common.apply_post_parse_defaults(args)
-    main(args, project_root=project_root)
+    with common.profiled(args):
+        main(args, project_root=project_root)
 
 
 if __name__ == '__main__':

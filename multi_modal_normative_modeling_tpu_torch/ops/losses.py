@@ -135,3 +135,30 @@ def cross_entropy_logits(logits: torch.Tensor, labels: torch.Tensor,
     picked = torch.gather(logits, -1,
                           labels.to(torch.int64).unsqueeze(-1)).squeeze(-1)
     return _masked_mean(log_z - picked, mask)
+
+
+def focal_loss(inputs: torch.Tensor, targets: torch.Tensor,
+               alpha_focal: float, gamma_focal: float, logits: bool = True,
+               reduction: str = "mean") -> torch.Tensor:
+    """Focal BCE (FocalLoss, cVAE.py:113-138; the legacy adversarial
+    discriminator's objective), as ops/losses.py of the JAX package: a
+    batch whose first target is 0 uses alpha * (1 - pt)^gamma * BCE, any
+    other (1 - alpha) * pt^gamma * BCE. Not fold-stacked."""
+    inputs = inputs.reshape(-1)
+    targets = targets.reshape(-1).to(inputs.dtype)
+    if logits:
+        bce = (torch.clamp(inputs, min=0) - inputs * targets
+               + torch.log1p(torch.exp(-torch.abs(inputs))))
+    else:
+        clipped = torch.clamp(inputs, 1e-12, 1.0 - 1e-7)
+        bce = -(targets * torch.log(clipped)
+                + (1.0 - targets) * torch.log(1.0 - clipped))
+    pt = torch.exp(-bce)
+    loss_neg = alpha_focal * (1.0 - pt) ** gamma_focal * bce
+    loss_pos = (1.0 - alpha_focal) * pt ** gamma_focal * bce
+    out = torch.where(targets[0] == 0, loss_neg, loss_pos)
+    if reduction == "mean":
+        return torch.mean(out)
+    if reduction == "sum":
+        return torch.sum(out)
+    return out

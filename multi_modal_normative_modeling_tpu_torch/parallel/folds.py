@@ -101,7 +101,10 @@ class MultiFoldTrainer:
     per-fold numerics (its fold-parallel path falls back to them when fold
     grids differ, cli/common.py:888-896). ``state_update(aux, valid)``
     applies non-gradient state after each step (the end-to-end model's
-    BatchNorm running statistics, ``EndToEndCVAE.update_state``).
+    BatchNorm running statistics, ``EndToEndCVAE.update_state``). With
+    ``config.precision="bf16"`` or ``config.remat`` the default loss runs
+    its forward in bf16 or recomputes it in the backward
+    (``train.trainer.default_loss_fn``).
 
     ``run``, ``run_milestones`` and ``run_resumable`` advance one
     ``TrainSession``: a run in chunks (milestones, checkpoints) is the
@@ -112,10 +115,6 @@ class MultiFoldTrainer:
     def __init__(self, model, config: TrainConfig, n_samples: int,
                  loss_fn: Optional[Callable] = None,
                  state_update: Optional[StateUpdate] = None):
-        if config.precision != "fp32":
-            raise NotImplementedError(
-                "MultiFoldTrainer trains in fp32; see ROADMAP.md, queue 1 "
-                "item 'Trainer'")
         self.model = model
         self.config = config
         self.lr_fn = build_lr_fn(config, n_samples)
@@ -126,10 +125,10 @@ class MultiFoldTrainer:
     def session(self, stacked_batches, eps=None, keeps=None,
                 perms=None, seeds=None) -> TrainSession:
         """A new run of ``self.model`` (trained in place) over
-        ``stack_fold_batches`` output (or those batches already uploaded as
-        ``DeviceBatches``). By default each fold draws its own noise, keep
-        masks (a model with ``keep_widths``) and permutations from a
-        generator seeded ``config.seed``, or ``seeds[f]`` for fold f when
+        ``stack_fold_batches`` output (or those batches already on the
+        device: ``DeviceBatches``, or a streamed view of them). By default
+        each fold draws its own noise, keep masks (a model with
+        ``keep_widths``) and permutations from a generator seeded ``config.seed``, or ``seeds[f]`` for fold f when
         ``seeds`` is given (``FoldNoise``). Tests replay given draws
         instead: ``eps`` [epochs * NB, F, B, Z] (Z is the model's
         ``noise_dim``), ``keeps`` one [epochs * NB, F, B, width] per keep
@@ -138,7 +137,7 @@ class MultiFoldTrainer:
         params = list(self.model.parameters())
         device, dtype = params[0].device, params[0].dtype
         batches = stacked_batches
-        if not isinstance(batches, DeviceBatches):
+        if isinstance(batches, dict):
             batches = DeviceBatches(stacked_batches, device, dtype)
         noise = fold_noise(self.model, self.config, batches, device, dtype,
                            eps, keeps, perms, seeds)

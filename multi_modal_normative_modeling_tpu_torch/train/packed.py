@@ -46,6 +46,7 @@ from .trainer import (
     add_batch_meta,
     build_lr_fn,
     fold_noise,
+    full_cast_outputs,
     make_batches,
     run_epochs,
 )
@@ -152,17 +153,6 @@ def half_cast(tree):
     return _rebuild(tree, [t.to(torch.bfloat16)
                            if t.dtype == torch.float32 else t
                            for t in _leaves(tree)])
-
-
-def full_cast_outputs(fwd: dict) -> dict:
-    """A bf16 forward's outputs back to fp32, all but the reconstruction
-    means (the JAX trainer's cast points)."""
-    def up(v):
-        if isinstance(v, (list, tuple)):
-            return type(v)(up(t) for t in v)
-        return v.float() if v.dtype == torch.bfloat16 else v
-
-    return {k: (v if k == "recon_means" else up(v)) for k, v in fwd.items()}
 
 
 class PackedMultiFoldTrainer:

@@ -56,11 +56,17 @@ class TrainConfig:
     max_lr: float = 5e-3
     gamma: float = 0.98
     seed: int = 42
-    # "bf16" runs only on the fused train step's K6 (train/fused.py)
+    # "fp32" (parity) or "bf16": the forward in bfloat16 at the JAX
+    # package's cast points, fp32 master parameters and Adam state
+    # (default_loss_fn; the fused train step runs it on K6)
     precision: str = "fp32"
     # the per-epoch reshuffle (the regression trainer's); the fused train
     # step refuses it
     shuffle: bool = False
+    # recompute the loss's forward inside the backward
+    # (torch.utils.checkpoint): activation memory for compute, the same
+    # values bit for bit
+    remat: bool = False
 
 
 def make_batches(data_list: Sequence[np.ndarray],
@@ -98,20 +104,69 @@ def make_batches(data_list: Sequence[np.ndarray],
     return batch
 
 
+def full_cast_outputs(fwd: dict) -> dict:
+    """A bf16 forward's outputs back to fp32, all but the reconstruction
+    means (the JAX trainer's cast points, train/trainer.py:131-152)."""
+    def up(v):
+        if isinstance(v, (list, tuple)):
+            return type(v)(up(t) for t in v)
+        return v.float() if v.dtype == torch.bfloat16 else v
+
+    return {k: (v if k == "recon_means" else up(v)) for k, v in fwd.items()}
+
+
 def default_loss_fn(model, config: TrainConfig) -> LossFn:
     """The ELBO of one batch, per fold: forward (encode, fuse,
     reparameterize with the given eps, decode), then ``model.loss``.
 
     The JAX default for cvae in fp32 merges each encoder's mu and logvar
     heads into one matmul; the JAX package states that the merged math is
-    exact on the CPU, so the port runs the heads as two products."""
+    exact on the CPU, so the port runs the heads as two products.
+
+    With ``precision="bf16"`` the forward runs in bfloat16 at the JAX
+    package's cast points (train/trainer.py:131-152): the parameters, x, c
+    and the noise cast to bf16 (the module runs on the casts through
+    ``torch.func.functional_call``, so the gradients reach the fp32 master
+    parameters through the casts), every forward output but the
+    reconstruction means cast back to fp32, and the loss reads the fp32
+    module. With ``config.remat`` the whole loss is recomputed inside the
+    backward (``torch.utils.checkpoint``, JAX's ``jax.checkpoint``): the
+    noise and any keep masks are inputs, so the recomputation draws nothing
+    and the values are the same bit for bit."""
+    if config.precision == "bf16":
+        from torch.func import functional_call
+
+        half = torch.bfloat16
+
+        def forward(batch: dict, eps: torch.Tensor) -> dict:
+            params = {name: p.to(half) if p.dtype == torch.float32 else p
+                      for name, p in model.named_parameters()}
+            fwd = functional_call(
+                model, params,
+                ([x.to(half) for x in batch["x"]],
+                 [c.to(half) for c in batch["c"]], config.combine),
+                {"eps": eps.to(half)})
+            return full_cast_outputs(fwd)
+    elif config.precision == "fp32":
+        def forward(batch: dict, eps: torch.Tensor) -> dict:
+            return model(batch["x"], batch["c"], config.combine, eps=eps)
+    else:
+        raise ValueError(f"unknown precision {config.precision!r}")
 
     def loss_fn(batch: dict, eps: torch.Tensor):
-        fwd = model(batch["x"], batch["c"], config.combine, eps=eps)
+        fwd = forward(batch, eps)
         losses = model.loss(batch["x"], fwd, batch["mask"])
         return losses["total"], losses
 
-    return loss_fn
+    if not config.remat:
+        return loss_fn
+    from torch.utils.checkpoint import checkpoint
+
+    def remat_loss_fn(batch: dict, eps: torch.Tensor):
+        return checkpoint(loss_fn, batch, eps, use_reentrant=False,
+                          preserve_rng_state=False)
+
+    return remat_loss_fn
 
 
 # the reference hardcodes batch 256 (train:197); the resume fingerprint
@@ -135,13 +190,14 @@ def resolve_loss(model, config: TrainConfig, loss_fn: Optional[LossFn]
     none is given, and the flat str->str dict the resume guard compares
     (checkpoints.run_chunked), so that a state is not continued under
     another loss family (the plain loss against the ``--fused_decoder``
-    one, say) or precision."""
+    one, say), precision or remat setting."""
     if loss_fn is not None:
         name = getattr(loss_fn, "__qualname__", "custom").split(".")[0]
     else:
         name = "default_loss_fn"
         loss_fn = default_loss_fn(model, config)
-    meta = {"loss": name, "precision": config.precision}
+    meta = {"loss": name, "precision": config.precision,
+            "remat": str(config.remat)}
     return loss_fn, add_batch_meta(meta, config)
 
 
@@ -461,6 +517,10 @@ def run_epochs(loss_fn: LossFn, params: List[torch.nn.Parameter],
             if state_update is not None:
                 state_update(aux, batches.valid[step])
             t += 1
+            # the step's inputs go before the next step's are asked for: a
+            # streamed view frees a consumed shard when its last step's
+            # slices are gone (train/streaming.py)
+            del batch
     return logs
 
 

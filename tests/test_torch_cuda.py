@@ -1118,3 +1118,63 @@ def _sign_noise_leaf(path: str) -> bool:
     it): two float orders part there (tests/test_torch_endtoend.py)."""
     return (("'blocks'" in path and path.endswith("['linear']['b']"))
             or (path.startswith("['bn_state']") and path.endswith("['mean']")))
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["plain", "k4"])
+def test_streamed_run_is_bit_equal_to_the_resident_run(cuda, fused):
+    """S = NB (a shard a step, the most uploads): the streamed trainer's
+    logs and parameters equal the resident one's, the uploads on a side
+    stream, K4 launched a pair per modality and step."""
+    from multi_modal_normative_modeling_tpu_torch.kernels.decoder_nll import (
+        fused_decoder_loss_fn,
+    )
+    from multi_modal_normative_modeling_tpu_torch.parallel import (
+        MultiFoldTrainer,
+        stack_fold_batches,
+    )
+    from multi_modal_normative_modeling_tpu_torch.train import TrainConfig
+    from multi_modal_normative_modeling_tpu_torch.train.streaming import (
+        StreamingFoldTrainer,
+    )
+
+    dims, rows = [90, 270], (70, 37)
+    rng = np.random.default_rng(14)
+    data = [[rng.standard_normal((n, d), dtype=np.float32) for d in dims]
+            for n in rows]
+    cov = [[rng.standard_normal((n, 29), dtype=np.float32)] * 2 for n in rows]
+    batches = stack_fold_batches(data, cov, 16)
+    nb = batches["mask"].shape[1]
+    runs = []
+    for shards in (None, nb):
+        model = build_model("cVAE_multimodal", dims, [110, 110], 10, 29, 2,
+                            folds=2, generator=torch.Generator().manual_seed(7),
+                            device=cuda)
+        config = TrainConfig(epochs=3, batch_size=16, combine="gpoe")
+        loss = fused_decoder_loss_fn(model, config) if fused else None
+        trainer = (MultiFoldTrainer(model, config, 70, loss_fn=loss)
+                   if shards is None else
+                   StreamingFoldTrainer(model, config, 70, shards=shards,
+                                        loss_fn=loss))
+        kernels.reset_launch_counts()
+        logs = trainer.run(batches)
+        torch.cuda.synchronize()
+        runs.append((model, logs, kernels.decoder_nll.launches))
+    (a, logs_a, _), (b, logs_b, launched) = runs
+    for k in logs_a:
+        np.testing.assert_array_equal(logs_a[k], logs_b[k], err_msg=k)
+    for (k, x), y in zip(a.state_dict().items(), b.state_dict().values()):
+        assert torch.equal(x, y), k
+    assert launched == (2 * len(dims) * 3 * nb if fused else 0)
+
+
+def test_doctor_exits_0_on_the_card(cuda, capsys):
+    import json
+
+    from multi_modal_normative_modeling_tpu_torch.cli import doctor
+
+    rc = doctor.run(["--json"])
+    results = json.loads(capsys.readouterr().out)
+    assert rc == 0, results
+    assert all(r["status"] == "OK" for r in results), results
+    build = [r["detail"] for r in results if r["section"] == "kernel-build"]
+    assert "sm_90a" in build[0] and "release" in build[0]

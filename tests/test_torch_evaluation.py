@@ -426,6 +426,18 @@ def test_pipeline_refuses_unported_flags_before_any_stage(flag, tmp_path,
             pd.read_csv(chain["piped"] / rel)["Reconstruction error"],
             rtol=1e-5, atol=1e-8)
         return
+    if flag == "--profile_dir=x":
+        # ported: the analysis stage runs inside a torch.profiler trace
+        # written under the directory (tests/test_torch_profiling.py)
+        root = tmp_path / "project"
+        shutil.copytree(chain["scored"], root)
+        stats = pipeline.run(FLAGS + ["-E", "2", "--stages", "analyze",
+                                      "--device", "cpu",
+                                      f"--profile_dir={tmp_path / 'x'}"],
+                             project_root=root)
+        _same_stats(stats, chain["stats"])
+        assert len(list((tmp_path / "x").glob("*.pt.trace.json"))) == 1
+        return
     match = r"ROADMAP\.md, .*'[A-Za-z]"
     if flag == "--resume":
         match = "--resume requires --checkpoint_every N"

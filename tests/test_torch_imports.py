@@ -13,11 +13,13 @@ the native data plane (``cli/bootstrap.py``, ``native/``, which imports
 only the standard library, numpy and pandas), and the custom operators,
 the classifier baseline, export and the report (``kernels/ops.py``,
 ``models/classifier.py``, ``data/splits.py``, ``viz.py``,
-``cli/classifier_baseline.py``, ``cli/export.py``, ``cli/report.py``)
-import no scikit-learn either, which that machine does not have, and those
-three CLIs and the last seven no matplotlib; the last cases run the
-whole chain, the three CLIs, and the scoring surfaces, in a process where importing any of them
-fails."""
+``cli/classifier_baseline.py``, ``cli/export.py``, ``cli/report.py``), and
+the streamed trainer, the profiler, the doctor and the facade
+(``train/streaming.py``, ``utils/profiling.py``, ``cli/doctor.py``,
+``compat/``) import no scikit-learn either, which that machine does not
+have, and those three CLIs and the last twelve no matplotlib; the last
+cases run the whole chain, the three CLIs, and the scoring surfaces, in a
+process where importing any of them fails."""
 import ast
 import subprocess
 import sys
@@ -49,6 +51,11 @@ NO_SKLEARN = sorted((PORT / "evaluation").glob("*.py")) + [
 # the classifier baseline, export and the report run on the card too: no
 # matplotlib either
 SLICE_12 = NO_SKLEARN[-7:]
+# slice 14: the streamed trainer, the profiler, the doctor and the facade run
+# on the card too: no scikit-learn, no matplotlib
+SLICE_14 = [PORT / "train" / "streaming.py",
+            PORT / "utils" / "profiling.py", PORT / "cli" / "doctor.py",
+            *sorted((PORT / "compat").glob("*.py"))]
 # the native data plane: the standard library, numpy, pandas and itself
 NATIVE = sorted((PORT / "native").glob("*.py"))
 NATIVE_IMPORTS = ("__future__", "ctypes", "hashlib", "os", "subprocess",
@@ -92,8 +99,9 @@ def test_no_import_of_jax_or_the_jax_package(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
-@pytest.mark.parametrize("path", NO_SKLEARN,
-                         ids=[str(p.relative_to(ROOT)) for p in NO_SKLEARN])
+@pytest.mark.parametrize("path", NO_SKLEARN + SLICE_14,
+                         ids=[str(p.relative_to(ROOT))
+                              for p in NO_SKLEARN + SLICE_14])
 def test_the_analysis_stage_imports_no_sklearn(path):
     assert path.exists()
     bad = [(m, line) for m, line in imported_modules(path)
@@ -109,8 +117,9 @@ def test_the_variant_clis_import_no_matplotlib(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
-@pytest.mark.parametrize("path", SLICE_12,
-                         ids=[str(p.relative_to(ROOT)) for p in SLICE_12])
+@pytest.mark.parametrize("path", SLICE_12 + SLICE_14,
+                         ids=[str(p.relative_to(ROOT))
+                              for p in SLICE_12 + SLICE_14])
 def test_the_baseline_export_and_report_import_no_matplotlib(path):
     assert path.exists()
     bad = [(m, line) for m, line in imported_modules(path)

@@ -450,8 +450,8 @@ def _port_cli(tmp_path, cohort, **extra):
 
 def test_train_cli_decisions_print_the_jax_texts(tmp_path, capsys):
     """--fused_decoder beside an active packed layout, a non-cvae model in
-    bf16, and bf16 without --packed_xla (the per-modality trainer has no
-    bf16: exits citing 'Trainer')."""
+    bf16, and bf16 without --packed_xla (the per-modality trainer trains in
+    bf16)."""
     make_synthetic_resource(tmp_path / "c", "ADNI", n_hc=20,
                             n_disease={0: 6, 1: 6}, with_early_fusion=True)
     root = _port_cli(tmp_path, tmp_path / "c", fused_decoder=True)
@@ -462,12 +462,17 @@ def test_train_cli_decisions_print_the_jax_texts(tmp_path, capsys):
     bf16 = _port_cli(tmp_path, tmp_path / "c", precision="bf16")
     assert "width-grouped modalities" in capsys.readouterr().out
     assert (bf16 / MODEL_DIR / "001" / "cVAE_model.ckpt").exists()
-    for extra, item in (({"packed_xla": False, "precision": "bf16"},
-                         "'Trainer'"),
-                        ({"model": "mmJSD", "precision": "bf16"},
-                         "'Trainer'")):
-        args = _cli_args("UCA-gPoE", device="cpu")
+    # bf16 without --packed_xla, and for a model the packed bf16 path does
+    # not take, trains the per-modality layout in bf16 (as the JAX CLI)
+    for name, extra, said in (
+            ("per_modality", {"packed_xla": False, "precision": "bf16"},
+             "train model (all folds fold-parallel)"),
+            ("mmjsd", {"model": "mmJSD", "precision": "bf16"},
+             "packed XLA path unavailable (bf16 packed path is cvae-only")):
+        args = _cli_args("UCA-gPoE", device="cpu", epochs=1)
         vars(args).update(extra)
-        with pytest.raises(SystemExit, match=item):
-            port_train_cli.main(args, project_root=tmp_path / "refused")
-        assert not (tmp_path / "refused" / "outputs").exists()
+        shutil.copytree(tmp_path / "c" / "data", tmp_path / name / "data")
+        port_train_cli.main(args, project_root=tmp_path / name)
+        assert said in capsys.readouterr().out
+        assert (tmp_path / name / MODEL_DIR / "001"
+                / "cVAE_model.ckpt").exists()

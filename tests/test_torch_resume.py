@@ -307,7 +307,8 @@ def test_resume_under_another_loss_or_batch_is_refused(tmp_path):
     _, trainer, batches = _case("plain", KILLED_AT)
     trainer.run_resumable(batches, tmp_path, EVERY, resume=False)
     assert peek_train_meta(tmp_path) == {"loss": "default_loss_fn",
-                                         "precision": "fp32", "batch": "16"}
+                                         "precision": "fp32",
+                                         "remat": "False", "batch": "16"}
     _, other, _ = _case("fused_decoder", EPOCHS)
     with pytest.raises(ValueError, match=REFUSAL):
         other.run_resumable(batches, tmp_path, EVERY, resume=True)

@@ -235,7 +235,7 @@ SWEEP_FLAGS = [
     ("--mesh", "2,2", "'Multi-device'"),
     ("--ep_mesh", "2,2,2", "'Multi-device'"),
     ("--packed_xla", None, None),         # ported: the grid runs packed
-    ("--precision", "bf16", "'Trainer'"),
+    ("--precision", "bf16", None),        # ported: the grid runs in bf16
     ("--in_memory_fusion", None, None),   # ported: the grid runs
 ]
 
@@ -248,6 +248,15 @@ def test_sweep_unported_flags_exit_citing_their_item(flag, value, item,
     if item is None:
         make_synthetic_resource(tmp_path, "ADHD", n_hc=30,
                                 n_disease={0: 12, 2: 12})
+        if flag == "--precision":
+            # every grid point on the per-modality layout in bf16
+            # (tests/test_torch_precision.py holds a point to the train CLI)
+            records = sweep_supervised.run(
+                argv + ["--procedures", "SE-gPoE"], project_root=tmp_path)
+            assert len(records) == 4
+            assert all(np.isfinite(r["stats"]["auc"]).all()
+                       for r in records)
+            return
         if flag == "--packed_xla":
             # every grid point on the packed layout
             # (tests/test_torch_packed_variants.py holds it to the

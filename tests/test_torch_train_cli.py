@@ -176,6 +176,47 @@ def test_unported_flags_raise(flag, value, tmp_path, roots):
                                  / "cVAE_model.json").read_text())
             assert config["input_dim_list"] == [90, 90, 90, 270]
         return
+    if flag in ("stream_shards", "remat"):
+        # ported: the streamed run (no --fold_parallel, which JAX refuses
+        # beside it) and the rematerialised loss write the resident run's
+        # checkpoints byte for byte (tests/test_torch_streaming.py,
+        # tests/test_torch_precision.py)
+        shutil.copytree(roots["jax"] / "data", tmp_path / "data")
+        args.fold_parallel = False
+        port_train.main(args, project_root=tmp_path, init_fn=_jax_init,
+                        eps_fn=jax_eps_replay)
+        for fold in range(2):
+            rel = f"{MODEL_DIR}/{fold:03d}/cVAE_model.ckpt"
+            assert ((tmp_path / rel).read_bytes()
+                    == (roots["port"] / rel).read_bytes())
+        return
+    if flag == "profile_dir":
+        # ported: the run inside a torch.profiler trace under the directory
+        shutil.copytree(roots["jax"] / "data", tmp_path / "data")
+        args.profile_dir = str(tmp_path / "trace")
+        with port_train.common.profiled(args):
+            port_train.main(args, project_root=tmp_path)
+        assert len(list((tmp_path / "trace").glob("*.pt.trace.json"))) == 1
+        assert (tmp_path / MODEL_DIR / "001" / "cVAE_model.ckpt").exists()
+        return
+    if flag == "precision":
+        # ported: the per-modality trainer in bf16 (fp32 master weights,
+        # checkpoints in fp32); with --fused_decoder (K4 takes fp32) it
+        # exits before anything is written
+        shutil.copytree(roots["jax"] / "data", tmp_path / "data")
+        port_train.main(args, project_root=tmp_path, init_fn=_jax_init,
+                        eps_fn=jax_eps_replay)
+        rel = f"{MODEL_DIR}/000/cVAE_model.ckpt"
+        assert (tmp_path / rel).read_bytes() != (roots["port"]
+                                                 / rel).read_bytes()
+        params, _ = read_flax_checkpoint(tmp_path / MODEL_DIR / "000")
+        assert all(np.isfinite(a).all() and a.dtype == np.float32
+                   for a in jax.tree_util.tree_leaves(params))
+        args.fused_decoder = True
+        with pytest.raises(SystemExit, match="fp32 only"):
+            port_train.main(args, project_root=tmp_path / "k4")
+        assert not (tmp_path / "k4").exists()
+        return
     match = "ROADMAP.md"
     if flag == "resume":
         # ported, and refused without --checkpoint_every (the JAX message)
