@@ -169,6 +169,23 @@ Phases (any failure exits non-zero, with no result line):
      K2; 16f the doctor --json, exit 0, every section OK; 16g the
      reference's training loop verbatim through compat.cVAE_multimodal (5
      epochs), torch.save / torch.load round trip.
+  17. fold, data and tensor parallelism: two ranks of one `python -m
+     torch.distributed.run --standalone --nproc_per_node 2` on cuda:0 (gloo:
+     NCCL refuses two ranks on one card), each running this script's
+     --mesh-child with a plan of jobs; against unmeshed runs in this
+     process. 17a the train CLI with --fold_parallel --mesh 1,2 (data) and
+     1,1,2 (tensor) on phase 8's cohort, checkpoints at rtol 2e-4 / atol
+     2e-5 of the unmeshed run, and 2,1 (folds) on phase 12b's 10-fold ADHD
+     cohort (-E 10, -H 110 110 10), bit-equal to the same folds trained
+     unmeshed 5 a model (its distance from the 10-fold run, cuBLAS's
+     batched products at F=5 against F=10, is printed); 17b the test
+     stage with --mesh 1,2 (ADNI) and 2,1 (ADHD), every CSV at rtol 1e-5 / atol 1e-7, each rank launching K1 and K2
+     once per modality, K1/K2 at each rank's shapes (5 folds x 64 rows)
+     against fp64, timed beside their bounds; 17c the score CLI with
+     --mesh 1,2 against the unmeshed scores; 17d the streamed trainer (2
+     shards) with --mesh 1,2 bit-equal to the resident --mesh 1,2 run at
+     PPMI width; the gloo all_reduce's ms on cuda:0 for one float and for
+     the flagship's and the PPMI model's gradients.
 
 Beside every kernel time stands the kernel's bound: the least time the
 card could take for the same work (kernels/roofline.py: the larger of its
@@ -3186,7 +3203,8 @@ def sign_noise_leaf(path):
             or (path.startswith("['bn_state']") and path.endswith("['mean']")))
 
 
-def hold_checkpoints(what, got_root, want_root, tol, skip=None):
+def hold_checkpoints(what, got_root, want_root, tol, skip=None,
+                     phase="phase 15"):
     """Two projects' fold checkpoints, leaf by leaf at ``tol`` (the leaves
     ``skip(path)`` picks aside); returns the largest absolute
     difference."""
@@ -3197,7 +3215,7 @@ def hold_checkpoints(what, got_root, want_root, tol, skip=None):
     got, want = fold_checkpoints(got_root), fold_checkpoints(want_root)
     if not got or [p.relative_to(got_root) for p in got] != [
             p.relative_to(want_root) for p in want]:
-        raise RuntimeError(f"phase 15: {what}: checkpoints {got} {want}")
+        raise RuntimeError(f"{phase}: {what}: checkpoints {got} {want}")
     worst = 0.0
     for x, y in zip(got, want):
         lx = dict(tree_leaves(read_flax_checkpoint(x.parent)[0]))
@@ -3208,7 +3226,7 @@ def hold_checkpoints(what, got_root, want_root, tol, skip=None):
             if not np.isfinite(lx[k]).all() or not np.allclose(
                     lx[k], ly[k], **tol):
                 raise RuntimeError(
-                    f"phase 15: {what}: {x.parent.name} {k}: max abs diff "
+                    f"{phase}: {what}: {x.parent.name} {k}: max abs diff "
                     f"{np.abs(lx[k] - ly[k]).max():.3e} over {tol}")
             worst = max(worst, float(np.abs(lx[k] - ly[k]).max()))
     return worst
@@ -3636,11 +3654,12 @@ def stream_cohort(dims, rows_per_fold, seed):
 
 
 def stream_trainer(dims, folds, max_n, seed, epochs, shards=None,
-                   fused=False, **config):
+                   fused=False, mesh=None, **config):
     """A seeded model on the card and its trainer: resident
     (MultiFoldTrainer) without ``shards``, else StreamingFoldTrainer; the
-    --fused_decoder loss (K4) with ``fused``. Both draw FoldNoise's seeded
-    generators, so runs of one seed see the same noise."""
+    --fused_decoder loss (K4) with ``fused``; on ``mesh``'s ranks with a
+    mesh. Both draw FoldNoise's seeded generators, so runs of one seed see
+    the same noise."""
     from multi_modal_normative_modeling_tpu_torch.kernels.decoder_nll import (
         fused_decoder_loss_fn,
     )
@@ -3661,9 +3680,10 @@ def stream_trainer(dims, folds, max_n, seed, epochs, shards=None,
                       **config)
     loss = fused_decoder_loss_fn(model, cfg) if fused else None
     if shards is None:
-        return model, MultiFoldTrainer(model, cfg, max_n, loss_fn=loss)
+        return model, MultiFoldTrainer(model, cfg, max_n, loss_fn=loss,
+                                       mesh=mesh)
     return model, StreamingFoldTrainer(model, cfg, max_n, shards=shards,
-                                       loss_fn=loss)
+                                       loss_fn=loss, mesh=mesh)
 
 
 def timed_run(trainer, batches):
@@ -4173,6 +4193,427 @@ def run_streaming(stats):
     return launches
 
 
+# ---- phase 17: fold, data and tensor parallelism on torch.distributed ----
+
+# 17a-17c on phase 8's cohort (UCA-gPoE, 5 folds) and phase 12b's ADHD cohort
+# (SE-gPoE, 10 folds: the fold axis takes 5 a rank); 17d at phase 16a's
+# PPMI width. Every meshed run is two ranks of one torchrun on cuda:0
+# (gloo), against the unmeshed run in this process at the JAX tests' bounds
+# (tests/test_fold_parallel_cli.py:96-97, :130-131)
+MESH_RANKS = 2
+MESH_EPOCHS = 10
+MESH_ADNI = ["-R", "ADNI", "-P", "UCA-gPoE", "-K", str(FOLDS)]
+MESH_ADHD = ["-R", "ADHD", "-P", "SE-gPoE", "-K", str(ADHD_FOLDS)]
+MESH_TRAIN = ["-H", "110", "110", "10", "-E", str(MESH_EPOCHS)]
+MESH_TRAIN_TOL = dict(rtol=2e-4, atol=2e-5)
+MESH_CSV_TOL = dict(rtol=1e-5, atol=1e-7)
+MESH_TIMEOUT = 600
+# 17d: phase 16a's PPMI cohort, resident --mesh 1,2 and streamed in 2 shards
+MESH_STREAM_EPOCHS, MESH_STREAM_SHARDS = 3, 2
+# the all_reduce timed on cuda:0 through gloo: one float, then the flat
+# gradient of the flagship (5 folds) and of the PPMI model (one fold)
+MESH_COLLECTIVE_ITERS = 20
+
+
+def param_count(dims, folds):
+    from multi_modal_normative_modeling_tpu_torch.models import build_model
+
+    model = build_model("cVAE_multimodal", dims, HIDDEN, LATENT, C_DIM,
+                        len(dims), folds=folds)
+    return sum(p.numel() for p in model.parameters())
+
+
+def mesh_stream_job():
+    """17d on one rank: the streamed --mesh 1,2 run against the resident
+    --mesh 1,2 run at PPMI width, bit for bit (every rank holds both whole
+    models after the runs' gathers)."""
+    from multi_modal_normative_modeling_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(1, MESH_RANKS, device="cuda")
+    ppmi = stream_cohort(PPMI_DIMS, [PPMI_N], seed=170)
+    model, trainer = stream_trainer(PPMI_DIMS, 1, PPMI_N, 171,
+                                    MESH_STREAM_EPOCHS, mesh=mesh)
+    want_logs, resident_ms = timed_run(trainer, ppmi)
+    got_model, trainer = stream_trainer(PPMI_DIMS, 1, PPMI_N, 171,
+                                        MESH_STREAM_EPOCHS,
+                                        shards=MESH_STREAM_SHARDS, mesh=mesh)
+    got_logs, streamed_ms = timed_run(trainer, ppmi)
+    hold_equal_runs("17d streamed --mesh 1,2", (got_model, got_logs),
+                    (model, want_logs))
+    return {"resident_ms_per_step": resident_ms,
+            "streamed_ms_per_step": streamed_ms}
+
+
+def mesh_collective_job():
+    """The all_reduce of the 'data' axis on this machine: gloo on two
+    ranks of cuda:0, staged through the host (Mesh.all_reduce_), ms per
+    call for one float and for each model's flat gradient."""
+    from multi_modal_normative_modeling_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(1, MESH_RANKS, device="cuda")
+    out = {}
+    for name, numel in (("1 float", 1),
+                        ("flagship gradient", param_count(DIMS, FOLDS)),
+                        ("PPMI gradient", param_count(PPMI_DIMS, 1))):
+        t = torch.ones(numel, device="cuda")
+        for _ in range(3):
+            mesh.all_reduce_(t, "data")
+        torch.cuda.synchronize()
+        mesh.barrier()
+        t0 = time.perf_counter()
+        for _ in range(MESH_COLLECTIVE_ITERS):
+            mesh.all_reduce_(t, "data")
+        torch.cuda.synchronize()
+        out[name] = {"numel": numel, "bytes": 4 * numel,
+                     "ms": (time.perf_counter() - t0) * 1e3
+                     / MESH_COLLECTIVE_ITERS}
+    return out
+
+
+def mesh_child(plan_path, out_dir):
+    """One rank of phase 17's torchrun: the plan's jobs in order, each
+    with the launch counts set to 0 before it and read after it; the
+    rank's record goes to out_dir/rank<r>.json."""
+    import os
+
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from multi_modal_normative_modeling_tpu_torch import kernels
+    from multi_modal_normative_modeling_tpu_torch.cli import (
+        common,
+        score,
+        test_supervised,
+        train_supervised,
+    )
+    from multi_modal_normative_modeling_tpu_torch.parallel import distributed
+
+    clis = {"train": train_supervised, "test": test_supervised,
+            "score": score}
+    record = {}
+    for job in json.loads(Path(plan_path).read_text()):
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        extra = {}
+        if job["kind"] in clis:
+            cli = clis[job["kind"]]
+            args = cli.build_parser().parse_args(job["argv"])
+            if job["kind"] == "score":
+                cli.score(args, project_root=job["root"])
+            else:
+                common.apply_post_parse_defaults(args)
+                timings = {}
+                kwargs = {"timings": timings} if job["kind"] == "test" else {}
+                cli.main(args, project_root=job["root"], **kwargs)
+                extra = timings
+        elif job["kind"] == "stream":
+            extra = mesh_stream_job()
+        else:
+            extra = mesh_collective_job()
+        torch.cuda.synchronize()
+        record[job["name"]] = {"wall_s": time.perf_counter() - t0,
+                               "launches": launch_counts(), **extra}
+    record["backend"] = torch.distributed.get_backend()
+    record["device"] = str(torch.cuda.current_device())
+    rank = int(os.environ["RANK"])
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(record))
+    distributed.shutdown()
+    return 0
+
+
+def run_ranks(plan, tmp):
+    """The plan's jobs on MESH_RANKS ranks of one torchrun (every rank on
+    cuda:0); returns each rank's record. A non-zero exit raises, with the
+    end of the ranks' output; the ranks are killed at MESH_TIMEOUT."""
+    import os
+    import signal
+
+    plan_path, out_dir, log_path = tmp / "plan.json", tmp / "ranks", \
+        tmp / "ranks.log"
+    out_dir.mkdir()
+    plan_path.write_text(json.dumps(plan))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(MESH_RANKS), str(ROOT / "chip_smoke.py"),
+           "--mesh-child", str(plan_path), str(out_dir)]
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                cwd=ROOT, start_new_session=True)
+        try:
+            rc = proc.wait(timeout=MESH_TIMEOUT)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    if rc != 0:
+        tail = log_path.read_text()[-6000:]
+        raise RuntimeError(f"phase 17: torchrun exited {rc}:\n{tail}")
+    return [json.loads((out_dir / f"rank{r}.json").read_text())
+            for r in range(MESH_RANKS)]
+
+
+def hold_csvs(what, got_root, want_root):
+    """Every CSV the test stage wrote under want_root (outputs/, deviation/)
+    against got_root's, numeric columns at MESH_CSV_TOL, the same columns;
+    returns (files, largest absolute difference)."""
+    import pandas as pd
+
+    files, worst = 0, 0.0
+    for path in sorted(want_root.rglob("*.csv")):
+        rel = path.relative_to(want_root)
+        if rel.parts[0] not in ("outputs", "deviation"):
+            continue
+        want, got = pd.read_csv(path), pd.read_csv(got_root / rel)
+        if list(got.columns) != list(want.columns):
+            raise RuntimeError(f"phase 17: {what}: {rel}: columns differ")
+        num = want.select_dtypes("number").columns
+        a, b = got[num].to_numpy(np.float64), want[num].to_numpy(np.float64)
+        if a.shape != b.shape or not np.allclose(a, b, **MESH_CSV_TOL):
+            raise RuntimeError(f"phase 17: {what}: {rel}: max abs diff "
+                               f"{np.abs(a - b).max():.3e} over "
+                               f"{MESH_CSV_TOL}")
+        files += 1
+        worst = max(worst, float(np.abs(a - b).max()) if a.size else 0.0)
+    if not files:
+        raise RuntimeError(f"phase 17: {what}: no CSV to compare")
+    return files, worst
+
+
+def hold_fold_halves(project, meshed):
+    """17a's fold axis: the project's folds trained unmeshed by the train
+    CLI's own steps (its prep, init and TrainConfig), MESH_RANKS models of
+    ADHD_FOLDS / MESH_RANKS folds each, against the --mesh 2,1 run's
+    checkpoints, every leaf np.array_equal. Returns 0.0."""
+    from multi_modal_normative_modeling_tpu_torch import registry
+    from multi_modal_normative_modeling_tpu_torch.cli import (
+        common,
+        train_supervised,
+    )
+    from multi_modal_normative_modeling_tpu_torch.interop import (
+        params_to_jax,
+        read_flax_checkpoint,
+    )
+    from multi_modal_normative_modeling_tpu_torch.parallel import (
+        MultiFoldTrainer,
+        stack_fold_batches,
+    )
+    from multi_modal_normative_modeling_tpu_torch.train import TrainConfig
+
+    args = train_supervised.build_parser().parse_args(MESH_ADHD + MESH_TRAIN)
+    common.apply_post_parse_defaults(args)
+    kfold_dir = project / "outputs" / "kfold_analysis"
+    names = registry.get_datasets_name(args.dataset_resourse, args.procedure)
+    folds, dims, c_dim = common.prepare_folds(
+        args, project, kfold_dir, kfold_dir / "supervised_cvae", names,
+        project / "data" / args.dataset_resourse / "y.csv")
+    config_dict = common.model_config_dict(args, dims, c_dim, len(names))
+    config = TrainConfig(epochs=args.epochs, batch_size=256,
+                         learning_rate=0.0001, combine=args.combine,
+                         lr_schedule=args.lr_schedule,
+                         base_lr=args.base_learning_rate,
+                         max_lr=args.max_learning_rate, seed=42)
+    max_n = max(f[0][0].shape[0] for f in folds)
+    per = len(folds) // MESH_RANKS
+    for start in range(0, len(folds), per):
+        part = folds[start:start + per]
+        model = common.build_model_from_config(config_dict, folds=per)
+        train_supervised.default_init(model, config_dict["model"])
+        model.to("cuda")
+        MultiFoldTrainer(model, config, max_n).run(stack_fold_batches(
+            [f[0] for f in part], [f[1] for f in part], config.batch_size))
+        for f in range(per):
+            want = dict(tree_leaves(params_to_jax(model, fold=f)))
+            got = dict(tree_leaves(read_flax_checkpoint(
+                meshed / PACKED_MODEL_DIR / f"{start + f:03d}")[0]))
+            for k in want:
+                if not np.array_equal(got[k], want[k]):
+                    raise RuntimeError(
+                        f"phase 17a: --mesh 2,1 fold {start + f} {k}: max "
+                        f"abs diff {np.abs(got[k] - want[k]).max():.3e} "
+                        "from the same folds trained unmeshed")
+    return 0.0
+
+
+def run_mesh(stats):
+    """Phase 17: the train CLI on ('fold', 'data'[, 'model']) meshes, the
+    meshed test stage and score CLI (K1 and K2 on each rank's shard), the
+    streamed meshed trainer, each against the unmeshed run; the gloo
+    all_reduce's cost. Returns {run: launches of each rank}."""
+    import pandas as pd
+
+    from multi_modal_normative_modeling_tpu_torch import kernels
+    from multi_modal_normative_modeling_tpu_torch.cli import (
+        score,
+        test_supervised,
+        train_supervised,
+    )
+    from multi_modal_normative_modeling_tpu_torch.data.synthetic import (
+        make_synthetic_resource,
+    )
+
+    t = [time.perf_counter()]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        make_synthetic_resource(tmp / "adni_cohort", "ADNI",
+                                with_early_fusion=True, **CHAIN_COHORT)
+        make_synthetic_resource(tmp / "adhd_cohort", "ADHD", **ADHD_COHORT)
+
+        def project(name, cohort):
+            shutil.copytree(tmp / cohort / "data", tmp / name / "data")
+            return tmp / name
+
+        roots = {name: project(name, cohort) for name, cohort in (
+            ("adni", "adni_cohort"), ("adni_1,2", "adni_cohort"),
+            ("adni_1,1,2", "adni_cohort"), ("adhd", "adhd_cohort"),
+            ("adhd_2,1", "adhd_cohort"))}
+        # the unmeshed runs, in this process
+        walls = {}
+        t0 = time.perf_counter()
+        train_supervised.run(MESH_ADNI + MESH_TRAIN,
+                             project_root=roots["adni"])
+        train_supervised.run(MESH_ADHD + MESH_TRAIN,
+                             project_root=roots["adhd"])
+        walls["unmeshed train"] = time.perf_counter() - t0
+        for name in ("adni", "adhd"):
+            shutil.copytree(roots[name], tmp / f"{name}_test")
+        t0 = time.perf_counter()
+        test_supervised.run(MESH_ADNI, project_root=roots["adni"])
+        test_supervised.run(MESH_ADHD, project_root=roots["adhd"])
+        walls["unmeshed test"] = time.perf_counter() - t0
+        ids = roots["adni"] / "ids.csv"
+        pd.read_csv(roots["adni"] / "data" / "ADNI" / "y.csv")[["IID"]] \
+            .to_csv(ids, index=False)
+        score_flags = MESH_ADNI + ["--ids", str(ids)]
+        t0 = time.perf_counter()
+        score.run(score_flags + ["--output", str(tmp / "scores.csv"),
+                                 "--roi_output", str(tmp / "roi.csv")],
+                  project_root=roots["adni"])
+        walls["unmeshed score"] = time.perf_counter() - t0
+        t.append(time.perf_counter())
+
+        mesh_flags = ["--fold_parallel", "--mesh"]
+        plan = [
+            {"name": "17a train 1,2", "kind": "train",
+             "root": str(roots["adni_1,2"]),
+             "argv": MESH_ADNI + MESH_TRAIN + mesh_flags + ["1,2"]},
+            {"name": "17a train 1,1,2", "kind": "train",
+             "root": str(roots["adni_1,1,2"]),
+             "argv": MESH_ADNI + MESH_TRAIN + mesh_flags + ["1,1,2"]},
+            {"name": "17a train 2,1", "kind": "train",
+             "root": str(roots["adhd_2,1"]),
+             "argv": MESH_ADHD + MESH_TRAIN + mesh_flags + ["2,1"]},
+            {"name": "17b test 1,2", "kind": "test",
+             "root": str(tmp / "adni_test"),
+             "argv": MESH_ADNI + ["--mesh", "1,2"]},
+            {"name": "17b test 2,1", "kind": "test",
+             "root": str(tmp / "adhd_test"),
+             "argv": MESH_ADHD + ["--mesh", "2,1"]},
+            {"name": "17c score 1,2", "kind": "score",
+             "root": str(roots["adni"]),
+             "argv": score_flags + ["--output", str(tmp / "mesh_scores.csv"),
+                                    "--roi_output", str(tmp / "mesh_roi.csv"),
+                                    "--mesh", "1,2"]},
+            {"name": "17d stream 1,2", "kind": "stream"},
+            {"name": "gloo all_reduce", "kind": "collective"},
+        ]
+        ranks = run_ranks(plan, tmp)
+        t.append(time.perf_counter())
+
+        # 17a: the data and tensor axes' checkpoints against the unmeshed
+        # run's at the JAX bound; the fold axis's bit for bit against the
+        # same folds trained unmeshed, 5 a model (its distance from the
+        # 10-fold run is that of cuBLAS's batched products at F=5 against
+        # F=10, which no mesh adds; reported)
+        diffs = {}
+        for name in ("adni_1,2", "adni_1,1,2"):
+            diffs[name] = hold_checkpoints(f"17a {name}", roots[name],
+                                           roots["adni"], MESH_TRAIN_TOL,
+                                           phase="phase 17a")
+        diffs["adhd_2,1 from 2 x 5 unmeshed folds"] = hold_fold_halves(
+            roots["adhd"], roots["adhd_2,1"])
+        diffs["adhd_2,1 from the 10-fold run"] = checkpoint_distance(
+            roots["adhd_2,1"], roots["adhd"])
+        # 17b: the meshed test stages' CSVs, and each rank's launches: K1
+        # and K2 once per modality on its shard
+        csvs = {"adni_1,2": hold_csvs("17b test 1,2", tmp / "adni_test",
+                                      roots["adni"]),
+                "adhd_2,1": hold_csvs("17b test 2,1", tmp / "adhd_test",
+                                      roots["adhd"])}
+        modalities = {"17b test 1,2": 4, "17b test 2,1": 2,
+                      "17c score 1,2": 4}
+        launches = {}
+        for job, m in modalities.items():
+            want = {"fused_encoder": m, "fused_pred_deviation": m}
+            for r, record in enumerate(ranks):
+                got = record[job]["launches"]
+                if got != want:
+                    raise RuntimeError(f"phase 17: rank {r} of {job} "
+                                       f"launched {got}, expected {want}")
+                launches[f"{job} rank {r}"] = got
+        for job in ("17a train 1,2", "17a train 1,1,2", "17a train 2,1"):
+            if any(record[job]["launches"] for record in ranks):
+                raise RuntimeError(f"phase 17: {job} launched a kernel: "
+                                   f"{[r[job]['launches'] for r in ranks]}")
+        # 17c: the meshed score CLI against the unmeshed one
+        for a, b in (("scores.csv", "mesh_scores.csv"),
+                     ("roi.csv", "mesh_roi.csv")):
+            want, got = pd.read_csv(tmp / a), pd.read_csv(tmp / b)
+            num = want.select_dtypes("number").columns
+            if (list(got.columns) != list(want.columns)
+                    or not (got["participant_id"]
+                            == want["participant_id"]).all()
+                    or not np.allclose(got[num].to_numpy(np.float64),
+                                       want[num].to_numpy(np.float64),
+                                       **MESH_CSV_TOL)):
+                raise RuntimeError(f"phase 17c: {b} differs from {a}")
+        adhd = json.loads((roots["adhd"] / PACKED_MODEL_DIR / "000"
+                           / "cVAE_model.json").read_text())
+    t.append(time.perf_counter())
+    # K1 and K2 at each rank's shapes: 5 folds x 64 rows of ADNI's widths
+    # (1,2: half of the 128 padded rows) and of ADHD's (2,1: 5 of 10 folds)
+    rank_shapes = [(FOLDS, STAGE_ROWS // MESH_RANKS, d, C_DIM, HIDDEN,
+                    LATENT) for d in (90, 270)]
+    rank_shapes += [(ADHD_FOLDS // MESH_RANKS, 64, adhd["input_dim_list"][0],
+                     adhd["c_dim"], HIDDEN, LATENT)]
+    hold_kernel_shapes("phase 17b", rank_shapes, stats, "mesh")
+    t.append(time.perf_counter())
+    backend = ranks[0]["backend"]
+    jobs = {job: [round(r[job]["wall_s"], 3) for r in ranks]
+            for job in ranks[0] if isinstance(ranks[0][job], dict)
+            and "wall_s" in ranks[0][job]}
+    print(f"phase 17: {MESH_RANKS} ranks of one torchrun on cuda:"
+          f"{ranks[0]['device']}, backend {backend}; rank walls (s) {jobs}; "
+          f"unmeshed walls in this process {walls}", flush=True)
+    print(f"phase 17a: -E {MESH_EPOCHS} -H 110 110 10: max abs diff from "
+          f"the unmeshed checkpoints {diffs} (the data and tensor axes held "
+          f"at {MESH_TRAIN_TOL}, the fold axis bit for bit to the same "
+          f"folds trained unmeshed)", flush=True)
+    print(f"phase 17b/17c: test stage CSVs (files, max abs diff) {csvs}; "
+          f"score CLI --mesh 1,2 equal to the unmeshed scores at "
+          f"{MESH_CSV_TOL}; K1/K2 launches per rank {launches}; test "
+          f"stage walls by phase per rank "
+          f"{[r['17b test 1,2'].get('walls') for r in ranks]}", flush=True)
+    steps = [{k: round(v, 3) for k, v in r["17d stream 1,2"].items()
+              if k.endswith("step")} for r in ranks]
+    print(f"phase 17d: streamed ({MESH_STREAM_SHARDS} shards) --mesh 1,2 "
+          f"bit-equal to the resident --mesh 1,2 run at PPMI width "
+          f"({MESH_STREAM_EPOCHS} epochs); ms per step {steps}", flush=True)
+    collective = {k: v for k, v in ranks[0]["gloo all_reduce"].items()
+                  if isinstance(v, dict) and "ms" in v}
+    print(f"phase 17: gloo all_reduce on cuda:0 (staged through the host), "
+          f"rank 0: {collective}", flush=True)
+    stats["mesh"] = {"backend": backend, "rank_walls_s": jobs,
+                     "unmeshed_walls_s": walls, "checkpoint_diffs": diffs,
+                     "csvs": csvs, "all_reduce": collective,
+                     "stream": ranks[0]["17d stream 1,2"],
+                     "phase_walls_s": {
+                         "unmeshed runs": t[1] - t[0],
+                         "torchrun": t[2] - t[1], "checks": t[3] - t[2],
+                         "kernel shapes": t[4] - t[3]}}
+    print(json.dumps({"mesh": stats["mesh"]}), flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4527,6 +4968,11 @@ def main():
     t16 = time.perf_counter()
     stream_launches = run_streaming(stats)
     print(f"phase 16: {time.perf_counter() - t16:.1f} s", flush=True)
+
+    # ---- phase 17: fold, data and tensor parallelism (torch.distributed) -
+    t17 = time.perf_counter()
+    mesh_launches = run_mesh(stats)
+    print(f"phase 17: {time.perf_counter() - t17:.1f} s", flush=True)
     missing = [name for name in sources if not launches.get(name)]
     if missing:
         raise RuntimeError(f"no launch on the main path: {missing}")
@@ -4623,6 +5069,12 @@ def main():
         for extra in ("out_of_core", "profile"):
             if extra in stats[name]:
                 report[-1][extra] = stats[name][extra]
+        # phase 17: K1 and K2 on each rank of the meshed test stages (1,2
+        # and 2,1) and score CLI (1,2), and at each rank's shapes
+        report[-1]["mesh_launches"] = {
+            run: counts.get(name, 0) for run, counts in mesh_launches.items()}
+        if "mesh" in stats[name]:
+            report[-1]["mesh"] = stats[name]["mesh"]
     print(json.dumps({"classifier": classifier_runs,
                       "export": stats["export"], "report": report_summary}))
     print(json.dumps({"test_stage_walls": stage_walls,
@@ -4635,4 +5087,7 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-child"]:
+        # one rank of phase 17's torchrun (run_ranks)
+        sys.exit(mesh_child(*sys.argv[2:4]))
     sys.exit(main())

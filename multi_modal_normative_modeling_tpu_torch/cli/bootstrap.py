@@ -32,9 +32,15 @@ The same actions, flags and files as the JAX CLI:
 Each run prints its stages' walls (the test stage's by phase: prep,
 restore, scoring call, CSV emit).
 
+``--mesh R,D[,M]`` runs on a mesh of ranks (one process each, ``python -m
+torch.distributed.run``; cli/bootstrap.py:194-204, :272-275 of the JAX
+package): the replicates over its 'fold' axis, batch rows (and the test
+stage's padded rows) over 'data', the weights over 'model' in training.
+Rank 0 writes every file.
+
     python -m multi_modal_normative_modeling_tpu_torch.cli.bootstrap all \\
         -R ADNI -D 3modalities -B 10 -E 200 [--unconditioned] [--device cpu]
-        [--checkpoint_every N [--resume]]
+        [--checkpoint_every N [--resume]] [--mesh R,D[,M]]
 """
 from __future__ import annotations
 
@@ -50,14 +56,13 @@ from .. import registry
 from ..evaluation.metrics import roc_auc_score
 from ..infer.emitters import write_csv
 from ..interop import params_to_jax
-from ..parallel import MultiFoldTrainer, stack_fold_batches
+from ..parallel import MultiFoldTrainer, distributed, stack_fold_batches
 from ..train import TrainConfig
 from ..train.checkpoints import checkpoint_exists
 from . import common
 from .train_supervised import EpsFn, default_init
 
 # JAX CLI flags with no port yet: each exits instead of being ignored
-_NOT_PORTED_FLAGS = {'mesh': "queue 1 item 'Multi-device'"}
 
 # (replicate id, padded rows, latent dim) -> the scoring noise [rows, Z]
 ScoreEpsFn = Callable[[int, int, int], np.ndarray]
@@ -100,9 +105,11 @@ def _prepare_all(project_root: Path, resource: str, dataset: str,
 
 def create_ids(args, project_root=None, timings: Optional[dict] = None):
     """Write B bootstrap train/test id files (with-replacement train,
-    out-of-bag + other-group test)."""
-    common.refuse_not_ported(args, 'bootstrap', _NOT_PORTED_FLAGS)
+    out-of-bag + other-group test); on a mesh, rank 0 writes them."""
     project_root = Path(project_root) if project_root else Path.cwd()
+    if distributed.rank() != 0:
+        world_barrier()
+        return
     boot_dir = project_root / 'outputs' / 'bootstrap_analysis'
     boot_dir.mkdir(parents=True, exist_ok=True)
 
@@ -135,6 +142,13 @@ def create_ids(args, project_root=None, timings: Optional[dict] = None):
     print(f'bootstrap ids: {args.n_bootstrap} replicates, {size} train draws '
           f'each, OOB + {len(other)} non-training subjects per test file '
           f'-> {boot_dir}')
+    world_barrier()
+
+
+def world_barrier() -> None:
+    """Wait for every rank of the run's process group (if any)."""
+    if torch.distributed.is_initialized():
+        torch.distributed.barrier()
 
 
 def _replicates(boot_dir: Path) -> List[int]:
@@ -153,7 +167,6 @@ def train(args, project_root=None, init_fn: Optional[common.InitFn] = None,
     ``default_init``, the same for every replicate); ``eps_fn(valid [F, NB],
     epochs, rows, latent)`` replays the noise of every step (tests), which
     by default replicate b draws from a generator seeded 1000 + b."""
-    common.refuse_not_ported(args, 'bootstrap', _NOT_PORTED_FLAGS)
     common.require_checkpoint_for_resume(args)
     device = common.resolve_device(getattr(args, 'device', 'cuda'), 'train')
     timings = {} if timings is None else timings
@@ -189,6 +202,13 @@ def train(args, project_root=None, init_fn: Optional[common.InitFn] = None,
                           learning_rate=0.0001, combine='gpoe',
                           shuffle=False, seed=42)
     n_reps = len(reps)
+    # replicates over the mesh's 'fold' axis, batch rows over 'data'
+    mesh, shardings_fn = common.parse_mesh(getattr(args, 'mesh', None),
+                                           n_reps, tconfig.batch_size,
+                                           device)
+    if mesh is not None:
+        device = mesh.device
+        common.announce_mesh(mesh, 'bootstrap train')
     model = common.build_model_from_config(config_dict, folds=n_reps)
     if init_fn is not None:
         init_fn(model)
@@ -201,13 +221,17 @@ def train(args, project_root=None, init_fn: Optional[common.InitFn] = None,
     if eps_fn is not None:
         draws['eps'] = eps_fn(batches['valid'], tconfig.epochs,
                               tconfig.batch_size, model.noise_dim)
-    trainer = MultiFoldTrainer(model, tconfig, xs[0].shape[0])
+    trainer = MultiFoldTrainer(model, tconfig, xs[0].shape[0], mesh=mesh,
+                               shardings_fn=shardings_fn)
     resumable = common.Resumable(args)
     with walls('train run'):
         # one whole-run train state over the stacked replicate axis
         logs = resumable.run(trainer, batches, state_dir=model_dir, **draws)
     timings['train_steps'] = ((tconfig.epochs - resumable.resumed_from)
                               * batches['mask'].shape[1])
+    if not common.primary(mesh):
+        mesh.barrier()   # rank 0 writes the checkpoints
+        return
     with walls('train artifacts'):
         per_rep = [params_to_jax(model, fold=i) for i in range(n_reps)]
         per_rep_logs = [{k: v[i] for k, v in logs.items()}
@@ -220,6 +244,7 @@ def train(args, project_root=None, init_fn: Optional[common.InitFn] = None,
     print(f'bootstrap train: {n_reps} replicates x {args.epochs} epochs '
           f'(one fold-stacked model), final-epoch means: '
           + ', '.join(f'{k}: {v:.3f}' for k, v in sorted(finals.items())))
+    common.barrier(mesh)
 
 
 def default_score_eps(replicate: int, padded_rows: int,
@@ -230,12 +255,14 @@ def default_score_eps(replicate: int, padded_rows: int,
     return common.seeded_eps(2000 + replicate, padded_rows, z_dim)
 
 
-def score_inputs(args, project_root, device, eps_fn: ScoreEpsFn = None):
+def score_inputs(args, project_root, device, eps_fn: ScoreEpsFn = None,
+                 mesh=None):
     """What the test stage's scoring call takes: (jobs, model, xes, cs,
     eps). ``jobs`` holds per replicate its id, dir, float32 test rows
     ``x`` and test frame ``df``; ``model`` every replicate's checkpoint as
     one fold each; ``xes`` [B, rows, D] and ``cs`` [B, rows, C] the test
-    rows padded to the 64-row bucket; ``eps`` [B, rows, Z]."""
+    rows padded to the 64-row bucket; ``eps`` [B, rows, Z]. On a ``mesh``
+    the model, xes, cs and eps are this rank's replicates and rows."""
     eps_fn = eps_fn or default_score_eps
     project_root = Path(project_root)
     boot_dir, model_dir = _dirs(project_root, args.unconditioned)
@@ -259,15 +286,18 @@ def score_inputs(args, project_root, device, eps_fn: ScoreEpsFn = None):
         jobs.append({'b': b, 'dir': model_dir / f'{b:03d}',
                      'x': np.asarray(prep['test_data'], np.float32),
                      'cov': cov, 'df': prep['test_df']})
-    model, _, _ = common.load_model_and_params([j['dir'] for j in jobs],
+    common.check_infer_fold_axis(mesh, len(jobs), 'replicates')
+    rows = common.padded_rows(max(j['x'].shape[0] for j in jobs), mesh)
+    folds, part = common.mesh_parts(mesh, len(jobs), rows)
+    mine = jobs[folds]
+    model, _, _ = common.load_model_and_params([j['dir'] for j in mine],
                                                device)
-    rows = common.padded_rows(max(j['x'].shape[0] for j in jobs))
-    xes = common.stack_padded([j['x'] for j in jobs], rows, device)
-    cs = common.stack_padded([j['cov'] for j in jobs], rows, device)
-    eps = torch.from_numpy(np.stack([
+    xes = common.stack_padded([j['x'] for j in mine], rows, device, part)
+    cs = common.stack_padded([j['cov'] for j in mine], rows, device, part)
+    eps = torch.from_numpy(np.ascontiguousarray(np.stack([
         np.asarray(eps_fn(j['b'], rows, model.noise_dim),
-                   np.float32).reshape(rows, model.noise_dim)
-        for j in jobs])).to(device)
+                   np.float32).reshape(rows, model.noise_dim)[part]
+        for j in mine]))).to(device)
     return jobs, model, xes, cs, eps
 
 
@@ -276,31 +306,41 @@ def test(args, project_root=None, eps_fn: Optional[ScoreEpsFn] = None,
     """Score every replicate's test split in one fold-stacked call; emit
     deviation_<dataset>.csv per replicate. ``eps_fn(replicate, padded rows,
     latent)`` gives the noise (default ``default_score_eps``)."""
-    common.refuse_not_ported(args, 'bootstrap', _NOT_PORTED_FLAGS)
     device = common.resolve_device(getattr(args, 'device', 'cuda'), 'score')
+    # replicates over the mesh's 'fold' axis, padded rows over 'data'
+    mesh = common.parse_infer_mesh(getattr(args, 'mesh', None), device)
+    device = device if mesh is None else mesh.device
     timings = {} if timings is None else timings
     walls = common.StageWalls(timings.setdefault('walls', {}))
     project_root = Path(project_root) if project_root else Path.cwd()
     with walls('test prep'):
         jobs, model, xes, cs, eps = score_inputs(args, project_root, device,
-                                                 eps_fn)
+                                                 eps_fn, mesh)
     with walls('test scoring call'):
         # K1, the M = 1 fusion shortcut, then K2, each over every replicate
+        # (this rank's replicates and rows on a mesh)
         _, devs = model.pred_recon_fused([xes], [cs], 'gpoe', eps=eps)
-        devs = devs[0].cpu().numpy()
+        devs, = common.gather_parts(mesh, [devs[0].cpu().numpy()],
+                                    len(jobs))
     timings['score_shape'] = tuple(xes.shape) + (cs.shape[2],)
+    if not common.primary(mesh):
+        mesh.barrier()   # rank 0 writes the CSVs
+        return
     with walls('test csv emit'):
         for i, j in enumerate(jobs):
             out = j['df'][['participant_id', 'DIA', 'AGE', 'PTGENDER']].copy()
             out['Reconstruction deviation'] = devs[i, :j['x'].shape[0]]
             write_csv(j['dir'] / f'deviation_{args.dataset}.csv', out)
     print(f'bootstrap test: {len(jobs)} replicates scored '
-          f'(one fold-stacked call, rows padded to {xes.shape[1]})')
+          f'(one fold-stacked call, rows padded to {devs.shape[1]})')
+    common.barrier(mesh)
 
 
 def analyze(args, project_root=None, timings: Optional[dict] = None) -> dict:
-    """Per-replicate deviation ROC-AUC + bootstrap CI summary."""
-    common.refuse_not_ported(args, 'bootstrap', _NOT_PORTED_FLAGS)
+    """Per-replicate deviation ROC-AUC + bootstrap CI summary (on a mesh,
+    rank 0's alone: a host stage on the files)."""
+    if distributed.rank() != 0:
+        return None
     project_root = Path(project_root) if project_root else Path.cwd()
     boot_dir, model_dir = _dirs(project_root, args.unconditioned)
     reps = sorted(int(p.name) for p in model_dir.iterdir()
@@ -389,7 +429,11 @@ def build_parser() -> argparse.ArgumentParser:
                         help='torch device to run on (default cuda); cuda '
                              'runs the kernels, cpu their plain versions')
     parser.add_argument('--mesh', dest='mesh', default=None, metavar='R,D',
-                        help='not ported yet (exits); see ROADMAP.md')
+                        help='run on a mesh of ranks (one process each, '
+                             'python -m torch.distributed.run): replicates '
+                             "over R (the 'fold' axis), rows over D; R,D,M "
+                             "adds the 'model' axis to training; rank 0 "
+                             'writes every file')
     common.add_resume_flags(parser)
     parser.add_argument('--no_fused_heads', dest='no_fused_heads',
                         action='store_true',
@@ -404,17 +448,23 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(args=None, project_root=None, timings: Optional[dict] = None):
     """Run ``args.action`` (``all``: every action in turn). What any action
-    would refuse (--mesh, --resume without --checkpoint_every, no CUDA
-    device) is refused before the first writes a file. ``timings``, when
-    given, receives the stages' walls."""
+    would refuse (--resume without --checkpoint_every, no CUDA device) is
+    refused before the first writes a file; with --mesh the run joins its
+    process group first. ``timings``, when given, receives the stages'
+    walls."""
     if args is None or isinstance(args, list):
         args = build_parser().parse_args(args)
     actions = list(ACTIONS) if args.action == 'all' else [args.action]
-    common.refuse_not_ported(args, 'bootstrap', _NOT_PORTED_FLAGS)
     if 'train' in actions:
         common.require_checkpoint_for_resume(args)
     if {'train', 'test'} & set(actions):
-        common.resolve_device(getattr(args, 'device', 'cuda'), 'run')
+        device = common.resolve_device(getattr(args, 'device', 'cuda'),
+                                       'run')
+        if getattr(args, 'mesh', None):
+            # the slots against the run's ranks before any file
+            common.parse_axis_sizes(args.mesh, '--mesh', (2, 3),
+                                    '2,4 or 2,2,2 (fold,data[,model])')
+            distributed.initialize_distributed(device=device)
     timings = {} if timings is None else timings
     walls = common.StageWalls(timings.setdefault('walls', {}))
     result = None
@@ -428,3 +478,4 @@ def main(args=None, project_root=None, timings: Optional[dict] = None):
 
 if __name__ == '__main__':
     main()
+    distributed.shutdown()

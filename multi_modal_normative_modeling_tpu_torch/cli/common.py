@@ -3,11 +3,14 @@ the JAX package's cli/common.py (add_common_flags,
 apply_post_parse_defaults, prepare_modality, prepare_fold_modalities,
 prepare_folds, fuse_preps, fold_paths,
 assert_modalities_aligned, require_test_cov, infer_row_tile,
-uniform_covariates, model_config_dict, build_model_from_config,
-load_model_and_params, emit_fold_artifacts, add_resume_flags,
-require_checkpoint_for_resume) and its native read path (``read_csv``
-through native/fastcsv, ``fast_path_reasons``), without its process-wide
-memo caches, plus the k-fold id files without sklearn.
+check_infer_fold_axis, uniform_covariates, model_config_dict,
+build_model_from_config, load_model_and_params, emit_fold_artifacts,
+add_resume_flags, require_checkpoint_for_resume, and the --mesh parsers
+parse_axis_sizes, parse_mesh, parse_infer_mesh, parse_sweep_mesh,
+parse_run_mesh and add_mesh_flag over the port's mesh of ranks) and its
+native read path (``read_csv`` through native/fastcsv,
+``fast_path_reasons``), without its process-wide memo caches, plus the
+k-fold id files without sklearn.
 
 The registry and the data layer (loading, scaling, covariate binning) are
 the port's own copies (``registry``, ``data/``) of the JAX package's
@@ -47,24 +50,21 @@ def resolve_device(name: str, what: str = 'run') -> torch.device:
 
 # the JAX variant CLIs' flags with no port yet, each with the queue 1 item
 # that ports it (ROADMAP.md); the port raises instead of ignoring them
-VARIANT_NOT_PORTED = {
-    'ep_mesh': "queue 1 item 'Multi-device'",
-    'mesh': "queue 1 item 'Multi-device'",
-}
+VARIANT_NOT_PORTED = {'ep_mesh': "queue 1 item 'Multi-device'"}
 
 
 def add_variant_flags(parser: argparse.ArgumentParser,
                       not_ported: Sequence[str]) -> None:
-    """--device, the no-op --fold_parallel, --checkpoint_every/--resume,
-    --packed_xla, and the named flags of VARIANT_NOT_PORTED with the JAX
-    CLIs' dests and defaults."""
+    """--device, --fold_parallel (which --mesh requires), --mesh,
+    --checkpoint_every/--resume, --packed_xla, and the named flags of
+    VARIANT_NOT_PORTED with the JAX CLIs' dests and defaults."""
     parser.add_argument('--device', dest='device', default='cuda',
                         help='torch device to run on (default cuda); cuda '
                              'runs the kernels, cpu their plain versions')
     parser.add_argument('--fold_parallel', dest='fold_parallel',
                         action='store_true',
-                        help='accepted for the JAX CLI flag surface: the '
-                             'port always trains every fold at once')
+                        help='the port always trains every fold at once; '
+                             'required by --mesh, as in the JAX CLIs')
     parser.add_argument('--packed_xla', dest='packed_xla',
                         action='store_true',
                         help='train on the packed-modality layout (every '
@@ -72,11 +72,14 @@ def add_variant_flags(parser: argparse.ArgumentParser,
                              'modalities); where the configuration does not '
                              'take it, says why and trains the per-modality '
                              'layout.')
-    kinds = {'ep_mesh': {'default': None}, 'mesh': {'default': None}}
+    kinds = {'ep_mesh': {'default': None}}
     for flag in not_ported:
         parser.add_argument(f'--{flag}', dest=flag,
                             help='not ported yet (raises); see ROADMAP.md',
                             **kinds[flag])
+    # after --ep_mesh, where the JAX CLIs have it (results_endtoend.csv
+    # prints the flags in this order)
+    add_mesh_flag(parser)
     add_resume_flags(parser)
 
 
@@ -214,18 +217,22 @@ def init_from_one_fold(model, one) -> None:
 
 
 def stack_padded(arrays: Sequence[np.ndarray], rows: int,
-                 device) -> torch.Tensor:
+                 device, row_slice: Optional[slice] = None) -> torch.Tensor:
     """[len(arrays), rows, width] float32 on ``device``: each array's rows
-    first, zero rows after (rows are independent through every model)."""
+    first, zero rows after (rows are independent through every model).
+    With ``row_slice`` only those rows (a rank's part on a mesh), made
+    contiguous, as the kernels take them."""
     out = np.zeros((len(arrays), rows, arrays[0].shape[1]), np.float32)
     for i, a in enumerate(arrays):
         out[i, :a.shape[0]] = a
+    if row_slice is not None:
+        out = np.ascontiguousarray(out[:, row_slice])
     return torch.from_numpy(out).to(device)
 
 
-def padded_rows(n: int) -> int:
+def padded_rows(n: int, mesh=None) -> int:
     """``n`` rows padded to the scoring call's bucket (infer_row_tile)."""
-    tile = infer_row_tile()
+    tile = infer_row_tile(mesh)
     return -(-n // tile) * tile
 
 
@@ -539,11 +546,202 @@ def fold_paths(kfold_dir: Path, fold: int) -> Tuple[Path, Path]:
             kfold_dir / f'test_ids_{fold:03d}.csv')
 
 
-def infer_row_tile() -> int:
-    """Row-padding bucket of the scoring call (the JAX package's, without a
-    mesh): every fold is padded to the same multiple of it, so the padded
-    rows, and with them the eps draw of each fold, match the JAX stage."""
-    return 64
+def infer_row_tile(mesh=None, base: int = 64) -> int:
+    """Row-padding bucket of the scoring call (cli/common.py:664-671 of the
+    JAX package): every fold is padded to the same multiple of it, so the
+    padded rows, and with them the eps draw of each fold, match the JAX
+    stage; with a mesh the bucket also divides evenly over 'data'."""
+    if mesh is None:
+        return base
+    import math
+
+    return math.lcm(base, mesh.shape['data'])
+
+
+def check_infer_fold_axis(mesh, n_folds: int, what: str = 'folds') -> None:
+    """Exit when the folds to score do not divide over the 'fold' axis."""
+    if mesh is None:
+        return
+    ax = mesh.shape['fold']
+    if n_folds % ax:
+        raise SystemExit(f"--mesh: {n_folds} {what} not divisible by the "
+                         f"fold axis ({ax})")
+
+
+def _world() -> int:
+    from ..parallel import distributed
+
+    return distributed.world_size()
+
+
+def parse_axis_sizes(spec, flag: str, n_axes, usage: str):
+    """Comma- (or 'x'-) separated mesh axis sizes -> list[int], validated
+    against positivity, the allowed axis counts and the run's ranks, the
+    port's devices (cli/common.py:530-551 of the JAX package, its
+    messages). SystemExit with the flag's usage on any error."""
+    try:
+        sizes = [int(s) for s in str(spec).replace('x', ',').split(',')]
+    except ValueError:
+        raise SystemExit(f"{flag} {spec!r}: expected comma-separated axis "
+                         f"sizes, e.g. {usage}")
+    if len(sizes) not in n_axes:
+        counts = ' or '.join(str(n) for n in sorted(n_axes))
+        raise SystemExit(f"{flag} takes {counts} axis sizes: {usage}")
+    if any(s < 1 for s in sizes):
+        raise SystemExit(f"{flag} {spec}: axis sizes must be positive")
+    total = int(np.prod(sizes))
+    if total != _world():
+        raise SystemExit(f"{flag} {spec}: {total} mesh slots != "
+                         f"{_world()} visible devices")
+    return sizes
+
+
+def parse_mesh(spec, n_folds: int, batch_size: int, device='cpu'):
+    """--mesh 'F,D' or 'F,D,M' -> (Mesh, shardings_fn or None), joining
+    the run's process group (cli/common.py:554-576 of the JAX package).
+    Validates against the run's ranks and the divisibility rules the plans
+    rely on (folds over F, batch rows over D). Three axes engage the
+    tensor-parallel plan (parallel/tensor.py)."""
+    if not spec:
+        return None, None
+    sizes = parse_axis_sizes(spec, '--mesh', (2, 3),
+                             '2,4 or 2,2,2 (fold,data[,model])')
+    if n_folds % sizes[0]:
+        raise SystemExit(f"--mesh {spec}: {n_folds} folds not divisible by "
+                         f"the fold axis ({sizes[0]})")
+    n_data = sizes[1]
+    if n_data > 1 and batch_size % n_data:
+        raise SystemExit(f"--mesh {spec}: batch size {batch_size} not "
+                         f"divisible by the data axis ({n_data})")
+    from ..parallel import fold_model_shardings, make_mesh, make_mesh3
+
+    if len(sizes) == 2:
+        return make_mesh(n_fold=sizes[0], n_data=sizes[1],
+                         device=device), None
+    return (make_mesh3(n_fold=sizes[0], n_data=sizes[1], n_model=sizes[2],
+                       device=device), fold_model_shardings)
+
+
+def parse_infer_mesh(spec, device='cpu'):
+    """--mesh 'F,D' (or the train stage's 'F,D,M': one flag set drives the
+    whole chain) -> a ('fold', 'data') Mesh for the scoring calls: folds
+    over 'fold', padded rows over 'data' (cli/common.py:612-640 of the JAX
+    package). A 'model' axis has no role in row-independent inference, so
+    it folds into 'data'. Fold-count divisibility is checked where the
+    folds with checkpoints are known."""
+    if not spec:
+        return None
+    try:
+        sizes = [int(s) for s in str(spec).replace('x', ',').split(',')]
+    except ValueError:
+        sizes = []
+    if any(s < 1 for s in sizes):
+        raise SystemExit(f"--mesh {spec}: axis sizes must be positive")
+    if len(sizes) == 3:
+        sizes = [sizes[0], sizes[1] * sizes[2]]
+    if len(sizes) != 2:
+        raise SystemExit(f"--mesh {spec!r}: expected two comma-separated "
+                         "axis sizes, e.g. 2,4 (fold,data)")
+    if sizes[0] * sizes[1] != _world():
+        raise SystemExit(f"--mesh {spec}: {sizes[0] * sizes[1]} mesh slots "
+                         f"!= {_world()} visible devices")
+    from ..parallel import make_mesh
+
+    return make_mesh(n_fold=sizes[0], n_data=sizes[1], device=device)
+
+
+def parse_sweep_mesh(spec, n_configs: int, n_folds: int, device='cpu'):
+    """--mesh 'S,F' -> a ('config', 'fold') Mesh for the sweep engine
+    (cli/common.py:684-711 of the JAX package)."""
+    if not spec:
+        return None
+    try:
+        sizes = [int(s) for s in str(spec).replace('x', ',').split(',')]
+    except ValueError:
+        sizes = []
+    if len(sizes) != 2:
+        raise SystemExit(f"--mesh {spec!r}: expected two comma-separated "
+                         "axis sizes, e.g. 4,2 (config,fold)")
+    if any(s < 1 for s in sizes):
+        raise SystemExit(f"--mesh {spec}: axis sizes must be positive")
+    total = sizes[0] * sizes[1]
+    if total != _world():
+        raise SystemExit(f"--mesh {spec}: {total} mesh slots != "
+                         f"{_world()} visible devices")
+    if n_configs % sizes[0]:
+        raise SystemExit(f"--mesh {spec}: {n_configs} grid configs not "
+                         f"divisible by the config axis ({sizes[0]})")
+    if n_folds % sizes[1]:
+        raise SystemExit(f"--mesh {spec}: {n_folds} folds not divisible by "
+                         f"the fold axis ({sizes[1]})")
+    from ..parallel.mesh import make_sweep_mesh
+
+    return make_sweep_mesh(n_config=sizes[0], n_fold=sizes[1], device=device)
+
+
+def parse_run_mesh(args, n_folds: int, batch_size: int, device='cpu'):
+    """A CLI's --mesh as (Mesh, shardings_fn) for the fold-parallel trainer
+    (cli/common.py:714-731 of the JAX package): --fold_parallel is required
+    (the port's flag is otherwise a no-op, the JAX contract is kept); the
+    mesh geometry is announced when one engages."""
+    spec = getattr(args, 'mesh', None)
+    if spec and not getattr(args, 'fold_parallel', False):
+        raise SystemExit('--mesh requires --fold_parallel (the mesh shards '
+                         'the fold-parallel program)')
+    mesh, shardings_fn = parse_mesh(spec, n_folds=n_folds,
+                                    batch_size=batch_size, device=device)
+    if mesh is not None:
+        announce_mesh(mesh, 'fold-parallel training')
+    return mesh, shardings_fn
+
+
+def primary(mesh) -> bool:
+    """Whether this process writes files: rank 0 of a mesh, or the one
+    process without one."""
+    return mesh is None or mesh.primary
+
+
+def barrier(mesh) -> None:
+    if mesh is not None:
+        mesh.barrier()
+
+
+def mesh_parts(mesh, n_folds: int, rows: int):
+    """The (fold, row) slices of a [F, rows, ...] scoring operand this
+    rank computes (all of it without a mesh)."""
+    from ..parallel.mesh import infer_shards
+
+    if mesh is None:
+        return slice(None), slice(None)
+    return infer_shards(mesh, n_folds, rows)
+
+
+def gather_parts(mesh, arrays, n_folds: int):
+    """Every rank's [F/nf, rows/nd, ...] parts put together (the arrays
+    themselves without a mesh)."""
+    from ..parallel.mesh import gather_fold_rows
+
+    return list(arrays) if mesh is None else gather_fold_rows(
+        mesh, list(arrays), n_folds)
+
+
+def announce_mesh(mesh, what: str) -> None:
+    """Rank 0 prints the mesh's geometry and its backend."""
+    if mesh.primary:
+        print(f'{what} over a {mesh.shape} device mesh ({mesh.size} ranks, '
+              f'{mesh.backend or "no"} process group, {mesh.device})',
+              flush=True)
+
+
+def add_mesh_flag(parser: argparse.ArgumentParser) -> None:
+    """The --mesh flag of every fold-parallel-capable trainer CLI."""
+    parser.add_argument('--mesh', dest='mesh', default=None, metavar='F,D',
+                        help='shard the fold-parallel program over a mesh of '
+                             'ranks (one process each, started by python -m '
+                             'torch.distributed.run): F,D (folds x data-'
+                             'parallel) or F,D,M (+ tensor-parallel model '
+                             'axis); the product must equal the number of '
+                             'ranks; requires --fold_parallel')
 
 
 def fuse_preps(base_preps: List[dict], base_names: List[str],
@@ -657,16 +855,18 @@ def uniform_covariates(folds):
     return None
 
 
-def packed_layout(model, config, folds) -> Optional[tuple]:
+def packed_layout(model, config, folds, mesh=None) -> Optional[tuple]:
     """``--packed_xla``'s layout for ``model`` (select_packed_trainer's
     (trainer class, layout name, tag)), or None, printing why, where the
     JAX package's run_folds(packed=True) trains the per-modality layout
-    (cli/common.py:833-853): packed_supported's reason, or non-uniform
-    covariates."""
+    (cli/common.py:833-853): a mesh, packed_supported's reason, or
+    non-uniform covariates."""
     from ..train.grouped import select_packed_trainer
     from ..train.packed import packed_supported
 
     ok, reason = packed_supported(model, config)
+    if mesh is not None:
+        ok, reason = False, '--mesh'
     if ok:
         reason = uniform_covariates(folds)
     if reason:

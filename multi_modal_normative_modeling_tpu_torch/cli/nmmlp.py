@@ -16,9 +16,15 @@ diagnosis_results.csv, the mean deviation over modalities (nmmlp:513-521).
 port's numpy ``roc_curve`` / ``auc`` and appends
 outputs/analysis_results/performance_metrics.txt.
 
+``--fold_parallel --mesh F,D[,M]`` trains on a mesh of ranks (one process
+each, ``python -m torch.distributed.run``) and scores with F,D (the 'model'
+axis folded into 'data'), each rank its folds' rows, as the test stage
+does; rank 0 writes every file and runs ``analyze``.
+
     python -m multi_modal_normative_modeling_tpu_torch.cli.nmmlp all \\
         -R ADNI -P SE-MoE -E 200 -K 5 [--device cpu]
         [--checkpoint_every N [--resume]] [--packed_xla]
+        [--fold_parallel --mesh F,D[,M]]
 """
 from __future__ import annotations
 
@@ -39,7 +45,12 @@ from ..evaluation.reports import append_performance_metrics
 from ..infer.emitters import write_csv
 from ..interop import params_from_jax, params_to_jax, read_flax_checkpoint
 from ..models import MultimodalCVAE
-from ..parallel import MultiFoldTrainer, stack_fold_batches, stack_params
+from ..parallel import (
+    MultiFoldTrainer,
+    distributed,
+    stack_fold_batches,
+    stack_params,
+)
 from ..train import TrainConfig
 from . import common
 from .test_supervised import EpsFn, default_eps
@@ -83,6 +94,9 @@ def train(args, project_root: Path,
           draws_fn: Optional[common.DrawsFn] = None,
           timings: Optional[dict] = None) -> None:
     device = common.resolve_device(getattr(args, 'device', 'cuda'), 'train')
+    mesh, shardings_fn = common.parse_run_mesh(args, args.n_splits, 256,
+                                               device)
+    device = device if mesh is None else mesh.device
     timings = {} if timings is None else timings
     walls = common.StageWalls(timings.setdefault('walls', {}))
     outputs, kfold_dir, model_dir = _dirs(project_root)
@@ -94,11 +108,13 @@ def train(args, project_root: Path,
     hc_label = registry.get_hc_label(args.dataset_resourse)
 
     with walls('train data'):
-        common.generate_kfold_ids(
-            ids_df[ids_df['DIA'] == hc_label],
-            ids_df[ids_df['DIA'] == 0],  # the AD group only (nmmlp:295)
-            oversample_percentage=args.oversample_percentage,
-            n_splits=args.n_splits, project_root=project_root)
+        if common.primary(mesh):
+            common.generate_kfold_ids(
+                ids_df[ids_df['DIA'] == hc_label],
+                ids_df[ids_df['DIA'] == 0],  # the AD group only (nmmlp:295)
+                oversample_percentage=args.oversample_percentage,
+                n_splits=args.n_splits, project_root=project_root)
+        common.barrier(mesh)
 
         def prep(job):
             fold, name = job
@@ -150,10 +166,11 @@ def train(args, project_root: Path,
         # one per fold on its sequential path), a packed layout's in its
         # own dir
         state_dir = model_dir
-        packed = (common.packed_layout(model, config, folds)
+        packed = (common.packed_layout(model, config, folds, mesh)
                   if getattr(args, 'packed_xla', False) else None)
         if packed is None:
-            trainer = MultiFoldTrainer(model, config, folds[0][0][0].shape[0])
+            trainer = MultiFoldTrainer(model, config, folds[0][0][0].shape[0],
+                                       mesh=mesh, shardings_fn=shardings_fn)
         else:
             cls, layout, tag = packed
             trainer = cls(model, config, folds[0][0][0].shape[0])
@@ -165,6 +182,9 @@ def train(args, project_root: Path,
         timings['train_run_s'] = time.perf_counter() - start
         timings['train_steps'] = ((config.epochs - resumable.resumed_from)
                                   * batches['mask'].shape[1])
+    if not common.primary(mesh):
+        mesh.barrier()   # rank 0 writes the checkpoints
+        return
     with walls('checkpoints'):
         common.emit_fold_artifacts(
             model_dir, [{k: v[f] for k, v in logs.items()}
@@ -177,11 +197,14 @@ def train(args, project_root: Path,
                 'c_dim': int(c_dim), 'modalities': modalities,
                 'non_linear': True, 'combine': args.combine,
             }, n_folds)
+    common.barrier(mesh)
 
 
 def test(args, project_root: Path, eps_fn: Optional[EpsFn] = None,
          timings: Optional[dict] = None) -> None:
     device = common.resolve_device(getattr(args, 'device', 'cuda'), 'score')
+    mesh = common.parse_infer_mesh(getattr(args, 'mesh', None), device)
+    device = device if mesh is None else mesh.device
     eps_fn = eps_fn or default_eps
     timings = {} if timings is None else timings
     walls = common.StageWalls(timings.setdefault('walls', {}))
@@ -234,29 +257,38 @@ def test(args, project_root: Path, eps_fn: Optional[EpsFn] = None,
                     frames[-1][['DIA', 'AGE', 'PTGENDER']]),
             })
 
-    # ---- one scoring call over the stacked fold axis ----------------------
+    # ---- one scoring call over the stacked fold axis (on a mesh, this
+    # rank's folds and rows of it, gathered) -------------------------------
+    common.check_infer_fold_axis(mesh, len(pending), 'folds with checkpoints')
     with walls('score'):
+        rows = common.padded_rows(max(j['test_data_list'][0].shape[0]
+                                      for j in pending), mesh)
+        folds, part = common.mesh_parts(mesh, len(pending), rows)
+        mine = pending[folds]
         # the SAVED architecture, not the flags: the reference's test stage
         # unpickles the trained modules
         model = _build_model(config['input_dim_list'], config['hidden_dim'],
                              config['latent_dim'], config['c_dim'],
-                             config['modalities'], folds=len(pending))
-        params_from_jax(stack_params([j['params'] for j in pending]), model,
+                             config['modalities'], folds=len(mine))
+        params_from_jax(stack_params([j['params'] for j in mine]), model,
                         device)
-        rows = common.padded_rows(max(j['test_data_list'][0].shape[0]
-                                      for j in pending))
-        xes = [common.stack_padded([j['test_data_list'][m] for j in pending],
-                                   rows, device) for m in range(n_mod)]
-        c = common.stack_padded([j['test_cov'] for j in pending], rows,
-                                device)
-        eps = torch.from_numpy(np.stack([
-            np.asarray(eps_fn(j['fold'], rows, model.noise_dim), np.float32)
-            for j in pending])).to(device)
+        xes = [common.stack_padded([j['test_data_list'][m] for j in mine],
+                                   rows, device, part) for m in range(n_mod)]
+        c = common.stack_padded([j['test_cov'] for j in mine], rows, device,
+                                part)
+        eps = torch.from_numpy(np.ascontiguousarray(np.stack([
+            np.asarray(eps_fn(j['fold'], rows, model.noise_dim),
+                       np.float32)[part] for j in mine]))).to(device)
         recons, devs = model.pred_recon_fused(xes, [c] * n_mod, args.combine,
                                               eps=eps)
-        all_preds = [r.cpu().numpy() for r in recons]
-        all_devs = [d.cpu().numpy() for d in devs]
+        gathered = common.gather_parts(
+            mesh, [t.cpu().numpy() for t in list(recons) + list(devs)],
+            len(pending))
+        all_preds, all_devs = gathered[:n_mod], gathered[n_mod:]
         timings['score_rows'] = rows
+    if not common.primary(mesh):
+        mesh.barrier()   # rank 0 writes the CSVs
+        return
 
     # ---- per-fold CSVs ------------------------------------------------------
     with walls('write'):
@@ -289,6 +321,7 @@ def test(args, project_root: Path, eps_fn: Optional[EpsFn] = None,
                                ).astype(int).values,
             }).to_csv(job['dir'] / 'diagnosis_results.csv', index=False)
             print(f'Fold {job["fold"]}:')
+    common.barrier(mesh)
 
 
 def analyze(args, project_root: Path) -> dict:
@@ -350,7 +383,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help='Number of splits for k-fold cross-validation.')
     parser.add_argument('-O', '--oversample_percentage', type=float, default=1,
                         help='Percentage of oversampling of the training data.')
-    common.add_variant_flags(parser, ['mesh'])
+    common.add_variant_flags(parser, [])
     return parser
 
 
@@ -374,7 +407,8 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
         train(args, project_root, init_fn, draws_fn, timings)
     if args.action in ('test', 'all'):
         test(args, project_root, eps_fn, timings)
-    if args.action in ('analyze', 'all'):
+    # a host stage on the files: rank 0's alone on a mesh
+    if args.action in ('analyze', 'all') and distributed.rank() == 0:
         with common.StageWalls(timings.setdefault('walls', {}))('analyze'):
             result = analyze(args, project_root)
     common.StageWalls(timings['walls']).report('nmmlp')
@@ -382,7 +416,9 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
 
 
 def run(argv=None, project_root=None):
-    return main(build_parser().parse_args(argv), project_root)
+    result = main(build_parser().parse_args(argv), project_root)
+    distributed.shutdown()
+    return result
 
 
 if __name__ == '__main__':

@@ -26,11 +26,16 @@ The classification of the test rows is ``EndToEndCVAE.predict``: on CUDA
 each modality's encoder is one launch of the encoder kernel for every
 fold, PoE and the classifier head in torch. ``--packed_xla`` trains on
 the packed dual-bank layout (``train.packed_endtoend``; its train state
-under ``grouped-e2e-state/``).
+under ``grouped-e2e-state/``). ``--fold_parallel --mesh F,D[,M]``
+trains on a mesh of ranks (``python -m torch.distributed.run``): the
+classifier's BatchNorm takes the whole batch's statistics over the data
+axis (``ops.losses.row_sum``), as GSPMD does; rank 0 scores the trained
+model whole and writes every file.
 
     python -m multi_modal_normative_modeling_tpu_torch.cli.nmpmcont \\
         -R ADNI -P SE-MoE -E 200 -K 5 [-Layers 128 64 32] [--device cpu]
         [--checkpoint_every N [--resume]] [--packed_xla]
+        [--fold_parallel --mesh F,D[,M]]
 """
 from __future__ import annotations
 
@@ -54,7 +59,7 @@ from ..evaluation.metrics import binary_prediction_metrics
 from ..evaluation.reports import append_endtoend_results
 from ..interop import params_to_jax
 from ..models.endtoend import EndToEndCVAE, endtoend_loss_fn
-from ..parallel import MultiFoldTrainer, stack_fold_batches
+from ..parallel import MultiFoldTrainer, distributed, stack_fold_batches
 from ..train.packed_endtoend import (
     GroupedEndToEndTrainer,
     endtoend_state_dirname,
@@ -101,11 +106,12 @@ def _prep_fold(project_root, resource, names, participants_path,
     return out, train_frames, test_frames
 
 
-def prepare_cohort(args, project_root: Path, walls: common.StageWalls):
+def prepare_cohort(args, project_root: Path, walls: common.StageWalls,
+                   mesh=None):
     """The fold ids (written to outputs/kfold_analysis_endtoend, read from
-    outputs/kfold_analysis when it holds ids) and every fold's data
-    (``_prep_fold``): (fold_data, input_dim_list, c_dim), under the 'data'
-    wall. Shared with the end-to-end sweep."""
+    outputs/kfold_analysis when it holds ids; by rank 0 on a ``mesh``) and
+    every fold's data (``_prep_fold``): (fold_data, input_dim_list, c_dim),
+    under the 'data' wall. Shared with the end-to-end sweep."""
     output_dir = project_root / 'outputs'
     kfold_dir = output_dir / 'kfold_analysis'
     kfold_dir.mkdir(parents=True, exist_ok=True)
@@ -117,11 +123,13 @@ def prepare_cohort(args, project_root: Path, walls: common.StageWalls):
     hc_label = registry.get_hc_label(args.dataset_resourse)
 
     with walls('data'):
-        common.generate_kfold_ids_endtoend(
-            ids_df[ids_df['DIA'] == hc_label],
-            ids_df[ids_df['DIA'] != hc_label],
-            oversample_percentage=args.oversample_percentage,
-            n_splits=args.n_splits, project_root=project_root)
+        if common.primary(mesh):
+            common.generate_kfold_ids_endtoend(
+                ids_df[ids_df['DIA'] == hc_label],
+                ids_df[ids_df['DIA'] != hc_label],
+                oversample_percentage=args.oversample_percentage,
+                n_splits=args.n_splits, project_root=project_root)
+        common.barrier(mesh)
         ids_source = kfold_dir
         if not (kfold_dir / 'train_ids_000.csv').exists():
             ids_source = output_dir / 'kfold_analysis_endtoend'
@@ -200,6 +208,9 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
     common.refuse_not_ported(args, 'end-to-end trainer')
     common.require_checkpoint_for_resume(args)
     device = common.resolve_device(getattr(args, 'device', 'cuda'), 'train')
+    mesh, shardings_fn = common.parse_run_mesh(args, args.n_splits, 256,
+                                               device)
+    device = device if mesh is None else mesh.device
     timings = {} if timings is None else timings
     walls = common.StageWalls(timings.setdefault('walls', {}))
     project_root = Path(project_root) if project_root else Path.cwd()
@@ -207,7 +218,7 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
     modalities = len(registry.get_datasets_name(args.dataset_resourse,
                                                 args.procedure))
     fold_data, input_dim_list, c_dim = prepare_cohort(args, project_root,
-                                                      walls)
+                                                      walls, mesh)
     n_folds = len(fold_data)
     for fold in range(n_folds):
         (model_dir / f'{fold:03d}').mkdir(parents=True, exist_ok=True)
@@ -233,6 +244,10 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
         # one per fold), the packed layout's in its own dir
         state_dir = model_dir
         packed = getattr(args, 'packed_xla', False)
+        if packed and mesh is not None:
+            print('--packed_xla unavailable (--mesh); using the '
+                  'per-modality layout')
+            packed = False
         if packed:
             cov_reason = common.uniform_covariates(
                 [(f['train_data'], f['train_cov']) for f in fold_data])
@@ -252,13 +267,18 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
                 model, config, n_samples,
                 loss_fn=endtoend_loss_fn(model, args.margin,
                                          args.weightcontrastive),
-                state_update=model.update_state)
+                state_update=model.update_state, mesh=mesh,
+                shardings_fn=shardings_fn)
             print('train model (all folds fold-parallel)')
         start = time.perf_counter()
         logs = resumable.run(trainer, batches, state_dir=state_dir, **draws)
         timings['train_run_s'] = time.perf_counter() - start
         timings['train_steps'] = ((config.epochs - resumable.resumed_from)
                                   * batches['mask'].shape[1])
+    if not common.primary(mesh):
+        # rank 0 scores the whole model and writes every file
+        mesh.barrier()
+        return None
 
     with walls('score'):
         xes, cs, rows = test_inputs(fold_data, modalities, device)
@@ -282,6 +302,7 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
         append_endtoend_results(project_root / 'results_endtoend.csv', args,
                                 all_metrics_df)
     walls.report('nmpmcont')
+    common.barrier(mesh)
     return all_metrics_df
 
 
@@ -307,7 +328,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('-Layers', '--layers', dest='layers', nargs='+',
                         default=[128, 64, 32], type=int,
                         help='Layers for the classifier.')
-    common.add_variant_flags(parser, ['ep_mesh', 'mesh'])
+    common.add_variant_flags(parser, ['ep_mesh'])
     return parser
 
 
@@ -322,7 +343,9 @@ def run(argv=None, project_root=None):
             args.single_modality = 'T1_volume'
         else:
             raise ValueError('Unknown dataset resource')
-    return main(args, project_root=project_root)
+    metrics = main(args, project_root=project_root)
+    distributed.shutdown()
+    return metrics
 
 
 if __name__ == '__main__':

@@ -14,14 +14,19 @@ three-launch chain (same mains, same args). Usage:
         [-Model mmJSD|mvtCAE|DMVAE|WeightedDMVAE|mmVAEPlus] [--emit_latent]
         [--checkpoint_every N [--resume]] [--in_memory_fusion]
         [--stream_shards S] [--remat] [--profile_dir DIR]
+        [--fold_parallel --mesh F,D[,M]]
 
 Select stages with --stages (comma-separated subset of train,test,analyze).
+With ``--mesh`` every rank (``python -m torch.distributed.run``) runs the
+train and test stages on its part of the mesh, and rank 0 alone the
+analysis, a host stage.
 """
 from __future__ import annotations
 
 import argparse
 import time
 
+from ..parallel import distributed
 from . import common, group_analysis, test_supervised, train_supervised
 
 STAGES = ('train', 'test', 'analyze')
@@ -69,7 +74,7 @@ def main(args, project_root=None):
             train_supervised.main(args, project_root=project_root)
         elif stage == 'test':
             test_supervised.main(args, project_root=project_root)
-        else:
+        elif distributed.rank() == 0:
             stats = group_analysis.main(args, project_root=project_root)
         # every stage ends with its files written, so with the device idle
         print(f'pipeline: stage {stage} took '
@@ -81,7 +86,9 @@ def run(argv=None, project_root=None):
     args = build_parser().parse_args(argv)
     common.apply_post_parse_defaults(args)
     with common.profiled(args):
-        return main(args, project_root=project_root)
+        stats = main(args, project_root=project_root)
+    distributed.shutdown()
+    return stats
 
 
 if __name__ == '__main__':

@@ -23,10 +23,15 @@ pair holds its data; ROADMAP.md, queue 3).
 ``--packed_xla`` trains on the width-grouped regression layout
 (``train.packed_regression``, shuffled like the per-modality run; its
 train state under ``regression_outputs/grouped-reg-state/``).
+``--fold_parallel --mesh F,1[,M]`` trains on a mesh of ranks (``python -m
+torch.distributed.run``): folds over F, the weights over M; a data axis is
+refused (the per-epoch shuffle moves rows across its shards). Rank 0
+scores the trained model whole and writes every file.
 
     python -m multi_modal_normative_modeling_tpu_torch.cli.regression \\
         -R ADNI -P UCA-gPoE -E 500 -K 5 [--device cpu]
         [--checkpoint_every N [--resume]] [--packed_xla]
+        [--fold_parallel --mesh F,1[,M]]
 """
 from __future__ import annotations
 
@@ -44,7 +49,7 @@ from ..data.preprocess import fit_robust_scaler
 from ..evaluation.metrics import evaluate_regression
 from ..infer.emitters import write_csv
 from ..models.regression import RegressionCVAE, regression_loss_fn
-from ..parallel import MultiFoldTrainer, stack_fold_batches
+from ..parallel import MultiFoldTrainer, distributed, stack_fold_batches
 from ..train.packed_regression import (
     GroupedRegressionTrainer,
     regression_state_dirname,
@@ -113,6 +118,15 @@ def train_and_test(args, project_root=None,
     common.refuse_not_ported(args, 'regression trainer')
     common.require_checkpoint_for_resume(args)
     device = common.resolve_device(getattr(args, 'device', 'cuda'), 'train')
+    mesh, shardings_fn = common.parse_run_mesh(args, args.n_splits,
+                                               args.batch_size, device)
+    if mesh is not None and mesh.axis('data') > 1:
+        raise SystemExit(
+            f'--mesh {args.mesh}: the regression reshuffles every fold\'s '
+            'rows each epoch, across the data axis\'s shards: use a data '
+            'axis of 1 (the JAX CLI shards the shuffled batch by GSPMD; '
+            'ROADMAP.md, "Stated divergences")')
+    device = device if mesh is None else mesh.device
     eps_fn = eps_fn or common.seeded_eps
     timings = {} if timings is None else timings
     walls = common.StageWalls(timings.setdefault('walls', {}))
@@ -159,6 +173,10 @@ def train_and_test(args, project_root=None,
         # fold shuffles its own batch grid on either layout
         state_dir = output_dir
         packed = getattr(args, 'packed_xla', False)
+        if packed and mesh is not None:
+            print('--packed_xla unavailable (--mesh); using the '
+                  'per-modality layout')
+            packed = False
         if packed and config.combine.lower() not in ('poe', 'gpoe', 'moe',
                                                      'mopoe'):
             print(f'--packed_xla unavailable (fusion {config.combine!r}); '
@@ -172,7 +190,8 @@ def train_and_test(args, project_root=None,
         else:
             trainer = MultiFoldTrainer(
                 model, config, n_samples,
-                loss_fn=regression_loss_fn(model, config.combine))
+                loss_fn=regression_loss_fn(model, config.combine),
+                mesh=mesh, shardings_fn=shardings_fn)
             print('train model (all folds fold-parallel, shuffled every '
                   'epoch)')
         resumable = common.Resumable(args)
@@ -181,6 +200,10 @@ def train_and_test(args, project_root=None,
         timings['train_run_s'] = time.perf_counter() - start
         timings['train_steps'] = ((config.epochs - resumable.resumed_from)
                                   * batches['mask'].shape[1])
+    if not common.primary(mesh):
+        # rank 0 scores the whole model and writes every file
+        mesh.barrier()
+        return None
 
     # ---- FI of every fold's test rows: one call over the fold axis -------
     with walls('score FI'):
@@ -243,6 +266,7 @@ def train_and_test(args, project_root=None,
                           f'deviation_fold_{fold}_{name}_roiwise.csv', out)
     print('Training & evaluation complete.')
     walls.report('regression')
+    common.barrier(mesh)
     return all_scores
 
 
@@ -272,13 +296,15 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--batch_size', type=int, default=128)
     parser.add_argument('-BaseLR', '--base_learning_rate', type=float,
                         default=0.0001)
-    common.add_variant_flags(parser, ['mesh'])
+    common.add_variant_flags(parser, [])
     return parser
 
 
 def run(argv=None, project_root=None):
-    return train_and_test(build_parser().parse_args(argv),
-                          project_root=project_root)
+    scores = train_and_test(build_parser().parse_args(argv),
+                            project_root=project_root)
+    distributed.shutdown()
+    return scores
 
 
 if __name__ == '__main__':

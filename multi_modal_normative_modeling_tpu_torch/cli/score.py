@@ -22,8 +22,15 @@ scaled data and the float32 reconstruction. ``--latent`` adds the latent
 z-scores against each fold's train cohort (two more K1 launches per
 modality: the train cohorts and the subjects).
 
+``--mesh F,D`` scores on a mesh of ranks, one process each (JAX
+cli/score.py:45-60, :166-187): a rank scores its folds' rows [j R/nd,
+(j+1) R/nd) of the padded subjects (K1 and K2 on its [F/nf, R/nd, D]
+slice), the parts are gathered, and rank 0 writes the files. As in the JAX
+CLI, ``--latent`` is refused with a mesh.
+
     python -m multi_modal_normative_modeling_tpu_torch.cli.score \
         -R ADNI -P UCA-gPoE -K 5 --ids ids.csv --roi_output roi.csv --latent
+        [--mesh F,D]
 """
 from __future__ import annotations
 
@@ -42,12 +49,9 @@ from ..infer.ensemble import (EpsFn, fold_eps, latent_zscores, reconstruct,
 from ..train.checkpoints import checkpoint_exists
 from . import common
 
-_NOT_PORTED_FLAGS = {'mesh': "queue 1 item 'Multi-device'"}
-
 
 def score(args, project_root=None,
           eps_fn: Optional[EpsFn] = None) -> pd.DataFrame:
-    common.refuse_not_ported(args, 'score CLI', _NOT_PORTED_FLAGS)
     device = common.resolve_device(getattr(args, 'device', 'cuda'), 'score')
     project_root = Path(project_root) if project_root else Path.cwd()
     kfold_dir = project_root / 'outputs' / 'kfold_analysis'
@@ -58,6 +62,18 @@ def score(args, project_root=None,
     n_mod = len(dataset_names)
     folds = list(range(args.n_splits) if args.fold is None else [args.fold])
     emit_latent = getattr(args, 'latent', False)
+    mesh = common.parse_infer_mesh(getattr(args, 'mesh', None), device)
+    if mesh is not None:
+        if emit_latent:
+            raise SystemExit(
+                '--latent is unmeshed (per-fold train-cohort stats have '
+                'ragged row counts); run --latent without --mesh')
+        if len(folds) % mesh.shape['fold']:
+            raise SystemExit(
+                f"--mesh: {len(folds)} fold(s) not divisible by the "
+                f"fold axis ({mesh.shape['fold']})")
+        device = mesh.device
+        common.announce_mesh(mesh, 'scoring')
     for fold in folds:
         if not checkpoint_exists(model_dir / f'{fold:03d}'):
             raise FileNotFoundError(
@@ -81,27 +97,34 @@ def score(args, project_root=None,
     subject_ids = fold_preps[0][-1]['test_df']['participant_id'].values
     columns_list = [p['columns'] for p in fold_preps[0]]
 
+    # one call over the stacked folds, every fold's rows padded to one
+    # bucket (rows are independent through the model); on a mesh a rank
+    # scores its rows of its folds
+    n_rows = len(subject_ids)
+    padded = common.padded_rows(n_rows, mesh)
+    mine, rows = common.mesh_parts(mesh, len(folds), padded)
     model, _, config = common.load_model_and_params(
-        [model_dir / f'{fold:03d}' for fold in folds], device)
+        [model_dir / f'{fold:03d}' for fold in folds[mine]], device)
     combine = resolve_combine(args.combine, config, args.procedure)
     if emit_latent and not hasattr(model, 'latent_stats_fused'):
         raise SystemExit(f"--latent: model variant "
                          f"{config.get('variant', 'cvae')!r} has no "
                          'deterministic fused latent')
 
-    # one call over the stacked folds, every fold's rows padded to one
-    # bucket (rows are independent through the model)
-    n_rows = len(subject_ids)
-    padded = common.padded_rows(n_rows)
     data = [[p['test_data'] for p in fp] for fp in fold_preps]
-    xes = [common.stack_padded([d[m] for d in data], padded, device)
-           for m in range(n_mod)]
-    c = common.stack_padded(covs, padded, device)
-    eps = fold_eps([args.seed + fold for fold in folds], padded,
-                   model.noise_dim, device, eps_fn)
+    xes = [common.stack_padded([d[m] for d in data[mine]], padded, device,
+                               rows) for m in range(n_mod)]
+    c = common.stack_padded(covs[mine], padded, device, rows)
+    eps = fold_eps([args.seed + fold for fold in folds[mine]], padded,
+                   model.noise_dim, device, eps_fn)[:, rows].contiguous()
     recons, devs = reconstruct(model, xes, [c] * n_mod, combine, eps)
-    recons = [r[:, :n_rows].cpu().numpy() for r in recons]
-    devs = devs[:, :, :n_rows].cpu().numpy()               # [K, M, N]
+    # devs [K, M, rows] gathers as [K, rows, M]
+    *recons, devs = common.gather_parts(
+        mesh, [r.cpu().numpy() for r in recons]
+        + [devs.cpu().numpy().transpose(0, 2, 1)], len(folds))
+    devs = devs.transpose(0, 2, 1)
+    recons = [r[:, :n_rows] for r in recons]
+    devs = devs[:, :, :n_rows]                             # [K, M, N]
     per_fold_dev = devs.mean(axis=1)
     per_fold_roi = [
         np.concatenate([(d[m] - recons[m][i]) ** 2 for m in range(n_mod)],
@@ -117,7 +140,7 @@ def score(args, project_root=None,
             *train_latent_stats(model, combine, fold_preps))
         out['latent_deviation'] = latent[:, :n_rows].cpu().numpy().mean(
             axis=0)
-    if args.output:
+    if args.output and (mesh is None or mesh.primary):
         out.to_csv(args.output, index=False)
         if args.roi_output:
             # modality-suffixed names: ADHD/UCA modalities share raw ROI
@@ -159,7 +182,10 @@ def build_parser() -> argparse.ArgumentParser:
                         help='torch device to score on (default cuda); cuda '
                              'runs the kernels, cpu their plain versions')
     parser.add_argument('--mesh', default=None, metavar='F,D',
-                        help='not ported yet (raises); see ROADMAP.md')
+                        help='score on a (fold, data) mesh of ranks, one '
+                             'process each: folds over F, padded subject '
+                             'rows over D; rank 0 writes the files; not '
+                             'with --latent')
     return parser
 
 
@@ -168,7 +194,11 @@ def run(argv=None, project_root=None, eps_fn: Optional[EpsFn] = None):
     # combine resolution happens in score() once the checkpoint config is
     # in hand (infer.ensemble.resolve_combine: config beats the
     # procedure-suffix heuristic, which is wrong for SM-* procedures)
-    return score(args, project_root=project_root, eps_fn=eps_fn)
+    out = score(args, project_root=project_root, eps_fn=eps_fn)
+    from ..parallel import distributed
+
+    distributed.shutdown()
+    return out
 
 
 if __name__ == '__main__':

@@ -20,8 +20,17 @@ predictions, so the CSVs match the JAX ones. ``--emit_latent`` also writes
 ``--in_memory_fusion`` builds a UCA procedure's early-fusion modality from
 the scaled base modalities instead of reading its CSV.
 
+``--mesh F,D`` (or the train stage's F,D,M, whose 'model' axis folds into
+'data') scores on a mesh of ranks, one process each (``python -m
+torch.distributed.run``): a rank holds folds [i F/nf, (i+1) F/nf) and rows
+[j R/nd, (j+1) R/nd) of the padded rows (R a multiple of lcm(64, D)), draws
+each of its folds' whole noise and keeps its rows, and calls the same
+``pred_recon_fused`` on its contiguous [F/nf, R/nd, D] slice: K1 and K2 on
+CUDA. Rank 0 gathers the predictions and writes every CSV.
+
     python -m multi_modal_normative_modeling_tpu_torch.cli.test_supervised \
         -R ADNI -P UCA-gPoE -K 5 [--emit_latent] [--in_memory_fusion]
+        [--mesh F,D]
 """
 from __future__ import annotations
 
@@ -36,15 +45,13 @@ from ..infer.deviation import latent_deviation, separate_latent_deviation
 
 from .. import registry
 from ..infer.emitters import DeviationEmitter
+from ..parallel.mesh import fold_range
 from ..train.checkpoints import checkpoint_exists
 from . import common
 from .common import resolve_device
 
 # JAX CLI flags with no port yet: each raises instead of being ignored
-_NOT_PORTED_FLAGS = {
-    'mesh': "queue 1 item 'Multi-device'",
-    'ep_mesh': "queue 1 item 'Multi-device'",
-}
+_NOT_PORTED_FLAGS = {'ep_mesh': "queue 1 item 'Multi-device'"}
 
 EpsFn = Callable[[int, int, int], np.ndarray]
 
@@ -67,6 +74,11 @@ def main(args, project_root=None, eps_fn: Optional[EpsFn] = None,
     to and from it) and 'csv emit' (the host deviation and the CSVs)."""
     common.refuse_not_ported(args, 'test stage', _NOT_PORTED_FLAGS)
     device = resolve_device(getattr(args, 'device', 'cuda'), 'score')
+    mesh = common.parse_infer_mesh(getattr(args, 'mesh', None), device)
+    if mesh is not None:
+        device = mesh.device
+        common.announce_mesh(mesh, 'test inference')
+    primary = mesh is None or mesh.primary
     eps_fn = eps_fn or default_eps
     walls = common.StageWalls(
         None if timings is None else timings.setdefault('walls', {}),
@@ -122,11 +134,20 @@ def main(args, project_root=None, eps_fn: Optional[EpsFn] = None,
 
     # ---- phase 2: one scoring call over the stacked fold axis ------------
     if pending:
+        common.check_infer_fold_axis(mesh, len(pending),
+                                     'folds with checkpoints')
+        mine = pending
+        if mesh is not None:
+            f0, f1 = fold_range(mesh, len(pending))
+            mine = pending[f0:f1]
         with walls('restore'):
             model, _, _ = common.load_model_and_params(
-                [j['dir'] for j in pending], device)
+                [j['dir'] for j in mine], device)
         with walls('scoring call'):
-            host_preds, latent = _score(args, model, pending, eps_fn, device)
+            host_preds, latent = _score(args, model, pending, eps_fn, device,
+                                        mesh)
+        if not primary:
+            pending = []
 
         # ---- phase 3: per-fold float64 deviation + CSV emission ----------
         with walls('csv emit'):
@@ -153,29 +174,36 @@ def main(args, project_root=None, eps_fn: Optional[EpsFn] = None,
                         job['dir'], job['clinical_df'],
                         mu_train[i, :job['train_data_list'][0].shape[0]],
                         mu_test[i, :n_rows], var_test[i, :n_rows])
-    with walls('csv emit'):
-        emitter.emit_combined(deviation_dir)
+    if primary:
+        with walls('csv emit'):
+            emitter.emit_combined(deviation_dir)
+    if mesh is not None:
+        mesh.barrier()
 
 
-def _score(args, model, pending, eps_fn: EpsFn, device):
+def _score(args, model, pending, eps_fn: EpsFn, device, mesh=None):
     """One call over the stacked fold axis: (the recon means per modality,
     [F, rows, D_m] numpy, and with --emit_latent the train and test
     splits' latent statistics). Every fold is padded to one row bucket;
-    rows are independent through the model, so pad rows change nothing."""
+    rows are independent through the model, so pad rows change nothing.
+    On a mesh ``model`` holds this rank's folds: it scores its rows of
+    them, and the ranks' parts are gathered on every rank."""
     n_mod = len(pending[0]['test_data_list'])
     padded_rows = common.padded_rows(
-        max(j['test_data_list'][0].shape[0] for j in pending))
+        max(j['test_data_list'][0].shape[0] for j in pending), mesh)
+    folds, rows = common.mesh_parts(mesh, len(pending), padded_rows)
+    mine = pending[folds]
 
-    def stacked(arrays, rows=padded_rows):
-        return common.stack_padded(arrays, rows, device)
+    def stacked(arrays, rows_to=padded_rows, part=rows):
+        return common.stack_padded(arrays, rows_to, device, part)
 
-    xes = [stacked([j['test_data_list'][m] for j in pending])
+    xes = [stacked([j['test_data_list'][m] for j in mine])
            for m in range(n_mod)]
-    c = stacked([j['test_cov'] for j in pending])
-    eps = torch.from_numpy(np.stack([
+    c = stacked([j['test_cov'] for j in mine])
+    eps = torch.from_numpy(np.ascontiguousarray(np.stack([
         np.asarray(eps_fn(j['fold'], padded_rows, model.noise_dim),
-                   np.float32).reshape(padded_rows, model.noise_dim)
-        for j in pending])).to(device)
+                   np.float32).reshape(padded_rows, model.noise_dim)[rows]
+        for j in mine]))).to(device)
     if hasattr(model, 'pred_recon_fused'):
         recons, _ = model.pred_recon_fused(xes, [c] * n_mod, args.combine,
                                            eps=eps)
@@ -183,21 +211,30 @@ def _score(args, model, pending, eps_fn: EpsFn, device):
         with torch.no_grad():
             recons = model.pred_recon(xes, [c] * n_mod, args.combine,
                                       eps=eps)
-    host_preds = [r.cpu().numpy() for r in recons]
+    host_preds = common.gather_parts(mesh, [r.cpu().numpy() for r in recons],
+                                     len(pending))
     latent = None
     if (getattr(args, 'emit_latent', False)
             and hasattr(model, 'latent_stats')):
         # rows are independent through the encoders and the fusion, so
-        # each fold's padding rows change nothing above them
+        # each fold's padding rows change nothing above them; on a mesh a
+        # rank takes its rows of both splits
         train_rows = max(j['train_data_list'][0].shape[0] for j in pending)
-        train_xes = [stacked([j['train_data_list'][m] for j in pending],
-                             train_rows) for m in range(n_mod)]
-        train_c = stacked([j['train_cov'] for j in pending], train_rows)
+        train_part = rows
+        if mesh is not None:
+            train_rows = common.padded_rows(train_rows, mesh)
+            train_part = common.mesh_parts(mesh, len(pending), train_rows)[1]
+        train_xes = [stacked([j['train_data_list'][m] for j in mine],
+                             train_rows, train_part) for m in range(n_mod)]
+        train_c = stacked([j['train_cov'] for j in mine], train_rows,
+                          train_part)
         with torch.no_grad():
             latent = [
                 tuple(t.cpu().numpy() for t in model.latent_stats(
                     inputs, [cov] * n_mod, args.combine))
                 for inputs, cov in ((train_xes, train_c), (xes, c))]
+        latent = [tuple(common.gather_parts(mesh, pair, len(pending)))
+                  for pair in latent]
     return host_preds, latent
 
 
@@ -235,11 +272,14 @@ def build_parser() -> argparse.ArgumentParser:
                         action='store_true',
                         help='accepted for the JAX CLI flag surface: on CUDA '
                              'the kernels are always the path')
-    not_ported = 'not ported yet (raises); see ROADMAP.md'
     parser.add_argument('--mesh', dest='mesh', default=None, metavar='F,D',
-                        help=not_ported)
+                        help='score on a (fold, data) mesh of ranks, one '
+                             'process each: folds over F, padded test rows '
+                             'over D (the train stage\'s F,D,M runs as '
+                             'F,D*M); rank 0 writes the CSVs')
     parser.add_argument('--ep_mesh', dest='ep_mesh', default=None,
-                        metavar='M,D', help=not_ported)
+                        metavar='M,D',
+                        help='not ported yet (raises); see ROADMAP.md')
     parser.add_argument('--in_memory_fusion', dest='in_memory_fusion',
                         action='store_true',
                         help='build the UCA early-fusion modality by '
@@ -257,6 +297,9 @@ def build_parser() -> argparse.ArgumentParser:
 def run(argv=None, project_root=None):
     args = common.apply_post_parse_defaults(build_parser().parse_args(argv))
     main(args, project_root=project_root)
+    from ..parallel import distributed
+
+    distributed.shutdown()
 
 
 if __name__ == '__main__':

@@ -36,6 +36,13 @@ byte. ``--precision bf16`` without ``--packed_xla`` or
 ``--fused_train_step`` runs the per-modality forward in bfloat16 (fp32
 master weights), ``--remat`` recomputes it in the backward, and
 ``--profile_dir DIR`` writes a torch.profiler trace of the run.
+``--fold_parallel --mesh F,D[,M]`` trains on a mesh of ranks, one process
+each (``python -m torch.distributed.run --nproc_per_node F*D*M``): folds
+over F, batch rows over D, the weights tensor-parallel over M
+(``parallel.MultiFoldTrainer(mesh=)``); ``--stream_shards S --mesh 1,D``
+streams each rank's rows. Rank 0 writes every file, in the unmeshed
+format; ``--fused_train_step``/``--packed_xla`` are ignored with a mesh, as
+in the JAX CLI, and ``--fused_decoder`` exits.
 
     python -m multi_modal_normative_modeling_tpu_torch.cli.train_supervised \\
         -R ADNI -P UCA-gPoE -E 200 -K 5 [--fused_decoder] [--device cpu]
@@ -43,6 +50,7 @@ master weights), ``--remat`` recomputes it in the backward, and
         [--checkpoint_every N [--resume]] [--in_memory_fusion]
         [--packed_xla [--precision bf16]] [--stream_shards S]
         [--precision bf16] [--remat] [--profile_dir DIR]
+        [--fold_parallel --mesh F,D[,M]]
 """
 from __future__ import annotations
 
@@ -70,7 +78,7 @@ from . import common
 
 # JAX CLI flags with no port yet: each raises instead of being ignored
 _NOT_PORTED_FLAGS = {
-    **common.VARIANT_NOT_PORTED,
+    'ep_mesh': common.VARIANT_NOT_PORTED['ep_mesh'],
     'warmup_only': "'Do not port' (a TPU compile-cache warm-up)",
 }
 
@@ -96,7 +104,16 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
     ``noise_dim``, the shared code's width for the DMVAE family); by default
     every fold draws from its own generator on the device."""
     common.refuse_not_ported(args, 'trainer', _NOT_PORTED_FLAGS)
+    if getattr(args, 'mesh', None) and not getattr(args, 'fold_parallel',
+                                                   False) \
+            and not getattr(args, 'stream_shards', 0):
+        raise SystemExit('--mesh requires --fold_parallel (the mesh shards '
+                         'the stacked fold-parallel program) — except with '
+                         '--stream_shards, where --mesh 1,D shards each '
+                         'streamed shard\'s rows over the data axis')
     common.require_checkpoint_for_resume(args)
+    if getattr(args, 'mesh', None):
+        _mesh_flag_conflicts(args)
     fused = getattr(args, 'fused_train_step', False)
     # the fused train step takes precedence over --packed_xla, as in JAX
     packed_flag = getattr(args, 'packed_xla', False) and not fused
@@ -115,6 +132,16 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
         print('--remat applies to the standard XLA loss; ignoring it for '
               '--fused_train_step/--packed_xla/--ep_mesh')
     device = common.resolve_device(getattr(args, 'device', 'cuda'), 'train')
+    batch_size = getattr(args, 'batch_size', None)
+    batch_size = 256 if batch_size is None else int(batch_size)
+    if batch_size < 1:
+        raise SystemExit(f'--batch_size must be >= 1, got {batch_size}')
+    mesh, mesh_shardings = common.parse_mesh(
+        getattr(args, 'mesh', None), args.n_splits, batch_size, device)
+    if mesh is not None:
+        device = mesh.device
+        common.announce_mesh(mesh, 'fold-parallel training')
+    primary = mesh is None or mesh.primary
 
     project_root = Path(project_root) if project_root else Path.cwd()
     model_name = 'supervised_cvae'
@@ -130,14 +157,17 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
     ids_df = pd.read_csv(participants_path)
     hc_label = registry.get_hc_label(args.dataset_resourse)
     training_class_label = hc_label if args.training_class == 'nm' else 0
-    common.generate_kfold_ids(ids_df[ids_df['DIA'] == training_class_label],
-                              ids_df[ids_df['DIA'] != training_class_label],
-                              oversample_percentage=args.oversample_percentage,
-                              n_splits=args.n_splits,
-                              project_root=project_root)
-
-    run_log = RunLog(model_dir / 'run_log.jsonl')
-    run_log.event('train_start', args=vars(args))
+    if primary:
+        common.generate_kfold_ids(
+            ids_df[ids_df['DIA'] == training_class_label],
+            ids_df[ids_df['DIA'] != training_class_label],
+            oversample_percentage=args.oversample_percentage,
+            n_splits=args.n_splits, project_root=project_root)
+        run_log = RunLog(model_dir / 'run_log.jsonl')
+        run_log.event('train_start', args=vars(args))
+    if mesh is not None:
+        # the other ranks read the id files rank 0 wrote
+        mesh.barrier()
 
     n_folds = args.n_splits
     folds, input_dim_list, c_dim = common.prepare_folds(
@@ -145,10 +175,6 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
         participants_path)
     config_dict = common.model_config_dict(args, input_dim_list, c_dim,
                                            len(dataset_names))
-    batch_size = getattr(args, 'batch_size', None)
-    batch_size = 256 if batch_size is None else int(batch_size)
-    if batch_size < 1:
-        raise SystemExit(f'--batch_size must be >= 1, got {batch_size}')
     train_config = TrainConfig(
         epochs=args.epochs,
         batch_size=batch_size,
@@ -163,6 +189,10 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
     )
 
     model = common.build_model_from_config(config_dict, folds=n_folds)
+    if mesh is not None:
+        unsupported = _mesh_model_conflict(model, mesh)
+        if unsupported:
+            raise SystemExit(f'--mesh {args.mesh}: {unsupported}')
     if fused:
         ok, reason = supported(model, train_config)
         if ok:
@@ -193,7 +223,7 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
         if unsupported:
             raise SystemExit(f'fused decoder unavailable ({unsupported})')
     stream_shards = _stream_shards(args, folds, device,
-                                   packed is not None, fused)
+                                   packed is not None, fused, mesh)
     if init_fn is not None:
         init_fn(model)
     else:
@@ -211,9 +241,14 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
         # fold-parallel path keeps it; a packed layout's in its own dir
         logs, steps, run_s = _train(fused_decoder, model, train_config,
                                     folds, max_n, eps_fn, resumable,
-                                    model_dir, packed, stream_shards)
+                                    model_dir, packed, stream_shards,
+                                    mesh, mesh_shardings)
     per_fold_logs = [{k: v[f] for k, v in logs.items()}
                      for f in range(n_folds)]
+    if not primary:
+        # rank 0 writes every file; the run ends when it has
+        mesh.barrier()
+        return
     per_fold_params = [params_to_jax(model, fold=f) for f in range(n_folds)]
     common.emit_fold_artifacts(model_dir, per_fold_logs, per_fold_params,
                                config_dict, n_folds)
@@ -228,6 +263,42 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
     # ran (a resumed run's from its stored epoch), the logs' fetch at the end
     run_log.event('train_end', folds=n_folds, steps=steps, run_s=run_s,
                   **resumable.fields())
+    if mesh is not None:
+        mesh.barrier()
+
+
+def _mesh_flag_conflicts(args) -> None:
+    """--mesh's flags (JAX cli/train_supervised.py:149-153, :272-289): the
+    mesh runs on the standard fold-parallel path, so --fused_train_step
+    and --packed_xla are ignored, as in the JAX CLI; --fused_decoder, where
+    the JAX CLI falls back to its plain loss, exits here."""
+    if (getattr(args, 'fused_train_step', False)
+            or getattr(args, 'packed_xla', False)):
+        print('--mesh runs on the standard fold-parallel path; ignoring '
+              '--fused_train_step/--packed_xla')
+        args.fused_train_step = False
+        args.packed_xla = False
+    if getattr(args, 'fused_decoder', False):
+        raise SystemExit('fused decoder unavailable (mutually exclusive with '
+                         '--mesh): the JAX package trains the plain loss '
+                         'here, this CLI exits instead (ROADMAP.md, "Stated '
+                         'divergences"). Train without --fused_decoder')
+
+
+def _mesh_model_conflict(model, mesh) -> Optional[str]:
+    """Why ``model`` cannot train on ``mesh``, or None: mvtCAE's total
+    correlation is a log-sum-exp over a batch's rows, not a sum of row
+    terms, so it does not split over 'data'; the 'model' axis splits the
+    cVAE skeleton's encoders and decoders only."""
+    if mesh.axis('data') > 1 and getattr(model, 'variant', None) == 'mvtcae':
+        return ("model 'mvtCAE': its total correlation (a log-sum-exp over "
+                "the batch's rows) does not split over the 'data' axis; "
+                'train it with a data axis of 1')
+    if mesh.axis('model') > 1:
+        from ..parallel.tensor import tp_supported
+
+        return tp_supported(model)
+    return None
 
 
 def _fp32_only(precision: str) -> Optional[str]:
@@ -241,14 +312,26 @@ def _fp32_only(precision: str) -> Optional[str]:
             '"Stated divergences"). Train without --fused_decoder')
 
 
-def _stream_shards(args, folds, device, packed: bool, fused: bool) -> int:
+def _stream_shards(args, folds, device, packed: bool, fused: bool,
+                   mesh=None) -> int:
     """--stream_shards resolved (JAX cli/train_supervised.py:301-311,
     :533-558): 0 trains resident, -1 sizes the shard count so that two
     shards of fold 0's batch data fit in half the device's memory. Exits on
-    the JAX CLI's conflicts and on a value below -1."""
+    the JAX CLI's conflicts, on a mesh with another axis than 'data' wider
+    than 1, and on a value below -1."""
     shards = getattr(args, 'stream_shards', 0) or 0
     if not shards:
         return 0
+    if mesh is not None:
+        # --mesh 1,D composes: rows of each streamed shard over 'data'
+        bad = [n for n in mesh.axis_names
+               if n != 'data' and mesh.shape[n] != 1]
+        if bad:
+            raise SystemExit(
+                f'--stream_shards composes only with --mesh 1,D '
+                f'(data-axis sharding); axis {bad[0]!r} has size '
+                f'{mesh.shape[bad[0]]} — use --fold_parallel --mesh '
+                'for fold/tensor parallelism')
     conflicts = [name for name, on in [
         ('--fold_parallel', getattr(args, 'fold_parallel', False)),
         ('--packed_xla', packed),
@@ -331,7 +414,7 @@ def _train_fused(model, train_config, folds, max_n, device, eps_fn,
 
 def _train(fused_decoder: bool, model, train_config, folds, max_n, eps_fn,
            resumable: common.Resumable, state_dir: Path, packed=None,
-           stream_shards: int = 0):
+           stream_shards: int = 0, mesh=None, shardings_fn=None):
     """Every fold at once on MultiFoldTrainer (plain or --fused_decoder
     loss; streamed in ``stream_shards`` shards when that is not 0), or on
     the layout of ``packed`` (select_packed_trainer's choice); trains
@@ -350,13 +433,16 @@ def _train(fused_decoder: bool, model, train_config, folds, max_n, eps_fn,
         try:
             trainer = StreamingFoldTrainer(model, train_config, max_n,
                                            shards=stream_shards,
-                                           loss_fn=loss_fn)
+                                           loss_fn=loss_fn, mesh=mesh)
         except ValueError as exc:
             raise SystemExit(f'--stream_shards: {exc}')
-        print(f'train model (streamed, {stream_shards} batch shards)')
+        _say(mesh, f'train model (streamed, {stream_shards} batch shards'
+             + ('' if mesh is None else f', rows over mesh {mesh.shape}')
+             + ')')
     elif packed is None:
         trainer = MultiFoldTrainer(model, train_config, max_n,
-                                   loss_fn=loss_fn)
+                                   loss_fn=loss_fn, mesh=mesh,
+                                   shardings_fn=shardings_fn)
     else:
         cls, layout, tag = packed
         trainer = cls(model, train_config, max_n)
@@ -368,13 +454,20 @@ def _train(fused_decoder: bool, model, train_config, folds, max_n, eps_fn,
         eps = eps_fn(batches['valid'], train_config.epochs, batch_size,
                      model.noise_dim)
     if not stream_shards:
-        print('train model (all folds fold-parallel'
-              + ('' if packed is None else f', {layout} modalities') + ')')
+        _say(mesh, 'train model (all folds fold-parallel'
+             + ('' if packed is None else f', {layout} modalities')
+             + ('' if mesh is None else f', mesh {mesh.shape}') + ')')
     start = time.perf_counter()
     logs = resumable.run(trainer, batches, eps=eps, state_dir=state_dir)
     run_s = time.perf_counter() - start
     epochs = train_config.epochs - resumable.resumed_from
     return logs, epochs * batches['mask'].shape[1], run_s
+
+
+def _say(mesh, text: str) -> None:
+    """Print on rank 0 (always without a mesh)."""
+    if mesh is None or mesh.primary:
+        print(text)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -390,8 +483,8 @@ def build_parser() -> argparse.ArgumentParser:
                              'intended triangular schedule.')
     parser.add_argument('--fold_parallel', dest='fold_parallel',
                         action='store_true',
-                        help='accepted for the JAX CLI flag surface: the '
-                             'port always trains every fold at once')
+                        help='the port always trains every fold at once; '
+                             'required by --mesh, as in the JAX CLI')
     parser.add_argument('--batch_size', dest='batch_size', type=int,
                         default=256,
                         help='training batch size (the reference hardcodes '
@@ -465,9 +558,9 @@ def build_parser() -> argparse.ArgumentParser:
                              '(numerically identical; skips reading the '
                              'early_fusion CSV).')
     common.add_resume_flags(parser)
+    common.add_mesh_flag(parser)
     not_ported = 'not ported yet (raises); see ROADMAP.md'
-    for flag, kwargs in (('--mesh', {'default': None}),
-                         ('--ep_mesh', {'default': None}),
+    for flag, kwargs in (('--ep_mesh', {'default': None}),
                          ('--warmup_only', {'action': 'store_true'})):
         parser.add_argument(flag, dest=flag[2:], help=not_ported, **kwargs)
     return parser
@@ -478,6 +571,9 @@ def run(argv=None, project_root=None):
     common.apply_post_parse_defaults(args)
     with common.profiled(args):
         main(args, project_root=project_root)
+    from ..parallel import distributed
+
+    distributed.shutdown()
 
 
 if __name__ == '__main__':

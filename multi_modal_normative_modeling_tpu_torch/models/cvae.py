@@ -25,6 +25,7 @@ from ..kernels import deviation as dev_kernel
 from ..kernels import mlp as mlp_kernel
 from ..kernels._build import Layer
 from ..ops.linear import FoldLinear
+from ..ops.losses import row_count, row_sum
 
 
 class Encoder(nn.Module):
@@ -41,12 +42,17 @@ class Encoder(nn.Module):
         self.mu = FoldLinear(sizes[-1], latent_dim, folds, generator, device)
         self.logvar = FoldLinear(sizes[-1], latent_dim, folds, generator,
                                  device)
+        # parallel.tensor.TensorParallel while the weights are split over
+        # a 'model' mesh axis
+        self.tp = None
 
     def hidden_layers(self) -> List[Layer]:
         return [layer.pair() for layer in self.hidden]
 
     def forward(self, x: torch.Tensor, c: torch.Tensor):
         """(mu, logvar), each [F, B, Z]."""
+        if self.tp is not None:
+            return self.tp.encoder(self, x, c)
         return mlp_kernel.encoder_reference(
             self.hidden_layers(), self.mu.pair(), self.logvar.pair(), x, c,
             self.non_linear)
@@ -71,6 +77,7 @@ class Decoder(nn.Module):
         self.mean = FoldLinear(sizes[-1], input_dim, folds, generator, device)
         self.logvar_out = nn.Parameter(
             torch.full((folds, 1, input_dim), init_logvar, device=device))
+        self.tp = None   # as Encoder.tp
 
     def hidden_layers(self) -> List[Layer]:
         return [layer.pair() for layer in self.hidden]
@@ -78,6 +85,8 @@ class Decoder(nn.Module):
     def forward(self, z: torch.Tensor, c: torch.Tensor):
         """(mean [F, B, D], logvar_out [F, 1, D]) of the reconstruction
         Normal."""
+        if self.tp is not None:
+            return self.tp.decoder(self, z, c)
         mean = dev_kernel.decode_mean_reference(
             self.hidden_layers(), self.mean.pair(), z, c, self.non_linear)
         return mean, self.logvar_out
@@ -180,12 +189,13 @@ class Classifier(nn.Module):
                     var = torch.var(h, dim=-2, unbiased=False)
                     n = h.new_tensor(float(h.shape[-2]))
                 else:
+                    # the whole batch's rows on a data-sharded rank
+                    # (ops.losses.global_row_counts)
                     m = mask.to(h.dtype).unsqueeze(-1)
-                    n = torch.clamp(torch.sum(mask.to(h.dtype), dim=-1),
+                    n = torch.clamp(row_count(mask.to(h.dtype)),
                                     min=1.0).unsqueeze(-1)
-                    mean = torch.sum(h * m, dim=-2) / n
-                    var = (torch.sum((h - mean.unsqueeze(-2)) ** 2 * m,
-                                     dim=-2) / n)
+                    mean = row_sum(h * m) / n
+                    var = row_sum((h - mean.unsqueeze(-2)) ** 2 * m) / n
                 unbiased = var * n / torch.clamp(n - 1.0, min=1.0)
                 new_state.append(((0.9 * stats.mean + 0.1 * mean).detach(),
                                   (0.9 * stats.var + 0.1 * unbiased).detach()))

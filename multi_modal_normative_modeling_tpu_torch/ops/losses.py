@@ -5,14 +5,59 @@ result is one value per fold, [F]. With a row ``mask`` [F, B] a term is the
 masked mean over the valid rows of each fold, dividing by max(sum(mask), 1)
 per fold, so a padded batch reproduces the reference's ``.mean(0)`` over the
 real rows (cVAE.py:14-15, :1138-1139; SURVEY.md Q7).
+
+Under a 'data' mesh axis a rank holds some of a batch's rows. Inside
+``global_row_counts(counts)`` a masked mean divides the rank's masked sum by
+the batch's global count of real rows, so the ranks' terms add up to the
+whole batch's mean (their gradients are summed over the axis). A mean of the
+ranks' own means would weigh a rank's rows by its count, wrong on a ragged
+last batch (SURVEY.md Q7). A statistic that every row's loss depends on (a
+BatchNorm's batch mean and variance) sums its rows with ``row_sum``, which
+inside the context adds the other ranks' sums too (``row_reduce``, an
+all_reduce whose backward is one as well).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence, Union
 
 import torch
 
 HALF_LOG_2PI = 0.9189385332046727  # 0.5 * log(2*pi)
+
+# the batch's global count of real rows per fold [F] and the sum over the
+# 'data' axis, inside global_row_counts; None: the mask's own count, this
+# rank's rows only
+_ROW_COUNTS: Optional[torch.Tensor] = None
+_ROW_REDUCE = None
+
+
+@contextlib.contextmanager
+def global_row_counts(counts: Optional[torch.Tensor], row_reduce=None):
+    """Masked means divide by ``counts`` [F] (a data-sharded batch's global
+    row counts) instead of the local mask's, and ``row_sum`` adds
+    ``row_reduce`` of its sums; None changes nothing."""
+    global _ROW_COUNTS, _ROW_REDUCE
+    outer = _ROW_COUNTS, _ROW_REDUCE
+    _ROW_COUNTS, _ROW_REDUCE = counts, row_reduce
+    try:
+        yield
+    finally:
+        _ROW_COUNTS, _ROW_REDUCE = outer
+
+
+def row_sum(values: torch.Tensor) -> torch.Tensor:
+    """Sum over the row axis (-2) of values [F, B, W]: the batch's whole
+    sum on a data-sharded rank (``global_row_counts``)."""
+    total = torch.sum(values, dim=-2)
+    return total if _ROW_REDUCE is None else _ROW_REDUCE(total)
+
+
+def row_count(mask: torch.Tensor) -> torch.Tensor:
+    """Real rows per fold [F]: the mask's, or the global counts."""
+    if _ROW_COUNTS is None:
+        return torch.sum(mask, dim=-1)
+    return _ROW_COUNTS.to(mask.dtype)
 
 
 def _masked_mean(per_row: torch.Tensor,
@@ -22,7 +67,7 @@ def _masked_mean(per_row: torch.Tensor,
         return torch.mean(per_row, dim=-1)
     mask = mask.to(per_row.dtype)
     return (torch.sum(per_row * mask, dim=-1)
-            / torch.clamp(torch.sum(mask, dim=-1), min=1.0))
+            / torch.clamp(row_count(mask), min=1.0))
 
 
 def kl_standard_normal(mu: torch.Tensor, logvar: torch.Tensor,
@@ -68,8 +113,7 @@ def _masked_element_mean(values: torch.Tensor,
         return torch.mean(values, dim=(-2, -1))
     mask = mask.to(values.dtype)
     return (torch.sum(values * mask.unsqueeze(-1), dim=(-2, -1))
-            / torch.clamp(torch.sum(mask, dim=-1) * values.shape[-1],
-                          min=1.0))
+            / torch.clamp(row_count(mask) * values.shape[-1], min=1.0))
 
 
 def neg_mse(x: torch.Tensor, recon_mean: torch.Tensor,

@@ -194,8 +194,16 @@ def run_chunked(state_dir, total_epochs: int, checkpoint_every: int,
                 "(e.g. --no_fused_heads / --precision) or delete the state "
                 "to restart fresh.")
         session.restore(*load_train_state(state_dir))
+    if session.layout is not None:
+        # a rank of a mesh: every rank has looked for (and read) the stored
+        # state before rank 0 writes the next one
+        session.layout.mesh.barrier()
     while session.epoch < total_epochs:
         session.advance(min(checkpoint_every, total_epochs - session.epoch))
-        save_train_state(state_dir, session.state(), session.epoch,
-                         session.logs(), meta=meta)
+        # on a mesh both gather over the ranks, and only rank 0 gets the
+        # state to write
+        tensors, logs = session.state(), session.logs()
+        if tensors is not None:
+            save_train_state(state_dir, tensors, session.epoch, logs,
+                             meta=meta)
     return session

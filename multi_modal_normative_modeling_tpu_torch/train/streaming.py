@@ -38,10 +38,13 @@ mask stay resident: they are a few bytes a row.
 On the CPU the shards are plain tensors, copied as they are needed: there
 is no side stream to use, and the run is the same run.
 
-Not ported: ``compile()`` (a TPU compile-cache warm-up) and the ``mesh=``
-composition (ROADMAP.md, queue 1 item 'Multi-device'). The JAX trainer
-trains one fold at a time; this one streams the fold-stacked batches and
-trains every fold at once, so a shard is [NB_s, F, B, ...].
+With ``mesh`` (a ('fold', 'data') mesh whose 'fold' axis is 1, JAX
+train/streaming.py:101-148) each rank streams its rows of every shard and
+the gradients are summed over 'data', as ``MultiFoldTrainer`` does on a
+mesh: the meshed streamed run is the resident meshed run, bit for bit,
+whatever S. Not ported: ``compile()`` (a TPU compile-cache warm-up). The
+JAX trainer trains one fold at a time; this one streams the fold-stacked
+batches and trains every fold at once, so a shard is [NB_s, F, B, ...].
 """
 from __future__ import annotations
 
@@ -51,7 +54,7 @@ import numpy as np
 import torch
 
 from ..parallel.folds import MultiFoldTrainer
-from .trainer import TrainConfig, TrainSession
+from .trainer import TrainConfig, TrainSession, global_counts
 
 # a shard's device buffer starts at the offset (in elements) its first step
 # has in the resident layout, modulo this many bytes
@@ -112,6 +115,7 @@ class StreamedBatches:
             self.valid_host.astype(np.float32)).to(device)
         self.mask = self._step_major(batches["mask"]).to(device, dtype)
         self.n_batches, self.folds, self.rows = self.mask.shape
+        self.counts, self.row_slice = global_counts(batches, device)
         self.shards = min(shards, self.n_batches)
         self.bounds = shard_bounds(self.n_batches, self.shards)
         self._shard_of = np.repeat(np.arange(self.shards),
@@ -182,6 +186,8 @@ class StreamedBatches:
                  "mask": self.mask[t]}
         if self._extras:
             batch["extras"] = {k: dev[f"e:{k}"][i] for k in self._extras}
+        if self.counts is not None:
+            batch["counts"] = self.counts[t]
         return batch
 
     def _enter(self, s: int) -> None:
@@ -253,7 +259,7 @@ class StreamingFoldTrainer(MultiFoldTrainer):
 
     def __init__(self, model, config: TrainConfig, n_samples: int,
                  shards: int = 4, loss_fn=None, state_update=None,
-                 inflight: int = 2):
+                 inflight: int = 2, mesh=None):
         if config.shuffle:
             raise ValueError(
                 "StreamingFoldTrainer requires shuffle=False: the per-epoch "
@@ -263,8 +269,20 @@ class StreamingFoldTrainer(MultiFoldTrainer):
             raise ValueError(f"shards must be >= 1, got {shards}")
         if inflight < 1:
             raise ValueError(f"inflight must be >= 1, got {inflight}")
+        if mesh is not None:
+            bad = [n for n in mesh.axis_names
+                   if n != "data" and mesh.axis(n) != 1]
+            if bad:
+                raise ValueError(
+                    f"streaming composes only with a mesh whose axes other "
+                    f"than 'data' are 1; {bad[0]!r} has size "
+                    f"{mesh.axis(bad[0])}")
+            if config.batch_size % mesh.axis("data"):
+                raise ValueError(
+                    f"batch_size {config.batch_size} not divisible over the "
+                    f"{mesh.axis('data')}-way 'data' mesh axis")
         super().__init__(model, config, n_samples, loss_fn=loss_fn,
-                         state_update=state_update)
+                         state_update=state_update, mesh=mesh)
         self.shards = shards
         self.inflight = inflight
 
@@ -277,7 +295,7 @@ class StreamingFoldTrainer(MultiFoldTrainer):
     def session(self, stacked_batches, **draws) -> TrainSession:
         batches = stacked_batches
         if not isinstance(batches, StreamedBatches):
-            batches = self.streamed(stacked_batches)
+            batches = self.streamed(self.local_batches(stacked_batches))
         session = super().session(batches, **draws)
         chunk = session.chunk
 

@@ -40,6 +40,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..ops.losses import global_row_counts
 from .schedules import cyclic_triangular
 
 LossFn = Callable[[dict, torch.Tensor], Tuple[torch.Tensor, dict]]
@@ -254,9 +255,14 @@ class MaskedAdam:
         """One update from ``grads`` (None: the parameter took no part in
         the loss, a zero gradient) for the folds where ``valid`` [F] is
         1.0; the other folds keep parameters, moments and count."""
-        self.step_flat(torch.cat([
+        self.step_flat(self.flatten(grads), valid)
+
+    def flatten(self, grads: Sequence[Optional[torch.Tensor]]
+                ) -> torch.Tensor:
+        """``grads`` laid out as ``self.flat`` is (None: zeros)."""
+        return torch.cat([
             (torch.zeros_like(p) if gr is None else gr).reshape(-1)
-            for p, gr in zip(self.params, grads)]), valid)
+            for p, gr in zip(self.params, grads)])
 
     @torch.no_grad()
     def step_flat(self, g: torch.Tensor, valid: torch.Tensor) -> None:
@@ -291,13 +297,19 @@ class FoldNoise:
     dropout, and each epoch's permutation when the trainer shuffles. A fold
     draws noise and keep masks only on a step where its batch is valid, so
     padding batches leave its stream where it was. Tests replay the JAX
-    package's draws instead (``ReplayNoise``)."""
+    package's draws instead (``ReplayNoise``).
+
+    Under a 'data' mesh axis a rank holds rows ``rows`` = (r0, r1) of each
+    batch: it draws the whole batch's noise and masks, as the unmeshed run
+    does, and keeps its rows, so the draws are the unmeshed run's."""
 
     def __init__(self, folds: int, shape: Tuple[int, int], seed: int,
                  device, keep_widths: Sequence[int] = (),
                  keep_prob: float = 1.0,
-                 seeds: Optional[Sequence[int]] = None):
+                 seeds: Optional[Sequence[int]] = None,
+                 rows: Optional[Tuple[int, int]] = None):
         self.shape = shape
+        self.rows = rows
         self.device = device
         self.keep_widths = tuple(keep_widths)
         self.keep_prob = keep_prob
@@ -312,9 +324,19 @@ class FoldNoise:
         """Noise [F, B, Z] for a step whose per-fold validity is ``valid``
         (host booleans, so drawing needs no device sync)."""
         return torch.stack([
-            torch.randn(self.shape, generator=gen, device=self.device) if ok
-            else torch.zeros(self.shape, device=self.device)
+            self._mine(torch.randn(self.shape, generator=gen,
+                                   device=self.device)) if ok
+            else torch.zeros(self._local(self.shape), device=self.device)
             for gen, ok in zip(self.gens, valid)])
+
+    def _local(self, shape: Tuple[int, ...]) -> Tuple[int, ...]:
+        if self.rows is None:
+            return tuple(shape)
+        return (self.rows[1] - self.rows[0],) + tuple(shape[1:])
+
+    def _mine(self, draw: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a whole batch's draw."""
+        return draw if self.rows is None else draw[self.rows[0]:self.rows[1]]
 
     def step(self, t: int, valid: np.ndarray):
         """(noise [F, B, Z], keep masks: one bool [F, B, width] per
@@ -322,13 +344,15 @@ class FoldNoise:
         then its masks."""
         eps = self.draw(valid)
         rows = self.shape[0]
-        keeps = [torch.zeros((len(self.gens), rows, w), dtype=torch.bool,
-                             device=self.device) for w in self.keep_widths]
+        keeps = [torch.zeros((len(self.gens),) + self._local((rows, w)),
+                             dtype=torch.bool, device=self.device)
+                 for w in self.keep_widths]
         for f, (gen, ok) in enumerate(zip(self.gens, valid)):
             if ok:
                 for keep, w in zip(keeps, self.keep_widths):
-                    keep[f] = torch.rand((rows, w), generator=gen,
-                                         device=self.device) < self.keep_prob
+                    keep[f] = self._mine(torch.rand(
+                        (rows, w), generator=gen,
+                        device=self.device) < self.keep_prob)
         return eps, keeps
 
     def permutation(self, epoch: int, fold_rows: Sequence[int],
@@ -399,17 +423,32 @@ def fold_noise(model, config: TrainConfig, batches, device,
     layouts see the same draws."""
     if eps is not None:
         return ReplayNoise(eps, device, keeps, perms, dtype)
+    row_slice = getattr(batches, "row_slice", None)
+    rows, mine = batches.rows, None
+    if row_slice is not None:
+        rows, mine = row_slice[2], tuple(row_slice[:2])
     return FoldNoise(
-        batches.folds, (batches.rows, model.noise_dim), config.seed, device,
+        batches.folds, (rows, model.noise_dim), config.seed, device,
         getattr(model, "keep_widths", ()),
-        1.0 - getattr(model, "dropout_rate", 0.0), seeds)
+        1.0 - getattr(model, "dropout_rate", 0.0), seeds, mine)
+
+
+def global_counts(batches: dict, device):
+    """A data-sharded run's (parallel.mesh.shard_batches) global row counts
+    [NB, F] on ``device`` and its row slice (r0, r1, B), or (None, None)."""
+    if "counts" not in batches:
+        return None, None
+    counts = torch.from_numpy(np.ascontiguousarray(
+        np.asarray(batches["counts"], np.float32).T)).to(device)
+    return counts, tuple(batches["row_slice"])
 
 
 class DeviceBatches:
     """Stacked batches ([F, NB, B, ...] numpy, as parallel.folds.
     stack_fold_batches builds them) uploaded once, step-major, so each
     step's slice is a contiguous [F, B, ...] tensor of ``dtype`` (the
-    model's)."""
+    model's). A rank's part of a data-sharded run's batches also carries
+    each step's global row ``counts`` and its ``row_slice``."""
 
     def __init__(self, batches: dict, device, dtype=torch.float32):
         def up(a):
@@ -425,6 +464,7 @@ class DeviceBatches:
         self.valid = torch.from_numpy(
             self.valid_host.astype(np.float32)).to(device)
         self.n_batches, self.folds, self.rows = self.mask.shape
+        self.counts, self.row_slice = global_counts(batches, device)
 
     def fold_rows(self) -> List[int]:
         """Each fold's own grid, nb_f * B rows: its valid batches come
@@ -463,6 +503,8 @@ class DeviceBatches:
                  "mask": self.mask[t]}
         if self.extras:
             batch["extras"] = {k: v[t] for k, v in self.extras.items()}
+        if self.counts is not None:
+            batch["counts"] = self.counts[t]
         return batch
 
 
@@ -473,7 +515,11 @@ def run_epochs(loss_fn: LossFn, params: List[torch.nn.Parameter],
                adam: MaskedAdam, batches: DeviceBatches, epochs: int,
                log_keys: Sequence[str], noise, shuffle: bool = False,
                state_update: Optional[StateUpdate] = None,
-               first_epoch: int = 0) -> torch.Tensor:
+               first_epoch: int = 0,
+               data_sum: Optional[Callable[[torch.Tensor], torch.Tensor]]
+               = None,
+               row_reduce: Optional[Callable[[torch.Tensor], torch.Tensor]]
+               = None) -> torch.Tensor:
     """The epoch loop: every batch of every epoch is one step for all folds.
     It runs epochs ``first_epoch`` to ``first_epoch + epochs - 1`` of the
     run: the global step ``t`` and the epoch index the noise is asked for
@@ -491,7 +537,14 @@ def run_epochs(loss_fn: LossFn, params: List[torch.nn.Parameter],
 
     A fold whose step is not valid may hand back a NaN loss and gradient
     (mvtCAE's log-sum-exp over an all-padding batch): nothing here scales by
-    ``valid``, the optimizer selects, so such a step leaves no trace."""
+    ``valid``, the optimizer selects, so such a step leaves no trace.
+
+    On a rank of a 'data' mesh axis the batches hold the rank's rows and
+    each step's global row ``counts``: the masked means divide by those
+    (``ops.losses.global_row_counts``), a batch statistic sums its rows
+    over the axis through ``row_reduce`` (differentiable), and ``data_sum``
+    sums a tensor in place over the axis, the flat gradient of every step
+    and the logged terms, so every rank takes the unmeshed run's step."""
     logs = torch.empty((epochs, len(log_keys), batches.folds),
                        device=batches.mask.device)
     fold_rows = batches.fold_rows() if shuffle else None
@@ -507,13 +560,20 @@ def run_epochs(loss_fn: LossFn, params: List[torch.nn.Parameter],
             noise_t, keeps = noise.step(t, batches.valid_host[step])
             if keeps:
                 batch["keep"] = keeps
-            total, aux = loss_fn(batch, noise_t)
-            grads = torch.autograd.grad(total.sum(), params,
-                                        allow_unused=True)
+            with global_row_counts(batch.get("counts"), row_reduce):
+                total, aux = loss_fn(batch, noise_t)
+                grads = torch.autograd.grad(total.sum(), params,
+                                            allow_unused=True)
             if step == 0:
                 logs[epoch] = torch.stack([aux[k].detach()
                                            for k in log_keys])
-            adam.step(grads, batches.valid[step])
+                if data_sum is not None:
+                    data_sum(logs[epoch])
+            if data_sum is None:
+                adam.step(grads, batches.valid[step])
+            else:
+                adam.step_flat(data_sum(adam.flatten(grads)),
+                               batches.valid[step])
             if state_update is not None:
                 state_update(aux, batches.valid[step])
             t += 1
@@ -543,6 +603,10 @@ class TrainSession:
         self.log_keys = tuple(log_keys)
         self.buffers = dict(buffers or {})
         self.params = params   # {name: view of adam.flat}, when kept
+        # a rank's part of a run on a mesh (parallel.folds.MeshRun): the
+        # logs and the train state are gathered into, and restored from,
+        # the unmeshed run's layout
+        self.layout = None
         self.epoch = 0
         self.start_epoch = 0   # where this process took the run up
         folds = adam.count.shape[0]
@@ -560,27 +624,38 @@ class TrainSession:
         self.epoch += epochs
 
     def logs(self) -> dict:
-        """{key: [F, epochs so far]} numpy."""
-        return {k: v.copy() for k, v in self._logs.items()}
+        """{key: [F, epochs so far]} numpy (on a mesh, every fold's, on
+        every rank)."""
+        logs = {k: v.copy() for k, v in self._logs.items()}
+        return logs if self.layout is None else self.layout.gather_logs(logs)
 
-    def state(self) -> dict:
-        """The tensors of a train state (numpy)."""
+    def state(self) -> Optional[dict]:
+        """The tensors of a train state (numpy). On a mesh they are
+        gathered into the unmeshed run's layout on rank 0; the other ranks
+        get None."""
         adam = self.adam
 
         def host(t):
             return t.detach().cpu().numpy()
 
-        return {"adam": {"flat": host(adam.flat), "m": host(adam.m),
-                         "v": host(adam.v), "count": host(adam.count)},
-                "noise": self.noise.state(),
-                "buffers": {k: host(v) for k, v in self.buffers.items()}}
+        state = {"adam": {"flat": host(adam.flat), "m": host(adam.m),
+                          "v": host(adam.v), "count": host(adam.count)},
+                 "noise": self.noise.state(),
+                 "buffers": {k: host(v) for k, v in self.buffers.items()}}
+        return state if self.layout is None else self.layout.gather_state(
+            state)
 
     @torch.no_grad()
     def restore(self, tensors: dict, epoch: int, logs: Optional[dict]
                 ) -> None:
         """Continue from a stored state. Every tensor is copied into the
-        one it replaces: the parameters are views of ``adam.flat``."""
+        one it replaces: the parameters are views of ``adam.flat``. On a
+        mesh each rank takes its part of the stored (unmeshed) state."""
         adam = self.adam
+        if self.layout is not None:
+            tensors = self.layout.local_state(tensors)
+            if logs:
+                logs = self.layout.local_logs(logs)
 
         def put(dst: torch.Tensor, src, what: str) -> None:
             src = np.asarray(src)

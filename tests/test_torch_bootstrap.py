@@ -326,8 +326,10 @@ def test_fold_seeds_give_each_replicate_its_stream():
 
 def test_mesh_and_missing_cuda_exit_before_any_file(tmp_path, monkeypatch):
     make_synthetic_resource(tmp_path, "ADNI", n_hc=20, n_disease={0: 8})
-    with pytest.raises(SystemExit, match="ROADMAP.md, queue 1 item "
-                                         "'Multi-device'"):
+    # --mesh is ported: 4 slots in a world of one rank are refused with
+    # the JAX message (tests/test_torch_mesh_cli.py runs it on two ranks)
+    with pytest.raises(SystemExit, match="4 mesh slots != 1 visible "
+                                         "devices"):
         bootstrap.main(_port_args("all", ["--mesh", "2,2"]),
                        project_root=tmp_path)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -1178,3 +1178,38 @@ def test_doctor_exits_0_on_the_card(cuda, capsys):
     assert all(r["status"] == "OK" for r in results), results
     build = [r["detail"] for r in results if r["section"] == "kernel-build"]
     assert "sm_90a" in build[0] and "release" in build[0]
+
+
+@pytest.mark.parametrize("part", ["rows", "folds"])
+def test_kernels_on_a_ranks_shard_match_plain(cuda, part):
+    """K1 and K2 on what one rank of a --mesh test stage holds: a row slice
+    ('data') or a fold slice ('fold') of a stacked [F, R, D] batch, made
+    contiguous, against the plain version on the same slice."""
+    dims, folds, rows = [90, 270], 4, 128
+    rng = np.random.default_rng(15)
+    xes = [_rows(rng, folds, rows, d).to(cuda) for d in dims]
+    c = _rows(rng, folds, rows, 29).to(cuda)
+    eps = _rows(rng, folds, rows, 10).to(cuda)
+    f, r = ((slice(0, folds), slice(rows // 2, rows)) if part == "rows"
+            else (slice(folds // 2, folds), slice(0, rows)))
+
+    def cut(t):
+        return t[f, r].contiguous()
+
+    model = build_model("cVAE_multimodal", dims, [110, 110], 10, 29, 2,
+                        folds=f.stop - f.start,
+                        generator=torch.Generator().manual_seed(2),
+                        device=cuda)
+    shard = [cut(x) for x in xes]
+    kernels.reset_launch_counts()
+    recons, devs = model.pred_recon_fused(shard, [cut(c)] * 2, "gpoe",
+                                          eps=cut(eps))
+    assert kernels.fused_encoder.launches == 2
+    assert kernels.fused_pred_deviation.launches == 2
+    with torch.no_grad():
+        ref = model.pred_recon(shard, [cut(c)] * 2, "gpoe", eps=cut(eps))
+    for m in range(2):
+        torch.testing.assert_close(recons[m], ref[m], rtol=2e-4, atol=2e-5)
+        torch.testing.assert_close(
+            devs[m], model.reconstruction_deviation(shard[m], ref[m]),
+            rtol=2e-4, atol=2e-5)

@@ -439,9 +439,14 @@ def test_pipeline_refuses_unported_flags_before_any_stage(flag, tmp_path,
         assert len(list((tmp_path / "x").glob("*.pt.trace.json"))) == 1
         return
     match = r"ROADMAP\.md, .*'[A-Za-z]"
+    stages = "analyze"
     if flag == "--resume":
         match = "--resume requires --checkpoint_every N"
+    if flag == "--mesh=2,4":
+        # ported (tests/test_torch_mesh_cli.py): the train stage refuses a
+        # mesh without --fold_parallel with the JAX message, before any file
+        match, stages = "--mesh requires --fold_parallel", "train"
     with pytest.raises(SystemExit, match=match):
-        pipeline.run(FLAGS + ["--stages", "analyze", "--device", "cpu", flag],
+        pipeline.run(FLAGS + ["--stages", stages, "--device", "cpu", flag],
                      project_root=tmp_path)
     assert not list(tmp_path.iterdir())

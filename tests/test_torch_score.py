@@ -177,9 +177,14 @@ def test_latent_stats_fused_matches_latent_stats(project):
     ("no card", SystemExit, "no CUDA device"),
     ("no checkpoint", FileNotFoundError, "train first")])
 def test_score_refusals(project, monkeypatch, case, error, match):
-    extra = {"mesh": {"mesh": "2,1"},
+    extra = {"mesh": {"mesh": "2,1", "device": "cpu"},
              "no card": {"device": "cuda"},
              "no checkpoint": {"fold": 5, "device": "cpu"}}[case]
+    if case == "mesh":
+        # the queue item is ported: 2 slots in a world of one rank are
+        # refused with the JAX message (tests/test_torch_mesh_cli.py scores
+        # on a mesh of two ranks)
+        match = "2 mesh slots != 1 visible devices"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(error, match=match):
         score.score(_args(project, "refused", **extra), project_root=project)
