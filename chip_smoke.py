@@ -4309,6 +4309,8 @@ def mesh_child(plan_path, out_dir):
                 extra = timings
         elif job["kind"] == "stream":
             extra = mesh_stream_job()
+        elif job["kind"] in ("sweep", "e2e", "serve"):
+            extra = ep_child_job(job)
         else:
             extra = mesh_collective_job()
         torch.cuda.synchronize()
@@ -4516,23 +4518,24 @@ def run_mesh(stats):
             {"name": "17d stream 1,2", "kind": "stream"},
             {"name": "gloo all_reduce", "kind": "collective"},
         ]
-        ranks = run_ranks(plan, tmp)
+        # phase 18's jobs ride the same torchrun: no second rank start
+        ep_plan, ep_ref = ep_prepare(tmp, roots)
+        t.append(time.perf_counter())
+        ranks = run_ranks(plan + ep_plan, tmp)
         t.append(time.perf_counter())
 
-        # 17a: the data and tensor axes' checkpoints against the unmeshed
-        # run's at the JAX bound; the fold axis's bit for bit against the
-        # same folds trained unmeshed, 5 a model (its distance from the
-        # 10-fold run is that of cuBLAS's batched products at F=5 against
-        # F=10, which no mesh adds; reported)
+        # 17a: every axis's checkpoints against the unmeshed run's at the
+        # JAX bound, and the fold axis's bit for bit against the same folds
+        # trained unmeshed, 5 a model (a fold's products no longer depend
+        # on how many folds are stacked: ops/linear.fold_expand)
         diffs = {}
-        for name in ("adni_1,2", "adni_1,1,2"):
+        for name, ref in (("adni_1,2", "adni"), ("adni_1,1,2", "adni"),
+                          ("adhd_2,1", "adhd")):
             diffs[name] = hold_checkpoints(f"17a {name}", roots[name],
-                                           roots["adni"], MESH_TRAIN_TOL,
+                                           roots[ref], MESH_TRAIN_TOL,
                                            phase="phase 17a")
         diffs["adhd_2,1 from 2 x 5 unmeshed folds"] = hold_fold_halves(
             roots["adhd"], roots["adhd_2,1"])
-        diffs["adhd_2,1 from the 10-fold run"] = checkpoint_distance(
-            roots["adhd_2,1"], roots["adhd"])
         # 17b: the meshed test stages' CSVs, and each rank's launches: K1
         # and K2 once per modality on its shard
         csvs = {"adni_1,2": hold_csvs("17b test 1,2", tmp / "adni_test",
@@ -4568,6 +4571,8 @@ def run_mesh(stats):
                 raise RuntimeError(f"phase 17c: {b} differs from {a}")
         adhd = json.loads((roots["adhd"] / PACKED_MODEL_DIR / "000"
                            / "cVAE_model.json").read_text())
+        t.append(time.perf_counter())
+        launches.update(ep_check(ranks, ep_ref, stats))
     t.append(time.perf_counter())
     # K1 and K2 at each rank's shapes: 5 folds x 64 rows of ADNI's widths
     # (1,2: half of the 128 padded rows) and of ADHD's (2,1: 5 of 10 folds)
@@ -4580,13 +4585,13 @@ def run_mesh(stats):
     backend = ranks[0]["backend"]
     jobs = {job: [round(r[job]["wall_s"], 3) for r in ranks]
             for job in ranks[0] if isinstance(ranks[0][job], dict)
-            and "wall_s" in ranks[0][job]}
+            and "wall_s" in ranks[0][job] and job.startswith("17")}
     print(f"phase 17: {MESH_RANKS} ranks of one torchrun on cuda:"
           f"{ranks[0]['device']}, backend {backend}; rank walls (s) {jobs}; "
           f"unmeshed walls in this process {walls}", flush=True)
     print(f"phase 17a: -E {MESH_EPOCHS} -H 110 110 10: max abs diff from "
-          f"the unmeshed checkpoints {diffs} (the data and tensor axes held "
-          f"at {MESH_TRAIN_TOL}, the fold axis bit for bit to the same "
+          f"the unmeshed checkpoints {diffs} (every axis held at "
+          f"{MESH_TRAIN_TOL}, the fold axis also bit for bit to the same "
           f"folds trained unmeshed)", flush=True)
     print(f"phase 17b/17c: test stage CSVs (files, max abs diff) {csvs}; "
           f"score CLI --mesh 1,2 equal to the unmeshed scores at "
@@ -4608,9 +4613,358 @@ def run_mesh(stats):
                      "stream": ranks[0]["17d stream 1,2"],
                      "phase_walls_s": {
                          "unmeshed runs": t[1] - t[0],
-                         "torchrun": t[2] - t[1], "checks": t[3] - t[2],
-                         "kernel shapes": t[4] - t[3]}}
+                         "phase 18 references": t[2] - t[1],
+                         "torchrun (phases 17 and 18)": t[3] - t[2],
+                         "checks": t[4] - t[3],
+                         "phase 18 checks": t[5] - t[4],
+                         "kernel shapes": t[6] - t[5]}}
     print(json.dumps({"mesh": stats["mesh"]}), flush=True)
+    return launches
+
+
+# ---- phase 18: expert parallelism, the grids, serving and the doctor on a
+# mesh; its rank jobs ride phase 17's one torchrun (run_mesh) ------------
+
+# 18a/18b on phase 17's ADHD (2 x 116, one modality a rank) and ADNI
+# (UCA-gPoE, 3 x 90 + 270: the width groups stay whole on a 2-way modality
+# axis) cohorts, against the unmeshed --packed_xla runs (the layout
+# --ep_mesh trains) at MESH_TRAIN_TOL and their test stages at MESH_CSV_TOL
+EP_TRAIN = {"adhd_ep21": ("adhd", "2,1"), "adhd_ep121": ("adhd", "1,2,1"),
+            "adni_ep121": ("adni", "1,2,1")}
+# 18c: two epoch milestones of one ADHD grid point, and two margins of the
+# end-to-end grid (its 'config' axis over the ranks)
+EP_SWEEP = ["-R", "ADHD", "-K", str(ADHD_FOLDS), "--procedures", "SE-gPoE",
+            "--hz_grid", "110 110 10", "--epochs_list", "5",
+            str(MESH_EPOCHS), "--device", "cuda"]
+EP_E2E = ["-R", "ADNI", "-P", "SE-MoE", "-K", str(FOLDS), "-H", "110", "110",
+          "10", "-Layers", "128", "64", "32", "-Margins", "0.5", "1",
+          "-Weightcontrastives", "0.1", "-E", str(MESH_EPOCHS)]
+# 18d: requests of 1 and 64 subjects to the service on phase 17's ADNI
+# project, unmeshed in this process and on the ranks
+EP_REQUESTS, EP_SIZES = 20, (1, 64)
+EP_SERVE = {"18d serve mesh 1,2": ("mesh", "1,2"),
+            "18d serve ep 1,2,1": ("ep_mesh", "1,2,1")}
+
+
+def ep_prepare(tmp, roots):
+    """Phase 18's projects and the unmeshed references, in this process:
+    the packed-trained ADHD and ADNI projects and their test stages, the
+    two grids, and the unmeshed service's answers and client p50s. Returns
+    (the rank jobs, the references)."""
+    import shutil
+
+    from multi_modal_normative_modeling_tpu_torch.cli import (
+        sweep_endtoend,
+        sweep_supervised,
+        test_supervised,
+        train_supervised,
+    )
+    from multi_modal_normative_modeling_tpu_torch.data.synthetic import (
+        make_synthetic_resource,
+    )
+
+    flags = {"adhd": MESH_ADHD, "adni": MESH_ADNI}
+    cohorts = {"adhd": "adhd_cohort", "adni": "adni_cohort"}
+    t0 = time.perf_counter()
+    ref = {"roots": {}}
+
+    def project(name, cohort):
+        shutil.copytree(tmp / cohort / "data", tmp / name / "data")
+        ref["roots"][name] = str(tmp / name)
+        return tmp / name
+
+    for name in ("adhd", "adni"):
+        packed = project(f"{name}_packed", cohorts[name])
+        train_supervised.run(flags[name] + MESH_TRAIN + ["--packed_xla"],
+                             project_root=packed)
+        shutil.copytree(packed, tmp / f"{name}_ep_test")
+        ref["roots"][f"{name}_ep_test"] = str(tmp / f"{name}_ep_test")
+        test_supervised.run(flags[name], project_root=packed)
+    for name, (cohort, _) in EP_TRAIN.items():
+        project(name, cohorts[cohort])
+    for name in ("adhd_ep_straight", "adhd_ep_resumed"):
+        project(name, "adhd_cohort")
+    for name in ("sweep_plain", "sweep_mesh"):
+        project(name, "adhd_cohort")
+    make_synthetic_resource(tmp / "fi_cohort", "ADNI", with_fi=True,
+                            **CHAIN_COHORT)
+    for name in ("e2e_plain", "e2e_mesh"):
+        project(name, "fi_cohort")
+    t1 = time.perf_counter()
+    sweep_supervised.run(EP_SWEEP, project_root=tmp / "sweep_plain")
+    sweep_endtoend.run(EP_E2E, project_root=tmp / "e2e_plain")
+    t2 = time.perf_counter()
+    # the service writes its ids file into the project: a copy of phase
+    # 17's, whose files 17b compares
+    served = tmp / "adni_served"
+    shutil.copytree(roots["adni"], served)
+    ref["roots"]["adni_served"] = str(served)
+    ref["serve"] = ep_serve_requests(served, None)
+    ref["walls_s"] = {"packed runs and test stages": t1 - t0,
+                      "grids": t2 - t1,
+                      "service": time.perf_counter() - t2}
+    half = str(MESH_EPOCHS // 2)
+    plan = [{"name": f"18a train ep {spec} {name}", "kind": "train",
+             "root": str(tmp / name),
+             "argv": flags[cohort] + MESH_TRAIN + ["--ep_mesh", spec]}
+            for name, (cohort, spec) in EP_TRAIN.items()]
+    plan += [
+        {"name": "18a train ep 2,1 straight", "kind": "train",
+         "root": str(tmp / "adhd_ep_straight"),
+         "argv": MESH_ADHD + MESH_TRAIN + ["--ep_mesh", "2,1",
+                                           "--checkpoint_every", half]},
+        {"name": "18a train ep 2,1 killed", "kind": "train",
+         "root": str(tmp / "adhd_ep_resumed"),
+         "argv": MESH_ADHD + MESH_TRAIN[:-1] + [half, "--ep_mesh", "2,1",
+                                                "--checkpoint_every", half]},
+        {"name": "18a train ep 2,1 resumed", "kind": "train",
+         "root": str(tmp / "adhd_ep_resumed"),
+         "argv": MESH_ADHD + MESH_TRAIN + ["--ep_mesh", "2,1",
+                                           "--checkpoint_every", half,
+                                           "--resume"]}]
+    plan += [{"name": f"18b test ep 1,2,1 {name}", "kind": "test",
+              "root": str(tmp / f"{name}_ep_test"),
+              "argv": flags[name] + ["--ep_mesh", "1,2,1"]}
+             for name in ("adhd", "adni")]
+    plan += [{"name": "18c sweep mesh 2,1", "kind": "sweep",
+              "root": str(tmp / "sweep_mesh"),
+              "argv": EP_SWEEP + ["--mesh", "2,1"]},
+             {"name": "18c sweep_endtoend mesh 2,1", "kind": "e2e",
+              "root": str(tmp / "e2e_mesh"),
+              "argv": EP_E2E + ["--mesh", "2,1"]}]
+    plan += [{"name": name, "kind": "serve", "root": str(served),
+              "mesh": kind, "spec": spec}
+             for name, (kind, spec) in EP_SERVE.items()]
+    return plan, ref
+
+
+def ep_serve_requests(root, mesh_kind, spec=None):
+    """The service on the trained ADNI project at ``root`` (unmeshed, or
+    --mesh / --ep_mesh ``spec`` on the ranks, rank 0 answering HTTP on
+    127.0.0.1:0 in a thread): EP_REQUESTS requests of each of EP_SIZES ids
+    and one with ROI, their answers, the client ms of each size and
+    /healthz. The other ranks loop in serve_worker until rank 0 sends
+    shutdown; they return None."""
+    import threading
+
+    import pandas as pd
+
+    from multi_modal_normative_modeling_tpu_torch.cli import common, serve
+
+    kwargs = {}
+    if mesh_kind == "mesh":
+        kwargs["mesh"] = common.parse_infer_mesh(spec, "cuda")
+    elif mesh_kind == "ep_mesh":
+        kwargs["ep_mesh"] = common.parse_ep_mesh(spec, (3,), "F,M,D",
+                                                 "cuda")[0]
+    service = serve.ScoringService("ADNI", "UCA-gPoE", n_splits=FOLDS,
+                                   project_root=root, device="cuda",
+                                   **kwargs)
+    run_mesh = kwargs.get("mesh") or kwargs.get("ep_mesh")
+    if run_mesh is not None and not run_mesh.primary:
+        service.serve_worker()
+        return None
+    server = serve.make_server(service, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    address = server.server_address[:2]
+    ids = pd.read_csv(Path(root) / "data" / "ADNI" / "y.csv")["IID"]
+    ids = ids.tolist()
+    out = {"ms": {}, "answers": {}}
+    try:
+        for size in EP_SIZES:
+            payload = {"ids": ids[:size]}
+            http_call(address, "POST", "/score", payload)   # warm
+            ms = []
+            for _ in range(EP_REQUESTS):
+                status, body, t = http_call(address, "POST", "/score",
+                                            payload)
+                if status != 200:
+                    raise RuntimeError(f"phase 18d: {status} {body}")
+                ms.append(t)
+            out["ms"][size] = ms
+            out["answers"][size] = body
+        status, body, _ = http_call(address, "POST", "/score",
+                                    {"ids": ids[:64], "roi": True})
+        out["answers"]["roi"] = body
+        out["health"] = http_call(address, "GET", "/healthz")[1]
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.shutdown_workers()
+    return out
+
+
+def ep_child_job(job):
+    """A phase 18 job that is not a train or test CLI run, on one rank."""
+    from multi_modal_normative_modeling_tpu_torch.cli import (
+        common,
+        sweep_endtoend,
+        sweep_supervised,
+    )
+
+    if job["kind"] == "serve":
+        return {"serve": ep_serve_requests(job["root"], job["mesh"],
+                                           job["spec"])}
+    if job["kind"] == "sweep":
+        args = sweep_supervised.build_parser().parse_args(job["argv"])
+        sweep_supervised.main(args, project_root=job["root"])
+    else:
+        args = sweep_endtoend.build_parser().parse_args(job["argv"])
+        common.apply_post_parse_defaults(args, default_procedure="SE-MoE")
+        sweep_endtoend.main(args, project_root=job["root"])
+    return {}
+
+
+def train_ms_per_step(root):
+    """The train CLI's ms per step in ``root``: its run log's train_end
+    (the trainer's run, batches to the device to the logs' fetch)."""
+    events = [json.loads(line) for line in (
+        Path(root) / PACKED_MODEL_DIR / "run_log.jsonl").read_text()
+        .splitlines()]
+    end = [e for e in events if e["event"] == "train_end"][-1]
+    return 1e3 * end["run_s"] / end["steps"]
+
+
+def ep_check(ranks, ref, stats):
+    """Phase 18's checks on the ranks' records and files, the doctor's
+    preflights, and K1/K2 at a rank's shapes against fp64. Returns {run:
+    launches} of each rank's EP scoring."""
+    import pandas as pd
+
+    from multi_modal_normative_modeling_tpu_torch.cli import doctor
+
+    roots = {k: Path(v) for k, v in ref["roots"].items()}
+    t0 = time.perf_counter()
+    diffs = {}
+    for name, (cohort, spec) in EP_TRAIN.items():
+        diffs[name] = hold_checkpoints(f"18a --ep_mesh {spec} {name}",
+                                       roots[name], roots[f"{cohort}_packed"],
+                                       MESH_TRAIN_TOL, phase="phase 18a")
+    resumed = checkpoint_distance(roots["adhd_ep_resumed"],
+                                  roots["adhd_ep_straight"])
+    if resumed != 0.0:
+        raise RuntimeError(f"phase 18a: the resumed --ep_mesh 2,1 run is "
+                           f"{resumed:.3e} from the straight run")
+    diffs["2,1 straight from 2,1"] = checkpoint_distance(
+        roots["adhd_ep_straight"], roots["adhd_ep21"])
+    # ms per step of each run (the train CLI's run log: the trainer's run
+    # over its steps), rank 0's for the meshed ones
+    step_ms = {name: train_ms_per_step(roots[name])
+               for name in ("adhd_packed", "adhd_ep21", "adhd_ep121",
+                            "adni_packed", "adni_ep121")}
+    csvs = {name: hold_csvs(f"18b test --ep_mesh 1,2,1 {name}",
+                            roots[f"{name}_ep_test"], roots[f"{name}_packed"])
+            for name in ("adhd", "adni")}
+    # each rank scores the modalities it owns: ADHD one of 2, ADNI two of
+    # 4 (its block of the width-grouped order)
+    launches = {}
+    owned = {"adhd": 1, "adni": 2}
+    for name, m in owned.items():
+        job = f"18b test ep 1,2,1 {name}"
+        want = {"fused_encoder": m, "fused_pred_deviation": m}
+        for r, record in enumerate(ranks):
+            if record[job]["launches"] != want:
+                raise RuntimeError(f"phase 18b: rank {r} of {job} launched "
+                                   f"{record[job]['launches']}, expected "
+                                   f"{want}")
+            launches[f"{job} rank {r}"] = record[job]["launches"]
+    for name in EP_TRAIN:
+        job = f"18a train ep {EP_TRAIN[name][1]} {name}"
+        if any(record[job]["launches"] for record in ranks):
+            raise RuntimeError(f"phase 18a: {job} launched a kernel")
+    # 18c: the grids against the unmeshed ones
+    got = json.loads((Path(roots["sweep_mesh"]) / "outputs"
+                      / "sweep_supervised_results.json").read_text())
+    want = json.loads((Path(roots["sweep_plain"]) / "outputs"
+                       / "sweep_supervised_results.json").read_text())
+    if [r["epochs"] for r in got] != [r["epochs"] for r in want] or not all(
+            np.allclose(g["stats"]["auc"], w["stats"]["auc"],
+                        **MESH_CSV_TOL) for g, w in zip(got, want)):
+        raise RuntimeError(f"phase 18c: the meshed grid {got} differs from "
+                           f"{want}")
+    diffs["18c sweep mesh 2,1"] = hold_checkpoints(
+        "18c sweep --mesh 2,1", roots["sweep_mesh"], roots["sweep_plain"],
+        MESH_TRAIN_TOL, phase="phase 18c")
+    e2e = [(roots[name] / "results_endtoend.csv").read_text()
+           .replace("mesh='2,1'", "mesh=None")
+           for name in ("e2e_mesh", "e2e_plain")]
+    if e2e[0] != e2e[1]:
+        raise RuntimeError("phase 18c: sweep_endtoend --mesh 2,1 wrote "
+                           "other results than the unmeshed grid")
+    # 18d: the services' answers against the unmeshed one's
+    served = {}
+    for name, (kind, spec) in EP_SERVE.items():
+        got = ranks[0][name]["serve"]
+        worst = 0.0
+        for key, body in ref["serve"]["answers"].items():
+            mine = got["answers"][str(key)] if str(key) in got[
+                "answers"] else got["answers"][key]
+            for field in ("deviation", "roi"):
+                if field in body:
+                    a, b = np.asarray(mine[field]), np.asarray(body[field])
+                    if not np.allclose(a, b, **MESH_CSV_TOL):
+                        raise RuntimeError(f"phase 18d: {name} {key} "
+                                           f"{field} differs")
+                    worst = max(worst, float(np.abs(a - b).max()))
+        sizes = [int(s) for s in spec.split(",")]
+        axes = (["fold", "data"] if kind == "mesh"
+                else ["fold", "modality", "data"])
+        if got["health"]["mesh"] != dict(zip(axes, sizes)):
+            raise RuntimeError(f"phase 18d: /healthz mesh "
+                               f"{got['health']['mesh']}")
+        served[name] = {
+            "max_abs_diff": worst, "mesh": got["health"]["mesh"],
+            "ep_layout": got["health"]["ep_layout"],
+            "client_p50_ms": {size: float(np.percentile(ms, 50))
+                              for size, ms in got["ms"].items()}}
+        if kind == "ep_mesh":
+            # one K1 and one K2 per owned modality and request
+            n = 2 * (EP_REQUESTS + 1) + 1
+            for r, record in enumerate(ranks):
+                want = {"fused_encoder": 2 * n, "fused_pred_deviation": 2 * n}
+                if record[name]["launches"] != want:
+                    raise RuntimeError(f"phase 18d: rank {r} of {name} "
+                                       f"launched {record[name]['launches']}"
+                                       f", expected {want}")
+                launches[f"{name} rank {r}"] = record[name]["launches"]
+    served["unmeshed"] = {"client_p50_ms": {
+        size: float(np.percentile(ms, 50))
+        for size, ms in ref["serve"]["ms"].items()}}
+    # 18e: the doctor's preflights, each a child torchrun of CPU ranks
+    t1 = time.perf_counter()
+    results = []
+    doctor.check_mesh(results, "1,2", 300.0, FOLDS, 256)
+    doctor.check_ep_mesh(results, "2,1", 300.0, FOLDS, 256, 4)
+    if [r["status"] for r in results] != ["OK", "OK"]:
+        raise RuntimeError(f"phase 18e: the doctor's preflights {results}")
+    t2 = time.perf_counter()
+    # K1/K2 at a rank's shapes: ADHD's 10 folds x 64 rows at D 116, ADNI's
+    # 5 folds x STAGE_ROWS at D 90 and 270
+    adhd = json.loads((roots["adhd_packed"] / PACKED_MODEL_DIR / "000"
+                       / "cVAE_model.json").read_text())
+    hold_kernel_shapes("phase 18b", [
+        (ADHD_FOLDS, 64, adhd["input_dim_list"][0], adhd["c_dim"], HIDDEN,
+         LATENT)] + [(FOLDS, STAGE_ROWS, d, C_DIM, HIDDEN, LATENT)
+                     for d in (90, 270)], stats, "ep")
+    jobs = {job: [round(r[job]["wall_s"], 3) for r in ranks]
+            for job in ranks[0] if job.startswith("18")}
+    print(f"phase 18a: --ep_mesh training, max abs diff from the unmeshed "
+          f"packed checkpoints {diffs} (held at {MESH_TRAIN_TOL}); resumed "
+          f"2,1 byte-equal to the straight run; ms per step {step_ms}",
+          flush=True)
+    print(f"phase 18b: --ep_mesh 1,2,1 test stage CSVs (files, max abs "
+          f"diff) {csvs} at {MESH_CSV_TOL}; K1/K2 launches per rank "
+          f"{launches}", flush=True)
+    print(f"phase 18d: services {served}", flush=True)
+    print(f"phase 18e: doctor {[r['detail'] for r in results]} "
+          f"({t2 - t1:.1f} s)", flush=True)
+    print(f"phase 18: rank walls (s) {jobs}; unmeshed references "
+          f"{ref['walls_s']}; checks {t1 - t0:.1f} s", flush=True)
+    stats["ep"] = {"checkpoint_diffs": diffs, "csvs": csvs,
+                   "train_ms_per_step": step_ms,
+                   "services": served, "rank_walls_s": jobs,
+                   "unmeshed_walls_s": ref["walls_s"]}
     return launches
 
 
@@ -4972,7 +5326,8 @@ def main():
     # ---- phase 17: fold, data and tensor parallelism (torch.distributed) -
     t17 = time.perf_counter()
     mesh_launches = run_mesh(stats)
-    print(f"phase 17: {time.perf_counter() - t17:.1f} s", flush=True)
+    print(f"phase 17 and 18: {time.perf_counter() - t17:.1f} s", flush=True)
+    print(json.dumps({"ep": stats["ep"]}), flush=True)
     missing = [name for name in sources if not launches.get(name)]
     if missing:
         raise RuntimeError(f"no launch on the main path: {missing}")
@@ -5073,8 +5428,11 @@ def main():
         # and 2,1) and score CLI (1,2), and at each rank's shapes
         report[-1]["mesh_launches"] = {
             run: counts.get(name, 0) for run, counts in mesh_launches.items()}
-        if "mesh" in stats[name]:
-            report[-1]["mesh"] = stats[name]["mesh"]
+        # phase 18: K1 and K2 at an expert-parallel rank's shapes (its
+        # launches per owned modality are in mesh_launches, "18b"/"18d")
+        for slot in ("mesh", "ep"):
+            if slot in stats[name]:
+                report[-1][slot] = stats[name][slot]
     print(json.dumps({"classifier": classifier_runs,
                       "export": stats["export"], "report": report_summary}))
     print(json.dumps({"test_stage_walls": stage_walls,

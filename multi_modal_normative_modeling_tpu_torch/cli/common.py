@@ -33,7 +33,13 @@ import pandas as pd
 import torch
 
 from .. import registry
-from ..data.loading import fast_inner_merge, load_demographic_data
+from ..data.loading import (  # noqa: F401  (the CLIs' fold-id writers)
+    fast_inner_merge,
+    generate_kfold_ids,
+    generate_kfold_ids_endtoend,
+    kfold_split,
+    load_demographic_data,
+)
 from ..data.preprocess import fit_robust_scaler, one_hot_covariates
 
 
@@ -48,16 +54,11 @@ def resolve_device(name: str, what: str = 'run') -> torch.device:
     return device
 
 
-# the JAX variant CLIs' flags with no port yet, each with the queue 1 item
-# that ports it (ROADMAP.md); the port raises instead of ignoring them
-VARIANT_NOT_PORTED = {'ep_mesh': "queue 1 item 'Multi-device'"}
-
-
 def add_variant_flags(parser: argparse.ArgumentParser,
-                      not_ported: Sequence[str]) -> None:
+                      ep_mesh: bool = False) -> None:
     """--device, --fold_parallel (which --mesh requires), --mesh,
-    --checkpoint_every/--resume, --packed_xla, and the named flags of
-    VARIANT_NOT_PORTED with the JAX CLIs' dests and defaults."""
+    --checkpoint_every/--resume, --packed_xla, and with ``ep_mesh`` the
+    JAX end-to-end CLI's --ep_mesh F,M,D."""
     parser.add_argument('--device', dest='device', default='cuda',
                         help='torch device to run on (default cuda); cuda '
                              'runs the kernels, cpu their plain versions')
@@ -72,21 +73,17 @@ def add_variant_flags(parser: argparse.ArgumentParser,
                              'modalities); where the configuration does not '
                              'take it, says why and trains the per-modality '
                              'layout.')
-    kinds = {'ep_mesh': {'default': None}}
-    for flag in not_ported:
-        parser.add_argument(f'--{flag}', dest=flag,
-                            help='not ported yet (raises); see ROADMAP.md',
-                            **kinds[flag])
+    if ep_mesh:
+        add_ep_mesh_flag(parser, '2,2,2')
     # after --ep_mesh, where the JAX CLIs have it (results_endtoend.csv
     # prints the flags in this order)
     add_mesh_flag(parser)
     add_resume_flags(parser)
 
 
-def refuse_not_ported(args, what: str,
-                      flags: Dict[str, str] = VARIANT_NOT_PORTED) -> None:
-    """Exit, citing its queue item, on any of ``flags`` set ({flag: queue
-    item}; VARIANT_NOT_PORTED by default)."""
+def refuse_not_ported(args, what: str, flags: Dict[str, str]) -> None:
+    """Exit, citing why, on any of ``flags`` set ({flag: the ROADMAP.md
+    entry that keeps it unported})."""
     for flag, item in flags.items():
         if getattr(args, flag, None):
             raise SystemExit(f'--{flag} is not ported to the torch {what} '
@@ -289,68 +286,6 @@ def apply_post_parse_defaults(args, default_procedure: str = 'UCA-gPoE',
     if getattr(args, 'epochs', None) is None:
         args.epochs = default_epochs
     return args
-
-
-def kfold_split(n_samples: int, n_splits: int, random_state: int = 42):
-    """(train_idx, test_idx) per fold, as sklearn's
-    KFold(n_splits, shuffle=True, random_state).split yields them: a
-    RandomState(random_state) shuffle, the first n % k folds one longer,
-    both index sets ascending. The JAX package's fold-id writer calls
-    sklearn, which the GPU machine does not have."""
-    if not 2 <= n_splits <= n_samples:
-        raise ValueError(f'cannot split {n_samples} samples into {n_splits} '
-                         'folds')
-    indices = np.arange(n_samples)
-    np.random.RandomState(random_state).shuffle(indices)
-    sizes = np.full(n_splits, n_samples // n_splits, dtype=int)
-    sizes[:n_samples % n_splits] += 1
-    start = 0
-    for size in sizes:
-        test = np.zeros(n_samples, dtype=bool)
-        test[indices[start:start + size]] = True
-        start += size
-        yield np.flatnonzero(~test), np.flatnonzero(test)
-
-
-def _write_fold_ids(kfold_dir: Path, split_frame: pd.DataFrame,
-                    oversample_percentage: float, n_splits: int,
-                    random_state: int = 42) -> None:
-    """data/loading.py::_write_fold_ids without sklearn: the KFold split of
-    ``split_frame``, the oversampling draws from numpy's global stream, one
-    train_ids_NNN.csv / test_ids_NNN.csv pair per fold."""
-    kfold_dir.mkdir(parents=True, exist_ok=True)
-    for fold, (train_idx, test_idx) in enumerate(
-            kfold_split(len(split_frame), n_splits, random_state)):
-        train_ids = split_frame.iloc[train_idx]['IID']
-        test_ids = split_frame.iloc[test_idx]['IID']
-        size = int(len(train_ids) * oversample_percentage)
-        oversampled = np.random.choice(train_ids, size=size, replace=True)
-        pd.DataFrame({'IID': oversampled}).to_csv(
-            kfold_dir / f'train_ids_{fold:03d}.csv', index=False)
-        pd.DataFrame({'IID': test_ids}).to_csv(
-            kfold_dir / f'test_ids_{fold:03d}.csv', index=False)
-
-
-def generate_kfold_ids(hc_group, other_group, oversample_percentage=1,
-                       n_splits=5, project_root=None) -> None:
-    """data/loading.generate_kfold_ids without sklearn: the split of both
-    groups' concatenation into outputs/kfold_analysis."""
-    root = Path(project_root) if project_root else Path.cwd()
-    _write_fold_ids(root / 'outputs' / 'kfold_analysis',
-                    pd.concat([hc_group, other_group]),
-                    oversample_percentage, n_splits)
-
-
-def generate_kfold_ids_endtoend(hc_group, other_group,
-                                oversample_percentage=1, n_splits=5,
-                                random_state=42, project_root=None) -> None:
-    """data/loading.generate_kfold_ids_endtoend without sklearn: the same
-    split as ``generate_kfold_ids``, written to
-    outputs/kfold_analysis_endtoend (utils.py:19-42)."""
-    root = Path(project_root) if project_root else Path.cwd()
-    _write_fold_ids(root / 'outputs' / 'kfold_analysis_endtoend',
-                    pd.concat([hc_group, other_group]),
-                    oversample_percentage, n_splits, random_state)
 
 
 # Wide numeric tables (PPMI is 3485 columns) parse ~6x faster through the
@@ -594,6 +529,63 @@ def parse_axis_sizes(spec, flag: str, n_axes, usage: str):
         raise SystemExit(f"{flag} {spec}: {total} mesh slots != "
                          f"{_world()} visible devices")
     return sizes
+
+
+def ep_mesh_divisibility(sizes, n_folds: int, batch_size: int,
+                         modalities: int, modality_axis_len=None,
+                         modality_axis_desc=None):
+    """Why an --ep_mesh geometry (M,D or F,M,D axis sizes) cannot launch,
+    or None (cli/common.py:579-609 of the JAX package, its messages): the
+    fold axis must divide the folds, the 'modality' axis the modalities
+    (``modality_axis_len``/``modality_axis_desc`` for a layout whose split
+    axis is not [M]: the dual-bank end-to-end trainer's [2M]), and in the
+    M,D form the 'data' axis the batch."""
+    if len(sizes) == 3:
+        if n_folds % sizes[0]:
+            return (f"{n_folds} folds not divisible by the fold axis "
+                    f"({sizes[0]})")
+        m_axis, d_axis = sizes[1], sizes[2]
+    else:
+        m_axis, d_axis = sizes
+    mal = modalities if modality_axis_len is None else modality_axis_len
+    desc = (f"{modalities} modalities" if modality_axis_desc is None
+            else f"{modality_axis_desc}={mal}")
+    if mal % m_axis:
+        return (f"{desc} not divisible over the "
+                f"{m_axis}-way 'modality' mesh axis")
+    if len(sizes) == 2 and batch_size % d_axis:
+        return (f"batch_size {batch_size} not divisible over the "
+                f"{d_axis}-way 'data' mesh axis")
+    return None
+
+
+def parse_ep_mesh(spec, forms, usage: str, device='cpu'):
+    """--ep_mesh 'M,D' or 'F,M,D' (the axis counts ``forms``) -> (the
+    ('modality', 'data') or ('fold', 'modality', 'data') Mesh, its sizes),
+    joining the run's process group; None without a spec."""
+    if not spec:
+        return None, None
+    from ..parallel.modality import make_ep_mesh, make_ep_mesh3
+
+    sizes = parse_axis_sizes(spec, '--ep_mesh', forms, usage)
+    try:
+        if len(sizes) == 3:
+            return make_ep_mesh3(*sizes, device=device), sizes
+        return make_ep_mesh(*sizes, device=device), sizes
+    except ValueError as exc:
+        raise SystemExit(f'--ep_mesh {spec}: {exc}')
+
+
+def add_ep_mesh_flag(parser: argparse.ArgumentParser, example: str) -> None:
+    parser.add_argument('--ep_mesh', dest='ep_mesh', default=None,
+                        metavar='[F,]M,D',
+                        help='expert-parallel: shard the packed modality '
+                             'axis over a mesh of ranks (one process each, '
+                             'started by python -m torch.distributed.run), '
+                             f'e.g. {example}; F,M,D = fold x modality x '
+                             'data on the packed layouts, M,D the 2-axis '
+                             'expert-parallel trainer (train CLI); the '
+                             'product must equal the number of ranks.')
 
 
 def parse_mesh(spec, n_folds: int, batch_size: int, device='cpu'):

@@ -383,7 +383,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help='Number of splits for k-fold cross-validation.')
     parser.add_argument('-O', '--oversample_percentage', type=float, default=1,
                         help='Percentage of oversampling of the training data.')
-    common.add_variant_flags(parser, [])
+    common.add_variant_flags(parser)
     return parser
 
 
@@ -396,7 +396,6 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
     through (see ``train`` and ``test``); ``timings``, when given, receives
     the stages' walls and the training steps and seconds. Returns
     ``analyze``'s result when it runs."""
-    common.refuse_not_ported(args, 'nm-MLP CLI')
     common.require_checkpoint_for_resume(args)
     if args.combine is None:
         args.combine = args.procedure.split('-')[1]

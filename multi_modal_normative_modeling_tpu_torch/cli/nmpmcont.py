@@ -30,12 +30,15 @@ under ``grouped-e2e-state/``). ``--fold_parallel --mesh F,D[,M]``
 trains on a mesh of ranks (``python -m torch.distributed.run``): the
 classifier's BatchNorm takes the whole batch's statistics over the data
 axis (``ops.losses.row_sum``), as GSPMD does; rank 0 scores the trained
-model whole and writes every file.
+model whole and writes every file. ``--ep_mesh F,M,D`` trains the packed
+dual-bank layout expert-parallel (``parallel.modality``'s
+``grouped_e2e_fold_shardings``: the [2M] decoder axis over 'modality';
+state under ``ep-grouped-e2e-state/``).
 
     python -m multi_modal_normative_modeling_tpu_torch.cli.nmpmcont \\
         -R ADNI -P SE-MoE -E 200 -K 5 [-Layers 128 64 32] [--device cpu]
         [--checkpoint_every N [--resume]] [--packed_xla]
-        [--fold_parallel --mesh F,D[,M]]
+        [--fold_parallel --mesh F,D[,M] | --ep_mesh F,M,D]
 """
 from __future__ import annotations
 
@@ -196,6 +199,24 @@ def fold_metrics(fold_data, logits: np.ndarray,
     return pd.DataFrame(all_metrics)
 
 
+EP_USAGE = '2,2,2 (fold,modality,data)'
+
+
+def _ep_gates(args, sizes, fold_data, n_folds: int, modalities: int) -> None:
+    """--ep_mesh's gates after the cohort is read, in the JAX CLI's words
+    (cli/nmpmcont.py:193-207): one covariate block for every modality, and
+    the divisibility of the folds and of the dual-bank [2M] axis."""
+    cov_reason = common.uniform_covariates(
+        [(f['train_data'], f['train_cov']) for f in fold_data])
+    if cov_reason:
+        raise SystemExit(f'--ep_mesh unavailable ({cov_reason})')
+    indivisible = common.ep_mesh_divisibility(
+        sizes, n_folds, 256, modalities, modality_axis_len=2 * modalities,
+        modality_axis_desc='dual-bank axis 2M')
+    if indivisible:
+        raise SystemExit(f'--ep_mesh {args.ep_mesh}: {indivisible}')
+
+
 def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
          draws_fn: Optional[common.DrawsFn] = None,
          timings: Optional[dict] = None):
@@ -205,11 +226,21 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
     default every fold draws from its own generator on the device.
     ``timings``, when given, receives the stages' walls, the training
     steps and the trainer's seconds. Returns the per-fold metrics."""
-    common.refuse_not_ported(args, 'end-to-end trainer')
     common.require_checkpoint_for_resume(args)
     device = common.resolve_device(getattr(args, 'device', 'cuda'), 'train')
-    mesh, shardings_fn = common.parse_run_mesh(args, args.n_splits, 256,
-                                               device)
+    ep_spec = getattr(args, 'ep_mesh', None)
+    ep_mesh = None
+    if ep_spec:
+        # F,M,D on the packed dual-bank layout (JAX cli/nmpmcont.py:187-218)
+        common.parse_axis_sizes(ep_spec, '--ep_mesh', (3,), EP_USAGE)
+        if getattr(args, 'mesh', None):
+            raise SystemExit('--ep_mesh is mutually exclusive with --mesh')
+        ep_mesh, ep_sizes = common.parse_ep_mesh(ep_spec, (3,), EP_USAGE,
+                                                 device)
+        mesh, shardings_fn = ep_mesh, None
+    else:
+        mesh, shardings_fn = common.parse_run_mesh(args, args.n_splits, 256,
+                                                   device)
     device = device if mesh is None else mesh.device
     timings = {} if timings is None else timings
     walls = common.StageWalls(timings.setdefault('walls', {}))
@@ -244,7 +275,10 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
         # one per fold), the packed layout's in its own dir
         state_dir = model_dir
         packed = getattr(args, 'packed_xla', False)
-        if packed and mesh is not None:
+        if ep_mesh is not None:
+            _ep_gates(args, ep_sizes, fold_data, n_folds, modalities)
+            packed = True
+        elif packed and mesh is not None:
             print('--packed_xla unavailable (--mesh); using the '
                   'per-modality layout')
             packed = False
@@ -255,7 +289,19 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
                 print(f'--packed_xla unavailable ({cov_reason}); '
                       'using the per-modality layout')
                 packed = False
-        if packed:
+        if packed and ep_mesh is not None:
+            from ..parallel.modality import grouped_e2e_fold_shardings
+
+            trainer = GroupedEndToEndTrainer(
+                model, config, n_samples, args.margin,
+                args.weightcontrastive, mesh=ep_mesh,
+                shardings_fn=grouped_e2e_fold_shardings)
+            state_dir = model_dir / 'ep-grouped-e2e-state'
+            if ep_mesh.primary:
+                print('train model (all folds fold-parallel, '
+                      'expert-parallel packed dual-bank endtoend '
+                      f'modalities, mesh {dict(ep_mesh.shape)})')
+        elif packed:
             trainer = GroupedEndToEndTrainer(model, config, n_samples,
                                              args.margin,
                                              args.weightcontrastive)
@@ -328,7 +374,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('-Layers', '--layers', dest='layers', nargs='+',
                         default=[128, 64, 32], type=int,
                         help='Layers for the classifier.')
-    common.add_variant_flags(parser, ['ep_mesh'])
+    common.add_variant_flags(parser, ep_mesh=True)
     return parser
 
 

@@ -14,12 +14,12 @@ three-launch chain (same mains, same args). Usage:
         [-Model mmJSD|mvtCAE|DMVAE|WeightedDMVAE|mmVAEPlus] [--emit_latent]
         [--checkpoint_every N [--resume]] [--in_memory_fusion]
         [--stream_shards S] [--remat] [--profile_dir DIR]
-        [--fold_parallel --mesh F,D[,M]]
+        [--fold_parallel --mesh F,D[,M] | --ep_mesh [F,]M,D]
 
 Select stages with --stages (comma-separated subset of train,test,analyze).
-With ``--mesh`` every rank (``python -m torch.distributed.run``) runs the
-train and test stages on its part of the mesh, and rank 0 alone the
-analysis, a host stage.
+With ``--mesh`` or ``--ep_mesh`` every rank (``python -m
+torch.distributed.run``) runs the train and test stages on its part of the
+mesh, and rank 0 alone the analysis, a host stage.
 """
 from __future__ import annotations
 
@@ -62,8 +62,7 @@ def main(args, project_root=None):
                          f'{list(STAGES)}')
     # what either device stage refuses is refused before any stage runs
     common.refuse_not_ported(args, 'pipeline',
-                             {**test_supervised._NOT_PORTED_FLAGS,
-                              **train_supervised._NOT_PORTED_FLAGS})
+                             train_supervised._NOT_PORTED_FLAGS)
     common.require_checkpoint_for_resume(args)
     stats = None
     for stage in STAGES:

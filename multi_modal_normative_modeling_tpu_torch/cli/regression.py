@@ -115,7 +115,6 @@ def train_and_test(args, project_root=None,
     ``eps_fn(seed, rows, latent)`` the scoring noise (default
     ``common.seeded_eps``). ``timings``, when given, receives the stages'
     walls and the training steps and seconds."""
-    common.refuse_not_ported(args, 'regression trainer')
     common.require_checkpoint_for_resume(args)
     device = common.resolve_device(getattr(args, 'device', 'cuda'), 'train')
     mesh, shardings_fn = common.parse_run_mesh(args, args.n_splits,
@@ -296,7 +295,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--batch_size', type=int, default=128)
     parser.add_argument('-BaseLR', '--base_learning_rate', type=float,
                         default=0.0001)
-    common.add_variant_flags(parser, [])
+    common.add_variant_flags(parser)
     return parser
 
 

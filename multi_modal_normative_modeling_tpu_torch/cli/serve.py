@@ -57,11 +57,21 @@ Bind contract (non-loopback hardening):
   * TLS is out of scope: front with a reverse proxy for encrypted or
     internet-facing deployments.
 
-Not ported: the --mesh and --ep_mesh programs (ROADMAP queue 1 item
-'Multi-device'); both flags exit.
+On a mesh of ranks (one process each, ``python -m
+torch.distributed.run``): ``--mesh F,D`` scores the folds over F and the
+padded request rows over D (pure scale-out: rows are independent, folds
+share nothing); ``--ep_mesh F,M,D`` also splits the modalities over M, each
+rank scoring the ones it owns through K1, the fusion as collectives and K2
+(infer/ensemble.py ``pack_ensemble_ep`` / ``pack_ensemble_grouped``; no
+latent requests, as in JAX). Rank 0 owns the HTTP front end: it prepares a
+request on the host, broadcasts its padded tensors, scores its own part and
+gathers the others'; every other rank loops receive -> score -> gather
+(``serve_worker``) until rank 0 sends shutdown. ``/healthz`` reports the
+mesh and the expert-parallel layout.
 
     python -m multi_modal_normative_modeling_tpu_torch.cli.serve \
         -R ADNI -P UCA-gPoE -K 5 [--device cpu] [--ready_file FILE]
+        [--mesh F,D | --ep_mesh F,M,D]
 """
 from __future__ import annotations
 
@@ -83,14 +93,18 @@ from ..infer.ensemble import (
     ensure_latent_stats,
     fold_eps,
     fold_infer,
+    fold_infer_fn_ep,
+    fold_infer_fn_grouped,
     fold_latent,
     load_ensemble,
+    local_ensemble,
+    pack_ensemble_ep,
+    pack_ensemble_grouped,
     validate_features,
 )
+from ..models.stacked import SKELETON_VARIANTS
 from . import common
 
-_NOT_PORTED_FLAGS = {'mesh': "queue 1 item 'Multi-device'",
-                     'ep_mesh': "queue 1 item 'Multi-device'"}
 
 
 class ServeError(ValueError):
@@ -107,7 +121,15 @@ class ScoringService:
     def __init__(self, resource: str, procedure: str, combine: str = None,
                  n_splits: int = 10, project_root=None, seed: int = 42,
                  pad_to: int = 64, device='cuda',
-                 eps_fn: Optional[EpsFn] = None):
+                 eps_fn: Optional[EpsFn] = None, mesh=None, ep_mesh=None):
+        if mesh is not None and ep_mesh is not None:
+            raise ValueError('--ep_mesh is mutually exclusive with --mesh')
+        self.mesh, self.ep_mesh = mesh, ep_mesh
+        run_mesh = mesh or ep_mesh
+        if run_mesh is not None:
+            common.check_infer_fold_axis(run_mesh, n_splits)
+            pad_to = common.infer_row_tile(run_mesh, base=pad_to)
+            device = run_mesh.device
         self.device = common.resolve_device(str(device), 'serve')
         self.resource = resource
         self.procedure = procedure
@@ -138,14 +160,25 @@ class ScoringService:
         self.dataset_names = self.state.dataset_names
         self.config = self.state.config
         self._train_covs = self.state.train_covs
+        self._local = self._ep = None
+        if mesh is not None:
+            from ..parallel.mesh import fold_range
+
+            self._local = local_ensemble(
+                self.state, slice(*fold_range(mesh, n_splits)))
+        if ep_mesh is not None:
+            self._ep_layout(ep_mesh)
 
         # ---- full-cohort modality frames for ids-mode resolution ----
         self.columns = self.state.columns
         self._frames = []
         all_ids = kfold_dir / 'serve_all_ids.csv'
-        all_ids.parent.mkdir(parents=True, exist_ok=True)
-        pd.DataFrame({'IID': pd.read_csv(participants_path)['IID']}).to_csv(
-            all_ids, index=False)
+        if common.primary(run_mesh):
+            # rank 0 writes it, the other ranks read it after
+            all_ids.parent.mkdir(parents=True, exist_ok=True)
+            pd.DataFrame({'IID': pd.read_csv(participants_path)['IID']}
+                         ).to_csv(all_ids, index=False)
+        common.barrier(run_mesh)
         for name in self.dataset_names:
             frame = common.load_dataset(
                 participants_path, all_ids,
@@ -161,6 +194,32 @@ class ScoringService:
         self._features = [frame[cols].to_numpy(np.float32)
                           for frame, cols in zip(self._frames, self.columns)]
         self._covariates = self._frames[-1][['AGE', 'PTGENDER']]
+
+    def _ep_layout(self, ep_mesh) -> None:
+        """The expert-parallel operands after the JAX service's gates, in
+        its words (cli/serve.py:166-190): the cVAE skeleton, the modality
+        axis dividing the modalities; mixed widths on the width-grouped
+        layout."""
+        from ..models.grouped import width_groups
+
+        name = self.config.get('model', 'cVAE_multimodal')
+        if name not in SKELETON_VARIANTS:
+            raise SystemExit(
+                f"--ep_mesh serving supports the cVAE skeleton only "
+                f"({sorted(SKELETON_VARIANTS)}; checkpoint model {name!r})")
+        if self.config['modalities'] % ep_mesh.axis('modality'):
+            raise SystemExit(
+                f"--ep_mesh: {self.config['modalities']} modalities not "
+                f"divisible over the {ep_mesh.axis('modality')}-way "
+                "'modality' mesh axis")
+        if len(width_groups(self.config['input_dim_list'])) > 1:
+            self._ep = pack_ensemble_grouped(self.state, ep_mesh)
+            self._ep_infer = fold_infer_fn_grouped(self._ep)
+            self.ep_layout = 'width-grouped'
+        else:
+            self._ep = pack_ensemble_ep(self.state, ep_mesh)
+            self._ep_infer = fold_infer_fn_ep(self._ep)
+            self.ep_layout = 'packed'
 
     def _ensure_latent(self) -> None:
         with self._latent_build_lock:
@@ -212,6 +271,11 @@ class ScoringService:
                latent: bool = False) -> dict:
         if fold is not None and not 0 <= fold < self.n_splits:
             raise ServeError(f'fold must be in [0, {self.n_splits})')
+        if latent and self.ep_mesh is not None:
+            raise ServeError(
+                'latent scoring is not available under --ep_mesh (the '
+                'fused-latent z-score path runs per-modality); serve with '
+                '--mesh or unmeshed for latent requests')
         if latent:
             self._ensure_latent()
         n = features[0].shape[0]
@@ -224,6 +288,25 @@ class ScoringService:
         except ValueError as e:
             raise ServeError(f'covariate binning failed: {e}')
         covs = np.pad(covs, ((0, 0), (0, padded - n), (0, 0)))
+        if self.mesh is not None or self.ep_mesh is not None:
+            with self._lock:
+                devs, rois, lat_s, lat_z = self._dispatch(
+                    {'op': 'score', 'xes': xes, 'covs': covs, 'roi': roi,
+                     'latent': latent})
+                self.requests_served += 1
+            devs = devs[:, :, :n]
+            rois = rois[:, :n] if roi else None
+            if latent:
+                lat_s, lat_z = lat_s[:, :n], lat_z[:, :n]
+        else:
+            devs, rois, lat_s, lat_z = self._score_device(
+                xes, covs, padded, roi, latent, n)
+        return self._answer(devs, rois, lat_s, lat_z, roi, fold, latent)
+
+    def _score_device(self, xes, covs, padded: int, roi: bool,
+                      latent: bool, n: int):
+        """The unmeshed scoring call, under the service lock."""
+        lat_s = lat_z = None
         # torch.no_grad is thread-local: entered on the serving thread
         with self._lock, torch.no_grad():
             xes = [torch.from_numpy(x).to(self.device) for x in xes]
@@ -239,6 +322,107 @@ class ScoringService:
                 lat_s = lat_s[:, :n].cpu().numpy()         # [K, n]
                 lat_z = lat_z[:, :n].cpu().numpy()         # [K, n, D]
             self.requests_served += 1
+        return devs, rois, lat_s, lat_z
+
+    # ------------------------------------------------------------- on ranks
+    def _dispatch(self, msg: dict):
+        """Rank 0: send ``msg`` to every rank, score this rank's part, and
+        put the ranks' parts together: (devs [K, M, rows], roi [K, rows,
+        sum F_m] or None, latent scalar [K, rows] and per-dim [K, rows, D]
+        or Nones)."""
+        _broadcast(msg)
+        return self._assemble(self._gather(self._score_part(msg)), msg)
+
+    def _score_part(self, msg: dict) -> dict:
+        """This rank's folds and rows of a request (and with --ep_mesh its
+        owned modalities), on the host."""
+        mesh = self.mesh or self.ep_mesh
+        covs_all = msg['covs']
+        k, rows = covs_all.shape[0], covs_all.shape[1]
+        folds, part = common.mesh_parts(mesh, k, rows)
+        with torch.no_grad():
+            covs = torch.from_numpy(np.ascontiguousarray(
+                covs_all[folds, part])).to(self.device)
+            xes = [torch.from_numpy(np.ascontiguousarray(x[part])).to(
+                self.device) for x in msg['xes']]
+            state = self._ep.state if self._ep is not None else self._local
+            eps = fold_eps(state.seeds, rows, state.model.noise_dim,
+                           self.device, self._eps_fn)[:, part]
+            out = {}
+            if self._ep is not None:
+                devs, sq = self._ep_infer(covs, eps, {m: xes[m]
+                                                      for m in self._ep.owned})
+                out['devs'] = {m: d.cpu().numpy() for m, d in devs.items()}
+                if msg['roi']:
+                    out['sq'] = {m: t.cpu().numpy() for m, t in sq.items()}
+                return out
+            devs, rois = fold_infer(state, covs, eps, xes)
+            out['devs'] = devs.cpu().numpy()
+            if msg['roi']:
+                out['roi'] = rois.cpu().numpy()
+            if msg['latent']:
+                ensure_latent_stats(self.state)
+                if state.latent_mean is None:
+                    state.latent_mean, state.latent_var = (
+                        t[folds] for t in (self.state.latent_mean,
+                                           self.state.latent_var))
+                lat_s, lat_z = fold_latent(state, covs, xes)
+                out['lat_s'] = lat_s.cpu().numpy()
+                out['lat_z'] = lat_z.cpu().numpy()
+            return out
+
+    def _gather(self, part: dict) -> list:
+        mesh = self.mesh or self.ep_mesh
+        return mesh.all_gather_object((mesh.index('fold'),
+                                       mesh.index('data'), part))
+
+    def _assemble(self, parts: list, msg: dict):
+        mesh = self.mesh or self.ep_mesh
+        nf, nd = mesh.axis('fold'), mesh.axis('data')
+
+        def join(key, axis, m=None):
+            grid = {}
+            for fi, di, part in parts:
+                if key in part and (m is None or m in part[key]):
+                    grid[(fi, di)] = part[key] if m is None else part[key][m]
+            return np.concatenate([np.concatenate(
+                [grid[(fi, di)] for di in range(nd)], axis=axis)
+                for fi in range(nf)], axis=0)
+
+        n_mod = len(self.dataset_names)
+        lat_s = lat_z = rois = None
+        if self.ep_mesh is not None:
+            devs = np.stack([join('devs', 1, m) for m in range(n_mod)],
+                            axis=1)
+            if msg['roi']:
+                rois = np.concatenate([join('sq', 1, m)
+                                       for m in range(n_mod)], axis=2)
+            return devs, rois, lat_s, lat_z
+        devs = join('devs', 2)
+        if msg['roi']:
+            rois = join('roi', 1)
+        if msg['latent']:
+            lat_s, lat_z = join('lat_s', 1), join('lat_z', 1)
+        return devs, rois, lat_s, lat_z
+
+    def serve_worker(self) -> None:
+        """A rank other than 0: receive a request, score this rank's part,
+        gather, until rank 0 sends shutdown."""
+        while True:
+            msg = _broadcast(None)
+            if msg['op'] == 'shutdown':
+                return
+            self._gather(self._score_part(msg))
+
+    def shutdown_workers(self) -> None:
+        """Rank 0: end every other rank's ``serve_worker`` loop."""
+        if self.mesh is not None or self.ep_mesh is not None:
+            with self._lock:
+                _broadcast({'op': 'shutdown'})
+
+    def _answer(self, devs, rois, lat_s, lat_z, roi: bool, fold,
+                latent: bool) -> dict:
+        """The response of a request from its [K, ...] results."""
         folds = slice(None) if fold is None else slice(fold, fold + 1)
         per_mod = devs[folds].mean(axis=0)                 # [M, n]
         out = {
@@ -267,16 +451,29 @@ class ScoringService:
             'modalities': list(self.dataset_names),
             'feature_dims': [len(c) for c in self.columns],
             'model': self.config.get('variant', 'cvae'),
-            'latent_scoring': self.state.supports_latent,
-            # the JAX service's mesh programs are not ported
-            'mesh': None,
-            'ep_layout': None,
+            'latent_scoring': (self.state.supports_latent
+                               and self.ep_mesh is None),
+            'mesh': (dict(self.ep_mesh.shape) if self.ep_mesh is not None
+                     else dict(self.mesh.shape) if self.mesh is not None
+                     else None),
+            'ep_layout': (None if self.ep_mesh is None
+                          else self.ep_layout),
             'backend': self.device.type,
             'device': (torch.cuda.get_device_name(self.device)
                        if self.device.type == 'cuda' else 'cpu'),
             'uptime_seconds': round(time.time() - self.started, 1),
             'requests_served': self.requests_served,
         }
+
+
+def _broadcast(msg):
+    """Rank 0's ``msg`` on every rank (a pickled object over the default
+    process group)."""
+    import torch.distributed as dist
+
+    box = [msg]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
 
 
 # ------------------------------------------------------------------ HTTP
@@ -411,10 +608,15 @@ def build_parser() -> argparse.ArgumentParser:
                         help='torch device to serve on (default cuda); cuda '
                              'runs the kernels, cpu their plain versions')
     parser.add_argument('--mesh', dest='mesh', default=None, metavar='F,D',
-                        help='not ported yet (raises); see ROADMAP.md')
+                        help='score on a (fold, data) mesh of ranks (python '
+                             '-m torch.distributed.run): folds over F, '
+                             'request rows over D; rank 0 serves HTTP')
     parser.add_argument('--ep_mesh', dest='ep_mesh', default=None,
                         metavar='F,M,D',
-                        help='not ported yet (raises); see ROADMAP.md')
+                        help='score expert-parallel on a (fold, modality, '
+                             'data) mesh of ranks: each rank K1/K2 on its '
+                             'modalities, the fusion as collectives; no '
+                             'latent requests')
     parser.add_argument('--auth_token', default=None,
                         help='require "Authorization: Bearer <token>" on '
                              'POST /score (default: $MMNM_SERVE_TOKEN if '
@@ -432,12 +634,26 @@ def run(argv=None, project_root=None):
     import os
 
     args = build_parser().parse_args(argv)
-    common.refuse_not_ported(args, 'scoring service', _NOT_PORTED_FLAGS)
     token = args.auth_token or os.environ.get('MMNM_SERVE_TOKEN') or None
+    device = common.resolve_device(args.device, 'serve')
+    ep_mesh = None
+    if getattr(args, 'ep_mesh', None):
+        if args.mesh:
+            raise SystemExit('--ep_mesh is mutually exclusive with --mesh')
+        ep_mesh, _ = common.parse_ep_mesh(
+            args.ep_mesh, (3,), '2,2,2 (fold,modality,data)', device)
+    mesh = common.parse_infer_mesh(args.mesh, device)
     service = ScoringService(
         args.dataset_resourse, args.procedure, combine=args.combine,
         n_splits=args.n_splits, project_root=project_root, seed=args.seed,
-        device=args.device)
+        device=args.device, mesh=mesh, ep_mesh=ep_mesh)
+    run_mesh = mesh or ep_mesh
+    if run_mesh is not None and not run_mesh.primary:
+        service.serve_worker()
+        from ..parallel import distributed
+
+        distributed.shutdown()
+        return None
     server = make_server(service, args.host, args.port, auth_token=token,
                          max_body_bytes=args.max_body_bytes)
     host, port = server.server_address[:2]
@@ -452,6 +668,11 @@ def run(argv=None, project_root=None):
         server.shutdown()
     finally:
         server.server_close()
+        service.shutdown_workers()
+        if run_mesh is not None:
+            from ..parallel import distributed
+
+            distributed.shutdown()
     return server
 
 

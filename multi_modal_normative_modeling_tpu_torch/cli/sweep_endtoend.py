@@ -8,12 +8,15 @@ classified in one fold-stacked ``EndToEndCVAE.predict`` call (on CUDA the
 encoder kernel once per modality for all S * F folds), and one block of
 per-metric means and stds per config is appended to results_endtoend.csv,
 as sequential nmpmcont runs append them. The fold ids and data prep are
-nmpmcont's.
+nmpmcont's. ``--mesh S,F`` trains the grid on a ('config', 'fold') mesh of
+ranks (one process each, ``python -m torch.distributed.run``): a rank
+trains its configs of its folds (``parallel.sweep.sweep_shardings``), the
+model is gathered whole, and rank 0 classifies and writes.
 
     python -m multi_modal_normative_modeling_tpu_torch.cli.sweep_endtoend \\
         -R ADNI -P SE-MoE -K 5 -H 110 110 10 -Layers 128 64 32 \\
         -Margins 0.25 0.5 1 2 -Weightcontrastives 0.1 0.5 1 -E 200 \\
-        [--device cpu]
+        [--device cpu] [--mesh S,F]
 """
 from __future__ import annotations
 
@@ -38,9 +41,6 @@ from .nmpmcont import (
     test_inputs,
 )
 
-_NOT_PORTED_FLAGS = {'mesh': "queue 1 item 'Multi-device'"}
-
-
 def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
          draws_fn: Optional[common.DrawsFn] = None,
          timings: Optional[dict] = None):
@@ -52,20 +52,23 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
     ``timings``, when given, receives the stages' walls, the training steps
     and seconds, and the prediction call's rows. Returns {(margin, weight):
     per-fold metrics}."""
-    common.refuse_not_ported(args, 'end-to-end sweep', _NOT_PORTED_FLAGS)
     device = common.resolve_device(getattr(args, 'device', 'cuda'), 'train')
     timings = {} if timings is None else timings
     walls = common.StageWalls(timings.setdefault('walls', {}))
     project_root = Path(project_root) if project_root else Path.cwd()
     modalities = len(registry.get_datasets_name(args.dataset_resourse,
                                                 args.procedure))
-    fold_data, input_dim_list, c_dim = prepare_cohort(args, project_root,
-                                                      walls)
-    n_folds = len(fold_data)
-
     configs = [{'margin': m, 'wcon': w}
                for m in args.margins for w in args.weightcontrastives]
     n_configs = len(configs)
+    mesh = common.parse_sweep_mesh(getattr(args, 'mesh', None), n_configs,
+                                   args.n_splits, device)
+    if mesh is not None:
+        device = mesh.device
+    fold_data, input_dim_list, c_dim = prepare_cohort(args, project_root,
+                                                      walls, mesh)
+    n_folds = len(fold_data)
+
     model = EndToEndCVAE(input_dim_list, args.hz_para_list[:-1],
                          args.hz_para_list[-1], c_dim, modalities,
                          non_linear=True, classifier_layers=args.layers,
@@ -75,8 +78,10 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
     model.to(device)
     config = TrainConfig(epochs=args.epochs, batch_size=256,
                          learning_rate=0.0001, combine='poe', seed=42)
-    print(f'training grid: {n_configs} configs x {n_folds} folds in one '
-          f'fold-stacked run of {n_configs * n_folds} folds')
+    if common.primary(mesh):
+        print(f'training grid: {n_configs} configs x {n_folds} folds in one '
+              f'fold-stacked run of {n_configs * n_folds} folds'
+              + (f' over a {dict(mesh.shape)} device mesh' if mesh else ''))
     with walls('train'):
         batches = fold_batches(fold_data, config.batch_size)
         draws = {}
@@ -87,12 +92,16 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
             model, config, fold_data[0]['train_data'][0].shape[0],
             lambda hyper: endtoend_loss_fn(model, hyper['margin'],
                                            hyper['wcon']),
-            state_update=model.update_state)
+            state_update=model.update_state, mesh=mesh)
         start = time.perf_counter()
         sweep.run(batches, configs, **draws)
         timings['train_run_s'] = time.perf_counter() - start
         timings['train_steps'] = config.epochs * batches['mask'].shape[1]
 
+    if not common.primary(mesh):
+        # rank 0 classifies the gathered model and writes every file
+        mesh.barrier()
+        return {}
     with walls('score'):
         xes, cs, rows = test_inputs(fold_data, modalities, device,
                                     repeats=n_configs)
@@ -113,6 +122,7 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
                   f"acc {frame['accuracy'].mean():.3f} "
                   f"auroc {frame['auroc'].mean():.3f}")
     walls.report('sweep_endtoend')
+    common.barrier(mesh)
     return results
 
 
@@ -129,15 +139,22 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--device', dest='device', default='cuda',
                         help='torch device to run on (default cuda); cuda '
                              'runs the kernels, cpu their plain versions')
-    parser.add_argument('--mesh', dest='mesh', default=None,
-                        help='not ported yet (raises); see ROADMAP.md')
+    parser.add_argument('--mesh', dest='mesh', default=None, metavar='S,F',
+                        help='train the grid on a (config, fold) mesh of '
+                             'ranks (python -m torch.distributed.run): '
+                             'configs over S, folds over F; the product must '
+                             'equal the number of ranks.')
     return parser
 
 
 def run(argv=None, project_root=None):
     args = build_parser().parse_args(argv)
     common.apply_post_parse_defaults(args, default_procedure='SE-MoE')
-    return main(args, project_root=project_root)
+    results = main(args, project_root=project_root)
+    from ..parallel import distributed
+
+    distributed.shutdown()
+    return results
 
 
 if __name__ == '__main__':

@@ -23,7 +23,13 @@ deviation CSVs, result_baseline blocks) with the training deduplicated:
   split-latent for the DMVAE family), the packed batches built once per
   procedure; ``--precision bf16`` runs there for cVAE_multimodal;
 * without ``--packed_xla``, ``--precision bf16`` trains the per-modality
-  layout with its forward in bfloat16 (fp32 master weights), every model.
+  layout with its forward in bfloat16 (fp32 master weights), every model;
+* ``--mesh F,D[,M]`` trains every grid point on a mesh of ranks
+  (``MultiFoldTrainer(mesh=)``, one process a rank under ``python -m
+  torch.distributed.run``) and scores it with the test stage's ``--mesh``;
+  ``--ep_mesh F,M,D`` trains every point expert-parallel on the padded
+  packed layout (``packed_fold_shardings``, as the JAX sweep) and scores it
+  with the test stage's ``--ep_mesh``. Rank 0 writes every file.
 
 At each milestone the port's test stage (``test_supervised.main``: on CUDA
 the encoder and decode+deviation kernels once per modality) and analysis
@@ -35,7 +41,7 @@ run log's sweep_start, point_done and sweep_end events.
         -R ADHD -K 10 --procedures SM-sMRI SE-gPoE \\
         --hz_grid '110 110 10;460 460 40' --epochs_list 50 500 1000 \\
         --lr_grid '1e-4:5e-3,1e-5:5e-3' [--device cpu]
-        [--packed_xla] [--precision bf16]
+        [--packed_xla] [--precision bf16] [--mesh F,D[,M] | --ep_mesh F,M,D]
 """
 from __future__ import annotations
 
@@ -58,11 +64,7 @@ from ..utils.logging import RunLog
 from . import common, group_analysis, test_supervised
 from .train_supervised import EpsFn, default_init
 
-# JAX CLI flags with no port yet: each raises instead of being ignored
-_NOT_PORTED_FLAGS = {
-    'mesh': "queue 1 item 'Multi-device'",
-    'ep_mesh': "queue 1 item 'Multi-device'",
-}
+EP_USAGE = '2,2,2 (fold,modality,data)'
 
 
 def parse_hz_grid(spec: str):
@@ -118,6 +120,8 @@ def _point_args(args, procedure: str, hz, epochs: int, base_lr: float,
         fused_inference=False,
         threshold_method='roc',
         device=getattr(args, 'device', 'cuda'),
+        mesh=getattr(args, 'mesh', None),
+        ep_mesh=getattr(args, 'ep_mesh', None),
     )
 
 
@@ -131,13 +135,14 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
     every step up to the largest epoch count, ``score_eps_fn`` the test
     stage's noise (tests replay the JAX package's draws). ``timings``, when
     given, receives the phases' walls. Returns the records."""
-    common.refuse_not_ported(args, 'supervised sweep', _NOT_PORTED_FLAGS)
     packed = getattr(args, 'packed_xla', False)
     precision = getattr(args, 'precision', 'fp32')
-    if packed:
-        print('sweep training runs on the packed-modality layout '
-              '(--packed_xla)')
     device = common.resolve_device(getattr(args, 'device', 'cuda'), 'train')
+    mesh, mesh_shardings, ep_mesh, ep_sizes = _meshes(args, packed, device)
+    run_mesh = mesh or ep_mesh
+    if run_mesh is not None:
+        device = run_mesh.device
+    primary = common.primary(run_mesh)
     procedures = args.procedures
     epochs_list = sorted(set(int(e) for e in args.epochs_list))
     if epochs_list[0] < 1:
@@ -165,32 +170,42 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
     n_points = (len(procedures) * len(hz_grid) * len(epochs_list)
                 * len(lr_grid))
     n_runs = len(procedures) * len(hz_grid) * len(lr_points)
-    print(f'sweep grid: {len(procedures)} procedures x {len(hz_grid)} shapes'
-          f' x {len(epochs_list)} epoch counts x {len(lr_grid)} lr pairs '
-          f'= {n_points} points -> {n_runs} training runs '
-          f'(fold-parallel, epoch milestones'
-          f'{", lr axis deduped" if lr_deduped else ""})')
-    run_log = RunLog(model_dir / 'run_log.jsonl')
-    run_log.event('sweep_start', points=n_points, runs=n_runs,
-                  args=dict(vars(args)))
+    say = print if primary else (lambda *a, **k: None)
+    say(f'sweep grid: {len(procedures)} procedures x {len(hz_grid)} shapes'
+        f' x {len(epochs_list)} epoch counts x {len(lr_grid)} lr pairs '
+        f'= {n_points} points -> {n_runs} training runs '
+        f'(fold-parallel, epoch milestones'
+        f'{", lr axis deduped" if lr_deduped else ""})')
+    run_log = RunLog(model_dir / 'run_log.jsonl') if primary else None
+    if primary:
+        run_log.event('sweep_start', points=n_points, runs=n_runs,
+                      args=dict(vars(args)))
 
     np.random.seed(42)
     # the fold ids depend only on (resource, training class, K, oversample)
     participants_path = project_root / 'data' / args.dataset_resourse / 'y.csv'
-    ids_df = pd.read_csv(participants_path)
-    hc_label = registry.get_hc_label(args.dataset_resourse)
-    training_label = hc_label if args.training_class == 'nm' else 0
-    common.generate_kfold_ids(ids_df[ids_df['DIA'] == training_label],
-                              ids_df[ids_df['DIA'] != training_label],
-                              oversample_percentage=args.oversample_percentage,
-                              n_splits=args.n_splits,
-                              project_root=project_root)
+    if primary:
+        ids_df = pd.read_csv(participants_path)
+        hc_label = registry.get_hc_label(args.dataset_resourse)
+        training_label = hc_label if args.training_class == 'nm' else 0
+        common.generate_kfold_ids(
+            ids_df[ids_df['DIA'] == training_label],
+            ids_df[ids_df['DIA'] != training_label],
+            oversample_percentage=args.oversample_percentage,
+            n_splits=args.n_splits, project_root=project_root)
+    common.barrier(run_mesh)
 
     records = []
     n_folds = args.n_splits
     for procedure in procedures:
         dataset_names = registry.get_datasets_name(args.dataset_resourse,
                                                    procedure)
+        if ep_mesh is not None:
+            indivisible = common.ep_mesh_divisibility(
+                ep_sizes, n_folds, 256, len(dataset_names))
+            if indivisible:
+                raise SystemExit(
+                    f'--ep_mesh {args.ep_mesh} ({procedure}): {indivisible}')
         prep_args = _point_args(args, procedure, hz_grid[0], max_epochs,
                                 *lr_grid[0])
         with walls('prep'):
@@ -201,14 +216,18 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
             host_batches = stack_fold_batches(
                 [f[0] for f in folds], [f[1] for f in folds], 256)
             # the packed path trains on its packed batches alone, built
-            # once per procedure at its first grid point
-            batches = None if packed else DeviceBatches(host_batches, device)
-        if packed:
+            # once per procedure at its first grid point; a run on a mesh
+            # takes its part of the host batches
+            batches = (host_batches if run_mesh is not None
+                       else None if packed
+                       else DeviceBatches(host_batches, device))
+        if packed or ep_mesh is not None:
             # the packed layouts feed one covariate block to every modality
+            flag = '--ep_mesh' if ep_mesh is not None else '--packed_xla'
             cov_reason = common.uniform_covariates(folds)
             if cov_reason:
                 raise SystemExit(
-                    f'--packed_xla unavailable ({procedure}): {cov_reason}')
+                    f'{flag} unavailable ({procedure}): {cov_reason}')
 
         for hz in hz_grid:
             for base_lr, max_lr in lr_points:
@@ -230,7 +249,20 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
                         lr_schedule=args.lr_schedule, base_lr=base_lr,
                         max_lr=max_lr, shuffle=False, seed=42,
                         precision=precision)
-                    if packed:
+                    if ep_mesh is not None:
+                        from ..parallel.modality import (
+                            packed_fold_shardings,
+                        )
+                        from ..train.packed import PackedMultiFoldTrainer
+
+                        ok, reason = packed_supported(model, train_config)
+                        if not ok:
+                            raise SystemExit(
+                                f'--ep_mesh unavailable ({reason})')
+                        trainer = PackedMultiFoldTrainer(
+                            model, train_config, max_n, mesh=ep_mesh,
+                            shardings_fn=packed_fold_shardings)
+                    elif packed:
                         ok, reason = packed_supported(model, train_config)
                         if not ok:
                             raise SystemExit(f'--packed_xla unavailable '
@@ -240,8 +272,9 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
                         if batches is None:
                             batches = trainer.prepare_batches(host_batches)
                     else:
-                        trainer = MultiFoldTrainer(model, train_config,
-                                                   max_n)
+                        trainer = MultiFoldTrainer(
+                            model, train_config, max_n, mesh=mesh,
+                            shardings_fn=mesh_shardings)
                     draws = {}
                     if eps_fn is not None:
                         draws['eps'] = eps_fn(host_batches['valid'],
@@ -255,27 +288,34 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
                     with walls('artifacts'):
                         # checkpoints at every milestone (the test stage
                         # reads them), loss plots at the run's last only
-                        common.emit_fold_artifacts(
-                            model_dir, [{k: v[f] for k, v in logs.items()}
-                                        for f in range(n_folds)],
-                            per_fold, config_dict, n_folds,
-                            plot=epochs == max_epochs)
+                        if primary:
+                            common.emit_fold_artifacts(
+                                model_dir,
+                                [{k: v[f] for k, v in logs.items()}
+                                 for f in range(n_folds)],
+                                per_fold, config_dict, n_folds,
+                                plot=epochs == max_epochs)
+                        common.barrier(run_mesh)
                     with walls('test stage'):
                         test_supervised.main(point, project_root=project_root,
                                              eps_fn=score_eps_fn)
                     with walls('analysis'):
-                        stats = group_analysis.main(
+                        stats = (group_analysis.main(
                             point, project_root=project_root)
+                            if primary else None)
+                        if run_mesh is not None:
+                            stats = run_mesh.all_gather_object(stats)[0]
                     stats = {k: [float(x) for x in v]
                              for k, v in stats.items()}
                     rec = dict(procedure=procedure, hz_para_list=list(hz),
                                epochs=epochs, base_learning_rate=base_lr,
                                max_learning_rate=max_lr, stats=stats)
                     records.append(rec)
-                    run_log.event('point_done', **rec)
-                    print(f'[sweep] {procedure} hz={hz} E={epochs} '
-                          f'lr=({base_lr:g},{max_lr:g}) '
-                          f'auc={stats["auc"]}', flush=True)
+                    if primary:
+                        run_log.event('point_done', **rec)
+                    say(f'[sweep] {procedure} hz={hz} E={epochs} '
+                        f'lr=({base_lr:g},{max_lr:g}) '
+                        f'auc={stats["auc"]}', flush=True)
                     for dbase, dmax in lr_deduped:
                         records.append(dict(
                             procedure=procedure, hz_para_list=list(hz),
@@ -284,19 +324,51 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
                             deduped_from=dict(base_learning_rate=base_lr,
                                               max_learning_rate=max_lr)))
                 if lr_deduped:
-                    print(f'[sweep] {procedure} hz={hz}: '
-                          f'{len(lr_deduped)} lr pairs deduped (constant '
-                          f'effective LR, SURVEY.md Q1); pass '
-                          f'--lr_schedule cyclic to train them')
+                    say(f'[sweep] {procedure} hz={hz}: '
+                        f'{len(lr_deduped)} lr pairs deduped (constant '
+                        f'effective LR, SURVEY.md Q1); pass '
+                        f'--lr_schedule cyclic to train them')
 
-    summary_path = output_dir / 'sweep_supervised_results.json'
-    summary_path.write_text(json.dumps(records, indent=1))
-    run_log.event('sweep_end', points=len(records), summary=str(summary_path))
-    print(f'sweep summary: {summary_path} ({len(records)} grid points)')
-    walls.report('sweep_supervised')
-    print(f'sweep_supervised total wall {time.perf_counter() - start:.3f} s',
-          flush=True)
+    if primary:
+        summary_path = output_dir / 'sweep_supervised_results.json'
+        summary_path.write_text(json.dumps(records, indent=1))
+        run_log.event('sweep_end', points=len(records),
+                      summary=str(summary_path))
+        print(f'sweep summary: {summary_path} ({len(records)} grid points)')
+        walls.report('sweep_supervised')
+        print(f'sweep_supervised total wall '
+              f'{time.perf_counter() - start:.3f} s', flush=True)
+    common.barrier(run_mesh)
     return records
+
+
+def _meshes(args, packed: bool, device):
+    """(mesh, its shardings, ep mesh, its sizes) of --mesh / --ep_mesh, with
+    the JAX CLI's conflicts in its order and words
+    (cli/sweep_supervised.py:194-233)."""
+    mesh, shardings = common.parse_mesh(getattr(args, 'mesh', None),
+                                        args.n_splits, 256, device)
+    if mesh is not None:
+        common.announce_mesh(mesh, 'sweep training programs run')
+    if packed:
+        conflicts = [n for n, on in [('--mesh', mesh is not None),
+                                     ('--ep_mesh',
+                                      bool(getattr(args, 'ep_mesh', None)))]
+                     if on]
+        if conflicts:
+            raise SystemExit('--packed_xla is mutually exclusive with '
+                             + ', '.join(conflicts))
+        print('sweep training runs on the packed-modality layout '
+              '(--packed_xla)')
+    ep_mesh = ep_sizes = None
+    if getattr(args, 'ep_mesh', None):
+        if mesh is not None:
+            raise SystemExit('--ep_mesh is mutually exclusive with --mesh')
+        ep_mesh, ep_sizes = common.parse_ep_mesh(args.ep_mesh, (3,),
+                                                 EP_USAGE, device)
+        common.announce_mesh(ep_mesh,
+                             'sweep training programs run expert-parallel')
+    return mesh, shardings, ep_mesh, ep_sizes
 
 
 def _timed(stream, walls: common.StageWalls, stage: str):
@@ -359,10 +431,13 @@ def build_parser() -> argparse.ArgumentParser:
                              'port always runs the mu and logvar heads as '
                              'two products (the same math as the merged '
                              'head)')
-    not_ported = 'not ported yet (raises); see ROADMAP.md'
-    for flag in ('--mesh', '--ep_mesh'):
-        parser.add_argument(flag, dest=flag[2:], default=None,
-                            help=not_ported)
+    parser.add_argument('--mesh', dest='mesh', default=None,
+                        metavar='F,D[,M]',
+                        help='train and score every grid point on a mesh of '
+                             'ranks (python -m torch.distributed.run): '
+                             'folds over F, rows over D, the weights over '
+                             'M; exclusive with --ep_mesh/--packed_xla.')
+    common.add_ep_mesh_flag(parser, EP_USAGE)
     parser.add_argument('--packed_xla', dest='packed_xla',
                         action='store_true',
                         help='train every grid point on the packed-modality '
@@ -382,7 +457,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 def run(argv=None, project_root=None):
     args = build_parser().parse_args(argv)
-    return main(args, project_root=project_root)
+    records = main(args, project_root=project_root)
+    from ..parallel import distributed
+
+    distributed.shutdown()
+    return records
 
 
 if __name__ == '__main__':

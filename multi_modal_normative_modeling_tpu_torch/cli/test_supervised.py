@@ -28,9 +28,18 @@ each of its folds' whole noise and keeps its rows, and calls the same
 ``pred_recon_fused`` on its contiguous [F/nf, R/nd, D] slice: K1 and K2 on
 CUDA. Rank 0 gathers the predictions and writes every CSV.
 
+``--ep_mesh F,M,D`` (or M,D, a fold axis of 1) scores expert-parallel: a
+rank holds its folds and rows as on ``--mesh`` and scores the modalities it
+owns (its block of the width-grouped order, parallel/modality.py
+``owned_modalities``; one modality a rank on ADHD's 2 x 116 at M = 2): K1
+on each of them at the modality's own width, the fusion as sums over its
+modalities and one all_reduce over 'modality' (``fused_stats_collective``),
+z from the fold's noise, then K2 on each of them. Rank 0 gathers and writes
+the CSVs.
+
     python -m multi_modal_normative_modeling_tpu_torch.cli.test_supervised \
         -R ADNI -P UCA-gPoE -K 5 [--emit_latent] [--in_memory_fusion]
-        [--mesh F,D]
+        [--mesh F,D | --ep_mesh [F,]M,D]
 """
 from __future__ import annotations
 
@@ -47,11 +56,11 @@ from .. import registry
 from ..infer.emitters import DeviationEmitter
 from ..parallel.mesh import fold_range
 from ..train.checkpoints import checkpoint_exists
+from ..models.stacked import SKELETON_VARIANTS
 from . import common
 from .common import resolve_device
 
-# JAX CLI flags with no port yet: each raises instead of being ignored
-_NOT_PORTED_FLAGS = {'ep_mesh': "queue 1 item 'Multi-device'"}
+EP_USAGE = '4,2 (modality,data) or 2,2,2 (fold,modality,data)'
 
 EpsFn = Callable[[int, int, int], np.ndarray]
 
@@ -72,12 +81,15 @@ def main(args, project_root=None, eps_fn: Optional[EpsFn] = None,
     of the stage's phases: 'csv parse', 'prep' (merge, scaling, covariate
     bins), 'restore', 'scoring call' (the device's part, with the copies
     to and from it) and 'csv emit' (the host deviation and the CSVs)."""
-    common.refuse_not_ported(args, 'test stage', _NOT_PORTED_FLAGS)
     device = resolve_device(getattr(args, 'device', 'cuda'), 'score')
     mesh = common.parse_infer_mesh(getattr(args, 'mesh', None), device)
     if mesh is not None:
         device = mesh.device
         common.announce_mesh(mesh, 'test inference')
+    ep = _ep_mesh(args, mesh, device)
+    if ep is not None:
+        mesh = ep
+        device = mesh.device
     primary = mesh is None or mesh.primary
     eps_fn = eps_fn or default_eps
     walls = common.StageWalls(
@@ -134,6 +146,10 @@ def main(args, project_root=None, eps_fn: Optional[EpsFn] = None,
 
     # ---- phase 2: one scoring call over the stacked fold axis ------------
     if pending:
+        if ep is not None and len(pending) % ep.axis('fold'):
+            raise SystemExit(
+                f"--ep_mesh: {len(pending)} folds with checkpoints not "
+                f"divisible by the fold axis ({ep.axis('fold')})")
         common.check_infer_fold_axis(mesh, len(pending),
                                      'folds with checkpoints')
         mine = pending
@@ -141,11 +157,15 @@ def main(args, project_root=None, eps_fn: Optional[EpsFn] = None,
             f0, f1 = fold_range(mesh, len(pending))
             mine = pending[f0:f1]
         with walls('restore'):
-            model, _, _ = common.load_model_and_params(
+            model, _, config = common.load_model_and_params(
                 [j['dir'] for j in mine], device)
         with walls('scoring call'):
-            host_preds, latent = _score(args, model, pending, eps_fn, device,
-                                        mesh)
+            if ep is not None:
+                host_preds, latent = _score_ep(args, model, config, pending,
+                                               eps_fn, device, ep)
+            else:
+                host_preds, latent = _score(args, model, pending, eps_fn,
+                                            device, mesh)
         if not primary:
             pending = []
 
@@ -179,6 +199,77 @@ def main(args, project_root=None, eps_fn: Optional[EpsFn] = None,
             emitter.emit_combined(deviation_dir)
     if mesh is not None:
         mesh.barrier()
+
+
+def _ep_mesh(args, mesh, device):
+    """--ep_mesh's ('fold', 'modality', 'data') mesh after the JAX CLI's
+    gates, in its words (cli/test_supervised.py:226-246); None without
+    the flag. M,D runs as 1,M,D."""
+    spec = getattr(args, 'ep_mesh', None)
+    if not spec:
+        return None
+    if mesh is not None:
+        raise SystemExit('--ep_mesh is mutually exclusive with --mesh')
+    sizes = common.parse_axis_sizes(spec, '--ep_mesh', (2, 3), EP_USAGE)
+    if len(sizes) == 2:
+        sizes = [1] + sizes
+    modalities = len(registry.get_datasets_name(args.dataset_resourse,
+                                                args.procedure))
+    indivisible = common.ep_mesh_divisibility(sizes, args.n_splits, 1,
+                                              modalities)
+    if indivisible:
+        raise SystemExit(f'--ep_mesh {spec}: {indivisible}')
+    from ..parallel.modality import make_ep_mesh3
+
+    ep = make_ep_mesh3(*sizes, device=device)
+    if ep.primary:
+        print(f'test inference expert-parallel over a {dict(ep.shape)} '
+              f'device mesh ({ep.size} ranks, {ep.backend or "no"} process '
+              f'group, {ep.device})', flush=True)
+    return ep
+
+
+def _score_ep(args, model, config, pending, eps_fn: EpsFn, device, mesh):
+    """``_score`` on an expert-parallel mesh: this rank's folds and rows of
+    the modalities it owns, through K1, the collective fusion and K2
+    (parallel.modality.ep_pred_recon_fused); the ranks' parts gathered on
+    every rank."""
+    from ..parallel.modality import (
+        ep_pred_recon_fused,
+        gather_owned,
+        owned_modalities,
+    )
+
+    name = config.get('model', 'cVAE_multimodal')
+    if name not in SKELETON_VARIANTS:
+        raise SystemExit(
+            f"--ep_mesh inference supports the cVAE skeleton only "
+            f"({sorted(SKELETON_VARIANTS)}; checkpoint model {name!r})")
+    if getattr(args, 'emit_latent', False):
+        raise SystemExit('--emit_latent is not available under --ep_mesh '
+                         '(the JAX expert-parallel stage writes no latent '
+                         'deviations either)')
+    n_mod = len(pending[0]['test_data_list'])
+    owned = owned_modalities(mesh, model.input_dim_list)
+    padded_rows = common.padded_rows(
+        max(j['test_data_list'][0].shape[0] for j in pending), mesh)
+    folds, rows = common.mesh_parts(mesh, len(pending), padded_rows)
+    mine = pending[folds]
+
+    def stacked(arrays):
+        return common.stack_padded(arrays, padded_rows, device, rows)
+
+    xes = {m: stacked([j['test_data_list'][m] for j in mine])
+           for m in owned}
+    c = stacked([j['test_cov'] for j in mine])
+    eps = torch.from_numpy(np.ascontiguousarray(np.stack([
+        np.asarray(eps_fn(j['fold'], padded_rows, model.noise_dim),
+                   np.float32).reshape(padded_rows, model.noise_dim)[rows]
+        for j in mine]))).to(device)
+    out = ep_pred_recon_fused(model, owned, xes, dict.fromkeys(owned, c),
+                              args.combine, eps, mesh)
+    return gather_owned(mesh, {m: out[m][0].cpu().numpy() for m in owned},
+                        len(pending), n_mod), None
 
 
 def _score(args, model, pending, eps_fn: EpsFn, device, mesh=None):
@@ -278,8 +369,12 @@ def build_parser() -> argparse.ArgumentParser:
                              'over D (the train stage\'s F,D,M runs as '
                              'F,D*M); rank 0 writes the CSVs')
     parser.add_argument('--ep_mesh', dest='ep_mesh', default=None,
-                        metavar='M,D',
-                        help='not ported yet (raises); see ROADMAP.md')
+                        metavar='[F,]M,D',
+                        help='score expert-parallel on a (fold, modality, '
+                             'data) mesh of ranks (M,D: a fold axis of 1): '
+                             'each rank runs K1 and K2 on the modalities it '
+                             'owns, the fusion as collectives; rank 0 '
+                             'writes the CSVs')
     parser.add_argument('--in_memory_fusion', dest='in_memory_fusion',
                         action='store_true',
                         help='build the UCA early-fusion modality by '

@@ -57,7 +57,7 @@ from __future__ import annotations
 import argparse
 import time
 from pathlib import Path
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import pandas as pd
@@ -76,11 +76,11 @@ from ..train.streaming import StreamingFoldTrainer, shard_plan
 from ..utils.logging import RunLog
 from . import common
 
-# JAX CLI flags with no port yet: each raises instead of being ignored
+# JAX CLI flags with no port: each raises instead of being ignored
 _NOT_PORTED_FLAGS = {
-    'ep_mesh': common.VARIANT_NOT_PORTED['ep_mesh'],
     'warmup_only': "'Do not port' (a TPU compile-cache warm-up)",
 }
+EP_USAGE = '4,2 (modality,data) or 2,2,2 (fold,modality,data)'
 
 EpsFn = Callable[[np.ndarray, int, int, int], np.ndarray]
 
@@ -112,7 +112,12 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
                          '--stream_shards, where --mesh 1,D shards each '
                          'streamed shard\'s rows over the data axis')
     common.require_checkpoint_for_resume(args)
-    if getattr(args, 'mesh', None):
+    ep_spec = getattr(args, 'ep_mesh', None)
+    if ep_spec:
+        ep_sizes = common.parse_axis_sizes(ep_spec, '--ep_mesh', (2, 3),
+                                           EP_USAGE)
+        _ep_flag_conflicts(args, ep_sizes)
+    elif getattr(args, 'mesh', None):
         _mesh_flag_conflicts(args)
     fused = getattr(args, 'fused_train_step', False)
     # the fused train step takes precedence over --packed_xla, as in JAX
@@ -128,7 +133,7 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
         if unsupported:
             raise SystemExit(f'fused decoder unavailable ({unsupported})')
     remat = getattr(args, 'remat', False)
-    if remat and (fused or getattr(args, 'packed_xla', False)):
+    if remat and (fused or getattr(args, 'packed_xla', False) or ep_spec):
         print('--remat applies to the standard XLA loss; ignoring it for '
               '--fused_train_step/--packed_xla/--ep_mesh')
     device = common.resolve_device(getattr(args, 'device', 'cuda'), 'train')
@@ -141,6 +146,12 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
     if mesh is not None:
         device = mesh.device
         common.announce_mesh(mesh, 'fold-parallel training')
+    ep_mesh, _ = common.parse_ep_mesh(ep_spec, (2, 3), EP_USAGE, device)
+    if ep_mesh is not None:
+        device = ep_mesh.device
+        common.announce_mesh(ep_mesh, 'expert-parallel training')
+        # rank 0 writes every file, as on --mesh
+        mesh = ep_mesh
     primary = mesh is None or mesh.primary
 
     project_root = Path(project_root) if project_root else Path.cwd()
@@ -189,7 +200,11 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
     )
 
     model = common.build_model_from_config(config_dict, folds=n_folds)
-    if mesh is not None:
+    ep = None
+    if ep_mesh is not None:
+        ep = _ep_trainer(args, ep_sizes, ep_mesh, model, train_config, folds,
+                         model_dir)
+    elif mesh is not None:
         unsupported = _mesh_model_conflict(model, mesh)
         if unsupported:
             raise SystemExit(f'--mesh {args.mesh}: {unsupported}')
@@ -242,7 +257,8 @@ def main(args, project_root=None, init_fn: Optional[common.InitFn] = None,
         logs, steps, run_s = _train(fused_decoder, model, train_config,
                                     folds, max_n, eps_fn, resumable,
                                     model_dir, packed, stream_shards,
-                                    mesh, mesh_shardings)
+                                    None if ep else mesh, mesh_shardings,
+                                    ep)
     per_fold_logs = [{k: v[f] for k, v in logs.items()}
                      for f in range(n_folds)]
     if not primary:
@@ -283,6 +299,97 @@ def _mesh_flag_conflicts(args) -> None:
                          '--mesh): the JAX package trains the plain loss '
                          'here, this CLI exits instead (ROADMAP.md, "Stated '
                          'divergences"). Train without --fused_decoder')
+
+
+def _ep_flag_conflicts(args, sizes) -> None:
+    """--ep_mesh's conflicts (JAX cli/train_supervised.py:192-198), and
+    --fused_decoder, where the JAX CLI falls back to its plain loss, exits
+    here as on --mesh."""
+    conflicts = [name for name, on in [
+        ('--mesh', bool(getattr(args, 'mesh', None))),
+        ('--fold_parallel', getattr(args, 'fold_parallel', False)
+         and len(sizes) == 2),
+        ('--packed_xla', getattr(args, 'packed_xla', False)),
+        ('--fused_train_step', getattr(args, 'fused_train_step', False)),
+    ] if on]
+    if conflicts:
+        raise SystemExit('--ep_mesh is mutually exclusive with '
+                         + ', '.join(conflicts))
+    if getattr(args, 'fused_decoder', False):
+        raise SystemExit('fused decoder unavailable (mutually exclusive with '
+                         '--ep_mesh): the JAX package trains the plain loss '
+                         'here, this CLI exits instead (ROADMAP.md, "Stated '
+                         'divergences"). Train without --fused_decoder')
+    if getattr(args, 'stream_shards', 0):
+        raise SystemExit('--stream_shards is mutually exclusive with '
+                         '--ep_mesh (out-of-core streaming is a sequential '
+                         'whole-fold path)')
+
+
+class EPRun(NamedTuple):
+    """An --ep_mesh run: its trainer, its train-state dir and what the CLI
+    prints."""
+    trainer: object
+    state_dir: Path
+    say: str
+
+
+def _ep_trainer(args, sizes, mesh, model, train_config, folds,
+                model_dir: Path) -> EPRun:
+    """The --ep_mesh trainer after the JAX CLI's gates, in its order and
+    words (cli/train_supervised.py:199-254): the packed layout's scope, one
+    covariate block, the divisibility of every axis, the cvae skeleton.
+    M,D trains on ``parallel.modality.EPFoldTrainer``; F,M,D on the packed
+    trainer of the layout ``--packed_xla`` would take (width-grouped for
+    mixed widths, else padded) with its plan."""
+    from ..parallel.modality import (
+        EPFoldTrainer,
+        grouped_fold_shardings,
+        packed_fold_shardings,
+    )
+    from ..train.grouped import GroupedMultiFoldTrainer, grouped_routing
+    from ..train.packed import PackedMultiFoldTrainer
+
+    ok, reason = packed_supported(model, train_config)
+    if ok:
+        reason = common.uniform_covariates(folds)
+        ok = reason is None
+    if not ok:
+        raise SystemExit(f'--ep_mesh unavailable ({reason})')
+    indivisible = common.ep_mesh_divisibility(
+        sizes, len(folds), train_config.batch_size, model.modalities)
+    if indivisible:
+        raise SystemExit(f'--ep_mesh {args.ep_mesh}: {indivisible}')
+    if getattr(model, 'variant', None) not in ('cvae', 'mmjsd', 'mvtcae',
+                                               'nmmlp'):
+        raise SystemExit('--ep_mesh supports the cvae skeleton only '
+                         '(cvae/mmjsd/mvtcae/nmmlp)')
+    if mesh.axis('data') > 1 and getattr(model, 'variant', None) == 'mvtcae':
+        raise SystemExit(f'--ep_mesh {args.ep_mesh}: '
+                         + _mesh_model_conflict(model, mesh))
+    max_n = max(f[0][0].shape[0] for f in folds)
+    axes = dict(mesh.shape)
+    try:
+        if len(sizes) == 3:
+            if grouped_routing(model):
+                trainer = GroupedMultiFoldTrainer(
+                    model, train_config, max_n, mesh=mesh,
+                    shardings_fn=grouped_fold_shardings)
+                return EPRun(trainer, model_dir / 'ep-grouped-state',
+                             'train model (all folds fold-parallel, '
+                             'expert-parallel width-grouped modalities, '
+                             f'mesh {axes})')
+            trainer = PackedMultiFoldTrainer(
+                model, train_config, max_n, mesh=mesh,
+                shardings_fn=packed_fold_shardings)
+            return EPRun(trainer, model_dir / 'ep-packed-state',
+                         'train model (all folds fold-parallel, '
+                         f'expert-parallel modalities, mesh {axes})')
+        trainer = EPFoldTrainer(model, train_config, max_n, mesh)
+    except ValueError as exc:
+        raise SystemExit(f'--ep_mesh {args.ep_mesh}: {exc}')
+    return EPRun(trainer, model_dir / 'ep-state',
+                 f'train model (expert-parallel modalities, mesh {axes})')
 
 
 def _mesh_model_conflict(model, mesh) -> Optional[str]:
@@ -414,11 +521,12 @@ def _train_fused(model, train_config, folds, max_n, device, eps_fn,
 
 def _train(fused_decoder: bool, model, train_config, folds, max_n, eps_fn,
            resumable: common.Resumable, state_dir: Path, packed=None,
-           stream_shards: int = 0, mesh=None, shardings_fn=None):
+           stream_shards: int = 0, mesh=None, shardings_fn=None,
+           ep: Optional[EPRun] = None):
     """Every fold at once on MultiFoldTrainer (plain or --fused_decoder
-    loss; streamed in ``stream_shards`` shards when that is not 0), or on
-    the layout of ``packed`` (select_packed_trainer's choice); trains
-    ``model`` in place. The streamed run keeps its train state where the
+    loss; streamed in ``stream_shards`` shards when that is not 0), on
+    the layout of ``packed`` (select_packed_trainer's choice), or on the
+    --ep_mesh trainer ``ep``; trains ``model`` in place. The streamed run keeps its train state where the
     resident run does: either resumes the other's. Returns (logs, steps
     this call ran, seconds of the run)."""
     batch_size = train_config.batch_size
@@ -439,6 +547,16 @@ def _train(fused_decoder: bool, model, train_config, folds, max_n, eps_fn,
         _say(mesh, f'train model (streamed, {stream_shards} batch shards'
              + ('' if mesh is None else f', rows over mesh {mesh.shape}')
              + ')')
+    elif ep is not None:
+        trainer, state_dir = ep.trainer, ep.state_dir
+        if ep.state_dir.name == 'ep-grouped-state' and resumable.every \
+                and resumable.resume:
+            from ..train.grouped import notice_stale_padded_state
+
+            notice_stale_padded_state(state_dir.parent, 'grouped',
+                                      stale_dirname='ep-packed-state',
+                                      new_dirname='ep-grouped-state')
+        mesh = trainer.mesh
     elif packed is None:
         trainer = MultiFoldTrainer(model, train_config, max_n,
                                    loss_fn=loss_fn, mesh=mesh,
@@ -453,7 +571,9 @@ def _train(fused_decoder: bool, model, train_config, folds, max_n, eps_fn,
     if eps_fn is not None:
         eps = eps_fn(batches['valid'], train_config.epochs, batch_size,
                      model.noise_dim)
-    if not stream_shards:
+    if ep is not None:
+        _say(mesh, ep.say)
+    elif not stream_shards:
         _say(mesh, 'train model (all folds fold-parallel'
              + ('' if packed is None else f', {layout} modalities')
              + ('' if mesh is None else f', mesh {mesh.shape}') + ')')
@@ -559,10 +679,11 @@ def build_parser() -> argparse.ArgumentParser:
                              'early_fusion CSV).')
     common.add_resume_flags(parser)
     common.add_mesh_flag(parser)
-    not_ported = 'not ported yet (raises); see ROADMAP.md'
-    for flag, kwargs in (('--ep_mesh', {'default': None}),
-                         ('--warmup_only', {'action': 'store_true'})):
-        parser.add_argument(flag, dest=flag[2:], help=not_ported, **kwargs)
+    common.add_ep_mesh_flag(parser, EP_USAGE)
+    parser.add_argument('--warmup_only', dest='warmup_only',
+                        action='store_true',
+                        help='a TPU compile-cache warm-up: not ported '
+                             '(raises); see ROADMAP.md')
     return parser
 
 

@@ -19,10 +19,16 @@ fold, and the latent body one K1 launch per modality; on the CPU the same
 code runs the kernels' plain versions. The DMVAE family has no kernel in
 either package: it goes through ``pred_recon`` and has no latent.
 
-Not ported: the expert-parallel and width-grouped serving layouts
-(``pack_ensemble_ep``, ``fold_infer_fn_ep``, ``pack_ensemble_grouped``,
-``fold_infer_fn_grouped``), ROADMAP queue 1 items 'Multi-device' and
-'Grouped layout'.
+On a mesh of ranks (one process each, parallel/mesh.py) a rank scores its
+part: ``local_ensemble`` cuts the state to the rank's folds (the 'fold'
+axis of ``--mesh F,D``; rows split over 'data' by the caller), and the
+expert-parallel layouts (``pack_ensemble_ep`` for uniform widths,
+``pack_ensemble_grouped`` for mixed widths, JAX infer/ensemble.py:303-409)
+also give the rank the modalities it owns: its block of the cohort's order,
+or of the width-grouped order (parallel.modality.owned_modalities). Their
+bodies (``fold_infer_fn_ep``, ``fold_infer_fn_grouped``) run K1 on each
+owned modality, the fusion as collectives over 'modality', and K2 on each
+owned modality (parallel.modality.ep_pred_recon_fused).
 """
 from __future__ import annotations
 
@@ -245,6 +251,104 @@ def train_latent_stats(model, combine: str, fold_preps):
     mean = torch.sum(mu * w, dim=1) / denom
     var = torch.sum(w * (mu - mean[:, None]) ** 2, dim=1) / denom
     return mean, var
+
+
+def local_ensemble(state: EnsembleState, folds: slice) -> EnsembleState:
+    """``state`` cut to the folds ``folds``: a copy of the model holding
+    those folds, their scalers, noise seeds, train cohorts and (when
+    computed) latent statistics."""
+    import copy
+
+    model = copy.deepcopy(state.model)
+    with torch.no_grad():
+        for t in list(model.parameters()) + list(model.buffers()):
+            t.data = t.data[folds].clone()
+    if hasattr(model, 'folds'):
+        model.folds = len(range(state.n_splits)[folds])
+    local = copy.copy(state)
+    local.model = model
+    local.centers = tuple(c[folds] for c in state.centers)
+    local.scales = tuple(c[folds] for c in state.scales)
+    local.seeds = np.asarray(state.seeds)[folds]
+    local.train_covs = list(state.train_covs)[folds]
+    if state.latent_mean is not None:
+        local.latent_mean = state.latent_mean[folds]
+        local.latent_var = state.latent_var[folds]
+    return local
+
+
+@dataclass
+class EPEnsemble:
+    """One rank's part of an ensemble on an expert-parallel mesh: its folds
+    (``state``) and the modalities it scores (``owned``)."""
+
+    state: EnsembleState
+    owned: List[int]
+    mesh: object
+
+
+def _pack_ep(state: EnsembleState, mesh, owned: List[int]) -> EPEnsemble:
+    from ..parallel.mesh import fold_range
+
+    name = state.config.get('model', 'cVAE_multimodal')
+    if not hasattr(state.model, 'pred_recon_fused'):
+        raise ValueError(f'--ep_mesh serving supports the cVAE skeleton '
+                         f'only (checkpoint model {name!r})')
+    f0, f1 = fold_range(mesh, state.n_splits)
+    return EPEnsemble(local_ensemble(state, slice(f0, f1)), owned, mesh)
+
+
+def pack_ensemble_ep(state: EnsembleState, mesh) -> EPEnsemble:
+    """The rank's operands of expert-parallel scoring on a uniform-width
+    cohort (JAX infer/ensemble.py:303-327): its folds, and its block of
+    the modalities in the cohort's order."""
+    from ..parallel.mesh import axis_range
+
+    m = len(state.dataset_names)
+    lo, hi = axis_range(m, mesh.axis('modality'), mesh.index('modality'),
+                        'modalities')
+    return _pack_ep(state, mesh, list(range(lo, hi)))
+
+
+def pack_ensemble_grouped(state: EnsembleState, mesh) -> EPEnsemble:
+    """The same for a mixed-width cohort (JAX infer/ensemble.py:362-384):
+    the rank owns its block of the width-grouped order (the split of the
+    grouped layouts' [M] leaves); a width group the 'modality' axis does
+    not divide is held by every rank, each scoring its owned members."""
+    from ..parallel.modality import owned_modalities
+
+    return _pack_ep(state, mesh, owned_modalities(
+        mesh, state.config['input_dim_list']))
+
+
+def fold_infer_fn_ep(ens: EPEnsemble):
+    """The expert-parallel scoring body (JAX infer/ensemble.py:330-359):
+    ``infer(covs [K_l, n, C], eps [K_l, n, Z], xes {m: raw [n, F_m]})`` of
+    the rank's folds scales each owned modality by its folds' scalers, then
+    K1 per owned modality, the collective fusion, K2 per owned modality.
+    Returns ({m: dev [K_l, n]}, {m: squared error [K_l, n, F_m]}); every
+    rank of the 'modality' axis calls it together."""
+    from ..parallel.modality import ep_pred_recon_fused
+
+    st = ens.state
+
+    @torch.no_grad()
+    def infer(covs: torch.Tensor, eps: torch.Tensor, xes: dict):
+        xs = {m: scaled([st.centers[m]], [st.scales[m]], [xes[m]])[0]
+              for m in ens.owned}
+        out = ep_pred_recon_fused(st.model, ens.owned, xs,
+                                  dict.fromkeys(ens.owned, covs),
+                                  st.combine, eps, ens.mesh)
+        return ({m: out[m][1] for m in ens.owned},
+                {m: (xs[m] - out[m][0]) ** 2 for m in ens.owned})
+
+    return infer
+
+
+# the width-grouped body is the same: the layout differs only in which
+# modalities a rank owns (pack_ensemble_grouped), and the outputs are
+# keyed by the cohort's modality index
+fold_infer_fn_grouped = fold_infer_fn_ep
 
 
 def fold_eps(seeds: Sequence[int], rows: int, z_dim: int, device,

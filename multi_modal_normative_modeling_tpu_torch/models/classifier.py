@@ -6,7 +6,9 @@ The JAX package runs the reference's full-batch training loop (classifier.py:
 hyperparameters. Here one module holds S configurations: every layer is a
 fold-stacked linear (``ops/linear.FoldLinear``, weights [S, out, in]) and
 the input [N, D] is shared by all. ``train_classifier`` is S = 1 and
-``sweep_classifiers`` S = n, on one code path (``_train``). The epoch loop
+``sweep_classifiers`` S = n, on one code path (``_train``); on a mesh of
+ranks with a 'config' axis each rank trains its block of the grid and the
+blocks are gathered on every rank. The epoch loop
 keeps its whole carry on the device: the scheduler's own best, the plateau
 count, the learning rate, the best validation loss and parameters, the
 early-stop count and the ``stopped`` flag, one per configuration. No epoch
@@ -54,6 +56,15 @@ MaskFn = Callable[[int, int, Tuple[int, int], torch.Tensor], torch.Tensor]
 HISTORY_KEYS = ("train_loss", "val_loss", "lr")
 
 
+def _linear(layer, h: torch.Tensor) -> torch.Tensor:
+    """``h @ weight^T + bias`` of a config-stacked layer with autograd's own
+    sum of the bias gradient over the rows: not ``ops/linear.apply_linear``'s
+    fold-count-independent sum. Chip_smoke phase 14a holds each grid point
+    to its one-configuration run, and a sum in another order let Adam
+    carry one grid point's last-bit difference to 3.8e-04 on an H100."""
+    return h @ layer.weight.mT + layer.bias.unsqueeze(-2)
+
+
 class MLPClassifier(nn.Module):
     """Linear -> ReLU -> Dropout blocks and a final Linear to the classes
     (classifier.py:25-53), for ``configs`` configurations at once."""
@@ -78,11 +89,11 @@ class MLPClassifier(nn.Module):
         the dropout rate per configuration [S]; without them no dropout."""
         h = x
         for i, layer in enumerate(self.layers[:-1]):
-            h = torch.relu(layer(h))
+            h = torch.relu(_linear(layer, h))
             if keep is not None:
                 h = torch.where(keep[i], h / (1.0 - rate)[:, None, None],
                                 h.new_zeros(()))
-        return self.layers[-1](h)
+        return _linear(self.layers[-1], h)
 
     def stacked(self, configs: int) -> "MLPClassifier":
         """A copy holding ``configs`` configurations, each starting from
@@ -260,23 +271,59 @@ def sweep_classifiers(model: MLPClassifier, x_train, y_train, x_val, y_val,
     change shapes) as one model of len(configs) configurations, each from
     the one-configuration ``model``'s parameters. Returns (the best
     parameters, one model of S configurations; a history dict per
-    configuration)."""
+    configuration).
+
+    With ``mesh`` (any mesh of ranks with a 'config' axis, e.g.
+    parallel.mesh.make_sweep_mesh) each rank trains its block of the
+    configurations; the points are independent and every rank thresholds
+    the same dropout draws, so the only collective is the gather of the
+    best parameters and histories, which every rank returns whole."""
+    n = len(configs)
+    mine = range(n)
     if mesh is not None:
-        raise SystemExit("sweep_classifiers(mesh=...): the sharded grid is "
-                         "not ported yet (ROADMAP queue 1 item "
-                         "'Multi-device')")
-    grid = model.stacked(len(configs))
+        if n % mesh.axis("config"):
+            raise ValueError(
+                f"classifier sweep mesh: {n} grid configs not divisible by "
+                f"the 'config' mesh axis ({mesh.axis('config')})")
+        per = n // mesh.axis("config")
+        lo = mesh.index("config") * per
+        mine = range(lo, lo + per)
+    grid = model.stacked(len(mine))
     hyper = {
-        "initial_lr": [c["initial_lr"] for c in configs],
-        "factor": [c["factor"] for c in configs],
-        "patience": [c.get("patience", 10) for c in configs],
-        "min_lr": [c["min_lr"] for c in configs],
-        "dropout": [c.get("dropout", model.dropout) for c in configs],
+        "initial_lr": [configs[i]["initial_lr"] for i in mine],
+        "factor": [configs[i]["factor"] for i in mine],
+        "patience": [configs[i].get("patience", 10) for i in mine],
+        "min_lr": [configs[i]["min_lr"] for i in mine],
+        "dropout": [configs[i].get("dropout", model.dropout) for i in mine],
     }
     best, history = _train(grid, x_train, y_train, x_val, y_val, num_epochs,
                            hyper, 10000, seed, mask_fn)
+    if mesh is not None:
+        best, history = _gather_grid(mesh, model, best, history, n)
     return best, [{k: v[:, i] for k, v in history.items()}
-                  for i in range(len(configs))]
+                  for i in range(n)]
+
+
+def _gather_grid(mesh, model: MLPClassifier, best: MLPClassifier,
+                 history: dict, n: int):
+    """Every rank's block of a classifier grid (the best parameters, the
+    histories [epochs, S_local]) put together in config order, from the
+    ranks whose other mesh coordinates are 0."""
+    others = [a for a in mesh.axis_names if a != "config"]
+    mine = (mesh.index("config"),
+            all(mesh.index(a) == 0 for a in others),
+            {k: p.detach().cpu().numpy()
+             for k, p in best.named_parameters()}, history)
+    blocks = sorted((c, params, hist) for c, first, params, hist in
+                    mesh.all_gather_object(mine) if first)
+    whole = model.stacked(n)
+    with torch.no_grad():
+        for k, p in whole.named_parameters():
+            p.data = torch.from_numpy(np.concatenate(
+                [params[k] for _, params, _ in blocks])).to(p.device,
+                                                           p.dtype)
+    return whole, {k: np.concatenate([hist[k] for _, _, hist in blocks],
+                                     axis=1) for k in history}
 
 
 @torch.no_grad()

@@ -41,11 +41,13 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..ops.linear import leaky_relu
-from ..ops.losses import HALF_LOG_2PI, kl_standard_normal
+from ..ops.linear import add_rows, fold_expand, leaky_relu
+from ..ops.losses import HALF_LOG_2PI, kl_standard_normal, row_count
+from ..ops.shard import part, vary, whole
 from .stacked import (
     VARIANTS,
     _as_tensor,
+    decoder_input,
     neg_mse_rows,
     skeleton_fuse,
     skeleton_total,
@@ -83,7 +85,8 @@ class GroupLayout:
         self.perm = [m for _, idx in self.groups for m in idx]
         # original modality m sits at grouped position inv_perm[m]
         self.inv_perm = np.argsort(self.perm)
-        self.bounds = np.cumsum([0] + [len(idx) for _, idx in self.groups])
+        self.sizes = [len(idx) for _, idx in self.groups]
+        self.bounds = np.cumsum([0] + self.sizes)
         self.locate = [None] * self.modalities
         for gi, (_, idx) in enumerate(self.groups):
             for row, m in enumerate(idx):
@@ -148,46 +151,65 @@ def unpack_grouped_encoder(layout: GroupLayout, e: dict,
 
 
 def grouped_encode(e: dict, x_groups, c: Optional[torch.Tensor], act,
-                   layers_key: str = "layers"):
+                   layers_key: str = "layers",
+                   sizes: Optional[Sequence[int]] = None):
     """The grouped encoder: layer 0 per width group on [x | c] (x alone
     when ``c`` is None), then the width-uniform chain and the heads over
     every modality. Returns (mus, logvars), [F, M, B, Z] in grouped
-    order."""
+    order. Under ops.shard.modality_shard each product runs on this
+    rank's part of its leaves' modality axis (a group's, of the groups'
+    ``sizes``, or every modality's), and the statistics come back whole."""
     hs = []
-    for xg, lay0 in zip(x_groups, e["layer0"]):
+    if sizes is None:
+        sizes = [xg.shape[1] for xg in x_groups]
+    for xg, lay0, n in zip(x_groups, e["layer0"], sizes):
+        xg = part(xg, n)
         h = xg if c is None else torch.cat(
             [xg, c[:, None].expand(-1, xg.shape[1], -1, -1)], dim=3)
-        hs.append(act(h @ lay0["w"] + lay0["b"][:, :, None, :]))
+        hs.append(whole(act(add_rows(h @ lay0["w"], lay0["b"])), n))
     h = torch.cat(hs, dim=1)                       # [F, M, B, H0]
+    m = h.shape[1]
+    h = part(h, m)
     for lay in e[layers_key]:
-        h = act(h @ lay["w"] + lay["b"][:, :, None, :])
-    return (h @ e["wmu"] + e["bmu"][:, :, None, :],
-            h @ e["wlv"] + e["blv"][:, :, None, :])
+        h = act(add_rows(h @ lay["w"], lay["b"]))
+    return (whole(add_rows(h @ e["wmu"], e["bmu"]), m),
+            whole(add_rows(h @ e["wlv"], e["blv"]), m))
 
 
 def decode_chain(layers, z_in: torch.Tensor, act) -> torch.Tensor:
     """The width-uniform decoder chain over every modality: ``z_in``
     [F, B, K] shared by every modality, or [F, M, B, K]."""
-    g = z_in if z_in.dim() == 4 else z_in[:, None]
+    g = (z_in if z_in.dim() == 4
+         else decoder_input(z_in, layers[0]["w"].shape[1]))
     for lay in layers:
-        g = act(g @ lay["w"] + lay["b"][:, :, None, :])
+        g = act(add_rows(g @ lay["w"], lay["b"]))
     return g
 
 
-def gaussian_ll_groups(x_groups, means, lvos, mask) -> torch.Tensor:
-    """Per-modality Gaussian ll over each group's exact width, [F, M] in
-    grouped order: ``lvos`` one [F, G, d] per group."""
-    rows = []
-    for xg, mg, lvo in zip(x_groups, means, lvos):
-        lvo = lvo[:, :, None, :]
-        rows.append(torch.sum(-0.5 * (xg - mg) ** 2 * torch.exp(-lvo)
-                              - 0.5 * lvo - HALF_LOG_2PI, dim=3))
-    ll_rows = torch.cat(rows, dim=1)               # [F, M, B]
+def masked_row_mean(rows: torch.Tensor, mask) -> torch.Tensor:
+    """[F, G, B] -> [F, G], the mean over each fold's valid rows."""
     if mask is None:
-        return torch.mean(ll_rows, dim=2)
-    w = mask.to(ll_rows.dtype)[:, None, :]
-    return (torch.sum(ll_rows * w, dim=2)
-            / torch.clamp(torch.sum(w, dim=2), min=1.0))
+        return torch.mean(rows, dim=2)
+    w = mask.to(rows.dtype)
+    return (torch.sum(rows * w[:, None, :], dim=2)
+            / torch.clamp(row_count(w), min=1.0)[:, None])
+
+
+def gaussian_ll_groups(x_groups, means, lvos, mask,
+                       sizes: Optional[Sequence[int]] = None
+                       ) -> torch.Tensor:
+    """Per-modality Gaussian ll over each group's exact width, [F, M] in
+    grouped order: ``lvos`` one [F, G, d] per group (this rank's part of
+    each group of ``sizes`` under ops.shard.modality_shard)."""
+    if sizes is None:
+        sizes = [xg.shape[1] for xg in x_groups]
+    ll = []
+    for xg, mg, lvo, n in zip(x_groups, means, lvos, sizes):
+        lvo = fold_expand(lvo[:, :, None, :], mg.shape)
+        rows = torch.sum(-0.5 * (part(xg, n) - mg) ** 2 * torch.exp(-lvo)
+                         - 0.5 * lvo - HALF_LOG_2PI, dim=3)
+        ll.append(whole(masked_row_mean(rows, mask), n))
+    return torch.cat(ll, dim=1)
 
 
 class GroupedStackedCVAE(GroupLayout):
@@ -264,15 +286,20 @@ class GroupedStackedCVAE(GroupLayout):
         """x_groups: one [F, G, B, d] per width group; c [F, B, C]; eps
         [F, B, Z]. recon_means come back per group, [F, G, B, d]."""
         act = self._act()
-        mus, logvars = grouped_encode(params["enc"], x_groups, c, act)
-        fused_mu, fused_logvar = skeleton_fuse(self.variant, params, mus,
-                                               logvars, combine)
+        m = self.modalities
+        mus, logvars = grouped_encode(params["enc"], x_groups, c, act,
+                                      sizes=self.sizes)
+        fused_mu, fused_logvar = skeleton_fuse(
+            self.variant, {"alpha": whole(params["alpha"], m)}, mus, logvars,
+            combine)
         z = fused_mu + eps.to(fused_mu.dtype) * torch.exp(0.5 * fused_logvar)
         d = params["dec"]
-        g = decode_chain(d["layers"], torch.cat([z, c], dim=2), act)
+        g = whole(decode_chain(d["layers"], vary(torch.cat([z, c], dim=2)),
+                               act), m)
         means = tuple(
-            g[:, int(self.bounds[gi]):int(self.bounds[gi + 1])] @ out["wm"]
-            + out["bm"][:, :, None, :] for gi, out in enumerate(d["out"]))
+            add_rows(part(g[:, int(self.bounds[gi]):int(self.bounds[gi + 1])],
+                          n) @ out["wm"], out["bm"])
+            for gi, (out, n) in enumerate(zip(d["out"], self.sizes)))
         return {
             "recon_means": means,
             "mu_multimodal": fused_mu,
@@ -288,15 +315,16 @@ class GroupedStackedCVAE(GroupLayout):
         width; the regularizers see the statistics in the cohort's order."""
         if self.variant == "nmmlp":
             ll = torch.cat([
-                neg_mse_rows((xg - mg) ** 2,
-                             torch.full((xg.shape[1],), float(xg.shape[3]),
-                                        dtype=mg.dtype, device=mg.device),
-                             mask)
-                for xg, mg in zip(x_groups, fwd["recon_means"])], dim=1)
+                whole(neg_mse_rows(
+                    (part(xg, n) - mg) ** 2,
+                    torch.full((mg.shape[1],), float(xg.shape[3]),
+                               dtype=mg.dtype, device=mg.device), mask), n)
+                for xg, mg, n in zip(x_groups, fwd["recon_means"],
+                                     self.sizes)], dim=1)
         else:
             ll = gaussian_ll_groups(x_groups, fwd["recon_means"],
                                     [o["lvo"] for o in params["dec"]["out"]],
-                                    mask)
+                                    mask, self.sizes)
         mu, logvar = fwd["mu_multimodal"], fwd["logvar_multimodal"]
         kl = kl_standard_normal(mu, logvar, mask)
         mus, logvars = fwd.get("mus"), fwd.get("logvars")

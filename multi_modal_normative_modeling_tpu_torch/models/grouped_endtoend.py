@@ -25,18 +25,20 @@ from typing import Optional, Sequence
 import torch
 
 from ..ops.fusion import poe_logvar
-from ..ops.linear import leaky_relu
+from ..ops.linear import add_rows, fold_expand, leaky_relu
 from ..ops.losses import (
     HALF_LOG_2PI,
     cross_entropy_logits,
     kl_standard_normal,
     margin_contrastive,
 )
+from ..ops.shard import part, vary, whole
 from .grouped import (
     GroupLayout,
     _stack,
     decode_chain,
     grouped_encode,
+    masked_row_mean,
     pack_grouped_encoder,
     unpack_grouped_encoder,
 )
@@ -127,16 +129,19 @@ class GroupedEndToEnd(GroupLayout):
         [F, B, Z]; ``classifier`` the model's head (models/cvae.py), with
         the step's dropout keep masks ``keep``."""
         act = self._act()
-        mus, logvars = grouped_encode(params["enc"], x_groups, c, act)
+        mus, logvars = grouped_encode(params["enc"], x_groups, c, act,
+                                      sizes=self.sizes)
         fused_mu, fused_logvar = poe_logvar(mus.movedim(1, 0),
                                             logvars.movedim(1, 0))
         z = fused_mu + eps.to(fused_mu.dtype) * torch.exp(0.5 * fused_logvar)
-        g = decode_chain(params["dec"]["layers"], torch.cat([z, c], dim=2),
-                         act)                       # [F, 2M, B, H0]
+        g = whole(decode_chain(params["dec"]["layers"],
+                               vary(torch.cat([z, c], dim=2)), act),
+                  2 * self.modalities)              # [F, 2M, B, H0]
         means = tuple(
-            g[:, int(self.bounds2[gi]):int(self.bounds2[gi + 1])] @ out["wm"]
-            + out["bm"][:, :, None, :]
-            for gi, out in enumerate(params["dec"]["out"]))
+            add_rows(part(g[:, int(self.bounds2[gi]):int(self.bounds2[gi + 1])],
+                          2 * n) @ out["wm"], out["bm"])
+            for gi, (out, n) in enumerate(zip(params["dec"]["out"],
+                                              self.sizes)))
         logits, bn_state = classifier(z, train, mask, keep)
         return {"recon_means": means, "mu": fused_mu, "logvar": fused_logvar,
                 "logits": logits, "bn_state": bn_state}
@@ -154,19 +159,14 @@ class GroupedEndToEnd(GroupLayout):
         for xg, means, out in zip(x_groups, fwd["recon_means"],
                                   params["dec"]["out"]):
             gg = xg.shape[1]
-            sq = (torch.cat([xg, xg], dim=1) - means) ** 2
-            lvo = out["lvo"][:, :, None, :]
+            sq = (part(torch.cat([xg, xg], dim=1), 2 * gg) - means) ** 2
+            lvo = fold_expand(out["lvo"][:, :, None, :], sq.shape)
             ll_rows = torch.sum(-0.5 * sq * torch.exp(-lvo) - 0.5 * lvo
                                 - HALF_LOG_2PI, dim=3)      # [F, 2G, B]
-            if mask is None:
-                ll_entry = torch.mean(ll_rows, dim=2)
-            else:
-                w = mask.to(ll_rows.dtype)[:, None, :]
-                ll_entry = (torch.sum(ll_rows * w, dim=2)
-                            / torch.clamp(torch.sum(w, dim=2), min=1.0))
+            ll_entry = whole(masked_row_mean(ll_rows, mask), 2 * gg)
             recon_h = recon_h - torch.sum(ll_entry[:, :gg], dim=1)
             recon_d = recon_d - torch.sum(ll_entry[:, gg:], dim=1)
-            dev = torch.mean(sq, dim=3)                      # [F, 2G, B]
+            dev = whole(torch.mean(sq, dim=3), 2 * gg)       # [F, 2G, B]
             dev_h.append(dev[:, :gg])
             dev_d.append(dev[:, gg:])
         deviation_h = torch.cat(dev_h, dim=1).mean(dim=1)
@@ -191,6 +191,6 @@ class GroupedEndToEnd(GroupLayout):
         """Eval-mode classifier logits [F, B, classes] from the fused mean
         (cVAE.py:2202)."""
         mus, logvars = grouped_encode(params["enc"], x_groups, c,
-                                      self._act())
+                                      self._act(), sizes=self.sizes)
         fused_mu, _ = poe_logvar(mus.movedim(1, 0), logvars.movedim(1, 0))
         return classifier(fused_mu, train=False)[0]

@@ -38,8 +38,14 @@ import numpy as np
 import torch
 
 from ..ops import fusion
-from ..ops.linear import leaky_relu
-from ..ops.losses import HALF_LOG_2PI, kl_standard_normal, pairwise_jsd
+from ..ops.linear import add_rows, fold_expand, leaky_relu
+from ..ops.losses import (
+    HALF_LOG_2PI,
+    kl_standard_normal,
+    pairwise_jsd,
+    row_count,
+)
+from ..ops.shard import part, vary, whole
 from .multimodal import MVTCAE_BETA, VARIANTS, total_correlation
 
 # registry name -> packed variant of the cvae-skeleton zoo; the DMVAE
@@ -108,6 +114,15 @@ def skeleton_total(variant: str, m_count: int, kl: torch.Tensor,
     return out
 
 
+def decoder_input(zc: torch.Tensor, m: int) -> torch.Tensor:
+    """The decoders' input [F, B, K], shared by every modality, as one copy
+    a modality [F, m, B, K]: each decoder layer is then a plain batched
+    product per (fold, modality), the same products whatever the number of
+    modalities (with a broadcast operand the card's library picks another
+    kernel, whose sums differ in the last bits)."""
+    return zc[:, None].expand(-1, m, -1, -1).contiguous()
+
+
 def neg_mse_rows(sq: torch.Tensor, dims: torch.Tensor,
                  mask: Optional[torch.Tensor]) -> torch.Tensor:
     """nm-MLP's ll, -MSE over each modality's true elements: ``sq``
@@ -116,7 +131,7 @@ def neg_mse_rows(sq: torch.Tensor, dims: torch.Tensor,
     if mask is None:
         return -torch.sum(sq, dim=(2, 3)) / (sq.shape[2] * dims)
     w = mask.to(sq.dtype)
-    n = torch.clamp(torch.sum(w, dim=1), min=1.0)[:, None]
+    n = torch.clamp(row_count(w), min=1.0)[:, None]
     return -torch.sum(sq * w[:, None, :, None], dim=(2, 3)) / (n * dims)
 
 
@@ -249,25 +264,33 @@ class StackedMultimodalCVAE:
     def forward(self, params, x_packed: torch.Tensor, c: torch.Tensor,
                 combine: str, eps: torch.Tensor) -> dict:
         """x_packed [F, M, B, d_max]; c [F, B, C] (one covariate block for
-        every modality); eps [F, B, Z], the reparameterization noise."""
+        every modality); eps [F, B, Z], the reparameterization noise.
+        Under ops.shard.modality_shard the encoders and decoders run on
+        this rank's modalities (recon_means holds those) and the fusion on
+        the gathered statistics."""
         act = leaky_relu if self.non_linear else (lambda a: a)
         m = self.modalities
+        x_packed = part(x_packed, m)
         e = params["enc"]
-        h = torch.cat([x_packed, c[:, None].expand(-1, m, -1, -1)], dim=3)
+        h = torch.cat([x_packed,
+                       c[:, None].expand(-1, x_packed.shape[1], -1, -1)],
+                      dim=3)
         for lay in e["layers"]:
-            h = act(h @ lay["w"] + lay["b"][:, :, None, :])
-        mus = h @ e["wmu"] + e["bmu"][:, :, None, :]
-        logvars = h @ e["wlv"] + e["blv"][:, :, None, :]
+            h = act(add_rows(h @ lay["w"], lay["b"]))
+        mus = whole(add_rows(h @ e["wmu"], e["bmu"]), m)
+        logvars = whole(add_rows(h @ e["wlv"], e["blv"]), m)
 
-        fused_mu, fused_logvar = skeleton_fuse(self.variant, params, mus,
-                                               logvars, combine)
+        fused_mu, fused_logvar = skeleton_fuse(
+            self.variant, {"alpha": whole(params["alpha"], m)}, mus, logvars,
+            combine)
         z = fused_mu + eps.to(fused_mu.dtype) * torch.exp(0.5 * fused_logvar)
 
         d = params["dec"]
-        g = torch.cat([z, c], dim=2)[:, None]            # [F, 1, B, Z+C]
+        g = decoder_input(vary(torch.cat([z, c], dim=2)),
+                          d["layers"][0]["w"].shape[1])  # [F, M, B, Z+C]
         for lay in d["layers"]:
-            g = act(g @ lay["w"] + lay["b"][:, :, None, :])
-        means = g @ d["wm"] + d["bm"][:, :, None, :]
+            g = act(add_rows(g @ lay["w"], lay["b"]))
+        means = add_rows(g @ d["wm"], d["bm"])
         return {
             "recon_means": means,                         # [F, M, B, d_max]
             "mu_multimodal": fused_mu,
@@ -283,23 +306,26 @@ class StackedMultimodalCVAE:
         (Gaussian, or -MSE for nmmlp) over each modality's true features,
         the fused KL and the variant's regularizer (mmJSD's pairwise KL,
         mvtCAE's TC). ``mask`` [F, B] marks the valid rows."""
-        col = self.col_mask(x_packed.device)[None, :, None, :]
+        m = self.modalities
+        x_packed = part(x_packed, m)
+        col = part(self.col_mask(x_packed.device), m, 0)[None, :, None, :]
         sq = (x_packed - fwd["recon_means"]) ** 2
         if self.variant == "nmmlp":
-            dims = torch.tensor(self.input_dim_list, dtype=sq.dtype,
-                                device=sq.device)
+            dims = part(torch.tensor(self.input_dim_list, dtype=sq.dtype,
+                                     device=sq.device), m, 0)
             ll = neg_mse_rows(sq * col, dims, mask)
         else:
-            lvo = params["dec"]["lvo"][:, :, None, :]      # [F, M, 1, d_max]
+            lvo = fold_expand(params["dec"]["lvo"][:, :, None, :], sq.shape)
             ll_elem = (-0.5 * sq * torch.exp(-lvo) - 0.5 * lvo
                        - HALF_LOG_2PI) * col
             ll_rows = torch.sum(ll_elem, dim=3)            # [F, M, B]
             if mask is None:
                 ll = torch.mean(ll_rows, dim=2)
             else:
-                w = mask.to(ll_rows.dtype)[:, None, :]
-                ll = (torch.sum(ll_rows * w, dim=2)
-                      / torch.clamp(torch.sum(w, dim=2), min=1.0))
+                w = mask.to(ll_rows.dtype)
+                ll = (torch.sum(ll_rows * w[:, None, :], dim=2)
+                      / torch.clamp(row_count(w), min=1.0)[:, None])
+        ll = whole(ll, m)
         mu, logvar = fwd["mu_multimodal"], fwd["logvar_multimodal"]
         kl = kl_standard_normal(mu, logvar, mask)
         return skeleton_total(self.variant, self.modalities, kl, ll, mu,

@@ -13,6 +13,8 @@ from typing import Optional
 
 import torch
 
+from .linear import fold_expand
+
 
 def product_of_experts(mus: torch.Tensor, variances: torch.Tensor):
     """Precision-weighted product of Gaussian experts over axis 0."""
@@ -32,7 +34,7 @@ def gpoe(mus: torch.Tensor, variances: torch.Tensor, alpha: torch.Tensor):
     weights = torch.softmax(alpha, dim=-1).movedim(-1, 0)
     weights = weights.reshape(weights.shape
                               + (1,) * (mus.dim() - weights.dim()))
-    weighted_precision = weights / variances
+    weighted_precision = fold_expand(weights, variances.shape) / variances
     total = torch.sum(weighted_precision, dim=0)
     fused_mu = torch.sum(mus * weighted_precision, dim=0) / total
     fused_var = 1.0 / total

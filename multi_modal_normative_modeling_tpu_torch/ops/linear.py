@@ -40,7 +40,76 @@ def apply_linear(weight: torch.Tensor, bias: torch.Tensor,
                  x: torch.Tensor) -> torch.Tensor:
     """``x @ weight^T + bias``; with a fold axis, x [F, B, K], weight
     [F, N, K] and bias [F, N] give [F, B, N]."""
-    return x @ weight.mT + bias.unsqueeze(-2)
+    return add_rows(x @ weight.mT, bias)
+
+
+def add_rows(y: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """``y + bias`` with ``bias`` [..., N] broadcast over the rows (dim -2)
+    of y [..., B, N], its gradient summed over the rows in an order that
+    does not depend on the leading dims' sizes (``fold_expand``)."""
+    return y + fold_expand(bias.unsqueeze(-2), y.shape)
+
+
+def fold_expand(t: torch.Tensor, shape) -> torch.Tensor:
+    """``t`` broadcast to ``shape``, whose gradient sums the cotangent over
+    the broadcast dims in an order that does not depend on how many folds
+    are stacked (where autograd records; else the plain broadcast)."""
+    if not (torch.is_grad_enabled() and t.requires_grad) \
+            or tuple(t.shape) == tuple(shape):
+        return t.expand(shape)
+    return _FoldExpand.apply(t, tuple(shape))
+
+
+# the card's reduction kernel gives an output's row a number of threads
+# that depends on the number of outputs below 16 (its block height), and
+# splits rows longer than 256 values a thread over blocks: sums over at
+# least _MIN_OUTPUTS outputs, in chunks of _CHUNK, add each row in one
+# order whatever the number of outputs
+_MIN_OUTPUTS, _CHUNK = 16, 4096
+
+
+def _row_sums(rows: torch.Tensor) -> torch.Tensor:
+    """The sum of each row of rows [n, R], in an order that depends on R
+    alone."""
+    n, r = rows.shape
+    if r > _CHUNK:
+        rows = torch.nn.functional.pad(rows, (0, -r % _CHUNK))
+        return _row_sums(_row_sums(rows.reshape(-1, _CHUNK)).reshape(n, -1))
+    if n < _MIN_OUTPUTS:
+        rows = torch.cat([rows, rows.new_zeros(_MIN_OUTPUTS - n, r)])
+    return rows.sum(-1)[:n]
+
+
+class _FoldExpand(torch.autograd.Function):
+    """``t.expand(shape)`` whose backward sums the cotangent over one
+    broadcast dim at a time, each as an inner reduction (``_row_sums``):
+    that dim moved last, contiguous, summed. Autograd's own sum over a
+    broadcast row axis of an [F, B, N] cotangent is an outer reduction
+    whose split of the rows follows F * N: on an H100 the N = 10 latent
+    heads' bias gradients differed in the last bits between F = 5 and
+    F = 10, and over 200 epochs the trajectories drifted 0.012 apart
+    (scripts/torch_fold_stack_probe.py). An inner reduction adds a row's
+    elements in one order when the outputs are 16 or more
+    (scripts/torch_fold_reduce_probe.py); gPoE's weights (a B * Z sum over
+    F * M outputs) and a one-configuration classifier's 2-class head are
+    fewer."""
+
+    @staticmethod
+    def forward(ctx, t, shape):
+        ctx.in_shape = tuple(t.shape)
+        lead = len(shape) - t.dim()
+        ctx.dims = [i for i in range(len(shape))
+                    if i < lead or (t.shape[i - lead] == 1 and shape[i] != 1)]
+        return t.expand(shape)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = grad
+        for d in ctx.dims:
+            g = g.transpose(d, -1).contiguous()
+            sums = _row_sums(g.reshape(-1, g.shape[-1]))
+            g = sums.reshape(g.shape[:-1] + (1,)).transpose(d, -1)
+        return g.reshape(ctx.in_shape), None
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:

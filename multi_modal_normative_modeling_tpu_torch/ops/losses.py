@@ -23,6 +23,8 @@ from typing import Optional, Sequence, Union
 
 import torch
 
+from .linear import fold_expand
+
 HALF_LOG_2PI = 0.9189385332046727  # 0.5 * log(2*pi)
 
 # the batch's global count of real rows per fold [F] and the sum over the
@@ -84,6 +86,7 @@ def gaussian_ll_rows(x: torch.Tensor, mean: torch.Tensor,
     """Per-row Gaussian log-likelihood of x under N(mean, exp(logvar_out)),
     summed over features: x, mean [F, B, D], logvar_out [F, 1, D] ->
     [F, B]."""
+    logvar_out = fold_expand(logvar_out, x.shape)
     inv_var = torch.exp(-logvar_out)
     return torch.sum(
         -0.5 * (x - mean) ** 2 * inv_var - 0.5 * logvar_out - HALF_LOG_2PI,

@@ -356,8 +356,7 @@ class MultiFoldTrainer:
                              "output, not batches already on the device")
         folds = next(self.model.parameters()).shape[0]
         rows = np.asarray(stacked_batches["mask"]).shape[2]
-        run = MeshRun(self.model, self.mesh,
-                      self.shardings_fn(self.mesh, folds, rows))
+        run = self._mesh_run(self.shardings_fn(self.mesh, folds, rows))
         if template:
             # a CPU copy of the whole model, for run.jax_params
             run.template = copy.deepcopy(self.model).cpu()
@@ -367,6 +366,10 @@ class MultiFoldTrainer:
         # not reached when the run raised: the other ranks may not gather
         self._run = None
         run.unshard_()
+
+    def _mesh_run(self, plan) -> MeshRun:
+        """This rank's part of the run by ``plan``."""
+        return MeshRun(self.model, self.mesh, plan)
 
     def local_batches(self, stacked_batches: dict) -> dict:
         """This rank's part of ``stack_fold_batches`` output (all of it

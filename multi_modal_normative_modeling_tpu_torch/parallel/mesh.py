@@ -99,6 +99,35 @@ class Mesh:
             return tensor
         return _AllReduceSum.apply(tensor, self, name)
 
+    def all_gather_cat(self, tensor: torch.Tensor, name: str, dim: int = 1
+                       ) -> torch.Tensor:
+        """Every rank's ``tensor`` along axis ``name``, concatenated on
+        ``dim`` in the axis's order: a value every rank of the axis holds
+        alike, whose cotangent is alike on every rank too, so the backward
+        keeps this rank's part of it (JAX's transpose of a tiled
+        all_gather into an invariant value)."""
+        if self.axis(name) <= 1:
+            return tensor
+        return _AllGather.apply(tensor, self, name, dim)
+
+    def psum(self, tensor: torch.Tensor, name: str) -> torch.Tensor:
+        """The sum of ``tensor`` over the ranks along ``name``, a value
+        every rank holds alike: the backward hands its (alike) cotangent to
+        each rank's summand unchanged (JAX's psum into an invariant
+        value)."""
+        if self.axis(name) <= 1:
+            return tensor
+        return _PSum.apply(tensor, self, name)
+
+    def vary(self, tensor: torch.Tensor, name: str) -> torch.Tensor:
+        """``tensor``, alike on every rank along ``name``, entering this
+        rank's own computation: the identity forward, and the backward sums
+        the ranks' cotangents, each rank's share of the whole (JAX's
+        pbroadcast, whose transpose is a psum)."""
+        if self.axis(name) <= 1:
+            return tensor
+        return _Vary.apply(tensor, self, name)
+
     def all_gather_object(self, obj) -> list:
         """Every rank's ``obj`` (picklable, on the host), in rank order."""
         if self.size == 1:
@@ -119,6 +148,55 @@ class _AllReduceSum(torch.autograd.Function):
     def forward(ctx, x, mesh, name):
         ctx.mesh, ctx.name = mesh, name
         return mesh.all_reduce_(x.contiguous().clone(), name)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (ctx.mesh.all_reduce_(grad.contiguous().clone(), ctx.name),
+                None, None)
+
+
+class _AllGather(torch.autograd.Function):
+    """all_gather along ``dim`` forward, this rank's slice backward
+    (Mesh.all_gather_cat)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, name, dim):
+        ctx.mesh, ctx.name, ctx.dim = mesh, name, dim
+        ctx.size = x.shape[dim]
+        group = mesh.group(name)
+        host = x.detach().contiguous()
+        staged = host.device.type == "cuda" and mesh.backend == "gloo"
+        if staged:
+            host = host.cpu()
+        parts = [torch.empty_like(host) for _ in range(mesh.axis(name))]
+        dist.all_gather(parts, host, group=group)
+        return torch.cat(parts, dim=dim).to(x.device)
+
+    @staticmethod
+    def backward(ctx, grad):
+        lo = ctx.mesh.index(ctx.name) * ctx.size
+        return grad.narrow(ctx.dim, lo, ctx.size), None, None, None
+
+
+class _PSum(torch.autograd.Function):
+    """all_reduce forward, identity backward (Mesh.psum)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, name):
+        return mesh.all_reduce_(x.contiguous().clone(), name)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class _Vary(torch.autograd.Function):
+    """identity forward, all_reduce backward (Mesh.vary)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, name):
+        ctx.mesh, ctx.name = mesh, name
+        return x.view_as(x)
 
     @staticmethod
     def backward(ctx, grad):

@@ -90,18 +90,20 @@ def packed_state_dirname(layout) -> str:
             "dmvae": "grouped-dmvae-state"}[layout]
 
 
-def notice_stale_padded_state(state_dir, layout) -> None:
+def notice_stale_padded_state(state_dir, layout,
+                              stale_dirname: str = "packed-state",
+                              new_dirname: str = "grouped-state") -> None:
     """A mixed-width cohort's padded-layout state left from before the
     grouped routing is never opened by the grouped layout; say so, in the
-    JAX package's words (train/grouped.py:183-212)."""
+    JAX package's words (train/grouped.py:183-212). The expert-parallel
+    states have their own names (ep-packed-state, ep-grouped-state)."""
     if layout != "grouped":
         return
-    stale = Path(state_dir) / packed_state_dirname("padded")
+    stale = Path(state_dir) / stale_dirname
     if stale.exists():
-        new = packed_state_dirname("grouped")
         print(
             f'note: leftover padded-layout resume state at {stale} — this '
             'mixed-width cohort now routes to the width-grouped layout '
-            f'(state dir {new!r}), whose numerics differ, so training '
+            f'(state dir {new_dirname!r}), whose numerics differ, so training '
             '(re)starts from the grouped state; the padded state is '
             'ignored and can be deleted')

@@ -30,16 +30,20 @@ to fp32, the loss on the fp32 parameters.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..interop import packed_to_jax, params_from_jax, params_to_jax
 from ..models.stacked import StackedMultimodalCVAE
+from ..ops.shard import modality_shard, part
+from ..parallel.folds import MultiFoldTrainer
+from ..parallel.mesh import shard_batches
 from .checkpoints import run_chunked
 from .trainer import (
     DeviceBatches,
+    FoldNoise,
     MaskedAdam,
     TrainConfig,
     TrainSession,
@@ -123,6 +127,8 @@ class PackedBatches(DeviceBatches):
                  "mask": self.mask[t]}
         if self.extras:
             batch["extras"] = {k: v[t] for k, v in self.extras.items()}
+        if self.counts is not None:
+            batch["counts"] = self.counts[t]
         return batch
 
 
@@ -167,9 +173,22 @@ class PackedMultiFoldTrainer:
     draws ``MultiFoldTrainer`` takes; the model ends up trained in place.
     ``config.shuffle`` permutes each fold's rows every epoch on any layout
     (``PackedBatches.permuted``); the JAX routing takes it for the
-    regression only (``packed_supported`` refuses it)."""
+    regression only (``packed_supported`` refuses it).
 
-    def __init__(self, model, config: TrainConfig, n_samples: int):
+    With ``mesh`` (a ('fold', 'modality', 'data') mesh of
+    parallel/modality.py) every rank runs this trainer on the same
+    arguments, as ``MultiFoldTrainer(mesh=)`` does: ``shardings_fn(mesh,
+    folds, batch rows)`` plans what a rank holds (its folds, its rows, its
+    part of each leaf's modality axis; ``packed_fold_shardings`` and its
+    kin), and the run is the unmeshed run up to the order of the partial
+    sums. The model comes back whole on every rank; the mesh joins the
+    resume fingerprint."""
+
+    # the ranks along 'data' draw noise of their own (EPFoldTrainer)
+    noise_per_data = False
+
+    def __init__(self, model, config: TrainConfig, n_samples: int,
+                 mesh=None, shardings_fn: Optional[Callable] = None):
         self.model = model
         self.config = config
         self.layout = self._build_layout(model)
@@ -181,6 +200,20 @@ class PackedMultiFoldTrainer:
             {"loss": self._loss_name(), "precision": config.precision,
              "state": "whole-run"}, config)
         self.resumed_from = 0
+        self.mesh = mesh
+        self._run = None   # while split over the mesh
+        if mesh is not None:
+            from ..parallel.modality import packed_fingerprint
+
+            if shardings_fn is None:
+                raise ValueError("a packed trainer on a mesh needs its "
+                                 "shardings plan (parallel/modality.py)")
+            if mesh.axis("data") > 1 and config.shuffle:
+                raise ValueError("the per-epoch shuffle permutes rows "
+                                 "across the 'data' mesh axis's shards: "
+                                 "train it without a data axis")
+            self.shardings_fn = shardings_fn
+            self.loss_meta["mesh"] = packed_fingerprint(mesh)
 
     # -- layout hooks -------------------------------------------------------
     def _build_layout(self, model):
@@ -220,11 +253,55 @@ class PackedMultiFoldTrainer:
     def prepare_batches(self, stacked_batches) -> PackedBatches:
         """The packed batches of ``stack_fold_batches`` output, on the
         model's device: they depend on the cohort and the batch size only,
-        so a sweep builds them once per procedure."""
+        so a sweep builds them once per procedure. On a mesh, this rank's
+        part of them."""
         if isinstance(stacked_batches, PackedBatches):
+            if self._run is not None:
+                raise ValueError("a run on a mesh takes stack_fold_batches "
+                                 "output, not packed batches")
             return stacked_batches
         device = next(self.model.parameters()).device
-        return PackedBatches(stacked_batches, self.layout, device)
+        if self._run is None:
+            return PackedBatches(stacked_batches, self.layout, device)
+        plan = self._run.plan
+        batches = PackedBatches(shard_batches(stacked_batches, plan),
+                                self.layout, device)
+        if plan.shard_x:
+            with modality_shard(self._run.shard):
+                batches.x = [part(g, g.shape[2], 2).contiguous()
+                             for g in batches.x]
+        return batches
+
+    # the model's folds split over the mesh for a run, gathered whole at
+    # its end (the packed tree is split in ``session``)
+    on_mesh = MultiFoldTrainer.on_mesh
+
+    def _mesh_run(self, plan):
+        from ..parallel.modality import PackedMeshRun
+
+        return PackedMeshRun(self.model, self.mesh, plan,
+                             noise_per_data=self.noise_per_data)
+
+    def _noise(self, batches, device, eps, keeps, perms, seeds):
+        run = self._run
+        if run is not None:
+            draws = run.draws(dict(eps=eps, keeps=keeps, perms=perms,
+                                   seeds=seeds))
+            eps, keeps, perms, seeds = (draws[k] for k in
+                                        ("eps", "keeps", "perms", "seeds"))
+            if self.noise_per_data and eps is None:
+                from ..parallel.modality import data_seed
+
+                # data shard d draws its own rows from (seed, d): JAX's
+                # fold_in of the data index (parallel/modality.py:449-452)
+                folds = batches.folds
+                base = seeds if seeds is not None else \
+                    [self.config.seed] * folds
+                seeds = [data_seed(s, self.mesh.index("data")) for s in base]
+                return FoldNoise(folds, (batches.rows, self.model.noise_dim),
+                                 self.config.seed, device, seeds=seeds)
+        return fold_noise(self.model, self.config, batches, device,
+                          torch.float32, eps, keeps, perms, seeds)
 
     def session(self, stacked_batches, eps=None, keeps=None, perms=None,
                 seeds=None) -> TrainSession:
@@ -235,61 +312,89 @@ class PackedMultiFoldTrainer:
 
         batches = self.prepare_batches(stacked_batches)
         device = batches.mask.device
-        noise = fold_noise(self.model, self.config, batches, device,
-                           torch.float32, eps, keeps, perms, seeds)
+        noise = self._noise(batches, device, eps, keeps, perms, seeds)
         tree = packed_from_model(self.model, self.layout)
+        run = self._run
+        whole_shapes = [tuple(t.shape) for t in _leaves(tree)]
+        if run is not None:
+            with modality_shard(run.shard):
+                tree = run.local_tree(tree)
         params = [torch.nn.Parameter(t.detach().clone())
                   for t in _leaves(tree)]
         packed = _rebuild(tree, params)
         head = self._head()
         trained = params + ([] if head is None else list(head.parameters()))
         adam = MaskedAdam(trained, self.lr_fn)
+        data_sum = row_reduce = None
+        if run is None:
+            def loss_fn(batch, eps_t):
+                return self._loss(packed, batch, eps_t)
+        else:
+            run.set_leaves(trained, whole_shapes + [
+                tuple(p.shape) for p in trained[len(params):]])
+            if self.mesh.axis("data") > 1:
+                data_sum = lambda t: self.mesh.all_reduce_(t, "data")
+                row_reduce = lambda t: self.mesh.all_reduce_sum(t, "data")
 
-        def loss_fn(batch, eps_t):
-            return self._loss(packed, batch, eps_t)
+            def loss_fn(batch, eps_t):
+                with modality_shard(run.shard):
+                    return self._loss(packed, batch, eps_t)
 
         def chunk(first_epoch, epochs):
             return run_epochs(loss_fn, trained, adam, batches, epochs,
                               self.log_keys, noise,
                               shuffle=self.config.shuffle,
                               state_update=self.state_update,
-                              first_epoch=first_epoch)
+                              first_epoch=first_epoch, data_sum=data_sum,
+                              row_reduce=row_reduce)
 
         session = TrainSession(chunk, adam, noise, self.log_keys,
                                dict(self.model.named_buffers()))
         session.packed = packed
+        session.whole_packed = tree if run is None else _rebuild(
+            tree, [torch.empty(s, device="meta") for s in whole_shapes])
+        session.layout = run
         return session
 
     @torch.no_grad()
     def write_back(self, session: TrainSession) -> None:
         """The session's packed tree into the model (its head and buffers
         trained in place already)."""
+        packed = session.packed
+        if session.layout is not None:
+            packed = session.layout.whole_tree(packed, session.whole_packed)
         tree = params_to_jax(self.model)
-        tree.update(packed_to_jax(session.packed, self.layout))
+        tree.update(packed_to_jax(packed, self.layout))
         params_from_jax(tree, self.model)
 
     def run(self, stacked_batches, **draws) -> dict:
         """Train the model for ``config.epochs`` epochs; returns the logs
         {key: [F, epochs]} of the model's ``log_keys``."""
-        session = self.session(stacked_batches, **draws)
-        session.advance(self.config.epochs)
-        self.write_back(session)
-        return session.logs()
+        with self.on_mesh(stacked_batches):
+            session = self.session(stacked_batches, **draws)
+            session.advance(self.config.epochs)
+            self.write_back(session)
+            logs = session.logs()
+        return logs
 
     def run_milestones(self, stacked_batches, milestones: Sequence[int],
                        **draws):
         """Train to each milestone epoch (ascending) in turn, yielding
         ``(epoch, per-fold params in the JAX layout, logs)`` after each, as
         MultiFoldTrainer.run_milestones does."""
-        session = self.session(stacked_batches, **draws)
-        folds = session.adam.count.shape[0]
-        for m in milestones:
-            if m < session.epoch:
-                raise ValueError(f"milestones must ascend, got {milestones}")
-            session.advance(m - session.epoch)
-            self.write_back(session)
-            yield (m, [params_to_jax(self.model, fold=f)
-                       for f in range(folds)], session.logs())
+        with self.on_mesh(stacked_batches, template=True) as run:
+            session = self.session(stacked_batches, **draws)
+            folds = session.adam.count.shape[0]
+            for m in milestones:
+                if m < session.epoch:
+                    raise ValueError(
+                        f"milestones must ascend, got {milestones}")
+                session.advance(m - session.epoch)
+                self.write_back(session)
+                params = (run.jax_params() if run is not None else
+                          [params_to_jax(self.model, fold=f)
+                           for f in range(folds)])
+                yield m, params, session.logs()
 
     def run_resumable(self, stacked_batches, state_dir,
                       checkpoint_every: int, resume: bool = True,
@@ -299,9 +404,11 @@ class PackedMultiFoldTrainer:
         Adam's moments and counts, the noise generators, the buffers, the
         epoch cursor); with ``resume`` a stored state is continued, and one
         written under another layout, loss or precision is refused."""
-        session = self.session(stacked_batches, **draws)
-        run_chunked(state_dir, self.config.epochs, checkpoint_every, resume,
-                    session, self.loss_meta)
-        self.resumed_from = session.start_epoch
-        self.write_back(session)
-        return session.logs()
+        with self.on_mesh(stacked_batches):
+            session = self.session(stacked_batches, **draws)
+            run_chunked(state_dir, self.config.epochs, checkpoint_every,
+                        resume, session, self.loss_meta)
+            self.resumed_from = session.start_epoch
+            self.write_back(session)
+            logs = session.logs()
+        return logs

@@ -29,10 +29,11 @@ class GroupedEndToEndTrainer(PackedMultiFoldTrainer):
     fingerprint."""
 
     def __init__(self, model, config: TrainConfig, n_samples: int,
-                 margin: float, weight_contrastive: float):
+                 margin: float, weight_contrastive: float, mesh=None,
+                 shardings_fn=None):
         self.margin = margin
         self.weight_contrastive = weight_contrastive
-        super().__init__(model, config, n_samples)
+        super().__init__(model, config, n_samples, mesh, shardings_fn)
         self.loss_meta.update(margin=str(margin),
                               wcon=str(weight_contrastive))
         self.state_update = model.update_state

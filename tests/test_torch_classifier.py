@@ -396,11 +396,27 @@ def test_sweep_matches_jax_sweep(splits, jax_fp64):
 
 
 def test_sweep_mesh_exits_citing_multi_device(splits):
+    """The sharded grid is ported (tests/test_torch_mesh_serving.py trains
+    it on ranks): a 'config' axis that does not divide the grid raises the
+    JAX message, and a one-rank axis is the unmeshed grid bit for bit."""
+    from multi_modal_normative_modeling_tpu_torch.parallel.mesh import Mesh
+
     x_tr, x_va, _, y_tr, y_va, _ = splits
     _, _, model = pair(x_tr.shape[1], HIDDEN)
-    with pytest.raises(SystemExit, match="Multi-device"):
+    n = len(GRID)
+    with pytest.raises(ValueError, match=f"classifier sweep mesh: {n} grid "
+                       "configs not divisible by the 'config' mesh axis"):
         pc.sweep_classifiers(model, x_tr, y_tr, x_va, y_va, 2, GRID,
-                             mesh=object())
+                             mesh=Mesh({"config": n + 1}, 0))
+    got, got_hist = pc.sweep_classifiers(model, x_tr, y_tr, x_va, y_va, 2,
+                                         GRID, mesh=Mesh({"config": 1}, 0))
+    want, want_hist = pc.sweep_classifiers(model, x_tr, y_tr, x_va, y_va, 2,
+                                           GRID)
+    for (name, a), b in zip(got.named_parameters(), want.parameters()):
+        assert torch.equal(a, b), name
+    for g, w in zip(got_hist, want_hist):
+        for k in w:
+            np.testing.assert_array_equal(g[k], w[k])
 
 
 @pytest.mark.parametrize("configs", [1, 3])

@@ -1213,3 +1213,83 @@ def test_kernels_on_a_ranks_shard_match_plain(cuda, part):
         torch.testing.assert_close(
             devs[m], model.reconstruction_deviation(shard[m], ref[m]),
             rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("variant,combine", [("cVAE_multimodal", "gpoe"),
+                                             ("cVAE_multimodal", "poe"),
+                                             ("mmJSD", "poe")])
+def test_a_folds_step_does_not_depend_on_the_folds_stacked(cuda, variant,
+                                                           combine):
+    """One step of the plain loss at F=10 and at its first five folds
+    alone, the same per-fold operands: every gradient of folds 0-4 bit for
+    bit (a fold's products and row sums take no split from F:
+    ops/linear.fold_expand). Before, the N = 10 heads' bias gradients
+    differed in the last bits and 200 epochs of the ADHD grid's cohort
+    drifted 0.012 apart (scripts/torch_fold_stack_probe.py)."""
+    from multi_modal_normative_modeling_tpu_torch.parallel import (
+        stack_fold_batches,
+    )
+    from multi_modal_normative_modeling_tpu_torch.train import TrainConfig
+    from multi_modal_normative_modeling_tpu_torch.train.trainer import (
+        DeviceBatches,
+        resolve_loss,
+    )
+
+    rng = np.random.default_rng(16)
+    dims = [116, 116]
+    data = [[rng.standard_normal((300, d)).astype(np.float32) for d in dims]
+            for _ in range(10)]
+    cov = [[rng.standard_normal((300, 29)).astype(np.float32)] * 2
+           for _ in range(10)]
+    eps = torch.from_numpy(rng.standard_normal((10, 256, 10),
+                                               dtype=np.float32))
+    config = TrainConfig(epochs=1, batch_size=256, combine=combine)
+    grads = {}
+    for n in (10, 5):
+        model = build_model(variant, dims, [110, 110], 10, 29, 2, folds=1,
+                            generator=torch.Generator().manual_seed(0))
+        stacked = build_model(variant, dims, [110, 110], 10, 29, 2, folds=n)
+        with torch.no_grad():
+            for p, q in zip(stacked.parameters(), model.parameters()):
+                p.copy_(q.expand_as(p))
+        stacked.to(cuda)
+        batch = DeviceBatches(stack_fold_batches(data[:n], cov[:n], 256),
+                              cuda).step(0)
+        loss_fn, _ = resolve_loss(stacked, config, None)
+        total, _ = loss_fn(batch, eps[:n].to(cuda))
+        names = [k for k, _ in stacked.named_parameters()]
+        grads[n] = dict(zip(names, torch.autograd.grad(
+            total.sum(), list(stacked.parameters()), allow_unused=True)))
+    for k, g in grads[5].items():
+        assert (g is None) == (grads[10][k] is None), k
+        assert g is None or torch.equal(grads[10][k][:5], g), k
+
+
+def test_ep_scoring_on_one_rank_matches_the_fused_call(cuda):
+    """parallel.modality.ep_pred_recon_fused on a one-rank modality axis
+    (every modality owned): K1 and K2 once per modality, the same
+    reconstructions as pred_recon_fused."""
+    from multi_modal_normative_modeling_tpu_torch.parallel.mesh import Mesh
+    from multi_modal_normative_modeling_tpu_torch.parallel.modality import (
+        ep_pred_recon_fused,
+    )
+
+    dims, folds, rows = [90, 90, 90, 270], 5, 64
+    rng = np.random.default_rng(17)
+    xes = [_rows(rng, folds, rows, d).to(cuda) for d in dims]
+    c = _rows(rng, folds, rows, 29).to(cuda)
+    eps = _rows(rng, folds, rows, 10).to(cuda)
+    model = build_model("cVAE_multimodal", dims, [110, 110], 10, 29, 4,
+                        folds=folds, generator=torch.Generator().manual_seed(3),
+                        device=cuda)
+    mesh = Mesh({"fold": 1, "modality": 1, "data": 1}, 0, cuda)
+    kernels.reset_launch_counts()
+    out = ep_pred_recon_fused(model, [0, 1, 2, 3], dict(enumerate(xes)),
+                              dict.fromkeys(range(4), c), "gpoe", eps, mesh)
+    assert kernels.fused_encoder.launches == 4
+    assert kernels.fused_pred_deviation.launches == 4
+    recons, devs = model.pred_recon_fused(xes, [c] * 4, "gpoe", eps=eps)
+    for m in range(4):
+        torch.testing.assert_close(out[m][0], recons[m], rtol=1e-5,
+                                   atol=1e-5)
+        torch.testing.assert_close(out[m][1], devs[m], rtol=1e-4, atol=1e-5)

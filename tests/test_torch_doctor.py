@@ -109,14 +109,22 @@ def test_flag_set_equals_the_jax_doctor():
     assert flags(doctor.build_parser()) == flags(jax_doctor.build_parser())
 
 
-@pytest.mark.parametrize("argv", [["--mesh-check", "2,2"],
-                                  ["--ep-check", "4,2", "--ep-modalities",
-                                   "4"]])
-def test_preflights_exit_citing_multi_device(argv, capsys):
-    with pytest.raises(SystemExit, match="ROADMAP.md, queue 1 item "
-                                         "'Multi-device'"):
-        doctor.run(argv + ["--json"])
-    assert capsys.readouterr().out == ""
+# the preflights are ported (tests/test_torch_mesh_serving.py runs their
+# child steps on CPU ranks): a geometry whose gate fails reports FAIL with
+# the JAX doctor's text before any child starts
+@pytest.mark.parametrize("argv,detail", [
+    (["--mesh-check", "0,2"], "--mesh-check '0,2': expected comma-separated "
+                              "positive axis sizes, e.g. 2,4 or 2,2,2"),
+    (["--ep-check", "3,2", "--ep-modalities", "4"],
+     "ep mesh 3,2: 4 modalities not divisible over the 3-way 'modality' "
+     "mesh axis")])
+def test_preflights_exit_citing_multi_device(argv, detail, capsys):
+    rc, out = _run(argv + ["--json"], capsys)
+    found = [r for r in json.loads(out)
+             if r["section"] in ("mesh-check", "ep-check")]
+    assert rc == 1
+    assert found == [{"section": found[0]["section"], "status": "FAIL",
+                      "detail": detail}]
 
 
 def test_attach_flags_are_accepted_with_no_effect(capsys):

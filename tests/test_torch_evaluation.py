@@ -446,6 +446,10 @@ def test_pipeline_refuses_unported_flags_before_any_stage(flag, tmp_path,
         # ported (tests/test_torch_mesh_cli.py): the train stage refuses a
         # mesh without --fold_parallel with the JAX message, before any file
         match, stages = "--mesh requires --fold_parallel", "train"
+    if flag == "--ep_mesh=4,2":
+        # ported (tests/test_torch_ep_cli.py): 8 slots in a world of one
+        # rank are refused with the JAX message, before any file
+        match, stages = "8 mesh slots != 1 visible devices", "train"
     with pytest.raises(SystemExit, match=match):
         pipeline.run(FLAGS + ["--stages", stages, "--device", "cpu", flag],
                      project_root=tmp_path)

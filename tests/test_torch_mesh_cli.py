@@ -113,11 +113,17 @@ def rendezvous(directory) -> str:
 
 def join_world(rank: int, world: int, store: str) -> None:
     """Rank ``rank`` of a local world of ``world``: torchrun's variables,
-    one torch thread, the process group over the store file."""
+    one torch thread, the process group over the store file. At exit the
+    rank leaves the group with the others (``distributed.shutdown``: a
+    barrier, then the groups destroyed), so no rank tears down its gloo
+    connections while a peer still uses them."""
+    import atexit
+
     os.environ.update(WORLD_SIZE=str(world), RANK=str(rank),
                       LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
     torch.set_num_threads(1)
     distributed.initialize_distributed(f"file://{store}", world, rank)
+    atexit.register(distributed.shutdown)
 
 
 def _ranks(rank, world, store, base):

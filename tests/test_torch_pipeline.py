@@ -175,9 +175,10 @@ def test_unported_flags_raise(flag, value, tmp_path, scored):
         with pytest.raises(FileNotFoundError):
             port_test.main(args, project_root=tmp_path)
         return
-    # --mesh is ported: 8 slots in a world of one rank are refused with the
-    # JAX message (tests/test_torch_mesh_cli.py runs the meshed stage)
-    match = ("8 mesh slots != 1 visible devices" if flag == "mesh"
-             else "ROADMAP.md")
+    # --mesh and --ep_mesh are ported: 8 slots in a world of one rank are
+    # refused with the JAX message (tests/test_torch_mesh_cli.py and
+    # tests/test_torch_ep_cli.py run the meshed stages)
+    match = ("8 mesh slots != 1 visible devices"
+             if flag in ("mesh", "ep_mesh") else "ROADMAP.md")
     with pytest.raises(SystemExit, match=match):
         port_test.main(args, project_root=tmp_path)

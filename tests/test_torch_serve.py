@@ -14,6 +14,7 @@ import http.client
 import json
 import logging
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -419,9 +420,14 @@ def test_make_server_refuses_empty_token_and_warns_on_open_bind(port,
 
 # ---- the CLI --------------------------------------------------------------------------
 
+# --mesh and --ep_mesh are ported (tests/test_torch_mesh_serving.py serves
+# on ranks): a geometry the world of one rank cannot hold, and a 2-axis
+# --ep_mesh, exit with the JAX messages
 @pytest.mark.parametrize("argv,match", [
-    (["--mesh", "2,1"], "queue 1 item 'Multi-device'"),
-    (["--ep_mesh", "1,1,1"], "queue 1 item 'Multi-device'"),
+    (["--mesh", "2,1", "--device", "cpu"],
+     "2 mesh slots != 1 visible devices"),
+    (["--ep_mesh", "1,2", "--device", "cpu"],
+     re.escape("--ep_mesh takes 3 axis sizes: 2,2,2 (fold,modality,data)")),
     (["--device", "cuda"], "no CUDA device")], ids=["mesh", "ep_mesh",
                                                     "no card"])
 def test_serve_refusals(project, monkeypatch, argv, match):

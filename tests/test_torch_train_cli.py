@@ -225,6 +225,10 @@ def test_unported_flags_raise(flag, value, tmp_path, roots):
     if flag == "resume":
         # ported, and refused without --checkpoint_every (the JAX message)
         match = "--resume requires --checkpoint_every N"
+    if flag == "ep_mesh":
+        # ported: 8 slots in a world of one rank are refused with the JAX
+        # message (tests/test_torch_ep_cli.py trains on ranks)
+        match = "--ep_mesh 4,2: 8 mesh slots != 1 visible devices"
     if flag == "fused_train_step":
         # the flag is ported; a model variant it does not train is not
         args.model = "mmJSD"

@@ -375,6 +375,10 @@ def test_unported_flags_exit_citing_their_queue_item(cli, flag, value, item,
     if flag == "resume":
         # ported, and refused without --checkpoint_every (the JAX message)
         match = "--resume requires --checkpoint_every N"
+    if flag == "ep_mesh":
+        # ported (tests/test_torch_ep_cli.py trains nmpmcont --ep_mesh on
+        # ranks): 8 slots in a world of one rank, the JAX message
+        match = "--ep_mesh 2,2,2: 8 mesh slots != 1 visible devices"
     with pytest.raises(SystemExit, match=match):
         main(args, tmp_path)
     assert not list(tmp_path.iterdir())
