@@ -78,7 +78,7 @@ Phases (any failure exits non-zero, with no result line):
      every chain, K2 in nm-MLP's, K3 in the regression's (its FI pass and
      its ROI pass over the whole cohort). The files each chain wrote are
      read back (results_endtoend.csv, the fold CSVs, the .npy pairs and the
-     ROI CSVs, no figure). Each scoring call is then held against its plain
+     ROI CSVs; the scatter figures only where matplotlib is installed). Each scoring call is then held against its plain
      path evaluated in fp64 on the same eps, at phase 4's bound, on seeded
      tensors at the rows the stage gave it; K1 and K3 are held and timed
      at the regression's shapes (c 2, the test rows and the 600-row
@@ -186,6 +186,26 @@ Phases (any failure exits non-zero, with no result line):
      shards) with --mesh 1,2 bit-equal to the resident --mesh 1,2 run at
      PPMI width; the gloo all_reduce's ms on cuda:0 for one float and for
      the flagship's and the PPMI model's gradients.
+  18. expert parallelism and the rest of the multi-device surface, in
+     phase 17's torchrun: --ep_mesh training against the unmeshed packed
+     runs, the EP test stage, the grids and the service on a mesh, the
+     doctor's preflights (README.md's port section).
+  19. the demo projects, the figures and the library facade: 19a
+     demo.ensure_demo_project at its defaults (170 subjects, 3 folds, -H
+     32 32 8, 60 epochs, SE-gPoE) on the card, its test stage launching K1
+     and K2 three times each, the four reports in the JAX layout, and a
+     second call that reruns no stage (every file's mtime unchanged); 19b
+     ensure_procedure_projects (SM-av45, SE-gPoE, UCA-gPoE: K1/K2 1/1,
+     3/3, 4/4) the same way; 19c load_fold_model and cohort_latents (K1
+     three times at F = 1 over the 170 subjects) against plain
+     latent_stats in fp64 at phase 4's bound, and K1/K2 at the demo test
+     stages' shapes and K1 at cohort_latents' against fp64, timed; 19d
+     viz's figures: a PNG each where matplotlib (and scikit-learn for the
+     t-SNE) is installed, else ModuleNotFoundError naming the package; 19e
+     train_single_fold and FoldTrainer.run_resumable on one fold of 512
+     seeded subjects at the flagship's widths, 10 epochs, torch.equal to
+     MultiFoldTrainer at F = 1, a killed and resumed run byte-equal,
+     load_checkpoint of it; ms per step of each.
 
 Beside every kernel time stands the kernel's bound: the least time the
 card could take for the same work (kernels/roofline.py: the larger of its
@@ -1118,56 +1138,64 @@ def bf16_training(seed):
     return launches
 
 
-def check_reports(root, stats):
+def check_reports(root, stats, folds=FOLDS, hidden=HIDDEN + [LATENT],
+                  phase="phase 8"):
     """The analysis stage's files, in the JAX package's layout: three
     comparisons of ADNI, one block each in result_multimodal.txt, one block
     in result_4.txt, the last comparison's per-fold AUCs and their std in
-    cvae_auc_and_std.csv, and an auc_rocs.csv per comparison. Returns the
-    files' bytes by relative path."""
+    cvae_auc_and_std.csv, and an auc_rocs.csv per comparison, for a run of
+    ``folds`` folds at -H ``hidden``. Returns the files' bytes by relative
+    path."""
     number = r"-?(?:[0-9]+\.[0-9]+|inf|nan)"
     block = (r"Experiment settings: CVAE\. [^\n]*\n"
              r"(?: args\.Model [^\n]*\n)?"
              + "".join(rf"{name}: \$ {number} \\pm {number} \$ \n"
                        for name in ("ROC-AUC", "Accuracy", "Sensitivity",
                                     "Specificity", "Significance ratio"))
-             + r"hz_para_list: \[110, 110, 10\]\n\n\n\n")
+             + re.escape(f"hz_para_list: {list(hidden)}") + r"\n\n\n\n")
     files = [Path(rel) for rel in CHAIN_REPORTS] + sorted(
         p.relative_to(root) for p in root.rglob("auc_rocs.csv"))
     texts = {rel: (root / rel).read_bytes() for rel in files}
     for rel, blocks in zip(files[:2], (3, 1)):
         if not re.fullmatch(f"(?:{block}){{{blocks}}}", texts[rel].decode()):
-            raise RuntimeError(f"phase 8: {rel} is not {blocks} report "
+            raise RuntimeError(f"{phase}: {rel} is not {blocks} report "
                                f"blocks:\n{texts[rel].decode()}")
     aucs = list(stats["auc"])
     table = np.loadtxt(root / files[2], delimiter=",")
-    if table.shape != (FOLDS + 1,):
-        raise RuntimeError(f"phase 8: {files[2]} holds {table.shape} values")
+    if table.shape != (folds + 1,):
+        raise RuntimeError(f"{phase}: {files[2]} holds {table.shape} values")
     aucs += list(table[:-1])
     if len(files) != 6:
-        raise RuntimeError(f"phase 8: report files {files}")
+        raise RuntimeError(f"{phase}: report files {files}")
     for rel in files[3:]:
         lines = texts[rel].decode().split("\n")
-        if lines[0] != "ROC-AUC" or len(lines) != FOLDS + 2 or lines[-1]:
-            raise RuntimeError(f"phase 8: {rel}: {lines}")
+        if lines[0] != "ROC-AUC" or len(lines) != folds + 2 or lines[-1]:
+            raise RuntimeError(f"{phase}: {rel}: {lines}")
         aucs += [float(v) for v in lines[1:-1]]
     if not all(np.isfinite(a) and 0.0 <= a <= 1.0 for a in aucs):
-        raise RuntimeError(f"phase 8: AUCs {aucs}")
+        raise RuntimeError(f"{phase}: AUCs {aucs}")
     return texts
 
 
-def check_stage_rows(root, phase):
-    """The rows a chain's test stage gave the kernels, from the fold files it
-    wrote: they must be the STAGE_ROWS at which phase 3 held the kernels
-    against their plain versions."""
+def stage_rows(root, folds):
+    """(the rows a chain's test stage gave the kernels, the largest fold's
+    test rows they pad, the row tile), from the fold files it wrote."""
     import pandas as pd
 
     from multi_modal_normative_modeling_tpu_torch.cli import common
 
     kfold_dir = root / "outputs" / "kfold_analysis"
     most = max(len(pd.read_csv(common.fold_paths(kfold_dir, fold)[1]))
-               for fold in range(FOLDS))
+               for fold in range(folds))
     tile = common.infer_row_tile()
-    rows = -(-most // tile) * tile
+    return -(-most // tile) * tile, most, tile
+
+
+def check_stage_rows(root, phase):
+    """The rows a chain's test stage gave the kernels must be the
+    STAGE_ROWS at which phase 3 held the kernels against their plain
+    versions."""
+    rows, most, tile = stage_rows(root, FOLDS)
     if rows != STAGE_ROWS:
         raise RuntimeError(f"{phase}: the test stage scored {FOLDS} folds x "
                            f"{rows} rows ({most} padded to {tile}s); the "
@@ -1599,12 +1627,15 @@ def check_variant_files(name, root, timings, stats):
         if (len(frame) != COHORT_SUBJECTS or frame.columns[0] != "IID"
                 or not np.isfinite(frame.iloc[:, 1:].to_numpy()).all()):
             raise RuntimeError(f"phase 10: {path.name} {frame.shape}")
-    if timings["roi_rows"] != COHORT_SUBJECTS or list(out.glob("*.png")):
+    # fold_<k>_scatter.png only where matplotlib is installed
+    figures = FOLDS if importlib.util.find_spec("matplotlib") else 0
+    if (timings["roi_rows"] != COHORT_SUBJECTS
+            or len(list(out.glob("fold_*_scatter.png"))) != figures):
         raise RuntimeError(f"phase 10: regression ROI rows "
                            f"{timings['roi_rows']}, files {list(out.iterdir())}")
     return (f"{FOLDS} .npy pairs of up to {rows} rows, {len(roi)} ROI CSVs "
-            f"of {COHORT_SUBJECTS} rows, no figure; RMSE per fold "
-            f"{[round(float(s['RMSE']), 4) for s in stats]}")
+            f"of {COHORT_SUBJECTS} rows, {figures} scatter figures; RMSE "
+            f"per fold {[round(float(s['RMSE']), 4) for s in stats]}")
 
 
 def check_rows(name, most, rows):
@@ -4968,6 +4999,294 @@ def ep_check(ranks, ref, stats):
     return launches
 
 
+# phase 19: the demo projects (demo.py at its defaults: 170 subjects, 3
+# folds, -H 32 32 8, 60 epochs), the figures and the library facade
+DEMO_FOLDS = 3
+DEMO_HIDDEN = [32, 32]
+DEMO_LATENT = 8
+DEMO_SUBJECTS = 170
+# K1 and K2 launches of each procedure project's test stage: one a modality
+DEMO_PROCEDURES = {"SM-av45": 1, "SE-gPoE": 3, "UCA-gPoE": 4}
+LIB_ROWS = 512
+LIB_EPOCHS = 10
+
+
+def file_stamps(root):
+    return {p: p.stat().st_mtime_ns for p in Path(root).rglob("*")
+            if p.is_file()}
+
+
+def run_demo_projects(base, stats):
+    """19a and 19b: demo.ensure_demo_project at its defaults on the card,
+    the launches of its test stage, the reports, and a second call that
+    reruns nothing; then one project per procedure the same way. Returns
+    (the SE-gPoE project, the UCA-gPoE project, launches by run)."""
+    from multi_modal_normative_modeling_tpu_torch import demo, kernels
+
+    launches = {}
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    root = demo.ensure_demo_project(base / "notebook_demo")
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    launches["19a"] = launch_counts()
+    want = {"fused_encoder": 3, "fused_pred_deviation": 3}
+    if launches["19a"] != want:
+        raise RuntimeError(f"phase 19a: the demo launched {launches['19a']}, "
+                           f"expected {want}")
+    check_reports(root, {"auc": []}, DEMO_FOLDS, DEMO_HIDDEN + [DEMO_LATENT],
+                  "phase 19a")
+    stamps = file_stamps(root)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    demo.ensure_demo_project(base / "notebook_demo")
+    again = time.perf_counter() - t0
+    if file_stamps(root) != stamps or launch_counts():
+        raise RuntimeError(f"phase 19a: the second call ran a stage "
+                           f"(launches {launch_counts()})")
+    print(f"phase 19a: demo.ensure_demo_project at its defaults on the "
+          f"card: {first:.2f} s, test stage launches {launches['19a']}, "
+          f"the four reports in the JAX package's layout; a second call "
+          f"{again:.3f} s, no stage rerun ({len(stamps)} files' mtimes "
+          f"unchanged)", flush=True)
+
+    procs = base / "procedures"
+    walls = {}
+    for proc, n in DEMO_PROCEDURES.items():
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        roots = demo.ensure_procedure_projects(procs, procedures=(proc,))
+        torch.cuda.synchronize()
+        walls[proc] = round(time.perf_counter() - t0, 3)
+        got = launch_counts()
+        launches[f"19b {proc}"] = got
+        want = {"fused_encoder": n, "fused_pred_deviation": n}
+        if got != want:
+            raise RuntimeError(f"phase 19b: {proc} launched {got}, expected "
+                               f"{want}")
+        check_reports(roots[proc], {"auc": []}, DEMO_FOLDS,
+                      DEMO_HIDDEN + [DEMO_LATENT], f"phase 19b {proc}")
+    stamps = file_stamps(procs)
+    kernels.reset_launch_counts()
+    roots = demo.ensure_procedure_projects(procs)
+    if (list(roots) != list(DEMO_PROCEDURES) or file_stamps(procs) != stamps
+            or launch_counts()):
+        raise RuntimeError(f"phase 19b: the second call ran a stage "
+                           f"({list(roots)}, launches {launch_counts()})")
+    print(f"phase 19b: demo.ensure_procedure_projects {list(roots)}: walls "
+          f"{walls} s, test stage launches "
+          f"{ {p: launches[f'19b {p}'] for p in DEMO_PROCEDURES} }, reports "
+          f"in the JAX layout; all three again, no stage rerun", flush=True)
+    return root, roots["UCA-gPoE"], launches
+
+
+def run_cohort_latents(root, uca_root, stats):
+    """19c: demo.load_fold_model and demo.cohort_latents on the card (K1
+    once a modality at F = 1 over the cohort) against plain latent_stats
+    evaluated in fp64 at phase 4's bound; K1 and K2 at the demo test
+    stages' shapes and K1 at cohort_latents' against fp64, timed. Returns
+    (latents, labels, launches)."""
+    from multi_modal_normative_modeling_tpu_torch import demo, kernels
+
+    model, params, config = demo.load_fold_model(root)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    latents, labels = demo.cohort_latents(root, model, params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    if launches != {"fused_encoder": 3}:
+        raise RuntimeError(f"phase 19c: cohort_latents launched {launches}")
+    xes, cs, _ = demo.cohort_inputs(root)
+    model64 = copy.deepcopy(model).double()
+    with torch.no_grad():
+        want, _ = model64.latent_stats(
+            [torch.from_numpy(x).double().cuda()[None] for x in xes],
+            [torch.from_numpy(c).double().cuda()[None] for c in cs], "gpoe")
+    got = torch.from_numpy(latents).cuda()
+    if (got.shape != (DEMO_SUBJECTS, DEMO_LATENT)
+            or len(labels) != DEMO_SUBJECTS):
+        raise RuntimeError(f"phase 19c: latents {tuple(got.shape)}, labels "
+                           f"{len(labels)}")
+    err, rel = check_close("phase 19c cohort_latents", got, want[0].float(),
+                           MODEL_TOL)
+    print(f"phase 19c: demo.cohort_latents over {DEMO_SUBJECTS} subjects "
+          f"(config {config['input_dim_list']}, hidden "
+          f"{config['hidden_dim']}, latent {config['latent_dim']}): "
+          f"{wall * 1e3:.2f} ms, launches {launches}, max abs err "
+          f"{err:.3e} (rel {rel:.3e}) vs plain latent_stats in fp64",
+          flush=True)
+    rows = stage_rows(root, DEMO_FOLDS)[0]
+    uca_rows = stage_rows(uca_root, DEMO_FOLDS)[0]
+    hold_kernel_shapes("phase 19c", [
+        (DEMO_FOLDS, rows, 90, C_DIM, DEMO_HIDDEN, DEMO_LATENT),
+        (DEMO_FOLDS, uca_rows, 270, C_DIM, DEMO_HIDDEN, DEMO_LATENT)],
+        stats, "demo")
+    hold_kernel_shapes("phase 19c", [
+        (1, DEMO_SUBJECTS, 90, C_DIM, DEMO_HIDDEN, DEMO_LATENT)], stats,
+        "demo_latents", k2=False)
+    return latents, labels, launches
+
+
+def run_figures(root, latents, labels, out_dir):
+    """19d: each figure of viz.py writes its PNG where matplotlib (and, for
+    the t-SNE, scikit-learn) is installed, and raises ModuleNotFoundError
+    naming the package where it is not."""
+    from multi_modal_normative_modeling_tpu_torch import registry, viz
+
+    roi_csv = (root / "deviation" / "supervised_cvae" / "ADNI" / "SE-gPoE"
+               / "path_model" / "av45" / "reconstruction_error_roi_av45.csv")
+    hc = registry.get_hc_label("ADNI")
+    table = viz.roi_deviation_table(roi_csv, hc, top_k=None)
+    values = dict(zip(table["roi"], table["cohens_d"]))
+    outcomes = {}
+    for name, draw, needs in (
+            ("tsne_latents", lambda path: viz.tsne_latents(
+                latents, labels, path), ("matplotlib", "sklearn")),
+            ("roi_deviation_map", lambda path: viz.roi_deviation_map(
+                roi_csv, hc, path), ("matplotlib",)),
+            ("glass_brain_scatter", lambda path: viz.glass_brain_scatter(
+                values, path), ("matplotlib",))):
+        missing = [m for m in needs if importlib.util.find_spec(m) is None]
+        path = out_dir / f"{name}.png"
+        try:
+            draw(path)
+        except ModuleNotFoundError as e:
+            if not missing or e.name != missing[0]:
+                raise
+            outcomes[name] = f"ModuleNotFoundError naming {e.name}"
+            continue
+        if missing or not path.exists():
+            raise RuntimeError(f"phase 19d: {name} drew with {missing} "
+                               "absent, or wrote no file")
+        outcomes[name] = f"wrote {path.name}"
+    print(f"phase 19d: viz figures on this machine: {outcomes}", flush=True)
+
+
+def run_library(base):
+    """19e: train_single_fold and FoldTrainer.run_resumable on one fold at
+    the flagship's widths, torch.equal to MultiFoldTrainer at F = 1 from
+    the same init and noise; a killed and resumed run byte-equal to the
+    straight one; load_checkpoint on the checkpoint the port wrote."""
+    import dataclasses
+
+    from multi_modal_normative_modeling_tpu_torch import (
+        FoldTrainer,
+        MultiFoldTrainer,
+        TrainConfig,
+        build_model,
+        load_checkpoint,
+        params_from_jax,
+        params_to_jax,
+        save_checkpoint,
+        stack_fold_batches,
+        train_single_fold,
+    )
+
+    rng = np.random.default_rng(19)
+    data = [rng.standard_normal((LIB_ROWS, d), dtype=np.float32)
+            for d in DIMS]
+    covs = [one_hot_covariates(rng, LIB_ROWS)] * len(DIMS)
+    gen = torch.Generator().manual_seed(19)
+    tree = params_to_jax(build_model(
+        "cVAE_multimodal", DIMS, HIDDEN, LATENT, C_DIM, len(DIMS),
+        generator=gen), fold=0)
+    config = TrainConfig(epochs=LIB_EPOCHS, batch_size=BATCH)
+    steps = LIB_EPOCHS * -(-LIB_ROWS // BATCH)
+
+    def fresh(params=tree):
+        model = build_model("cVAE_multimodal", DIMS, HIDDEN, LATENT, C_DIM,
+                            len(DIMS), device="cuda")
+        if params is not None:
+            params_from_jax(params, model)
+        return model
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3 / steps
+
+    ref_model = fresh()
+    ref_logs, ref_ms = timed(lambda: MultiFoldTrainer(
+        ref_model, config, LIB_ROWS).run(
+            stack_fold_batches([data], [covs], BATCH)))
+    single_model = fresh(None)
+    (params, logs), single_ms = timed(lambda: train_single_fold(
+        single_model, tree, data, covs, config))
+    chunk_model = fresh(None)
+    (chunked, chunk_logs), chunk_ms = timed(
+        lambda: FoldTrainer(chunk_model, config, LIB_ROWS).run_resumable(
+            tree, data, covs, None, base / "chunked", checkpoint_every=3))
+    for what, model, got_logs in (("train_single_fold", single_model, logs),
+                                  ("run_resumable", chunk_model,
+                                   chunk_logs)):
+        if not all(torch.equal(a, b) for a, b in
+                   zip(model.parameters(), ref_model.parameters())):
+            raise RuntimeError(f"phase 19e: {what} is not MultiFoldTrainer "
+                               "at F = 1 bit for bit")
+        if any(not np.array_equal(got_logs[k], ref_logs[k][0])
+               for k in ref_logs):
+            raise RuntimeError(f"phase 19e: {what}'s logs differ")
+    # killed after 4 epochs, resumed in a fresh model and trainer
+    FoldTrainer(fresh(None), dataclasses.replace(config, epochs=4),
+                LIB_ROWS).run_resumable(tree, data, covs, None,
+                                        base / "killed", checkpoint_every=2)
+    resumer = FoldTrainer(fresh(None), config, LIB_ROWS)
+    resumed, _ = resumer.run_resumable(None, data, covs, None,
+                                       base / "killed", checkpoint_every=2)
+    meta = {"model": "cVAE_multimodal", "input_dim_list": DIMS}
+    blobs = {}
+    for name, tree_out in (("straight", params), ("chunked", chunked),
+                           ("resumed", resumed)):
+        save_checkpoint(base / name / "ckpt", tree_out, meta)
+        blobs[name] = (base / name / "ckpt" / "cVAE_model.ckpt").read_bytes()
+    if len(set(blobs.values())) != 1 or resumer.engine.resumed_from != 4:
+        raise RuntimeError(f"phase 19e: straight, chunked and resumed "
+                           f"checkpoints differ (resumed from "
+                           f"{resumer.engine.resumed_from})")
+    loaded, loaded_meta = load_checkpoint(base / "resumed" / "ckpt",
+                                          template_params=tree)
+    flat_a, flat_b = list(tree_leaves(loaded)), list(tree_leaves(params))
+    if loaded_meta != meta or len(flat_a) != len(flat_b) or not all(
+            pa == pb and np.array_equal(a, b)
+            for (pa, a), (pb, b) in zip(flat_a, flat_b)):
+        raise RuntimeError("phase 19e: load_checkpoint differs from the "
+                           "trained parameters")
+    print(f"phase 19e: one fold of {LIB_ROWS} subjects at {DIMS}, hidden "
+          f"{HIDDEN}, latent {LATENT}, batch {BATCH}, {LIB_EPOCHS} epochs "
+          f"({steps} steps): train_single_fold {single_ms:.3f} ms a step "
+          f"and FoldTrainer.run_resumable (every 3 epochs) {chunk_ms:.3f} "
+          f"against MultiFoldTrainer {ref_ms:.3f}, parameters and logs "
+          f"torch.equal; killed at epoch 4 and resumed byte-equal to the "
+          f"straight run; load_checkpoint of it equal leaf for leaf",
+          flush=True)
+    return {"train_single_fold": single_ms, "run_resumable": chunk_ms,
+            "MultiFoldTrainer": ref_ms}
+
+
+def run_demo(stats):
+    """Phase 19: the demo projects, cohort latents, the figures and the
+    library facade, in a temporary directory; returns K1/K2 launches by
+    run."""
+    with tempfile.TemporaryDirectory() as tmp:
+        base = Path(tmp)
+        t0 = time.perf_counter()
+        root, uca_root, launches = run_demo_projects(base, stats)
+        t1 = time.perf_counter()
+        latents, labels, launches["19c cohort_latents"] = run_cohort_latents(
+            root, uca_root, stats)
+        t2 = time.perf_counter()
+        run_figures(root, latents, labels, base)
+        t3 = time.perf_counter()
+        stats["library_ms_per_step"] = run_library(base)
+        print(f"phase 19: 19a+19b {t1 - t0:.1f} s, 19c {t2 - t1:.1f} s, "
+              f"19d {t3 - t2:.1f} s, 19e {time.perf_counter() - t3:.1f} s",
+              flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5328,6 +5647,11 @@ def main():
     mesh_launches = run_mesh(stats)
     print(f"phase 17 and 18: {time.perf_counter() - t17:.1f} s", flush=True)
     print(json.dumps({"ep": stats["ep"]}), flush=True)
+
+    # ---- phase 19: the demo projects, the figures, the library facade -----
+    t19 = time.perf_counter()
+    demo_launches = run_demo(stats)
+    print(f"phase 19: {time.perf_counter() - t19:.1f} s", flush=True)
     missing = [name for name in sources if not launches.get(name)]
     if missing:
         raise RuntimeError(f"no launch on the main path: {missing}")
@@ -5428,9 +5752,14 @@ def main():
         # and 2,1) and score CLI (1,2), and at each rank's shapes
         report[-1]["mesh_launches"] = {
             run: counts.get(name, 0) for run, counts in mesh_launches.items()}
+        # phase 19: K1 and K2 in the demo projects' test stages (19a, 19b)
+        # and K1 in cohort_latents (19c)
+        report[-1]["demo_launches"] = {
+            run: counts.get(name, 0) for run, counts in demo_launches.items()}
         # phase 18: K1 and K2 at an expert-parallel rank's shapes (its
-        # launches per owned modality are in mesh_launches, "18b"/"18d")
-        for slot in ("mesh", "ep"):
+        # launches per owned modality are in mesh_launches, "18b"/"18d");
+        # phase 19c: at the demo test stages' shapes and cohort_latents'
+        for slot in ("mesh", "ep", "demo", "demo_latents"):
             if slot in stats[name]:
                 report[-1][slot] = stats[name][slot]
     print(json.dumps({"classifier": classifier_runs,

@@ -5,20 +5,18 @@ KFold over the whole cohort (all subjects, :51-53), raw [AGE, PTGENDER]
 covariates (c_dim 2), batch 128 with the per-epoch shuffle (:94), every
 fold trained at once on ``RegressionCVAE``; RMSE / MAE / R^2 / MAPE of
 each fold's test rows (``evaluation.metrics.evaluate_regression``, no
-sklearn), regression_outputs/fold_<k>_{pred,true}.npy, and the full-cohort
-ROI-wise deviation CSVs regression_outputs/deviation_fold_<k>_<modality>
-_roiwise.csv (``IID,ROI_0..``; the scaler refit on the whole cohort,
-:163-192).
+sklearn), regression_outputs/fold_<k>_{pred,true}.npy with their
+fold_<k>_scatter.png (``utils.logging.plot_fi_scatter``; skipped with a
+printed line where matplotlib is not installed, as on the machine with the
+GPU), and the full-cohort ROI-wise deviation CSVs
+regression_outputs/deviation_fold_<k>_<modality>_roiwise.csv
+(``IID,ROI_0..``; the scaler refit on the whole cohort, :163-192).
 
 On CUDA the FI prediction runs the encoder kernel and the decoder-mean
 kernel once per modality for every fold (the head in torch), and the
 ROI-wise deviation one modality's pair over the whole cohort. The scoring
 noise of fold k is drawn from seed 900 + k (FI) and 800 + k (ROI), the JAX
 CLI's PRNGKey seeds, through ``eps_fn`` (tests replay the JAX draws).
-
-Divergence: the JAX CLI also draws fold_<k>_scatter.png with matplotlib,
-which the GPU machine does not have; this CLI draws no figure (the .npy
-pair holds its data; ROADMAP.md, queue 3).
 
 ``--packed_xla`` trains on the width-grouped regression layout
 (``train.packed_regression``, shuffled like the per-modality run; its
@@ -36,6 +34,7 @@ scores the trained model whole and writes every file.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import time
 from pathlib import Path
 from typing import Callable, Optional
@@ -55,6 +54,7 @@ from ..train.packed_regression import (
     regression_state_dirname,
 )
 from ..train import TrainConfig
+from ..utils.logging import plot_fi_scatter
 from . import common
 
 # (seed, rows, latent dim) -> scoring noise [rows, latent dim]
@@ -217,6 +217,10 @@ def train_and_test(args, project_root=None,
                                eps=eps).cpu().numpy()
         timings['score_rows'] = rows
 
+    scatter = importlib.util.find_spec('matplotlib') is not None
+    if not scatter:
+        print('matplotlib is not installed: skipping the FI scatter plots '
+              '(fold_<k>_scatter.png); the .npy pairs hold their data')
     all_scores = []
     for fold in range(n_folds):
         print(f'=== Fold {fold} ===')
@@ -232,6 +236,9 @@ def train_and_test(args, project_root=None,
         print(f"[Fold {fold}] RMSE: {scores['RMSE']:.4f}, "
               f"MAE: {scores['MAE']:.4f}, R²: {scores['R2']:.4f}, "
               f"MAPE: {scores['MAPE']:.2f}%")
+        if scatter:
+            plot_fi_scatter(trues, preds, fold,
+                            output_dir / f'fold_{fold}_scatter.png')
 
     # ---- full-cohort ROI-wise deviation per modality, the scaler refit on
     # the whole cohort (reference quirk, :177-179) --------------------------

@@ -387,7 +387,7 @@ class MultiFoldTrainer:
                 lambda t: self.mesh.all_reduce_sum(t, "data"))
 
     def session(self, stacked_batches, eps=None, keeps=None,
-                perms=None, seeds=None) -> TrainSession:
+                perms=None, seeds=None, noise=None) -> TrainSession:
         """A new run of ``self.model`` (trained in place) over
         ``stack_fold_batches`` output (or those batches already on the
         device: ``DeviceBatches``, or a streamed view of them). By default
@@ -396,7 +396,9 @@ class MultiFoldTrainer:
         ``seeds`` is given (``FoldNoise``). Tests replay given draws
         instead: ``eps`` [epochs * NB, F, B, Z] (Z is the model's
         ``noise_dim``), ``keeps`` one [epochs * NB, F, B, width] per keep
-        width, ``perms`` [epochs, F, NB * B] when shuffling.
+        width, ``perms`` [epochs, F, NB * B] when shuffling. ``noise``, a
+        ``FoldNoise`` or ``ReplayNoise`` built by the caller
+        (``train.trainer.FoldTrainer``), takes the place of all of these.
         The batches and the replayed noise take the parameters' dtype."""
         params = list(self.model.parameters())
         device, dtype = params[0].device, params[0].dtype
@@ -404,13 +406,17 @@ class MultiFoldTrainer:
         if isinstance(batches, dict):
             batches = DeviceBatches(self.local_batches(stacked_batches),
                                     device, dtype)
+        if noise is not None and self._run is not None:
+            raise ValueError("a run on a mesh draws its own noise: pass "
+                             "eps/keeps/perms/seeds, not a noise source")
         if self._run is not None:
             draws = self._run.draws(dict(eps=eps, keeps=keeps, perms=perms,
                                          seeds=seeds))
             eps, keeps, perms, seeds = (draws[k] for k in
                                         ("eps", "keeps", "perms", "seeds"))
-        noise = fold_noise(self.model, self.config, batches, device, dtype,
-                           eps, keeps, perms, seeds)
+        if noise is None:
+            noise = fold_noise(self.model, self.config, batches, device,
+                               dtype, eps, keeps, perms, seeds)
         adam = MaskedAdam(params, self.lr_fn)
         log_keys = self.model.log_keys
         data_sum, row_reduce = self._data_sums()

@@ -1,4 +1,4 @@
-"""Per-fold checkpoint writer (counterpart of train/checkpoints.py, msgpack
+"""Per-fold checkpoints (counterpart of train/checkpoints.py, msgpack
 backend).
 
 Writes ``cVAE_model.ckpt``, the byte format of flax.serialization.to_bytes
@@ -6,6 +6,8 @@ Writes ``cVAE_model.ckpt``, the byte format of flax.serialization.to_bytes
 ``cVAE_model.json`` model-config sidecar, so the JAX test stage and the
 port's (``interop.read_flax_checkpoint``) both restore it. The tree is one
 fold's parameters in the JAX layout (``interop.params_to_jax(model, fold)``).
+``load_checkpoint`` reads one back, the JAX package's or the port's; an
+orbax directory is refused.
 
 The train-state half (``save_train_state``, ``load_train_state``,
 ``run_chunked``) keeps a whole run's resumable state, ``train_state.ckpt``,
@@ -79,6 +81,72 @@ def save_checkpoint(directory, params, model_config: dict,
     tmp.write_bytes(to_bytes(params))
     os.replace(tmp, directory / f"{name}.ckpt")
     return directory / f"{name}.ckpt"
+
+
+def _template_mismatches(template, stored, path: str = "") -> list:
+    """Where ``stored`` departs from ``template``'s structure or leaf
+    shapes: [(path, what the template has, what is stored)]."""
+    if isinstance(template, dict):
+        if not isinstance(stored, dict) or (sorted(map(str, template))
+                                            != sorted(map(str, stored))):
+            return [(path, sorted(map(str, template)),
+                     sorted(map(str, stored)) if isinstance(stored, dict)
+                     else type(stored).__name__)]
+        return [bad for k in template for bad in _template_mismatches(
+            template[k], stored[str(k)], f"{path}/{k}")]
+    if isinstance(template, (list, tuple)):
+        if not isinstance(stored, list) or len(stored) != len(template):
+            return [(path, f"{len(template)} entries",
+                     f"{len(stored)} entries" if isinstance(stored, list)
+                     else type(stored).__name__)]
+        return [bad for i, (t, s) in enumerate(zip(template, stored))
+                for bad in _template_mismatches(t, s, f"{path}/{i}")]
+    if np.shape(template) != np.shape(stored):
+        return [(path, np.shape(template), np.shape(stored))]
+    return []
+
+
+def load_checkpoint(directory, template_params=None,
+                    name: str = "cVAE_model"):
+    """Returns (params, model_config) of a msgpack checkpoint
+    (train/checkpoints.py:64-116), read by ``interop.read_flax_checkpoint``:
+    params is a JAX-layout tree of numpy arrays, lists where the saved tree
+    had lists. With ``template_params`` (a tree of the right structure) the
+    stored tree must have its structure and leaf shapes: a torn
+    json/blob pair is reported here, not as a shape error later.
+
+    Stated divergence: an orbax directory (``name``.orbax, which the JAX
+    package reads first) is refused; the port reads the msgpack backend
+    only."""
+    from ..interop import read_flax_checkpoint
+
+    directory = Path(directory)
+    orbax_dir = directory / f"{name}.orbax"
+    if orbax_dir.exists():
+        raise ValueError(
+            f"{orbax_dir} is an orbax checkpoint, which the torch port does "
+            "not read (a stated divergence: it reads the msgpack backend "
+            f"only). Re-save the parameters as {name}.ckpt with the JAX "
+            "package's save_checkpoint(..., backend='msgpack').")
+
+    def mismatch_error(detail):
+        return ValueError(
+            f"checkpoint blob {directory / f'{name}.ckpt'} does not match "
+            f"its {name}.json config (likely a save killed between the "
+            "config and blob writes, or a re-train with a different "
+            "architecture that died mid-save): delete the directory and "
+            f"retrain. Underlying error: {detail}")
+
+    try:
+        params, config = read_flax_checkpoint(directory, name)
+    except (ValueError, TypeError) as e:
+        raise mismatch_error(e) from e
+    if template_params is not None:
+        bad = _template_mismatches(template_params, params)
+        if bad:
+            raise mismatch_error(
+                f"leaf mismatches (path, template, stored): {bad[:4]}")
+    return params, config
 
 
 # ---- mid-run train state (train/checkpoints.py:125-287) --------------------

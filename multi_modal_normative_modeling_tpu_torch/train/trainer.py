@@ -301,18 +301,28 @@ class FoldNoise:
 
     Under a 'data' mesh axis a rank holds rows ``rows`` = (r0, r1) of each
     batch: it draws the whole batch's noise and masks, as the unmeshed run
-    does, and keeps its rows, so the draws are the unmeshed run's."""
+    does, and keeps its rows, so the draws are the unmeshed run's.
+
+    ``generators`` (one a fold, on ``device``) are drawn from as they
+    stand, in place of generators seeded here."""
 
     def __init__(self, folds: int, shape: Tuple[int, int], seed: int,
                  device, keep_widths: Sequence[int] = (),
                  keep_prob: float = 1.0,
                  seeds: Optional[Sequence[int]] = None,
-                 rows: Optional[Tuple[int, int]] = None):
+                 rows: Optional[Tuple[int, int]] = None,
+                 generators: Optional[Sequence[torch.Generator]] = None):
         self.shape = shape
         self.rows = rows
         self.device = device
         self.keep_widths = tuple(keep_widths)
         self.keep_prob = keep_prob
+        if generators is not None:
+            if len(generators) != folds:
+                raise ValueError(f"{len(generators)} generators for {folds} "
+                                 "folds")
+            self.gens = list(generators)
+            return
         if seeds is None:
             seeds = [seed] * folds
         elif len(seeds) != folds:
@@ -686,3 +696,127 @@ class TrainSession:
         self._logs = {k: np.asarray(logs.get(k, np.zeros((folds, 0))),
                                     np.float32).reshape(folds, -1)
                       for k in self.log_keys}
+
+
+def _fold_axis(batches: dict) -> dict:
+    """One fold's ``make_batches`` output with a leading fold axis of 1
+    (what ``parallel.stack_fold_batches`` gives for one fold)."""
+    out = {"x": tuple(a[None] for a in batches["x"]),
+           "c": tuple(a[None] for a in batches["c"]),
+           "mask": batches["mask"][None], "valid": batches["valid"][None]}
+    if "extras" in batches:
+        out["extras"] = {k: v[None] for k, v in batches["extras"].items()}
+    return out
+
+
+class FoldTrainer:
+    """The library's one-fold trainer (train/trainer.py:413-498): a thin
+    class over ``parallel.folds.MultiFoldTrainer`` at F = 1, so the port
+    keeps one training engine. ``model`` holds one fold
+    (``build_model(..., folds=1)``) and trains in place. Each call's
+    ``params``, a JAX-layout tree of one fold (the JAX trainer's params),
+    is loaded into the model first (None trains the model's own weights);
+    the trained parameters come back in that layout, as numpy arrays.
+
+    In the place of JAX's ``key`` stands ``noise``: None (every draw from a
+    generator seeded ``config.seed``, as JAX's key defaults to
+    PRNGKey(config.seed)), a ``torch.Generator`` on the model's device,
+    drawn from as it stands, or a ``FoldNoise`` / ``ReplayNoise``
+    (the tests replay JAX's threefry draws, which torch's Philox does not
+    reproduce). ``compile()`` is not ported: an eager loop compiles
+    nothing."""
+
+    def __init__(self, model, config: TrainConfig, n_samples: int,
+                 loss_fn: Optional[LossFn] = None,
+                 state_update: Optional[StateUpdate] = None):
+        from ..parallel.folds import MultiFoldTrainer
+
+        folds = next(model.parameters()).shape[0]
+        if folds != 1:
+            raise ValueError(f"FoldTrainer trains one fold; the model holds "
+                             f"{folds} (train them at once with "
+                             "MultiFoldTrainer)")
+        self.model = model
+        self.config = config
+        self.engine = MultiFoldTrainer(model, config, n_samples, loss_fn,
+                                       state_update)
+        self.loss_meta = self.engine.loss_meta
+
+    def _load(self, params) -> None:
+        if params is not None:
+            from ..interop import params_from_jax
+
+            params_from_jax(params, self.model)
+
+    def _draws(self, noise) -> dict:
+        """``noise`` as the engine's draw arguments."""
+        if noise is None:
+            return {}
+        if isinstance(noise, (FoldNoise, ReplayNoise)):
+            return {"noise": noise}
+        if isinstance(noise, torch.Generator):
+            model = self.model
+            return {"noise": FoldNoise(
+                1, (self.config.batch_size, model.noise_dim),
+                self.config.seed, noise.device,
+                getattr(model, "keep_widths", ()),
+                1.0 - getattr(model, "dropout_rate", 0.0),
+                generators=[noise])}
+        raise TypeError(f"noise is None, a torch.Generator, a FoldNoise or "
+                        f"a ReplayNoise, not {type(noise).__name__}")
+
+    def _result(self, logs: dict) -> Tuple[dict, dict]:
+        from ..interop import params_to_jax
+
+        return (params_to_jax(self.model, fold=0),
+                {k: v[0] for k, v in logs.items()})
+
+    def init_opt_state(self, params=None) -> MaskedAdam:
+        """A fresh optimizer over the model's parameters (``params`` loaded
+        first): Adam's moments and step count at zero."""
+        self._load(params)
+        return MaskedAdam(list(self.model.parameters()), self.engine.lr_fn)
+
+    def run(self, params, data_list, cov_list, noise=None,
+            extras: Optional[dict] = None) -> Tuple[dict, dict]:
+        """Train ``config.epochs`` epochs on one fold's samples; returns
+        (params, logs {name: [epochs]})."""
+        batches = make_batches(data_list, cov_list, self.config.batch_size,
+                               extras)
+        return self.run_batches(params, batches, noise)
+
+    def run_batches(self, params, batches: dict, noise=None
+                    ) -> Tuple[dict, dict]:
+        """``run`` on batches ``make_batches`` built."""
+        self._load(params)
+        logs = self.engine.run(_fold_axis(batches), **self._draws(noise))
+        return self._result(logs)
+
+    def run_resumable(self, params, data_list, cov_list, noise, state_dir,
+                      checkpoint_every: int, resume: bool = True,
+                      extras: Optional[dict] = None) -> Tuple[dict, dict]:
+        """``run`` in chunks of ``checkpoint_every`` epochs with the whole
+        train state saved under ``state_dir`` after each; with ``resume``
+        a stored state is continued. Equal to ``run`` bit for bit."""
+        self._load(params)
+        batches = make_batches(data_list, cov_list, self.config.batch_size,
+                               extras)
+        logs = self.engine.run_resumable(_fold_axis(batches), state_dir,
+                                         checkpoint_every, resume,
+                                         **self._draws(noise))
+        return self._result(logs)
+
+
+def train_single_fold(model, params, data_list: Sequence[np.ndarray],
+                      cov_list: Sequence[np.ndarray], config: TrainConfig,
+                      noise=None, extras: Optional[dict] = None,
+                      loss_fn: Optional[LossFn] = None,
+                      trainer: Optional[FoldTrainer] = None
+                      ) -> Tuple[dict, dict]:
+    """Train one fold to completion (train/trainer.py:501-515): returns
+    (trained params, logs {name: [epochs]}, each epoch's first-batch
+    values). ``params`` and ``noise`` are ``FoldTrainer.run``'s. Pass a
+    shared ``trainer`` to train several folds through one."""
+    if trainer is None:
+        trainer = FoldTrainer(model, config, data_list[0].shape[0], loss_fn)
+    return trainer.run(params, data_list, cov_list, noise, extras)

@@ -60,6 +60,23 @@ def plot_losses(logger: Logger, path, title: str = "") -> None:
     fig.savefig(join(str(path), "Losses{0}.png".format(title)))
 
 
+def plot_fi_scatter(trues: np.ndarray, preds: np.ndarray, fold: int,
+                    path) -> None:
+    """A regression fold's true against predicted FI with the identity
+    line, saved as ``path`` (cli/regression.py:286-295's figure)."""
+    from matplotlib.figure import Figure
+
+    fig = Figure(figsize=(6, 6))
+    ax = fig.add_subplot(1, 1, 1)
+    ax.scatter(trues, preds, alpha=0.5)
+    ax.plot([trues.min(), trues.max()], [trues.min(), trues.max()], 'r--')
+    ax.set_xlabel('True FI')
+    ax.set_ylabel('Predicted FI')
+    ax.set_title(f'Fold {fold} - FI Prediction')
+    ax.grid(True)
+    fig.savefig(path)
+
+
 class RunLog:
     """Append-only JSONL event log (one file per run directory)."""
 

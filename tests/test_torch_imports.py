@@ -12,14 +12,18 @@ variants' CLIs (``cli/nmpmcont.py``, ``cli/nmmlp.py``,
 the native data plane (``cli/bootstrap.py``, ``native/``, which imports
 only the standard library, numpy and pandas), and the custom operators,
 the classifier baseline, export and the report (``kernels/ops.py``,
-``models/classifier.py``, ``data/splits.py``, ``viz.py``,
-``cli/classifier_baseline.py``, ``cli/export.py``, ``cli/report.py``), and
-the streamed trainer, the profiler, the doctor and the facade
-(``train/streaming.py``, ``utils/profiling.py``, ``cli/doctor.py``,
-``compat/``) import no scikit-learn either, which that machine does not
-have, and those three CLIs and the last twelve no matplotlib; the last
-cases run the whole chain, the three CLIs, and the scoring surfaces, in a
-process where importing any of them fails."""
+``models/classifier.py``, ``data/splits.py``,
+``cli/classifier_baseline.py``, ``cli/export.py``, ``cli/report.py``), the
+demo projects (``demo.py``), and the streamed trainer, the profiler, the
+doctor and the facade (``train/streaming.py``, ``utils/profiling.py``,
+``cli/doctor.py``, ``compat/``) import no scikit-learn either, which that
+machine does not have, and those three CLIs and the last twelve no
+matplotlib; the last cases run the whole chain, the three CLIs, the
+scoring surfaces and the demo in a process where importing any of them
+fails. ``viz.py``'s figures and ``utils/logging.py``'s plots import
+matplotlib (and the t-SNE scikit-learn) inside the function that draws,
+and raise or are skipped where it is absent; they are held by the no-jax
+walk only."""
 import ast
 import subprocess
 import sys
@@ -47,9 +51,9 @@ NO_SKLEARN = sorted((PORT / "evaluation").glob("*.py")) + [
     (PORT / "native").glob("*.py")) + [
     PORT / "kernels" / "ops.py", PORT / "models" / "classifier.py",
     PORT / "cli" / "classifier_baseline.py", PORT / "cli" / "export.py",
-    PORT / "cli" / "report.py", PORT / "viz.py", PORT / "data" / "splits.py"]
-# the classifier baseline, export and the report run on the card too: no
-# matplotlib either
+    PORT / "cli" / "report.py", PORT / "demo.py", PORT / "data" / "splits.py"]
+# the classifier baseline, export, the report and the demo run on the card
+# too: no matplotlib either
 SLICE_12 = NO_SKLEARN[-7:]
 # slice 14: the streamed trainer, the profiler, the doctor and the facade run
 # on the card too: no scikit-learn, no matplotlib
@@ -371,6 +375,44 @@ bad = [m for m in sys.modules if m.split('.')[0] in
 assert not bad, bad
 print('SWEEPS_OK')
 """
+
+
+_BLOCKED_DEMO = _BLOCKED_CHAIN.split("import os\n")[0] + """
+import os
+from pathlib import Path
+sys.modules['matplotlib'] = None
+from multi_modal_normative_modeling_tpu_torch import demo, viz
+os.chdir(sys.argv[2])
+root = demo.ensure_demo_project('demo', epochs=1, n_splits=2, device='cpu')
+model, params, config = demo.load_fold_model(root, device='cpu')
+latents, labels = demo.cohort_latents(root, model, params)
+assert latents.shape == (170, 8) and labels.shape == (170,), latents.shape
+try:
+    viz.tsne_latents(latents, labels, 'tsne.png')
+    raise AssertionError('tsne_latents drew without matplotlib')
+except ModuleNotFoundError as e:
+    assert e.name == 'matplotlib', e
+bad = [m for m in sys.modules if m.split('.')[0] in
+       ('jax', 'flax', 'optax', 'sklearn',
+        'multi_modal_normative_modeling_tpu')]
+assert not bad, bad
+print('DEMO_OK')
+"""
+
+
+def test_the_demo_runs_without_jax_sklearn_or_matplotlib(tmp_path):
+    """The demo project (train, test and analysis at one epoch) and its
+    cohort latents on the CPU, in a process that refuses jax, flax, optax,
+    sklearn and the JAX package and has no matplotlib: every file but the
+    loss plots, and the t-SNE figure raises naming matplotlib."""
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_DEMO, str(ROOT), str(tmp_path)],
+        capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-4000:]
+    assert "DEMO_OK" in out.stdout
+    assert (tmp_path / "demo" / "result_baseline"
+            / "result_multimodal.txt").exists()
+    assert not list(tmp_path.rglob("*.png"))
 
 
 def test_sweeps_and_resume_run_without_jax_sklearn_or_matplotlib(tmp_path):

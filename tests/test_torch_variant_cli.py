@@ -21,6 +21,7 @@ results_endtoend.csv's numbers rtol 1e-4 / atol 1e-5; the nm-MLP
 """
 import re
 import shutil
+import sys
 import warnings
 
 import jax
@@ -303,15 +304,31 @@ def test_regression_matches_the_jax_cli(runs):
             np.testing.assert_allclose(a[k], b[k], err_msg=k, **CSV_TOL)
 
 
-def test_regression_draws_no_figure(runs):
-    """Stated divergence (ROADMAP.md queue 3): the JAX CLI draws
-    fold_<k>_scatter.png with matplotlib, the port draws none; the .npy
-    pair holds its data."""
+def test_regression_draws_the_jax_scatter(runs, tmp_path, monkeypatch,
+                                          capsys):
+    """Where matplotlib is present the port draws the JAX CLI's
+    fold_<k>_scatter.png; where it is absent (the machine with the GPU) it
+    draws none and says so (the .npy pair holds the figure's data)."""
     jax_root, port_root, _, _ = runs("regression")
-    assert sorted(p.name for p in (jax_root / "regression_outputs")
-                  .glob("*.png")) == ["fold_0_scatter.png",
-                                      "fold_1_scatter.png"]
-    assert not list(port_root.rglob("*.png"))
+    out = "regression_outputs"
+    names = ["fold_0_scatter.png", "fold_1_scatter.png"]
+    assert sorted(p.name for p in (jax_root / out).glob("*.png")) == names
+    assert sorted(p.name for p in port_root.rglob("*.png")) == names
+    assert sorted(p.name for p in (port_root / out).glob("*.png")) == names
+
+    root = tmp_path / "project"
+    shutil.copytree(port_root / "data", root / "data")
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    args = regression.build_parser().parse_args(
+        FLAGS["regression"] + ["--device", "cpu"])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        scores = regression.train_and_test(args, root)
+    assert len(scores) == 2
+    assert ("matplotlib is not installed: skipping the FI scatter plots"
+            in capsys.readouterr().out)
+    assert len(list((root / out).glob("*.npy"))) == 4
+    assert not list(root.rglob("*.png"))
 
 
 # ---- flags -----------------------------------------------------------------------
