@@ -179,9 +179,15 @@ class FusedFoldTrainer:
         self.resumed_from = 0   # the epoch run_resumable took the run up at
 
     def batches(self, per_fold_data, per_fold_cov, device):
-        return PackedDeviceBatches(make_packed_batches(
-            self.step, per_fold_data, per_fold_cov, self.config.batch_size),
-            self.step, device)
+        from ..utils.profiling import annotate
+
+        with annotate("mmnm.fused.batches"):
+            with annotate("mmnm.fused.pack"):
+                packed = make_packed_batches(self.step, per_fold_data,
+                                             per_fold_cov,
+                                             self.config.batch_size)
+            with annotate("mmnm.fused.upload"):
+                return PackedDeviceBatches(packed, self.step, device)
 
     def session(self, packed: dict, batches: PackedDeviceBatches,
                 eps=None, through_autograd: bool = False) -> TrainSession:
@@ -198,18 +204,22 @@ class FusedFoldTrainer:
         (``StepFunction`` under ``run_epochs``, which scales every gradient
         by the incoming one and concatenates them again); both ways give
         the same trajectory bit for bit."""
-        device = batches.rm.device
-        named = self.step.pad_params(packed)
-        names = self.step._param_names
-        wrap = torch.nn.Parameter if through_autograd else (lambda t: t)
-        params = [wrap(named[k].detach().float().clone()) for k in names]
-        if eps is not None:
-            noise = ReplayNoise(eps, device)
-        else:
-            noise = FoldNoise(batches.folds, (self.config.batch_size,
-                                              self.stacked.latent_dim),
-                              self.config.seed, device)
-        adam = MaskedAdam(params, self.lr_fn)
+        from ..utils.profiling import annotate
+
+        with annotate("mmnm.fused.session"):
+            device = batches.rm.device
+            named = self.step.pad_params(packed)
+            names = self.step._param_names
+            wrap = torch.nn.Parameter if through_autograd else (lambda t: t)
+            params = [wrap(named[k].detach().float().clone())
+                      for k in names]
+            if eps is not None:
+                noise = ReplayNoise(eps, device)
+            else:
+                noise = FoldNoise(batches.folds, (self.config.batch_size,
+                                                  self.stacked.latent_dim),
+                                  self.config.seed, device)
+            adam = MaskedAdam(params, self.lr_fn)
         views = dict(zip(names, params))
         if through_autograd:
             loss_fn = self.step.loss_fn(params)
@@ -227,8 +237,11 @@ class FusedFoldTrainer:
 
     def trained(self, session: TrainSession) -> dict:
         """The session's parameters as the packed tree, unpadded."""
-        return self.step.unpad_named({k: p.detach()
-                                      for k, p in session.params.items()})
+        from ..utils.profiling import annotate
+
+        with annotate("mmnm.fused.trained"):
+            return self.step.unpad_named({k: p.detach() for k, p
+                                          in session.params.items()})
 
     def run(self, packed: dict, batches: PackedDeviceBatches,
             eps=None, through_autograd: bool = False) -> Tuple[dict, dict]:
@@ -261,20 +274,29 @@ class FusedFoldTrainer:
                   batches: PackedDeviceBatches, noise, epochs: int,
                   first_epoch: int = 0) -> torch.Tensor:
         """train.trainer.run_epochs without autograd: ``named`` are views
-        of ``adam.flat``, and each step's flat gradient updates it."""
+        of ``adam.flat``, and each step's flat gradient updates it. Under a
+        profiler each step is an ``mmnm.step`` range holding its phases."""
+        from ..utils.profiling import annotate
+
         logs = torch.empty((epochs, len(self.log_keys), batches.folds),
                            device=batches.rm.device)
         t = first_epoch * batches.n_batches
         for epoch in range(epochs):
             for i in range(batches.n_batches):
-                noise_t, _ = noise.step(t, batches.valid_host[i])
-                b = batches.step(i)
-                losses, flat = self.step.loss_and_grads_flat(
-                    named, b["x"], b["c"], self.step.pad_eps(noise_t),
-                    b["rm"], b["nvalid"])
-                if i == 0:
-                    logs[epoch] = torch.stack([losses[k]
-                                               for k in self.log_keys])
-                adam.step_flat(flat, batches.valid[i])
-                t += 1
+                with annotate("mmnm.step"):
+                    with annotate("mmnm.step.inputs"):
+                        noise_t, _ = noise.step(t, batches.valid_host[i])
+                        b = batches.step(i)
+                        eps = self.step.pad_eps(noise_t)
+                    with annotate("mmnm.step.kernel"):
+                        losses, flat = self.step.loss_and_grads_flat(
+                            named, b["x"], b["c"], eps, b["rm"],
+                            b["nvalid"])
+                    if i == 0:
+                        with annotate("mmnm.step.log"):
+                            logs[epoch] = torch.stack(
+                                [losses[k] for k in self.log_keys])
+                    with annotate("mmnm.step.adam"):
+                        adam.step_flat(flat, batches.valid[i])
+                    t += 1
         return logs

@@ -624,14 +624,20 @@ class TrainSession:
                       for k in self.log_keys}
 
     def advance(self, epochs: int) -> None:
-        """Train ``epochs`` more epochs; their logs are fetched at the end."""
+        """Train ``epochs`` more epochs; their logs are fetched at the end
+        (the chunk's one deliberate sync)."""
+        from ..utils.profiling import annotate
+
         if epochs <= 0:
             return
-        host = self.chunk(self.epoch, epochs).cpu().numpy()
-        self._logs = {k: np.concatenate([self._logs[k], host[:, i, :].T],
-                                        axis=1)
-                      for i, k in enumerate(self.log_keys)}
-        self.epoch += epochs
+        with annotate("mmnm.session.advance"):
+            logs = self.chunk(self.epoch, epochs)
+            with annotate("mmnm.session.fetch"):
+                host = logs.cpu().numpy()
+            self._logs = {k: np.concatenate([self._logs[k], host[:, i, :].T],
+                                            axis=1)
+                          for i, k in enumerate(self.log_keys)}
+            self.epoch += epochs
 
     def logs(self) -> dict:
         """{key: [F, epochs so far]} numpy (on a mesh, every fold's, on

@@ -7,8 +7,10 @@
                       plugin read it; its path is ``trace.last``). Asked
                       for CUDA activity where there is none, it raises: a
                       device trace is never silently a host-only one.
-* ``annotate(name)``  a named region on the host timeline
-                      (``torch.profiler.record_function``).
+* ``annotate(name)``  a named region on the profiler's timeline
+                      (``torch.profiler.record_function``) while a
+                      profiler runs; otherwise one shared null context,
+                      so it can sit on the hot path.
 * ``Timer``/``timed`` wall-clock timing with warm-up, completion forced by
                       ``torch.cuda.synchronize()`` on the card, or a host
                       copy of the last tensor of the result on the CPU;
@@ -60,9 +62,18 @@ def trace(log_dir, cuda: Optional[bool] = None):
 trace.last = None
 
 
+_OFF = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """A named region on the profiler's host timeline."""
-    return torch.profiler.record_function(name)
+    """A named region on the profiler's host timeline: a
+    ``record_function`` range (a ``user_annotation`` event of the Chrome
+    trace, on the clock of the device's events) while a profiler runs
+    (``trace``, ``--profile_dir``, the benchmark's traced run), else the
+    one shared null context, which costs a check and a call."""
+    if torch.autograd._profiler_enabled():
+        return torch.autograd.profiler.record_function(name)
+    return _OFF
 
 
 def _last_tensor(value):
