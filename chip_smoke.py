@@ -206,6 +206,13 @@ Phases (any failure exits non-zero, with no result line):
      seeded subjects at the flagship's widths, 10 epochs, torch.equal to
      MultiFoldTrainer at F = 1, a killed and resumed run byte-equal,
      load_checkpoint of it; ms per step of each.
+  20. MaskedAdam (K7, kernels/masked_adam.py) at both benchmark cells'
+     padded layouts (the fused step's, F = 10: ADNI 3.93 M and PPMI
+     24.75 M elements): five steps with one fold invalid through the
+     kernel and through the plain expression, flat, m, v and count
+     bit-equal, one launch a step; then the kernel and the plain chain
+     timed, event ms and device ms, beside the kernel's bound (28 B an
+     element).
 
 Beside every kernel time stands the kernel's bound: the least time the
 card could take for the same work (kernels/roofline.py: the larger of its
@@ -476,6 +483,12 @@ PACKED_TIMING = [("flagship", DIMS, [512] * FOLDS),
 PACKED_TIMED_STEPS, PACKED_TIMED_RUNS = 20, 5
 
 
+# the fused step's padded layouts at the benchmark cells' widths (F = 10):
+# the flat buffers MaskedAdam updates there
+ADAM_LAYOUTS = {"ADNI": [90, 90, 90, 270], "PPMI": [3485] * 3}
+ADAM_FOLDS = 10
+
+
 def cuda_ms(fn, iters=50, warmup=5):
     """Mean device time of fn() in ms, by CUDA events around `iters` calls."""
     for _ in range(warmup):
@@ -734,6 +747,10 @@ def compare_training(what, dims, rows_per_fold, epochs, seed):
     if launches["decoder_nll"] != want:
         raise RuntimeError(f"{what}: decoder_nll launched "
                            f"{launches['decoder_nll']} times, expected {want}")
+    if launches["masked_adam"] != steps:
+        raise RuntimeError(f"{what}: masked_adam launched "
+                           f"{launches['masked_adam']} times, expected "
+                           f"{steps}")
     for k in logs_p:
         check_close(f"{what} log {k}", torch.from_numpy(logs_k[k]),
                     torch.from_numpy(logs_p[k]), LOG_TOL)
@@ -1085,10 +1102,10 @@ def compare_fused_training(what, dims, rows_per_fold, epochs, seed):
         dims, rows_per_fold, epochs, seed, fused=True)
     torch.cuda.synchronize()
     launches = {k.__name__: k.launches for k in kernels.KERNELS}
-    if launches["fused_train_step"] != steps:
-        raise RuntimeError(f"{what}: fused_train_step launched "
-                           f"{launches['fused_train_step']} times, expected "
-                           f"{steps}")
+    for name in ("fused_train_step", "masked_adam"):
+        if launches[name] != steps:
+            raise RuntimeError(f"{what}: {name} launched {launches[name]} "
+                               f"times, expected {steps}")
     for k in logs_p:
         check_close(f"{what} fused log {k}", torch.from_numpy(logs_k[k]),
                     torch.from_numpy(logs_p[k]), FUSED_LOG_TOL)
@@ -1120,10 +1137,10 @@ def bf16_training(seed):
         DIMS, TRAIN_ROWS, epochs, seed, fused=True, precision="bf16")
     torch.cuda.synchronize()
     launches = {k.__name__: k.launches for k in kernels.KERNELS}
-    if launches["tiled_fused_train_step"] != steps:
-        raise RuntimeError(f"bf16: tiled_fused_train_step launched "
-                           f"{launches['tiled_fused_train_step']} times, "
-                           f"expected {steps}")
+    for name in ("tiled_fused_train_step", "masked_adam"):
+        if launches[name] != steps:
+            raise RuntimeError(f"bf16: {name} launched {launches[name]} "
+                               f"times, expected {steps}")
     total_rel = np.max(np.abs(logs_b["total"] - logs_f["total"])
                        / np.abs(logs_f["total"]))
     leaf = max(leaf_error(a, b) for a, b in zip(packed_leaves(state_b),
@@ -1210,6 +1227,12 @@ def train_run(model_dir):
               (model_dir / "run_log.jsonl").read_text().splitlines()]
     end = [e for e in events if e["event"] == "train_end"][-1]
     return end["run_s"] * 1e3 / end["steps"], end["steps"]
+
+
+def with_adam(want, steps):
+    """``want`` with MaskedAdam's (K7) one launch a step of ``steps``
+    training steps on the card."""
+    return dict(want, masked_adam=steps) if steps else dict(want)
 
 
 def run_chain(root):
@@ -1684,7 +1707,8 @@ def run_variants(stats):
                 )
                 common.apply_post_parse_defaults(args, "SE-MoE")
             # the counts from 0 just before the chain's scoring stage (the
-            # plain trainer launches no kernel), read just after
+            # plain trainer before it launches K7 alone, once a step), read
+            # just after
             kernels.reset_launch_counts()
             if name == "nmpmcont":
                 result = nmpmcont.main(args, root, timings=timings)
@@ -1696,13 +1720,14 @@ def run_variants(stats):
             torch.cuda.synchronize()
             launches = {k.__name__: k.launches for k in kernels.KERNELS
                         if k.launches}
+            want = (VARIANT_LAUNCHES[name] if name == "nmmlp" else
+                    with_adam(VARIANT_LAUNCHES[name], timings["train_steps"]))
             if name == "nmmlp":
                 args.action = "analyze"
                 result = nmmlp.main(args, root, timings=timings)
-            if launches != VARIANT_LAUNCHES[name]:
+            if launches != want:
                 raise RuntimeError(f"phase 10: the scoring of {name} launched "
-                                   f"{launches}, expected "
-                                   f"{VARIANT_LAUNCHES[name]}")
+                                   f"{launches}, expected {want}")
             chain_launches[name] = launches
             summary = check_variant_files(name, root, timings, result)
             ms = timings["train_run_s"] * 1e3 / timings["train_steps"]
@@ -2257,8 +2282,8 @@ def run_resume(stats):
             _, steps = train_run(model_dir)
             resumed_epochs = RESUME_EPOCHS - RESUME_KILLED
             per_step = {"K4": 2 * len(DIMS)}.get(path, 1)
-            want = ({RESUME_KERNELS[path]: per_step * steps}
-                    if path in RESUME_KERNELS else {})
+            want = with_adam({RESUME_KERNELS[path]: per_step * steps}
+                             if path in RESUME_KERNELS else {}, steps)
             if steps % resumed_epochs or launches[path] != want:
                 raise RuntimeError(f"phase 12a: {path}: the resumed call "
                                    f"ran {steps} steps and launched "
@@ -2470,7 +2495,9 @@ def run_grid(stats, nmpmcont_ms):
         launches = launch_counts()
         configs = len(args.margins) * len(args.weightcontrastives)
         text = (roots["grid"] / "results_endtoend.csv").read_text()
-        if (launches != {"fused_encoder": 3} or len(results) != configs
+        if (launches != with_adam({"fused_encoder": 3},
+                                  timings["train_steps"])
+                or len(results) != configs
                 or text.count("Namespace(") != configs):
             raise RuntimeError(f"phase 12c: launches {launches}, "
                                f"{len(results)} results, "
@@ -3436,15 +3463,17 @@ def run_packed_variants(tmp, project):
             if name == "nmpmcont":
                 common.apply_post_parse_defaults(args, "SE-MoE")
             kernels.reset_launch_counts()
+            timings = {}
             if name == "regression":
-                regression.train_and_test(args, roots[run])
+                regression.train_and_test(args, roots[run], timings=timings)
             else:
-                modules[name].main(args, roots[run])
+                modules[name].main(args, roots[run], timings=timings)
             torch.cuda.synchronize()
             counts = launch_counts()
         launches[name] = counts
         expect_launches(f"15c: {name} --packed_xla", counts,
-                        VARIANT_LAUNCHES[name])
+                        with_adam(VARIANT_LAUNCHES[name],
+                                  timings["train_steps"]))
         # nm-MLP at the skeleton's bound, nm-PM-cont and the regression at
         # their JAX tests'
         tol = PACKED_PARAM_TOL if name == "nmmlp" else PACKED_VARIANT_TOL
@@ -3468,7 +3497,7 @@ def run_packed_variants(tmp, project):
               f"scoring launches {counts}", flush=True)
 
     make_synthetic_resource(tmp / "adhd", "ADHD", **ADHD_COHORT)
-    records, roots = {}, {}
+    records, roots, adam = {}, {}, {}
     for run, extra in (("per-modality", []), ("packed", ["--packed_xla"])):
         root = roots[run] = tmp / f"sweep-{run}"
         shutil.copytree(tmp / "adhd" / "data", root / "data")
@@ -3477,9 +3506,17 @@ def run_packed_variants(tmp, project):
                                             project_root=root)
         torch.cuda.synchronize()
         counts = launch_counts()
+        adam[run] = counts.get("masked_adam", 0)
     launches["sweep"] = counts
-    expect_launches("15c: the sweep point's test stage", counts,
-                    {"fused_encoder": 2, "fused_pred_deviation": 2})
+    # the point's one training run: K7 once a step, the same steps in both
+    # layouts, whole epochs of them
+    if (adam["packed"] != adam["per-modality"] or not adam["packed"]
+            or adam["packed"] % PACKED_EPOCHS):
+        raise RuntimeError(f"phase 15: the sweep point launched masked_adam "
+                           f"{adam}, expected the same whole epochs in both")
+    expect_launches("15c: the sweep point", counts,
+                    with_adam({"fused_encoder": 2, "fused_pred_deviation": 2},
+                              adam["packed"]))
     diff = hold_checkpoints("15c sweep point", roots["packed"],
                             roots["per-modality"], PACKED_PARAM_TOL)
     a, b = records["packed"][0]["stats"], records["per-modality"][0]["stats"]
@@ -3764,10 +3801,10 @@ def run_stream_equality(launches):
     torch.cuda.synchronize()
     launches["16a streamed K4"] = counts = launch_counts()
     pairs = len(PPMI_DIMS) * STREAM_EPOCHS * nb
-    if counts != {"decoder_nll": 2 * pairs}:
+    want = with_adam({"decoder_nll": 2 * pairs}, STREAM_EPOCHS * nb)
+    if counts != want:
         raise RuntimeError(f"phase 16a: the streamed --fused_decoder run "
-                           f"launched {counts}, expected {2 * pairs} "
-                           "decoder_nll launches")
+                           f"launched {counts}, expected {want}")
     hold_equal_runs(f"PPMI S={STREAM_FUSED_SHARDS} --fused_decoder", got,
                     want_k4)
     flagship = stream_cohort(DIMS, TRAIN_ROWS, seed=162)
@@ -4584,10 +4621,16 @@ def run_mesh(stats):
                     raise RuntimeError(f"phase 17: rank {r} of {job} "
                                        f"launched {got}, expected {want}")
                 launches[f"{job} rank {r}"] = got
+        # the train jobs launch K7 alone, once a step on every rank
+        job_roots = {job["name"]: job.get("root") for job in plan}
         for job in ("17a train 1,2", "17a train 1,1,2", "17a train 2,1"):
-            if any(record[job]["launches"] for record in ranks):
-                raise RuntimeError(f"phase 17: {job} launched a kernel: "
-                                   f"{[r[job]['launches'] for r in ranks]}")
+            want = with_adam({}, train_run(Path(job_roots[job])
+                                           / PACKED_MODEL_DIR)[1])
+            if any(record[job]["launches"] != want for record in ranks):
+                raise RuntimeError(f"phase 17: {job} launched "
+                                   f"{[r[job]['launches'] for r in ranks]}, "
+                                   f"expected {want} on every rank")
+            launches[f"{job} rank 0"] = want
         # 17c: the meshed score CLI against the unmeshed one
         for a, b in (("scores.csv", "mesh_scores.csv"),
                      ("roi.csv", "mesh_roi.csv")):
@@ -4902,8 +4945,13 @@ def ep_check(ranks, ref, stats):
             launches[f"{job} rank {r}"] = record[job]["launches"]
     for name in EP_TRAIN:
         job = f"18a train ep {EP_TRAIN[name][1]} {name}"
-        if any(record[job]["launches"] for record in ranks):
-            raise RuntimeError(f"phase 18a: {job} launched a kernel")
+        want = with_adam({}, train_run(Path(roots[name])
+                                       / PACKED_MODEL_DIR)[1])
+        if any(record[job]["launches"] != want for record in ranks):
+            raise RuntimeError(f"phase 18a: {job} launched "
+                               f"{[r[job]['launches'] for r in ranks]}, "
+                               f"expected {want} on every rank")
+        launches[f"{job} rank 0"] = want
     # 18c: the grids against the unmeshed ones
     got = json.loads((Path(roots["sweep_mesh"]) / "outputs"
                       / "sweep_supervised_results.json").read_text())
@@ -5030,7 +5078,8 @@ def run_demo_projects(base, stats):
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
     launches["19a"] = launch_counts()
-    want = {"fused_encoder": 3, "fused_pred_deviation": 3}
+    want = with_adam({"fused_encoder": 3, "fused_pred_deviation": 3},
+                     train_run(root / PACKED_MODEL_DIR)[1])
     if launches["19a"] != want:
         raise RuntimeError(f"phase 19a: the demo launched {launches['19a']}, "
                            f"expected {want}")
@@ -5060,7 +5109,8 @@ def run_demo_projects(base, stats):
         walls[proc] = round(time.perf_counter() - t0, 3)
         got = launch_counts()
         launches[f"19b {proc}"] = got
-        want = {"fused_encoder": n, "fused_pred_deviation": n}
+        want = with_adam({"fused_encoder": n, "fused_pred_deviation": n},
+                         train_run(roots[proc] / PACKED_MODEL_DIR)[1])
         if got != want:
             raise RuntimeError(f"phase 19b: {proc} launched {got}, expected "
                                f"{want}")
@@ -5285,6 +5335,78 @@ def run_demo(stats):
               f"19d {t3 - t2:.1f} s, 19e {time.perf_counter() - t3:.1f} s",
               flush=True)
     return launches
+
+
+def masked_adam_sizes(dims, folds=ADAM_FOLDS):
+    """The parameter sizes of the fused step's padded layout (UCA-gPoE
+    widths: hidden [110, 110], latent 10, c 29) at ``dims``."""
+    from multi_modal_normative_modeling_tpu_torch.kernels.train_step import (
+        FusedTrainStep,
+    )
+    from multi_modal_normative_modeling_tpu_torch.models.stacked import (
+        StackedMultimodalCVAE,
+    )
+
+    step = FusedTrainStep(StackedMultimodalCVAE(dims, HIDDEN, LATENT, C_DIM,
+                                                len(dims)), COMBINE)
+    return [folds * step._sizes[k] for k in step._param_names]
+
+
+def run_masked_adam(stats):
+    """Phase 20: K7 against the plain expression at both cells' layouts,
+    bit for bit, then both timed."""
+    from multi_modal_normative_modeling_tpu_torch.kernels import (
+        masked_adam,
+        roofline,
+    )
+    from multi_modal_normative_modeling_tpu_torch.train import TrainConfig
+    from multi_modal_normative_modeling_tpu_torch.train.trainer import (
+        MaskedAdam,
+        build_lr_fn,
+    )
+
+    lr_fn = build_lr_fn(TrainConfig(), 512)
+    out = {}
+    for name, dims in ADAM_LAYOUTS.items():
+        sizes = masked_adam_sizes(dims)
+        gen = torch.Generator(device="cuda").manual_seed(20)
+        params = [torch.randn(ADAM_FOLDS, n // ADAM_FOLDS, generator=gen,
+                              device="cuda") for n in sizes]
+        fast = MaskedAdam([p.clone() for p in params], lr_fn)
+        plain = MaskedAdam([p.clone() for p in params], lr_fn)
+        g = torch.randn(sum(sizes), generator=gen, device="cuda")
+        valid = torch.ones(ADAM_FOLDS, device="cuda")
+        valid[3] = 0.0
+        before = masked_adam.launches
+        for _ in range(5):
+            fast.step_flat(g, valid)
+            plain.step_flat_plain(g, valid)
+        torch.cuda.synchronize()
+        if masked_adam.launches - before != 5:
+            raise RuntimeError(f"masked_adam: {masked_adam.launches - before}"
+                               " launches for 5 steps")
+        for k in ("flat", "m", "v", "count"):
+            if not torch.equal(getattr(fast, k), getattr(plain, k)):
+                raise RuntimeError(f"masked_adam {name}: {k} differs from "
+                                   "the plain expression")
+        valid = torch.ones(ADAM_FOLDS, device="cuda")
+        ms = cuda_ms(lambda: fast.step_flat(g, valid))
+        dev = device_ms(lambda: fast.step_flat(g, valid))
+        plain_ms = cuda_ms(lambda: plain.step_flat_plain(g, valid))
+        plain_dev = device_ms(lambda: plain.step_flat_plain(g, valid))
+        work = roofline.masked_adam(sum(sizes))
+        out[name] = {"elements": sum(sizes), "ms": ms, "device_ms": dev,
+                     "plain_ms": plain_ms, "plain_device_ms": plain_dev,
+                     "bound_ms": work.bound_ms,
+                     "device_share": work.share(dev)}
+        print(f"phase 20: MaskedAdam at {name}'s layout, {sum(sizes)} "
+              f"elements, {len(sizes)} parameters x {ADAM_FOLDS} folds: "
+              f"bit-equal to the plain expression over 5 steps, {ms:.4f} ms "
+              f"(device {dev:.4f}) vs plain {plain_ms:.4f} ms (device "
+              f"{plain_dev:.4f}), {bound_text(work, ms)}, "
+              f"{100 * work.share(dev):.1f}% of it by device ms", flush=True)
+    stats["masked_adam"] = out
+    return out
 
 
 def main():
@@ -5569,6 +5691,11 @@ def main():
     tiled = bf16_training(seed=5)
     launches["fused_train_step"] = fused["fused_train_step"]
     launches["tiled_fused_train_step"] = tiled["tiled_fused_train_step"]
+    # K7 in the fused trainer the benchmark times, once a step
+    launches["masked_adam"] = fused["masked_adam"]
+    adam_launches = {"plain + K4 (phase 5)": train_launches["masked_adam"],
+                     "K5 (phase 7)": fused["masked_adam"],
+                     "K6 (phase 7)": tiled["masked_adam"]}
 
     # ---- phase 8: the chain on the card ------------------------------------
     # its project stays for phase 11, which scores the ensemble it trained
@@ -5652,7 +5779,11 @@ def main():
     t19 = time.perf_counter()
     demo_launches = run_demo(stats)
     print(f"phase 19: {time.perf_counter() - t19:.1f} s", flush=True)
-    missing = [name for name in sources if not launches.get(name)]
+
+    # ---- phase 20: MaskedAdam (K7) at the cells' layouts -------------------
+    run_masked_adam(stats)
+    missing = [name for name in list(sources) + ["masked_adam"]
+               if not launches.get(name)]
     if missing:
         raise RuntimeError(f"no launch on the main path: {missing}")
     report = []
@@ -5762,6 +5893,16 @@ def main():
         for slot in ("mesh", "ep", "demo", "demo_latents"):
             if slot in stats[name]:
                 report[-1][slot] = stats[name][slot]
+    # K7 replaces no TPU kernel (the JAX package's Adam is optax.adam)
+    report.append({
+        "name": "masked_adam", "route": "cuda",
+        "source": "multi_modal_normative_modeling_tpu_torch/kernels/csrc/"
+                  "masked_adam.cu",
+        "replaces": None, "bound_by": "bytes", "library_ms": None,
+        "launches": launches["masked_adam"], "train_launches": adam_launches,
+        "resume_launches": {path: counts.get("masked_adam", 0)
+                            for path, counts in resume_launches.items()},
+        **stats["masked_adam"]})
     print(json.dumps({"classifier": classifier_runs,
                       "export": stats["export"], "report": report_summary}))
     print(json.dumps({"test_stage_walls": stage_walls,

@@ -24,6 +24,10 @@ Kernel inventory:
                      with fp32 operands or, on the tensor cores, bf16
                      (train_step_bf16.cu), the weight gradients summed over
                      batch tiles; ``--precision bf16``.
+  * masked_adam.py — ``masked_adam`` (csrc/masked_adam.cu, K7): the
+                     trainers' MaskedAdam update over the flat buffer of
+                     every fold in one pass; no TPU counterpart (the JAX
+                     package's Adam is optax.adam).
   * ops.py         — K1, K2 and K3 as custom operators (``mmnm::*``), the
                      one way their wrappers reach them, so that an
                      exported scoring program (cli/export.py) holds them
@@ -49,6 +53,7 @@ from .deviation import (  # noqa: F401
     pred_deviation_reference,
     reconstruction_deviation,
 )
+from .masked_adam import masked_adam  # noqa: F401
 from .mlp import encoder_reference, fused_encoder  # noqa: F401
 from . import ops  # noqa: F401,E402  (registers mmnm::*)
 from .train_step import FusedTrainStep, fused_train_step  # noqa: F401
@@ -58,7 +63,7 @@ from .train_step_tiled import (  # noqa: F401
 )
 
 KERNELS = (fused_encoder, fused_pred_deviation, fused_decoder_mean,
-           decoder_nll, fused_train_step, tiled_fused_train_step)
+           decoder_nll, fused_train_step, tiled_fused_train_step, masked_adam)
 
 
 def reset_launch_counts() -> None:

@@ -138,6 +138,11 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.mmnm_train_step_workspace.restype = ctypes.c_longlong
     lib.mmnm_train_step_plan.argtypes = [ints, ints]
     lib.mmnm_train_step_plan.restype = i32
+    i64 = ctypes.c_longlong
+    f64 = ctypes.c_double
+    lib.mmnm_masked_adam.argtypes = ([ptr] * 9 + [i32, i64, i64] + [i32] * 4
+                                     + [f64] * 5 + [ptr])
+    lib.mmnm_masked_adam.restype = i32
     return lib
 
 

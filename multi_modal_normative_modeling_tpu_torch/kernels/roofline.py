@@ -181,3 +181,10 @@ def fused_train_step(folds: int, rows: int, dims: Sequence[int], c: int,
 def _bias_like(d: int, hidden: Sequence[int], z: int) -> int:
     """fp32 vector parameters of one modality: biases, cm and lvo."""
     return 2 * sum(hidden) + 2 * z + 2 * d
+
+
+def masked_adam(numel: int, elem_bytes: int = 4) -> Work:
+    """K7, MaskedAdam's update of ``numel`` parameters: g, p, m and v read
+    once and p, m and v written once (28 B an element in fp32). No matrix
+    product, so no FLOP by the counting rules: bound by bytes."""
+    return Work(0.0, 7.0 * elem_bytes * numel)

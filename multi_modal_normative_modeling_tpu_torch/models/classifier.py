@@ -185,6 +185,9 @@ def _train(model: MLPClassifier, x_train, y_train, x_val, y_val,
 
     params = list(model.parameters())
     adam = MaskedAdam(params, lambda count: carry["lr"])
+    # each element's configuration, uploaded here: the epoch loop syncs
+    # with the host nowhere
+    config_of = adam._fold_of
     inf = torch.full((s,), float("inf"), dtype=dtype, device=device)
     zero = torch.zeros(s, dtype=torch.int64, device=device)
     carry = {"lr": lr, "best_flat": adam.flat.clone(),
@@ -219,7 +222,7 @@ def _train(model: MLPClassifier, x_train, y_train, x_val, y_val,
             # best-validation checkpoint, then early stopping
             better = (val_loss < carry["best_val"]) & ~stopped
             carry["best_flat"] = torch.where(
-                torch.take(better, adam._fold_of), adam.flat,
+                torch.take(better, config_of), adam.flat,
                 carry["best_flat"])
             carry["since_best"] = torch.where(better, zero,
                                               carry["since_best"] + 1)

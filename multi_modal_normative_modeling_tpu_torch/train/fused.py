@@ -136,8 +136,9 @@ class PackedDeviceBatches:
         self.nvalid = up(batches["nvalid"])
         self.mask = self.rm
         self.valid_host = np.asarray(batches["valid"]).T       # [NB, F]
-        self.valid = torch.from_numpy(
-            self.valid_host.astype(np.float32)).to(device)
+        # each step's row contiguous: MaskedAdam reads it in place
+        self.valid = torch.from_numpy(np.ascontiguousarray(
+            self.valid_host, dtype=np.float32)).to(device)
         self.n_batches, self.folds, self.rows = self.rm.shape
 
     def step(self, t: int) -> dict:

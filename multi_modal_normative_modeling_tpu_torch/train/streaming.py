@@ -111,8 +111,9 @@ class StreamedBatches:
         self.device, self.dtype = device, dtype
         self.inflight = inflight
         self.valid_host = np.asarray(batches["valid"]).T  # [NB, F]
-        self.valid = torch.from_numpy(
-            self.valid_host.astype(np.float32)).to(device)
+        # each step's row contiguous: MaskedAdam reads it in place
+        self.valid = torch.from_numpy(np.ascontiguousarray(
+            self.valid_host, dtype=np.float32)).to(device)
         self.mask = self._step_major(batches["mask"]).to(device, dtype)
         self.n_batches, self.folds, self.rows = self.mask.shape
         self.counts, self.row_slice = global_counts(batches, device)

@@ -40,6 +40,13 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..kernels.masked_adam import (
+    MaskedAdamKernel,
+    fold_index,
+    masked_adam,
+    masked_adam_reference,
+    plan as masked_adam_plan,
+)
 from ..ops.losses import global_row_counts
 from .schedules import cyclic_triangular
 
@@ -203,14 +210,25 @@ def resolve_loss(model, config: TrainConfig, loss_fn: Optional[LossFn]
 
 
 def build_lr_fn(config: TrainConfig, n_samples: int):
-    """count [F] -> learning rate [F] (train/trainer.py:260-266)."""
+    """count [F] -> learning rate [F] (train/trainer.py:260-266). The
+    constant schedule fills its [F] tensor once per shape, dtype and device
+    and hands the same tensor back (read only) on every later step, where a
+    fill would be one more launch a step."""
     if config.lr_schedule == "cyclic":
         step_size = 2.0 * float(np.ceil(n_samples / config.batch_size))
         return cyclic_triangular(config.base_lr, config.max_lr, step_size,
                                  config.gamma)
     if config.lr_schedule != "constant":
         raise ValueError(f"unknown lr_schedule {config.lr_schedule!r}")
-    return lambda count: torch.full_like(count, config.learning_rate)
+    filled = {}
+
+    def constant(count: torch.Tensor) -> torch.Tensor:
+        key = (count.shape, count.dtype, count.device)
+        if key not in filled:
+            filled[key] = torch.full_like(count, config.learning_rate)
+        return filled[key]
+
+    return constant
 
 
 class MaskedAdam:
@@ -219,13 +237,16 @@ class MaskedAdam:
 
     The parameters are moved into one flat buffer (each parameter becomes a
     view of it, so its module sees every update) and the moments live in
-    two more: a step is a dozen whole-buffer operations whatever the number
-    of parameters. Each parameter [F, ...] runs fold by fold inside the
-    buffer; a step spreads its per-fold scalars (valid, bias corrections,
-    learning rate) over the elements with one ``torch.take`` each through
-    the element's fold index. (A row gather of the four scalars at once,
-    ``repeat_interleave`` of an [.., 4] table, took 1.2 ms for 2M
-    elements on an H100; a 1-D take takes 0.01 ms.)"""
+    two more. Each parameter [F, ...] runs fold by fold inside the buffer;
+    ``plan`` (``kernels/masked_adam.plan``, built here once) holds each
+    parameter's offset and per-fold run length. On a CUDA buffer a step is
+    one launch of ``kernels/masked_adam.py``'s kernel, which finds an
+    element's fold from those runs; on a CPU buffer it is the plain torch
+    expression (``step_flat_plain``), which spreads its per-fold scalars
+    (valid, bias corrections, learning rate) over the elements with one
+    ``torch.take`` each through the element fold index ``_fold_of``. The
+    two are bit-equal. The buffers are updated in place only: a restored
+    state is copied into them."""
 
     def __init__(self, params: Sequence[torch.nn.Parameter], lr_fn,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
@@ -243,11 +264,20 @@ class MaskedAdam:
         self.v = torch.zeros_like(self.flat)
         self.count = torch.zeros(folds, dtype=self.flat.dtype,
                                  device=self.flat.device)
-        runs = torch.tensor([n // folds for n in sizes for _ in range(folds)],
-                            device=self.flat.device)
-        self._fold_of = torch.repeat_interleave(
-            torch.arange(folds, device=self.flat.device).repeat(len(sizes)),
-            runs)
+        self.plan = masked_adam_plan(sizes, folds)
+        self._kernel = (MaskedAdamKernel(self.flat, self.m, self.v,
+                                         self.plan, folds, b1, b2, eps)
+                        if self.flat.is_cuda else None)
+        self._fold_index = None
+
+    @property
+    def _fold_of(self) -> torch.Tensor:
+        """Each element's fold [numel] (int64, on the buffer's device),
+        expanded from ``plan`` on the host at first use."""
+        if self._fold_index is None:
+            self._fold_index = torch.from_numpy(fold_index(
+                self.plan, self.count.shape[0])).to(self.flat.device)
+        return self._fold_index
 
     @torch.no_grad()
     def step(self, grads: Sequence[Optional[torch.Tensor]],
@@ -269,23 +299,19 @@ class MaskedAdam:
         """``step`` from the gradients already laid out as ``self.flat`` is:
         every parameter's [F, ...] gradient back to back, in the order of
         ``params``."""
-        b1, b2 = self.b1, self.b2
+        if self._kernel is None:
+            self.step_flat_plain(g, valid)
+            return
         lr = self.lr_fn(self.count)
-        count = self.count + valid
+        self.count = masked_adam(self._kernel, g, self.count, valid, lr)
 
-        def spread(per_fold):
-            return torch.take(per_fold, self._fold_of)
-
-        keep = spread(valid) > 0
-        m = (1.0 - b1) * g + b1 * self.m
-        v = (1.0 - b2) * (g * g) + b2 * self.v
-        update = ((m / spread(1.0 - b1 ** count))
-                  / (torch.sqrt(v / spread(1.0 - b2 ** count)) + self.eps))
-        self.flat.copy_(torch.where(keep, self.flat - spread(lr) * update,
-                                    self.flat))
-        self.m.copy_(torch.where(keep, m, self.m))
-        self.v.copy_(torch.where(keep, v, self.v))
-        self.count = count
+    @torch.no_grad()
+    def step_flat_plain(self, g: torch.Tensor, valid: torch.Tensor) -> None:
+        """``step_flat`` as the plain torch expression, on any device."""
+        lr = self.lr_fn(self.count)
+        self.count = masked_adam_reference(
+            self.flat, self.m, self.v, g, self.count, valid, lr,
+            self._fold_of, self.b1, self.b2, self.eps)
 
 
 class FoldNoise:
@@ -471,8 +497,9 @@ class DeviceBatches:
         self.mask = up(batches["mask"])
         self.extras = {k: up(v) for k, v in batches.get("extras", {}).items()}
         self.valid_host = np.asarray(batches["valid"]).T  # [NB, F]
-        self.valid = torch.from_numpy(
-            self.valid_host.astype(np.float32)).to(device)
+        # each step's row contiguous: MaskedAdam reads it in place
+        self.valid = torch.from_numpy(np.ascontiguousarray(
+            self.valid_host, dtype=np.float32)).to(device)
         self.n_batches, self.folds, self.rows = self.mask.shape
         self.counts, self.row_slice = global_counts(batches, device)
 

@@ -343,7 +343,8 @@ def test_service_on_the_card_matches_the_cpu(cuda, scoring_project):
 def test_zoo_training_on_the_card_matches_the_cpu(cuda, name, latent):
     """A few plain steps of a zoo model on the card against the same steps
     on the CPU, from the same init and eps, a ragged two-fold cohort whose
-    small fold meets an all-padding batch; no kernel is launched."""
+    small fold meets an all-padding batch; of the kernels only MaskedAdam's
+    (K7) is launched, once a step on the card."""
     import warnings
 
     from multi_modal_normative_modeling_tpu_torch.parallel import (
@@ -376,7 +377,9 @@ def test_zoo_training_on_the_card_matches_the_cpu(cuda, name, latent):
         logs = MultiFoldTrainer(model, config, 70).run(batches, eps=eps)
         runs[str(device)] = (logs, {k: v.cpu()
                                     for k, v in model.state_dict().items()})
-    assert not any(k.launches for k in kernels.KERNELS)
+    steps = config.epochs * batches["mask"].shape[1]
+    assert {k.__name__: k.launches for k in kernels.KERNELS
+            if k.launches} == {"masked_adam": steps}
     (logs_c, state_c), (logs_g, state_g) = runs["cpu"], runs["cuda"]
     assert set(logs_g) == set(model.log_keys)
     for k in logs_c:
@@ -1293,3 +1296,235 @@ def test_ep_scoring_on_one_rank_matches_the_fused_call(cuda):
         torch.testing.assert_close(out[m][0], recons[m], rtol=1e-5,
                                    atol=1e-5)
         torch.testing.assert_close(out[m][1], devs[m], rtol=1e-4, atol=1e-5)
+
+
+# ---- MaskedAdam (K7): kernels/masked_adam.py against the plain expression --
+
+# a fold invalid on its first step, all valid, every other fold, one fold
+# out, none valid (nothing moves), all valid
+ADAM_VALID = [[0, 1, 1, 1, 1, 1, 1, 1, 1, 0], [1] * 10,
+              [1, 0, 1, 0, 1, 0, 1, 0, 1, 0], [1, 1, 1, 0, 1, 1, 1, 1, 1, 1],
+              [0] * 10, [1] * 10]
+
+
+def _adam_sizes(layout):
+    """Parameter sizes of a MaskedAdam buffer at F = 10: the fused step's
+    padded layout at a cell's widths, or runs that leave the buffer's
+    length and most run starts off a multiple of 4."""
+    from multi_modal_normative_modeling_tpu_torch.kernels.train_step import (
+        FusedTrainStep,
+    )
+    from multi_modal_normative_modeling_tpu_torch.models.stacked import (
+        StackedMultimodalCVAE,
+    )
+
+    if layout == "odd":
+        return [10 * r for r in (7, 4099, 1, 8193, 3)]
+    dims = {"adni": [90, 90, 90, 270], "ppmi": [3485] * 3}[layout]
+    step = FusedTrainStep(StackedMultimodalCVAE(dims, [110, 110], 10, 29,
+                                                len(dims)), "gpoe")
+    return [10 * step._sizes[k] for k in step._param_names]
+
+
+def _adam_lr(schedule, cuda, dtype):
+    """count -> lr [F]: the constant and cyclic schedules, and the
+    classifier's (its carry's lr, halved for some configurations after
+    each step)."""
+    from multi_modal_normative_modeling_tpu_torch.train import TrainConfig
+    from multi_modal_normative_modeling_tpu_torch.train.schedules import (
+        cyclic_triangular,
+    )
+    from multi_modal_normative_modeling_tpu_torch.train.trainer import (
+        build_lr_fn,
+    )
+
+    if schedule == "constant":
+        return build_lr_fn(TrainConfig(), 512), None
+    if schedule == "cyclic":
+        return cyclic_triangular(1e-4, 5e-3, 4.0), None
+    carry = {"lr": torch.linspace(1e-4, 1e-3, 10, device=cuda, dtype=dtype)}
+
+    def decay(step):
+        cut = torch.arange(10, device=cuda) % (step + 2) == 0
+        carry["lr"] = torch.where(cut, carry["lr"] * 0.5, carry["lr"])
+
+    return (lambda count: carry["lr"]), decay
+
+
+def _adam_run(cuda, sizes, dtype, schedule, steps, seed=0):
+    """The same steps through the kernel and through the plain expression,
+    from the same start: (kernel's MaskedAdam, plain's, launches)."""
+    from multi_modal_normative_modeling_tpu_torch.train.trainer import (
+        MaskedAdam,
+    )
+
+    lr_fn, after = _adam_lr(schedule, cuda, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    params = [torch.randn(10, n // 10, generator=gen, device=cuda,
+                          dtype=dtype) for n in sizes]
+    fast = MaskedAdam([p.clone() for p in params], lr_fn)
+    plain = MaskedAdam([p.clone() for p in params], lr_fn)
+    before = kernels.masked_adam.launches
+    for s in range(steps):
+        g = torch.randn(sum(sizes), generator=gen, device=cuda, dtype=dtype)
+        valid = torch.tensor(ADAM_VALID[s % len(ADAM_VALID)], device=cuda,
+                             dtype=dtype)
+        fast.step_flat(g, valid)
+        plain.step_flat_plain(g, valid)
+        if after is not None:
+            after(s)
+    return fast, plain, kernels.masked_adam.launches - before
+
+
+def _adam_equal(a, b):
+    for name in ("flat", "m", "v", "count"):
+        x, y = getattr(a, name), getattr(b, name)
+        assert x.dtype == y.dtype, name
+        assert torch.equal(x, y), (name, int((x != y).sum()))
+
+
+@pytest.mark.parametrize("schedule", ["constant", "cyclic", "classifier"])
+@pytest.mark.parametrize("layout", ["adni", "ppmi", "odd"])
+def test_masked_adam_kernel_is_bit_equal_to_plain(cuda, layout, schedule):
+    """Six steps of each mask of ADAM_VALID at both cells' padded layouts
+    (F = 10) and at a length that is not a multiple of 4: flat, m, v and
+    count bit-equal to the plain expression, one launch a step."""
+    sizes = _adam_sizes(layout)
+    fast, plain, launches = _adam_run(cuda, sizes, torch.float32, schedule,
+                                      len(ADAM_VALID))
+    assert launches == len(ADAM_VALID)
+    assert fast.flat.numel() == sum(sizes)
+    _adam_equal(fast, plain)
+    assert fast.count.tolist() == [float(sum(v)) for v in zip(*ADAM_VALID)]
+
+
+def test_masked_adam_kernel_float64(cuda):
+    """The kernel's double instantiation (a classifier whose model is fp64)
+    against the plain expression in fp64."""
+    fast, plain, launches = _adam_run(cuda, _adam_sizes("odd"),
+                                      torch.float64, "classifier", 6)
+    assert launches == 6
+    _adam_equal(fast, plain)
+
+
+def test_masked_adam_kernel_over_many_counts(cuda):
+    """Both bias corrections at every count from 0 to 199 999 (one fold a
+    count, one element a fold): torch.pow(b, count) on the card, bit for
+    bit."""
+    from multi_modal_normative_modeling_tpu_torch.train.trainer import (
+        MaskedAdam,
+    )
+
+    folds = 200_000
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    param = torch.randn(folds, 3, generator=gen, device=cuda)
+    adams = [MaskedAdam([param.clone()], lambda count: torch.full_like(
+        count, 1e-3)) for _ in range(2)]
+    for adam in adams:
+        adam.count = torch.arange(folds, device=cuda, dtype=torch.float32)
+    g = torch.randn(3 * folds, generator=gen, device=cuda)
+    valid = torch.ones(folds, device=cuda)
+    adams[0].step_flat(g, valid)
+    adams[1].step_flat_plain(g, valid)
+    _adam_equal(*adams)
+
+
+def test_masked_adam_resume_on_the_card(cuda):
+    """Stopped after 3 steps at ADNI's layout, its state saved to the host
+    and copied into a fresh optimizer (as TrainSession.restore does), then
+    5 more steps: the uninterrupted run's bytes."""
+    from multi_modal_normative_modeling_tpu_torch.train.trainer import (
+        MaskedAdam,
+    )
+
+    sizes = _adam_sizes("adni")
+    lr_fn, _ = _adam_lr("constant", cuda, torch.float32)
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    params = [torch.randn(10, n // 10, generator=gen, device=cuda)
+              for n in sizes]
+    grads = [torch.randn(sum(sizes), generator=gen, device=cuda)
+             for _ in range(8)]
+    valids = [torch.tensor(ADAM_VALID[s % len(ADAM_VALID)], device=cuda,
+                           dtype=torch.float32) for s in range(8)]
+    straight = MaskedAdam([p.clone() for p in params], lr_fn)
+    for g, valid in zip(grads, valids):
+        straight.step_flat(g, valid)
+    first = MaskedAdam([p.clone() for p in params], lr_fn)
+    for g, valid in zip(grads[:3], valids[:3]):
+        first.step_flat(g, valid)
+    saved = {k: getattr(first, k).cpu().numpy() for k in
+             ("flat", "m", "v", "count")}
+    resumed = MaskedAdam([torch.zeros_like(p) for p in params], lr_fn)
+    for k in ("flat", "m", "v"):
+        getattr(resumed, k).copy_(torch.from_numpy(saved[k].copy()))
+    count = torch.empty_like(resumed.count)
+    count.copy_(torch.from_numpy(saved["count"].copy()))
+    resumed.count = count
+    for g, valid in zip(grads[3:], valids[3:]):
+        resumed.step_flat(g, valid)
+    _adam_equal(resumed, straight)
+
+
+def test_masked_adam_refuses_what_the_kernel_does_not_take(cuda):
+    """On the card nothing falls back to the plain expression: a bf16
+    buffer is refused when the optimizer is built, a per-fold value on the
+    host or of another length at a step."""
+    from multi_modal_normative_modeling_tpu_torch.train.trainer import (
+        MaskedAdam,
+    )
+
+    param = torch.zeros(2, 8, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="masked_adam: buffer dtype"):
+        MaskedAdam([param], lambda count: torch.full_like(count, 1e-3))
+    adam = MaskedAdam([torch.zeros(2, 8, device=cuda)],
+                      lambda count: torch.full_like(count, 1e-3))
+    g = torch.ones(16, device=cuda)
+    # a step uploads nothing: a per-fold value on the host is refused
+    with pytest.raises(ValueError, match="masked_adam: valid"):
+        adam.step_flat(g, torch.ones(2))
+    with pytest.raises(ValueError, match="masked_adam: valid"):
+        adam.step_flat(g, torch.ones(3, device=cuda))
+
+
+def test_masked_adam_float64_takes_the_batches_fp32_valid(cuda):
+    """The trainers' batches hold valid in fp32: an fp64 buffer takes it,
+    cast on the card, to the plain expression's bytes."""
+    from multi_modal_normative_modeling_tpu_torch.train.trainer import (
+        MaskedAdam,
+    )
+
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    param = torch.randn(10, 7, generator=gen, device=cuda,
+                        dtype=torch.float64)
+    lr_fn, _ = _adam_lr("constant", cuda, torch.float64)
+    fast = MaskedAdam([param.clone()], lr_fn)
+    plain = MaskedAdam([param.clone()], lr_fn)
+    for s in range(4):
+        g = torch.randn(70, generator=gen, device=cuda, dtype=torch.float64)
+        valid = torch.tensor(ADAM_VALID[s], device=cuda, dtype=torch.float32)
+        fast.step_flat(g, valid)
+        plain.step_flat_plain(g, valid)
+    _adam_equal(fast, plain)
+
+
+def test_masked_adam_is_built_without_waiting_for_the_card(cuda):
+    """Building the optimizer on the card (once a job in the fused
+    trainer's session) queues its uploads behind the stream's work and
+    does not wait for it."""
+    from multi_modal_normative_modeling_tpu_torch.train.trainer import (
+        MaskedAdam,
+    )
+
+    sizes = _adam_sizes("adni")
+    lr_fn, _ = _adam_lr("constant", cuda, torch.float32)
+    params = [torch.zeros(10, n // 10, device=cuda) for n in sizes]
+    MaskedAdam([p.clone() for p in params], lr_fn)
+    clones = [p.clone() for p in params]
+    torch.cuda.synchronize()
+    stream = torch.cuda.current_stream()
+    torch.cuda._sleep(1 << 30)      # about half a second of the card's time
+    adam = MaskedAdam(clones, lr_fn)
+    busy = not stream.query()
+    torch.cuda.synchronize()
+    assert busy
+    assert adam.plan.runs[-1][0] + 10 * adam.plan.runs[-1][1] == sum(sizes)

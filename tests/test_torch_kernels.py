@@ -205,7 +205,7 @@ def test_library_hash_tracks_sources():
     assert path.name.startswith("libmmnm_kernels_")
     assert {p.name for p in _build.SRC_DIR.glob("*.cu")} == {
         "encoder.cu", "pred_deviation.cu", "decoder_nll.cu", "train_step.cu",
-        "train_step_bf16.cu"}
+        "train_step_bf16.cu", "masked_adam.cu"}
     assert {p.name for p in _build.SRC_DIR.glob("*.cuh")} == {
         "tile_product.cuh", "train_step.cuh"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

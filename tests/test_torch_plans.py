@@ -1,6 +1,6 @@
 """The launch plans of the encoder, decode+deviation and decoder_nll
 kernels, and decoder_nll under a non-uniform cotangent against the JAX
-package's.
+package's; MaskedAdam's runs table.
 
 The plans are pure Python (kernels/mlp.py::plan, kernels/decoder_nll.py::plan,
 kernels/deviation.py::plan over _build.fill_split): grids, splits, shared
@@ -29,10 +29,13 @@ from multi_modal_normative_modeling_tpu_torch.kernels import (
     deviation,
     mlp,
 )
+from multi_modal_normative_modeling_tpu_torch.train.trainer import MaskedAdam
 
 # the module: the package's attribute of that name is the function
 nll = importlib.import_module(
     "multi_modal_normative_modeling_tpu_torch.kernels.decoder_nll")
+adam_kernel = importlib.import_module(
+    "multi_modal_normative_modeling_tpu_torch.kernels.masked_adam")
 
 ROOT = Path(__file__).resolve().parents[1]
 SLOTS = _build.SMS * _build.BLOCKS_PER_SM
@@ -386,3 +389,106 @@ def test_plans_at_the_bootstrap_test_call(shape):
     q = _check_deviation_plan(folds, rows, CS.LATENT + c_dim, CS.HIDDEN, d)
     assert p.tiles == q.tiles == -(-rows // _build.TILE_ROWS)
     assert 2 * max(p.smem, q.smem) <= _build.MAX_SMEM_BYTES
+
+
+# ---- MaskedAdam's runs table (kernels/masked_adam.py::plan) -----------------
+
+def _old_fold_of(sizes, folds):
+    """MaskedAdam's element fold index as it was built on the device."""
+    runs = torch.tensor([n // folds for n in sizes for _ in range(folds)])
+    return torch.repeat_interleave(
+        torch.arange(folds).repeat(len(sizes)), runs)
+
+
+def _adam_layouts():
+    """(name, parameter sizes, folds) of every MaskedAdam construction:
+    the fused step's padded layout at both cells' widths (F = 10), the
+    plain trainer's per-modality modules, the packed trainer's tree and
+    the classifier's configurations."""
+    from multi_modal_normative_modeling_tpu_torch.interop import (
+        packed_from_model,
+    )
+    from multi_modal_normative_modeling_tpu_torch.models import build_model
+    from multi_modal_normative_modeling_tpu_torch.models.classifier import (
+        MLPClassifier,
+    )
+    from multi_modal_normative_modeling_tpu_torch.train import TrainConfig
+    from multi_modal_normative_modeling_tpu_torch.train import packed
+
+    out = [(f"fused {name.lower()}", CS.masked_adam_sizes(dims),
+            CS.ADAM_FOLDS) for name, dims in CS.ADAM_LAYOUTS.items()]
+    model = build_model("cVAE_multimodal", [12, 20, 8], [16, 16], 4, 29, 3,
+                        folds=5, generator=torch.Generator().manual_seed(0))
+    out.append(("plain", [p.numel() for p in model.parameters()], 5))
+    trainer = packed.PackedMultiFoldTrainer(model, TrainConfig(), 37)
+    tree = packed_from_model(model, trainer.layout)
+    out.append(("packed", [t.numel() for t in packed._leaves(tree)], 5))
+    clf = MLPClassifier(10, [8, 4], 0.1, configs=3)
+    out.append(("classifier", [p.numel() for p in clf.parameters()], 3))
+    return out
+
+
+ADAM_LAYOUTS = _adam_layouts()
+SLOTS_ADAM = _build.SMS * adam_kernel.GRID_BLOCKS_PER_SM
+
+
+def _check_adam_plan(sizes, folds, chunk=adam_kernel.CHUNK):
+    """The chunks tile the buffer in order, each inside one (parameter,
+    fold) run and at most ``chunk`` long, and give every element the fold
+    that the expanded runs table gives it."""
+    p = adam_kernel.plan(sizes, folds, chunk)
+    index = adam_kernel.fold_index(p, folds)
+    assert index.shape == (sum(sizes),)
+    at = 0
+    for c in range(p.chunks):
+        start, end, fold = adam_kernel.chunk_span(p, c, chunk)
+        assert start == at and 0 < end - start <= chunk
+        assert (index[start:end] == fold).all()
+        at = end
+    assert at == sum(sizes)
+    assert p.grid == max(1, min(p.chunks, SLOTS_ADAM))
+    return p, index
+
+
+@pytest.mark.parametrize("name,sizes,folds", ADAM_LAYOUTS,
+                         ids=[layout[0] for layout in ADAM_LAYOUTS])
+def test_masked_adam_runs_expand_to_the_fold_index(name, sizes, folds):
+    """Expanded on the host, the runs table is the element fold index that
+    MaskedAdam built on the device before the kernel, for every layout
+    that constructs one; the CPU optimizer's ``_fold_of`` is that index."""
+    _, index = _check_adam_plan(sizes, folds)
+    old = _old_fold_of(sizes, folds)
+    assert torch.equal(torch.from_numpy(index), old)
+    if sum(sizes) > 5_000_000:   # PPMI's 24.75 M: the index alone here
+        return
+    params = [torch.zeros(folds, n // folds) for n in sizes]
+    adam = MaskedAdam(params, lambda count: torch.full_like(count, 1e-4))
+    assert adam._fold_of.dtype == old.dtype
+    assert torch.equal(adam._fold_of, old)
+
+
+def test_masked_adam_plan_at_the_cells():
+    """Both cells' padded layouts at F = 10: 3.93 M and 24.75 M elements,
+    16 parameters, one chunk a run of the small parameters, a full grid."""
+    want = {"fused adni": (3929320, 1080), "fused ppmi": (24751470, 6150)}
+    for name, sizes, folds in ADAM_LAYOUTS:
+        if name in want:
+            p = adam_kernel.plan(sizes, folds)
+            assert (sum(sizes), p.chunks) == want[name]
+            assert len(p.runs) == 16 and p.grid == SLOTS_ADAM
+
+
+@settings(max_examples=200, deadline=None, database=None)
+@given(st.integers(1, 12), st.lists(st.integers(0, 1000), min_size=1,
+                                    max_size=8), st.integers(1, 700))
+def test_masked_adam_plan_sweep(folds, runs, chunk):
+    """Any runs (empty parameters and runs shorter, longer and a multiple
+    of the chunk among them) at any chunk length."""
+    sizes = [folds * r for r in runs]
+    _, index = _check_adam_plan(sizes, folds, chunk)
+    assert torch.equal(torch.from_numpy(index), _old_fold_of(sizes, folds))
+
+
+def test_masked_adam_plan_refuses_a_parameter_without_the_fold_axis():
+    with pytest.raises(ValueError, match="not \\[3, ...\\]"):
+        adam_kernel.plan([6, 7], 3)

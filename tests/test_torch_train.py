@@ -328,6 +328,18 @@ def test_masked_adam_skips_invalid_folds():
     torch.testing.assert_close(p[0], before[0] - 1e-4, rtol=0, atol=1e-7)
 
 
+def test_constant_schedule_fills_its_rate_once():
+    """The constant schedule hands back one filled tensor per shape, dtype
+    and device: a step reads it and launches no fill of its own."""
+    lr_fn = build_lr_fn(TrainConfig(learning_rate=3e-4), 100)
+    first = lr_fn(torch.zeros(4))
+    assert torch.equal(first, torch.full((4,), 3e-4))
+    assert lr_fn(torch.ones(4)) is first
+    other = lr_fn(torch.zeros(3, dtype=torch.float64))
+    assert other is not first and other.dtype == torch.float64
+    assert torch.equal(other, torch.full((3,), 3e-4, dtype=torch.float64))
+
+
 def test_cyclic_schedule_matches_jax():
     count = np.arange(0, 40, dtype=np.int32)
     ref = np.asarray(jax_cyclic(1e-4, 5e-3, 4.0)(jnp.asarray(count)))
