@@ -35,9 +35,11 @@ Phases (any failure exits non-zero, with no result line):
      over the packed model, TF32 off) with ragged row masks: the flagship
      (5 folds), every fusion and 1 and 3 hidden layers at small width, two
      shapes none of whose widths is a multiple of 4 (so every tensor of
-     the padded layout is wider than its true shape), and PPMI width with
-     one fold; two calls bit-equal; the flat gradient buffer bit-equal to
-     the gradients autograd takes through StepFunction; time both;
+     the padded layout is wider than its true shape), the ADHD cell's step
+     (10 folds, [116, 116], -H 460 460 40: the wide-hidden route) and PPMI
+     width with one fold; two calls bit-equal; the flat gradient buffer
+     bit-equal to the gradients autograd takes through StepFunction; time
+     both;
   6b. the batch-tiled step (K6) in fp32 with tile_b < B against K5 and the
      plain version, and in bf16 against the fp32 plain version (at the JAX
      test's shape) and against its own plain bf16 transcription (flagship,
@@ -45,8 +47,12 @@ Phases (any failure exits non-zero, with no result line):
      two calls bit-equal; time both;
   7. train the flagship (5 folds, 10 epochs) through FusedFoldTrainer (K5)
      and hold it against MultiFoldTrainer with the plain loss from the same
-     init and eps, counting K5 launches; the same at PPMI width; then a few
-     bf16 steps through K6 against the fp32 run; ms per step of both paths;
+     init and eps, counting K5 launches; the same at PPMI width, and at the
+     ADHD cell's shape (10 folds x 441, -H 460 460 40, 2 epochs), where
+     every K5 step must take the wide-hidden route and a parameter may
+     fall outside the bound only where the plain run's gradient was a
+     rounded zero in some step; then a few bf16 steps through K6 against
+     the fp32 run; ms per step of both paths;
   8. the chain on the card: a synthetic ADNI cohort of 600 subjects in a
      temporary directory, then train -> test -> analysis in this process
      through cli.pipeline (UCA-gPoE, 5 folds, --fused_train_step, epochs
@@ -297,6 +303,10 @@ BATCH = 256
 PPMI_DIMS = [3485, 3485, 3485]
 RAGGED_DIMS = [37, 90, 271]
 PPMI_ROWS = [2500]
+# the ADHD grid's widest point (commands_list11_adhd.sh, -H 460 460 40) on
+# the ADHD cell's folds: 441 training rows, 2 steps an epoch
+ADHD_DIMS, ADHD_HIDDEN, ADHD_LATENT = [116, 116], [460, 460], 40
+ADHD_ROWS = [441] * 10
 LOG_TOL = dict(rtol=1e-4, atol=0.0)
 PARAM_TOL = dict(rtol=5e-3, atol=1e-5)
 
@@ -318,6 +328,12 @@ TILED_TOL = dict(rtol=1e-4, atol=1e-6)
 BF16_TOTAL, BF16_LEAF, BF16_OWN = 2e-2, 6e-2, 5e-3
 FUSED_LOG_TOL = dict(rtol=2e-4, atol=0.0)
 FUSED_PARAM_TOL = dict(rtol=5e-3, atol=5e-5)
+# the step's gradients are held to an atol of 1e-5, which fixes no sign of
+# a gradient at or under it; Adam moves an entry by about lr a step
+# whatever its gradient's size. At hidden 460 an entry may fall outside
+# FUSED_PARAM_TOL only where the plain run's gradient was that small in
+# some step (tests/test_torch_cuda.py's ROUNDED_GRAD).
+ROUNDED_GRAD = 1e-5
 # (name, dims, hidden, folds, rows, C, Z, fusion)
 STEP_SHAPES = [
     ("flagship", DIMS, HIDDEN, FOLDS, BATCH, C_DIM, LATENT, COMBINE),
@@ -331,9 +347,14 @@ STEP_SHAPES = [
     # padded, with ragged rows
     ("ragged widths", RAGGED_DIMS, HIDDEN, 2, 100, C_DIM, LATENT, "gpoe"),
     ("ragged widths, C 2", RAGGED_DIMS, [110, 57], 2, 75, 2, 7, "poe"),
+    # the ADHD cell's step (-H 460 460 40): K5's wide-hidden route
+    ("ADHD h460", ADHD_DIMS, ADHD_HIDDEN, 10, BATCH, C_DIM, ADHD_LATENT,
+     "gpoe"),
     ("PPMI", PPMI_DIMS, HIDDEN, 1, BATCH, C_DIM, LATENT, COMBINE),
 ]
-FLAT_CHECKED = ("flagship", "ragged widths", "PPMI")
+FLAT_CHECKED = ("flagship", "ragged widths", "ADHD h460", "PPMI")
+# the shapes whose device time the kernels line reports
+DEVICE_TIMED = ("flagship", "ADHD h460", "PPMI")
 TILE = 64        # K6's tile in phase 6b: 4 row groups of the flagship batch
 BF16_STEPS = 4   # phase 7's bf16 steps (2 epochs of the flagship cohort)
 
@@ -880,10 +901,10 @@ def check_step(name, dims, hidden, folds, rows, c_dim, z_dim, combine):
           f"{ms:.4f} ms vs plain forward+autograd {plain:.4f} ms; "
           f"{bound_text(work, ms)}", flush=True)
     device = (device_ms(lambda: step.loss_and_grads_flat(named, *batch))
-              if name in ("flagship", "PPMI") else None)   # the report's shapes
+              if name in DEVICE_TIMED else None)
     if device is not None:
         print(f"phase 6a: K5 {name}: device {device:.4f} ms", flush=True)
-    return err, (ms, plain, work, device)
+    return err, (ms, plain, work, device, plan["route"])
 
 
 def check_tiled():
@@ -1018,12 +1039,37 @@ def check_tiled():
     return err, (ms16, plain16, work16, device16, fp32)
 
 
+def least_gradients(adams):
+    """A MaskedAdam.step_flat that keeps on each optimizer the least
+    |gradient| of each entry over its steps (``adam.least``), and appends
+    each optimizer it steps to ``adams``."""
+    from multi_modal_normative_modeling_tpu_torch.train.trainer import (
+        MaskedAdam,
+    )
+
+    step_flat = MaskedAdam.step_flat
+
+    def step(adam, g, valid):
+        if not bool(valid.all()):
+            raise RuntimeError("least_gradients: a fold skipped a step")
+        if adam not in adams:
+            adams.append(adam)
+            adam.least = g.abs()
+        else:
+            torch.minimum(adam.least, g.abs(), out=adam.least)
+        step_flat(adam, g, valid)
+    return step
+
+
 def fused_training_run(dims, rows_per_fold, epochs, seed, fused,
-                       precision="fp32"):
+                       precision="fp32", hidden=HIDDEN, latent=LATENT,
+                       least=None):
     """Fresh seeded model and cohort trained on fixed eps by
     MultiFoldTrainer with the plain loss or by FusedFoldTrainer (K5 in
     fp32, K6 in bf16); returns (logs, final packed params, ms per step,
-    steps). The batches are uploaded before the clock starts."""
+    steps). The batches are uploaded before the clock starts. A plain run
+    given a list ``least`` appends to it, as a packed tree, the least
+    |gradient| of each parameter over the steps."""
     from multi_modal_normative_modeling_tpu_torch.interop import (
         packed_from_model,
     )
@@ -1048,13 +1094,13 @@ def fused_training_run(dims, rows_per_fold, epochs, seed, fused,
     data = [[rng.standard_normal((n, d), dtype=np.float32) for d in dims]
             for n in rows_per_fold]
     cov = [one_hot_covariates(rng, n) for n in rows_per_fold]
-    model = build_model("cVAE_multimodal", dims, HIDDEN, LATENT, C_DIM,
+    model = build_model("cVAE_multimodal", dims, hidden, latent, C_DIM,
                         len(dims), folds=folds,
                         generator=torch.Generator().manual_seed(seed),
                         device="cuda")
     config = TrainConfig(epochs=epochs, batch_size=BATCH, combine=COMBINE,
                          precision=precision)
-    stacked = StackedMultimodalCVAE(dims, HIDDEN, LATENT, C_DIM, len(dims))
+    stacked = StackedMultimodalCVAE(dims, hidden, latent, C_DIM, len(dims))
     if not fused:
         batches = DeviceBatches(stack_fold_batches(
             data, [[c] * len(dims) for c in cov], BATCH), "cuda")
@@ -1064,11 +1110,29 @@ def fused_training_run(dims, rows_per_fold, epochs, seed, fused,
         batches = trainer.batches(data, cov, "cuda")
         packed = packed_from_model(model, stacked)
     steps = epochs * batches.n_batches
-    eps = torch.randn((steps, folds, BATCH, LATENT),
+    eps = torch.randn((steps, folds, BATCH, latent),
                       generator=torch.Generator().manual_seed(seed)).cuda()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    if not fused:
+    if not fused and least is not None:
+        from multi_modal_normative_modeling_tpu_torch.train.trainer import (
+            MaskedAdam,
+        )
+
+        adams, step_flat = [], MaskedAdam.step_flat
+        MaskedAdam.step_flat = least_gradients(adams)
+        try:
+            logs = trainer.run(batches, eps=eps)
+        finally:
+            MaskedAdam.step_flat = step_flat
+        trained = packed_from_model(model, stacked)
+        # the model trained in views of its Adam's buffer: that buffer,
+        # overwritten, reads out in the packed layout
+        (adam,) = adams
+        with torch.no_grad():
+            adam.flat.copy_(adam.least)
+        least.append(packed_from_model(model, stacked))
+    elif not fused:
         logs = trainer.run(batches, eps=eps)  # ends in a fetch
         trained = packed_from_model(model, stacked)
     else:
@@ -1090,38 +1154,76 @@ def packed_leaves(tree):
     return [tree]
 
 
-def compare_fused_training(what, dims, rows_per_fold, epochs, seed):
+def compare_fused_training(what, dims, rows_per_fold, epochs, seed,
+                           hidden=HIDDEN, latent=LATENT, route=None,
+                           rounded=False):
     """plain, K5, K5, plain: holds the first K5 run against the first plain
-    run and returns the K5 run's launches."""
+    run (``rounded``: entries outside FUSED_PARAM_TOL only where the plain
+    run's gradient was a rounded zero, ROUNDED_GRAD, in some step), checks
+    that every K5 step took ``route`` where one is given, and returns the
+    K5 run's launches with its steps by route under "routes" and the ms a
+    step of the four runs under "ms"."""
     from multi_modal_normative_modeling_tpu_torch import kernels
 
+    shape = dict(hidden=hidden, latent=latent)
+    least = [] if rounded else None
     logs_p, state_p, plain1, steps = fused_training_run(
-        dims, rows_per_fold, epochs, seed, fused=False)
+        dims, rows_per_fold, epochs, seed, fused=False, least=least,
+        **shape)
     kernels.reset_launch_counts()
     logs_k, state_k, kern1, _ = fused_training_run(
-        dims, rows_per_fold, epochs, seed, fused=True)
+        dims, rows_per_fold, epochs, seed, fused=True, **shape)
     torch.cuda.synchronize()
     launches = {k.__name__: k.launches for k in kernels.KERNELS}
+    routes = dict(kernels.fused_train_step.route_launches)
     for name in ("fused_train_step", "masked_adam"):
         if launches[name] != steps:
             raise RuntimeError(f"{what}: {name} launched {launches[name]} "
                                f"times, expected {steps}")
+    if route and routes != {**dict.fromkeys(routes, 0), route: steps}:
+        raise RuntimeError(f"{what}: K5's steps by route {routes}, "
+                           f"expected {steps} on {route}")
     for k in logs_p:
         check_close(f"{what} fused log {k}", torch.from_numpy(logs_k[k]),
                     torch.from_numpy(logs_p[k]), FUSED_LOG_TOL)
-    err = 0.0
-    for a, b in zip(packed_leaves(state_k), packed_leaves(state_p)):
-        err = max(err, check_close(f"{what} fused param", a, b,
-                                   FUSED_PARAM_TOL)[0])
+    err, rounded_note = 0.0, ""
+    if rounded:
+        apart = least_grad = 0
+        for a, b, g in zip(packed_leaves(state_k), packed_leaves(state_p),
+                           packed_leaves(least[0])):
+            out = ((a - b).abs() > FUSED_PARAM_TOL["atol"]
+                   + FUSED_PARAM_TOL["rtol"] * b.abs())
+            bad = out & (g > ROUNDED_GRAD)
+            if bad.any():
+                raise RuntimeError(
+                    f"{what}: {int(bad.sum())} params outside "
+                    f"{FUSED_PARAM_TOL} where the plain run's least "
+                    f"|gradient| is {g[bad].min().item():.3e} or more")
+            keep = ~out
+            if keep.any():
+                err = max(err, (a - b)[keep].abs().max().item())
+            apart += int(out.sum())
+            if out.any():
+                least_grad = max(least_grad, g[out].max().item())
+        rounded_note = (f" ({apart} outside, each with a rounded-zero "
+                        f"gradient, the largest least |gradient| "
+                        f"{least_grad:.3e})")
+    else:
+        for a, b in zip(packed_leaves(state_k), packed_leaves(state_p)):
+            err = max(err, check_close(f"{what} fused param", a, b,
+                                       FUSED_PARAM_TOL)[0])
     kern2 = fused_training_run(dims, rows_per_fold, epochs, seed,
-                               fused=True)[2]
+                               fused=True, **shape)[2]
     plain2 = fused_training_run(dims, rows_per_fold, epochs, seed,
-                                fused=False)[2]
+                                fused=False, **shape)[2]
     print(f"phase 7: {what}: {len(rows_per_fold)} folds x {rows_per_fold} "
-          f"subjects, widths {dims}, {steps} steps: launches {launches}; "
-          f"final params max abs err {err:.3e}; ms/step K5 {kern1:.4f}, "
-          f"{kern2:.4f}, plain {plain1:.4f}, {plain2:.4f}", flush=True)
-    return launches
+          f"subjects, widths {dims}, hidden {hidden}, latent {latent}, "
+          f"{steps} steps: launches {launches}, K5 steps by route {routes}; "
+          f"final params max abs err {err:.3e}{rounded_note}; ms/step K5 "
+          f"{kern1:.4f}, {kern2:.4f}, plain {plain1:.4f}, {plain2:.4f}",
+          flush=True)
+    return {**launches, "routes": routes,
+            "ms": {"K5": [kern1, kern2], "plain": [plain1, plain2]}}
 
 
 def bf16_training(seed):
@@ -5673,11 +5775,13 @@ def main():
         s5 = stats["fused_train_step"]
         s5["max_abs_err"] = max(s5["max_abs_err"], err)
         if shape[0] == "flagship":
-            s5["ms"], s5["plain_ms"], s5["work"], s5["device_ms"] = times
-        if shape[0] == "PPMI":
-            s5["ppmi"] = {"ms": times[0], "device_ms": times[3],
-                          "plain_ms": times[1],
-                          "bound_ms": times[2].bound_ms}
+            s5["ms"], s5["plain_ms"], s5["work"], s5["device_ms"] = times[:4]
+        # at PPMI width and at the ADHD cell's step (the wide-hidden route)
+        for name, key in (("PPMI", "ppmi"), ("ADHD h460", "adhd")):
+            if shape[0] == name:
+                s5[key] = {"ms": times[0], "device_ms": times[3],
+                           "plain_ms": times[1],
+                           "bound_ms": times[2].bound_ms, "route": times[4]}
     err, times = check_tiled()
     stats["tiled_fused_train_step"].update(max_abs_err=err, ms=times[0],
                                            plain_ms=times[1], work=times[2],
@@ -5686,8 +5790,16 @@ def main():
 
     # ---- phase 7: training through the fused train step --------------------
     fused = compare_fused_training("flagship", DIMS, TRAIN_ROWS,
-                                   TRAIN_EPOCHS, seed=3)
+                                   TRAIN_EPOCHS, seed=3, route="fused")
     compare_fused_training("PPMI width", PPMI_DIMS, PPMI_ROWS, 1, seed=4)
+    # the ADHD cell's shape: every step on the wide-hidden route
+    adhd = compare_fused_training("ADHD h460", ADHD_DIMS, ADHD_ROWS, 2,
+                                  seed=6, hidden=ADHD_HIDDEN,
+                                  latent=ADHD_LATENT, route="wide_hidden",
+                                  rounded=True)
+    stats["fused_train_step"]["adhd"]["train"] = {
+        "routes": adhd["routes"], "masked_adam": adhd["masked_adam"],
+        "ms_per_step": adhd["ms"]}
     tiled = bf16_training(seed=5)
     launches["fused_train_step"] = fused["fused_train_step"]
     launches["tiled_fused_train_step"] = tiled["tiled_fused_train_step"]
@@ -5808,7 +5920,8 @@ def main():
         # the same at PPMI width (K1, K4, K5) and at the chains' test
         # stages' rows (K1 to K3), K6 with fp32 operands, and the device's
         # time for K1's plain version
-        for extra in ("ppmi", "test_stage", "fp32", "plain_device_ms"):
+        for extra in ("ppmi", "adhd", "test_stage", "fp32",
+                      "plain_device_ms"):
             if extra in stats[name]:
                 report[-1][extra] = stats[name][extra]
         # K1 and K2 in the zoo's test stages (phase 9), per model

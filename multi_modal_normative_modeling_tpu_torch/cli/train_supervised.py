@@ -631,7 +631,8 @@ def build_parser() -> argparse.ArgumentParser:
                              'fused train-step CUDA kernel call on the '
                              'packed layout: K5 in fp32, K6 under '
                              '--precision bf16; cVAE_multimodal, poe/gpoe/'
-                             'moe/mopoe, 1-3 hidden layers. Exits (never '
+                             'moe/mopoe, 1-3 hidden layers of widths up to '
+                             '648 in fp32 (432 in bf16). Exits (never '
                              'falls back) on a configuration or a -Model it '
                              'does not take.')
     parser.add_argument('--precision', dest='precision', default='fp32',

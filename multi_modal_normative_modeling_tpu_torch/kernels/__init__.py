@@ -69,3 +69,5 @@ KERNELS = (fused_encoder, fused_pred_deviation, fused_decoder_mean,
 def reset_launch_counts() -> None:
     for kernel in KERNELS:
         kernel.launches = 0
+    fused_train_step.route_launches = dict.fromkeys(
+        fused_train_step.route_launches, 0)

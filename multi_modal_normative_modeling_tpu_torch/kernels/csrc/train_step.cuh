@@ -68,6 +68,20 @@
 //   dec_fwd, then mean (tile, column group, f*M + m: each block reads g_L
 //   from the workspace, owns its columns' NLL terms and writes its partial
 //   of dg), then dec_bwd (sums the dg partials in group order).
+// Pass 3 (either route) holds three activation tiles of the widest hidden
+// layer in shared memory, which fits a block up to hidden widths of 440
+// (latent 220). Past that the wide-hidden route runs it with two
+// (`DecSmem<2>`, the kernels named *_wide_hidden_kernel): the same products
+// in the same order, so the same bits, up to widths of 648 (latent 324).
+// The third tile only ever held a value already dead: g_1 .. g_{L-1} once
+// the chain has passed them (the backward reads each layer's activation
+// from the workspace), g_L once the mean head is done, and each layer's
+// incoming dg once back_through_lrelu has read it. At -H 460 460 40 (10
+// folds x 256 rows, 2 x 116 features) the pass is bound by operations,
+// 0.089 ms, and takes 0.63 ms: its 184 KB leave one block of 8 warps an
+// SM, which runs at about a fifth of the SM's FFMA rate (160 blocks take
+// twice as long as 80). Where two tiles fit two blocks an SM and three
+// one, two took a third off the pass: rows of 16 would do that here.
 //
 // No atomics: every sum has one owner and a fixed order, so two calls give
 // bit-identical results. With split > 1 (K6's batch tiles) the weight
@@ -161,6 +175,7 @@ constexpr int ROW_THREADS = 128;  // threads of a block of the fusion passes
 constexpr int ROW_LANES = 16;     // lanes that share a row there
 constexpr int ROWS_PER_BLOCK = ROW_THREADS / ROW_LANES;
 constexpr int SMS = 132;          // blocks the wide route aims to launch
+constexpr size_t MAX_SMEM = 232448;  // dynamic shared memory of an H100 block
 constexpr float HALF_LOG_2PI = 0.9189385332046727f;
 
 enum Combine { POE = 0, GPOE = 1, MOE = 2, MOPOE = 3 };
@@ -303,6 +318,7 @@ struct Dims {
   int enc0_kper;          // K per split, a multiple of BK
   int col_groups;         // column groups of the mean head (wide)
   int cols_per_group;     // a multiple of BN
+  int dec_tiles;          // activation tiles of pass 3: 3, or 2 (wide hidden)
   int dims[MAX_M];        // each modality's true width (<= DM)
   int order[MAX_M];       // the modalities, widest first
   int H[MAX_L];           // encoder hidden widths (padded)
@@ -1038,28 +1054,40 @@ fuse_fwd_kernel(Dims d, Net<const T> net, Batch<T> bt, Scratch<T> s) {
 
 // ---- 3. decoder forward, mean head + NLL, decoder backward -----------------
 
-// Shared memory of the decoder passes: the stages, three activation tiles
-// of the widest hidden layer and the dmean tile.
+// Shared memory of the decoder passes: the stages, TILES activation tiles
+// of the widest hidden layer and the dmean tile. The forward's outputs
+// alternate in buf[0] and buf[1]. TILES 3: dg starts in buf[2], and the
+// backward writes each layer's dg into the tile the incoming one did not
+// hold. TILES 2 (the wide-hidden route): dg starts in the tile that does not
+// hold g_L, `spare` is the other, and the backward writes each layer's dg
+// over the incoming one. Tiles are chosen by pointer, not by index, so
+// that no array of them goes to local memory.
+template <int TILES>
 struct DecSmem {
   float* stage;
   float* buf[3];
   float* dm;       // [TM][DMS]
+  float* dg;       // the tile dg starts in
+  float* spare;    // TILES 2: the tile of g_L, then of each dy
   int ld;
   __device__ DecSmem(float* smem, const Dims& d) {
     ld = d.tile_ld();
     stage = smem;
     buf[0] = smem + STAGES * STAGE_FLOATS;
     buf[1] = buf[0] + TM * ld;
-    buf[2] = buf[1] + TM * ld;
-    dm = buf[2] + TM * ld;
+    buf[2] = buf[1] + TM * ld;   // past the end with TILES 2: unused
+    dm = buf[TILES - 1] + TM * ld;
+    const bool odd = d.L % 2 != 0;
+    dg = TILES == 3 ? buf[2] : odd ? buf[1] : buf[0];
+    spare = odd ? buf[0] : buf[1];
   }
 };
 
 // The forward chain on [z | c]; returns the tile holding g_L.
-template <class T>
+template <class T, int TILES>
 __device__ const float* dec_forward(const Dims& d, const Net<const T>& net,
                                     const Batch<T>& bt, const Scratch<T>& s,
-                                    const Tile& t, const DecSmem& sm) {
+                                    const Tile& t, const DecSmem<TILES>& sm) {
   const AGlobal<T> in{s.z + t.frow * d.Zp, bt.c + t.frow * d.Cp, d.Zp, d.Zp,
                       d.Cp, t.rows, 0};
   const float* cur = nullptr;
@@ -1082,16 +1110,17 @@ __device__ const float* dec_forward(const Dims& d, const Net<const T>& net,
 
 // The mean head over columns [c_lo, c_hi) in chunks of BN: the NLL terms,
 // dmean and the dlvo terms of those columns, dg = dmean Vm^T over them into
-// sm.buf[2], and their share of the per-row ll into ll_rows.
-template <class T>
+// sm.dg, and their share of the per-row ll into ll_rows.
+template <class T, int TILES>
 __device__ void mean_head(const Dims& d, const Net<const T>& net,
                           const Batch<T>& bt, const Scratch<T>& s,
-                          const Tile& t, const DecSmem& sm, const float* gl,
-                          int c_lo, int c_hi, float* ll_rows) {
+                          const Tile& t, const DecSmem<TILES>& sm,
+                          const float* gl, int c_lo, int c_hi,
+                          float* ll_rows) {
   const int tid = threadIdx.x;
   const int HL = d.hr(d.L - 1);
   const int width = d.dims[t.m];   // columns past it are padding: skipped
-  float* dg = sm.buf[2];
+  float* dg = sm.dg;
   const T* vm = net.vm + t.fm * HL * d.DM;
   NllChunk<T> nll{bt.x + t.fmrow * d.DM, net.cm + t.fm * d.DM,
                   net.lvo + t.fm * d.DM, bt.rm + t.frow,
@@ -1130,25 +1159,26 @@ __device__ void mean_head(const Dims& d, const Net<const T>& net,
   if (tid < t.rows) ll_rows[t.fmrow + tid] = sums[tid];
 }
 
-// The decoder backward chain from dg in sm.buf[2]: dy_l = dg * lrelu'(g_{l+1})
+// The decoder backward chain from dg in sm.dg: dy_l = dg * lrelu'(g_{l+1})
 // stored, dg = dy_l V_l^T, down to dz_m.
-template <class T>
+template <class T, int TILES>
 __device__ void dec_backward(const Dims& d, const Net<const T>& net,
                              const Scratch<T>& s, const Tile& t,
-                             const DecSmem& sm) {
+                             const DecSmem<TILES>& sm) {
   const int ld = sm.ld;
-  int g_at = 2, y_at = 0, n_at = 1;
+  int g_at = 2, y_at = 0, n_at = 1;   // TILES 3
+  float* g2 = sm.dg;                  // TILES 2: dg in and out
   for (int l = d.L - 1; l >= 0; --l) {
     const int N = d.hr(l);
     const int K = d.kdec(l);
-    const float* gcur = sm.buf[g_at];
-    float* dyt = sm.buf[y_at];
+    const float* gcur = TILES == 3 ? sm.buf[g_at] : g2;
+    float* dyt = TILES == 3 ? sm.buf[y_at] : sm.spare;
     const T* act = s.act_dec[l] + t.fmrow * N;
     float* dy = s.dy_dec[l] + t.fmrow * N;
     back_through_lrelu<T>(gcur, dyt, ld, act, dy, N, t.rows);
     const T* w = net.dec_w[l] + t.fm * K * N;
     if (l > 0) {
-      ToSmem epi{sm.buf[n_at], ld, false};
+      ToSmem epi{TILES == 3 ? sm.buf[n_at] : g2, ld, false};
       product<NT>(ASmem{dyt, ld}, w, N, K, N, sm.stage, epi);
       const int tmp = g_at;
       g_at = n_at;
@@ -1161,12 +1191,12 @@ __device__ void dec_backward(const Dims& d, const Net<const T>& net,
   }
 }
 
-// The fused route's pass 3: all of the above for one row tile.
-template <class T>
-__global__ void __launch_bounds__(THREADS, 2)
-dec_kernel(Dims d, Net<const T> net, Batch<T> bt, Scratch<T> s) {
-  extern __shared__ __align__(16) float smem[];
-  const DecSmem sm(smem, d);
+// Pass 3 of the fused route for one row tile: all of the above.
+template <class T, int TILES>
+__device__ __forceinline__ void dec_pass(const Dims& d, const Net<const T>& net,
+                                         const Batch<T>& bt,
+                                         const Scratch<T>& s, float* smem) {
+  const DecSmem<TILES> sm(smem, d);
   const Tile t = Tile::of_grid(d);
   const float* gl = dec_forward(d, net, bt, s, t, sm);
   mean_head(d, net, bt, s, t, sm, gl, 0, d.DM, s.ll_rows);
@@ -1174,27 +1204,28 @@ dec_kernel(Dims d, Net<const T> net, Batch<T> bt, Scratch<T> s) {
 }
 
 // The wide route's passes 3a, 3b, 3c.
-template <class T>
-__global__ void __launch_bounds__(THREADS, 2)
-dec_fwd_kernel(Dims d, Net<const T> net, Batch<T> bt, Scratch<T> s) {
-  extern __shared__ __align__(16) float smem[];
-  const DecSmem sm(smem, d);
+template <class T, int TILES>
+__device__ __forceinline__ void dec_fwd_pass(const Dims& d,
+                                             const Net<const T>& net,
+                                             const Batch<T>& bt,
+                                             const Scratch<T>& s, float* smem) {
+  const DecSmem<TILES> sm(smem, d);
   const Tile t = Tile::of_grid(d);
   dec_forward(d, net, bt, s, t, sm);
 }
 
-template <class T>
-__global__ void __launch_bounds__(THREADS, 2)
-mean_kernel(Dims d, Net<const T> net, Batch<T> bt, Scratch<T> s) {
-  extern __shared__ __align__(16) float smem[];
-  const DecSmem sm(smem, d);
+template <class T, int TILES>
+__device__ __forceinline__ void mean_pass(const Dims& d, const Net<const T>& net,
+                                          const Batch<T>& bt,
+                                          const Scratch<T>& s, float* smem) {
+  const DecSmem<TILES> sm(smem, d);
   const int fm = blockIdx.z;
   const Tile t(d, blockIdx.x, fm % d.M, fm / d.M);
   const int group = blockIdx.y;
   const int tid = threadIdx.x;
   const int HL = d.hr(d.L - 1);
   // g_L of this row tile from the workspace
-  float* gl = sm.buf[0];
+  float* gl = TILES == 3 ? sm.buf[0] : sm.spare;
   const T* act = s.act_dec[d.L - 1] + t.fmrow * HL;
   const int H4 = HL / 4;
   tile_for<4>(
@@ -1210,23 +1241,24 @@ mean_kernel(Dims d, Net<const T> net, Batch<T> bt, Scratch<T> s) {
   mean_head(d, net, bt, s, t, sm, gl, c_lo, c_hi, s.ll_rows + group * per);
   // this group's partial of dg
   float* out = s.dg_part + (group * per + t.fmrow) * HL;
-  const float* dg = sm.buf[2];
+  const float* dg = sm.dg;
   for (int e = tid; e < t.rows * H4; e += THREADS) {
     at4(out + 4 * e) = ld4(dg + (e / H4) * sm.ld + (e % H4) * 4);
   }
 }
 
-template <class T>
-__global__ void __launch_bounds__(THREADS, 2)
-dec_bwd_kernel(Dims d, Net<const T> net, Batch<T> bt, Scratch<T> s) {
-  extern __shared__ __align__(16) float smem[];
-  const DecSmem sm(smem, d);
+template <class T, int TILES>
+__device__ __forceinline__ void dec_bwd_pass(const Dims& d,
+                                             const Net<const T>& net,
+                                             const Batch<T>&,
+                                             const Scratch<T>& s, float* smem) {
+  const DecSmem<TILES> sm(smem, d);
   const Tile t = Tile::of_grid(d);
   const int HL = d.hr(d.L - 1);
   // dg: the column groups' partials, summed in group order
   const size_t per = (size_t)d.F * d.M * d.B * HL;
   const float* part = s.dg_part + t.fmrow * HL;
-  float* dg = sm.buf[2];
+  float* dg = sm.dg;
   const int H4 = HL / 4;
   const int groups = d.col_groups;
   tile_for<2>(
@@ -1246,6 +1278,25 @@ dec_bwd_kernel(Dims d, Net<const T> net, Batch<T> bt, Scratch<T> s) {
   __syncthreads();
   dec_backward(d, net, s, t, sm);
 }
+
+// The kernels of pass 3: three activation tiles (the fused and the wide
+// route) or two (the wide-hidden route, under names of their own).
+#define MMNM_DEC_KERNEL(NAME, PASS, TILES)                                 \
+  template <class T>                                                        \
+  __global__ void __launch_bounds__(THREADS, 2)                             \
+  NAME(Dims d, Net<const T> net, Batch<T> bt, Scratch<T> s) {              \
+    extern __shared__ __align__(16) float smem[];                           \
+    PASS<T, TILES>(d, net, bt, s, smem);                                    \
+  }
+MMNM_DEC_KERNEL(dec_kernel, dec_pass, 3)
+MMNM_DEC_KERNEL(dec_fwd_kernel, dec_fwd_pass, 3)
+MMNM_DEC_KERNEL(mean_kernel, mean_pass, 3)
+MMNM_DEC_KERNEL(dec_bwd_kernel, dec_bwd_pass, 3)
+MMNM_DEC_KERNEL(dec_wide_hidden_kernel, dec_pass, 2)
+MMNM_DEC_KERNEL(dec_fwd_wide_hidden_kernel, dec_fwd_pass, 2)
+MMNM_DEC_KERNEL(mean_wide_hidden_kernel, mean_pass, 2)
+MMNM_DEC_KERNEL(dec_bwd_wide_hidden_kernel, dec_bwd_pass, 2)
+#undef MMNM_DEC_KERNEL
 
 // ---- 4. fusion backward -------------------------------------------------------
 
@@ -1689,8 +1740,10 @@ finish_kernel(Dims d, Net<const T> net, Batch<T> bt, Scratch<T> s,
 
 // ---- host side ----------------------------------------------------------------
 
-inline size_t dec_smem(const Dims& d) {
-  return ((size_t)STAGES * STAGE_FLOATS + 3 * (size_t)TM * d.tile_ld() +
+// Pass 3's shared memory with `tiles` activation tiles (3: the fused and
+// the wide route; 2: the wide-hidden route).
+inline size_t dec_smem(const Dims& d, int tiles) {
+  return ((size_t)STAGES * STAGE_FLOATS + tiles * (size_t)TM * d.tile_ld() +
           TM * DMS) * sizeof(float);
 }
 inline size_t enc_smem(const Dims& d) {
@@ -1707,8 +1760,11 @@ inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
 // an SM holds of these kernels), as far as there are 32-deep chunks (first
 // encoder layer, at least 8 a block) or 128-wide column chunks (mean head,
 // at least 2 a block) to share out; 1 forces the fused route; a larger
-// value forces the wide route aiming at that many blocks a launch.
-inline void plan(Dims& d, int route) {
+// value forces the wide route aiming at that many blocks a launch. Pass 3
+// holds three activation tiles where they fit a block, else two (the
+// wide-hidden route); `tiles` 2 or 3 forces that many.
+inline void plan(Dims& d, int route, int tiles) {
+  d.dec_tiles = tiles ? tiles : dec_smem(d, 3) <= MAX_SMEM ? 3 : 2;
   const int blocks = ceil_div(d.B, TM) * d.M * d.F;
   int want = 1;
   if (route > 1) want = ceil_div(route, blocks);
@@ -1743,18 +1799,20 @@ inline bool parse_dims(const int* ints, int align, Dims& d) {
   d.combine = ints[8];
   d.split_rows = ints[9];
   const int route = ints[10];
+  const int tiles = ints[11];
   if (d.F <= 0 || d.M <= 0 || d.M > MAX_M || d.B <= 0 || d.L <= 0 ||
       d.L > MAX_L || d.Z <= 0 || d.Zp < d.Z || d.Zp % align || d.Cp < 0 ||
       d.Cp % align || d.DM <= 0 || d.DM % align || d.combine < 0 ||
-      d.combine > 3 || d.split_rows <= 0 || route < 0) {
+      d.combine > 3 || d.split_rows <= 0 || route < 0 ||
+      (tiles != 0 && tiles != 2 && tiles != 3)) {
     return false;
   }
   for (int m = 0; m < d.M; ++m) {
-    d.dims[m] = ints[11 + m];
+    d.dims[m] = ints[12 + m];
     if (d.dims[m] <= 0 || d.dims[m] > d.DM) return false;
   }
   for (int l = 0; l < d.L; ++l) {
-    d.H[l] = ints[11 + d.M + l];
+    d.H[l] = ints[12 + d.M + l];
     if (d.H[l] <= 0 || d.H[l] % align) return false;
   }
   for (int m = 0; m < d.M; ++m) d.order[m] = m;
@@ -1766,7 +1824,7 @@ inline bool parse_dims(const int* ints, int align, Dims& d) {
     }
     d.order[j] = m;
   }
-  plan(d, route);
+  plan(d, route, tiles);
   return true;
 }
 
@@ -2011,16 +2069,19 @@ int run(void* const* ptrs, const Dims& d, cudaStream_t stream) {
   MMNM_LAUNCH(enc_fwd_kernel<T>, tiles, THREADS, enc_smem(d), stream, d, net,
               bt, s);
   MMNM_LAUNCH(fuse_fwd_kernel<T>, rows, ROW_THREADS, 0, stream, d, net, bt, s);
+  const size_t dsm = dec_smem(d, d.dec_tiles);
+  const dim3 groups(row_tiles, d.col_groups, d.F * d.M);
+  const bool two = d.dec_tiles == 2;
   if (d.wide) {
-    MMNM_LAUNCH(dec_fwd_kernel<T>, tiles, THREADS, dec_smem(d), stream, d, net,
-                bt, s);
-    MMNM_LAUNCH(mean_kernel<T>, dim3(row_tiles, d.col_groups, d.F * d.M),
-                THREADS, dec_smem(d), stream, d, net, bt, s);
-    MMNM_LAUNCH(dec_bwd_kernel<T>, tiles, THREADS, dec_smem(d), stream, d, net,
-                bt, s);
+    MMNM_LAUNCH(two ? dec_fwd_wide_hidden_kernel<T> : dec_fwd_kernel<T>, tiles,
+                THREADS, dsm, stream, d, net, bt, s);
+    MMNM_LAUNCH(two ? mean_wide_hidden_kernel<T> : mean_kernel<T>, groups,
+                THREADS, dsm, stream, d, net, bt, s);
+    MMNM_LAUNCH(two ? dec_bwd_wide_hidden_kernel<T> : dec_bwd_kernel<T>, tiles,
+                THREADS, dsm, stream, d, net, bt, s);
   } else {
-    MMNM_LAUNCH(dec_kernel<T>, tiles, THREADS, dec_smem(d), stream, d, net, bt,
-                s);
+    MMNM_LAUNCH(two ? dec_wide_hidden_kernel<T> : dec_kernel<T>, tiles,
+                THREADS, dsm, stream, d, net, bt, s);
   }
   MMNM_LAUNCH(fuse_bwd_kernel<T>, rows, ROW_THREADS, 0, stream, d, net, bt, s);
   MMNM_LAUNCH(enc_bwd_kernel<T>, tiles, THREADS, enc_smem(d), stream, d, net,

@@ -36,6 +36,15 @@ optimizer that keeps its parameters in the same order.
 ``StepFunction`` puts the step under autograd for the trainers' epoch loop:
 its forward runs the step (losses and every gradient), its backward scales
 the stored gradients by the incoming one.
+
+Routes. The decoder pass holds three activation tiles of the widest hidden
+layer in shared memory (``smem_bytes``), which fits a block up to hidden
+widths of 440. Past that, in fp32, the wide-hidden route runs the pass on
+two tiles (``wide_hidden_smem_bytes``; the same products in the same order)
+up to widths of ``MAX_WIDTH_FP32``; ``decoder_tiles`` is the choice.
+``fused_train_step.route_launches`` counts the steps of each route, and
+under a profiler a wide-hidden step's launch sits in an
+``mmnm.step.kernel.wide_hidden`` range.
 """
 from __future__ import annotations
 
@@ -45,6 +54,7 @@ from typing import Dict, List, Tuple
 import torch
 
 from . import _build
+from ..utils.profiling import annotate
 
 COMBINES = ("poe", "gpoe", "moe", "mopoe")
 MAX_HIDDEN = 3   # csrc/train_step.cuh's MAX_L
@@ -56,17 +66,55 @@ MAX_MODALITIES = 8
 TM, BN, BK = 32, 128, 32
 _STAGE_FLOATS = 2 * (TM + BN) * (BK + 4)
 COL_ALIGN = 4    # elements: 16 bytes of fp32
+# the widest hidden layer (and twice the latent width) the wide-hidden
+# route takes: its two tiles of 648 floats (stride 648) fit a block, of 652
+# (stride 664) not
+MAX_WIDTH_FP32 = 648
+ROUTES = ("fused", "wide", "wide_hidden")
 
 
-def smem_bytes(hidden, latent_dim: int = 0, col_align: int = COL_ALIGN) -> int:
-    """Dynamic shared memory of the step's largest block (the decoder pass:
-    the product stages, three activation tiles of the widest padded hidden
-    layer, which also holds [dmu | dlv], strided 8 mod 16 floats, and a
-    dmean tile)."""
+def _decoder_smem(hidden, latent_dim: int, col_align: int, tiles: int) -> int:
+    """The decoder pass's dynamic shared memory: the product stages,
+    ``tiles`` activation tiles of the widest padded hidden layer (which
+    also holds [dmu | dlv]), strided 8 mod 16 floats, and a dmean tile."""
     widest = max([_round_up(h, col_align) for h in hidden]
                  + [2 * _round_up(latent_dim, col_align)])
     ld = widest + (24 - widest % 16) % 16
-    return 4 * (_STAGE_FLOATS + 3 * TM * ld + TM * (BN + 8))
+    return 4 * (_STAGE_FLOATS + tiles * TM * ld + TM * (BN + 8))
+
+
+def smem_bytes(hidden, latent_dim: int = 0, col_align: int = COL_ALIGN) -> int:
+    """Dynamic shared memory of the step's largest block on the one-pass
+    layout (the decoder pass with three activation tiles)."""
+    return _decoder_smem(hidden, latent_dim, col_align, 3)
+
+
+def wide_hidden_smem_bytes(hidden, latent_dim: int = 0,
+                           col_align: int = COL_ALIGN) -> int:
+    """The same on the wide-hidden route (two activation tiles), the
+    step's largest block there too."""
+    return _decoder_smem(hidden, latent_dim, col_align, 2)
+
+
+def decoder_tiles(hidden, latent_dim: int = 0, col_align: int = COL_ALIGN,
+                  wide_hidden: bool = True, forced: int = 0):
+    """The decoder pass's activation tiles (csrc/train_step.cuh's
+    ``plan``): 3 where ``smem_bytes`` fits a block, else 2 (the wide-hidden
+    route) where ``wide_hidden`` allows it and it fits, else None (the step
+    cannot run these widths). ``forced`` 2 or 3 takes that many, None if
+    they do not fit."""
+    for tiles in ((forced,) if forced else (3, 2) if wide_hidden else (3,)):
+        if (_decoder_smem(hidden, latent_dim, col_align, tiles)
+                <= _build.MAX_SMEM_BYTES):
+            return tiles
+    return None
+
+
+def route_of(wide: int, tiles: int) -> str:
+    """A step's route by name: ``wide_hidden`` where the decoder pass
+    holds two tiles (its mean head on the grid or not), else ``wide`` or
+    ``fused``."""
+    return "wide_hidden" if tiles == 2 else "wide" if wide else "fused"
 
 
 def _round_up(n: int, m: int) -> int:
@@ -88,6 +136,9 @@ class FusedTrainStep:
     # 0: the kernel picks its route from the shapes; 1: the fused route; a
     # larger value: the wide route aiming at that many blocks a launch
     route: int = 0
+    # the decoder pass's activation tiles: 0 from the widths
+    # (``decoder_tiles``), 3 or 2 (the wide-hidden route) forced
+    dec_tiles: int = 0
 
     def __init__(self, stacked_model, combine: str,
                  col_align: int = COL_ALIGN):
@@ -119,7 +170,8 @@ class FusedTrainStep:
         self._true_shapes, self._shapes, self._rows = self._param_shapes()
         self._param_names = list(self._shapes)
         self._sizes = {k: _numel(v) for k, v in self._shapes.items()}
-        self._workspace: Dict[tuple, torch.Tensor] = {}
+        # (work space, route) of the last shapes run
+        self._workspace: Dict[tuple, tuple] = {}
 
     # ---- layout ---------------------------------------------------------------
     def _param_shapes(self):
@@ -409,12 +461,23 @@ def _check(step: FusedTrainStep, named, x, c, eps, rm, nvalid, dtype):
         if t.dtype != torch.float32:
             raise ValueError(f"{name}: operand dtype {t.dtype}, expected "
                              "torch.float32")
-    smem = smem_bytes(step.H, step.Z, step.col_align)
-    if smem > _build.MAX_SMEM_BYTES:
+    fp32 = dtype == torch.float32
+    if decoder_tiles(step.H, step.Z, step.col_align, fp32,
+                     step.dec_tiles) is None:
+        smem = _decoder_smem(step.H, step.Z, step.col_align,
+                             step.dec_tiles or (2 if fp32 else 3))
         raise ValueError(f"{name}: hidden widths {step.H} need {smem} B of "
                          f"shared memory, over the {_build.MAX_SMEM_BYTES} B "
-                         "limit")
+                         f"limit ({width_limit(fp32)})")
     return folds, rows
+
+
+def width_limit(fp32: bool) -> str:
+    """The widths the step takes, in words, for a refusal."""
+    if fp32:
+        return (f"fp32 takes hidden widths up to {MAX_WIDTH_FP32} and latent "
+                f"widths up to {MAX_WIDTH_FP32 // 2}")
+    return "bf16 takes the one-pass layout only: hidden widths up to 432"
 
 
 # weight tensors stored in the compute dtype on the bf16 path; biases, lvo
@@ -429,35 +492,43 @@ def _is_matmul_param(name: str) -> bool:
 def _ints(step: FusedTrainStep, folds: int, rows: int, tile_rows: int):
     """csrc/train_step.cuh's int table for these shapes."""
     return ([folds, step.M, rows, step.L, step.Z, step.Zp, step.Cp, step.Dp,
-             COMBINES.index(step.combine), tile_rows, step.route]
+             COMBINES.index(step.combine), tile_rows, step.route,
+             step.dec_tiles]
             + list(step.model.input_dim_list) + step.Hp)
+
+
+PLAN_KEYS = ("wide", "enc0_splits", "col_groups", "launches", "dec_tiles",
+             "dec_smem")
 
 
 def plan(step: FusedTrainStep, folds: int, rows: int, tile_rows: int = None):
     """The route the kernel takes for these shapes: {wide, enc0_splits,
-    col_groups, launches}. Loads the kernel library."""
+    col_groups, launches, dec_tiles, dec_smem (bytes), route (its name)}.
+    Loads the kernel library."""
     ints = _ints(step, folds, rows, tile_rows or rows)
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * len(PLAN_KEYS))()
     lib = _build.load_library()
     if lib.mmnm_train_step_plan((ctypes.c_int * len(ints))(*ints), out) != 0:
         raise ValueError(f"fused_train_step: shapes {ints} refused by the "
                          "kernel")
-    return dict(zip(("wide", "enc0_splits", "col_groups", "launches"), out))
+    got = dict(zip(PLAN_KEYS, out))
+    got["route"] = route_of(got["wide"], got["dec_tiles"])
+    return got
 
 
 def launch(step: FusedTrainStep, named, x, c, eps, rm, nvalid,
-           tile_rows: int, dtype) -> Tuple[dict, torch.Tensor]:
+           tile_rows: int, dtype) -> Tuple[dict, torch.Tensor, str]:
     """One step on the card: every launch of csrc/train_step.cuh. Weight
     gradients sum their rows in groups of ``tile_rows`` (partials summed in
     group order when there is more than one group). Returns (losses, the
-    flat gradient buffer)."""
+    flat gradient buffer, the route's name)."""
     folds, rows = _check(step, named, x, c, eps, rm, nvalid, dtype)
     ints = _ints(step, folds, rows, tile_rows)
     ints_c = (ctypes.c_int * len(ints))(*ints)
     lib = _build.load_library()
     bf16 = int(dtype == torch.bfloat16)
     key = (tuple(ints), bf16, x.device)
-    work = step._workspace.get(key)
+    work, route = step._workspace.get(key, (None, None))
     if work is None:
         nbytes = lib.mmnm_train_step_workspace(ints_c, bf16)
         if nbytes < 0:
@@ -465,7 +536,8 @@ def launch(step: FusedTrainStep, named, x, c, eps, rm, nvalid,
                              "the kernel")
         work = torch.empty(max(nbytes, 1), dtype=torch.uint8,
                            device=x.device)
-        step._workspace = {key: work}
+        route = plan(step, folds, rows, tile_rows)["route"]
+        step._workspace = {key: (work, route)}
     # the gradients back to back in one buffer, then the losses [F, 3]
     sizes = [folds * step._sizes[k] for k in step._param_names]
     count = sum(sizes)
@@ -480,11 +552,16 @@ def launch(step: FusedTrainStep, named, x, c, eps, rm, nvalid,
             + [base + 4 * at for at in starts])   # ends on the losses
     ptrs_c = (ctypes.c_void_p * (len(ptrs) + 1))(*ptrs, work.data_ptr())
     with torch.cuda.device(x.device):
-        rc = lib.mmnm_train_step(ptrs_c, ints_c, bf16,
-                                 _build.stream_of(x.device))
+        if route == "wide_hidden":
+            with annotate("mmnm.step.kernel.wide_hidden"):
+                rc = lib.mmnm_train_step(ptrs_c, ints_c, bf16,
+                                         _build.stream_of(x.device))
+        else:
+            rc = lib.mmnm_train_step(ptrs_c, ints_c, bf16,
+                                     _build.stream_of(x.device))
     _build.check_launch(lib, rc, "fused_train_step")
     return ({"total": losses[:, 0], "kl": losses[:, 1], "ll": losses[:, 2]},
-            flat[:count])
+            flat[:count], route)
 
 
 def _numel(shape) -> int:
@@ -496,11 +573,14 @@ def _numel(shape) -> int:
 
 def fused_train_step(step: FusedTrainStep, named, x, c, eps, rm, nvalid):
     """K5 on the card: one step with the weight-gradient sums over the whole
-    batch. ``launches`` counts the steps."""
-    out = launch(step, named, x, c, eps, rm, nvalid, x.shape[2],
-                 torch.float32)
+    batch. ``launches`` counts the steps, ``route_launches`` the steps of
+    each route."""
+    losses, flat, route = launch(step, named, x, c, eps, rm, nvalid,
+                                 x.shape[2], torch.float32)
     fused_train_step.launches += 1
-    return out
+    fused_train_step.route_launches[route] += 1
+    return losses, flat
 
 
 fused_train_step.launches = 0
+fused_train_step.route_launches = dict.fromkeys(ROUTES, 0)

@@ -259,10 +259,10 @@ def tiled_fused_train_step(step: TiledFusedTrainStep, named, x, c, eps, rm,
     """K6 on the card: one step in the step's compute dtype, the weight
     gradients summed over groups of ``tile_b`` rows. ``launches`` counts
     the steps."""
-    out = launch(step, named, x, c, eps, rm, nvalid, step.tile_b,
-                 step.compute_dtype)
+    losses, flat, _ = launch(step, named, x, c, eps, rm, nvalid, step.tile_b,
+                             step.compute_dtype)
     tiled_fused_train_step.launches += 1
-    return out
+    return losses, flat
 
 
 tiled_fused_train_step.launches = 0

@@ -14,8 +14,9 @@ so the trajectories of every fold are comparable step for step with
 
 Scope: variant cvae (cVAE_multimodal), fusion poe, gpoe, moe or mopoe,
 1 to 3 hidden layers, no shuffle, covariates shared by every modality, and
-hidden widths that fit the kernels' shared memory; ``select_kernel`` says
-why a configuration is out of it.
+hidden widths that fit the kernels' shared memory (up to 648 in fp32 on
+K5's wide-hidden route, 432 in bf16); ``select_kernel`` says why a
+configuration is out of it.
 """
 from __future__ import annotations
 
@@ -29,7 +30,10 @@ from ..kernels.train_step import (
     MAX_HIDDEN,
     MAX_MODALITIES,
     FusedTrainStep,
+    decoder_tiles,
     smem_bytes,
+    wide_hidden_smem_bytes,
+    width_limit,
 )
 from ..kernels import _build
 from ..models.stacked import StackedMultimodalCVAE
@@ -66,13 +70,15 @@ def select_kernel(model, config: TrainConfig) -> Tuple[Optional[str], str]:
                       f"step takes 1 to {MAX_HIDDEN})")
     if model.modalities > MAX_MODALITIES:
         return None, f"{model.modalities} modalities (at most {MAX_MODALITIES})"
-    smem = smem_bytes(model.hidden_dim, model.latent_dim,
-                      16 if config.precision == "bf16" else 4)
-    if smem > _build.MAX_SMEM_BYTES:
+    fp32 = config.precision == "fp32"
+    args = (model.hidden_dim, model.latent_dim, 4 if fp32 else 16)
+    if decoder_tiles(*args, wide_hidden=fp32) is None:
+        smem = wide_hidden_smem_bytes(*args) if fp32 else smem_bytes(*args)
         return None, (f"hidden widths {list(model.hidden_dim)} need {smem} B "
                       f"of shared memory per block, over the "
-                      f"{_build.MAX_SMEM_BYTES} B an H100 block has")
-    return ("tiled" if config.precision == "bf16" else "single"), ""
+                      f"{_build.MAX_SMEM_BYTES} B an H100 block has "
+                      f"({width_limit(fp32)})")
+    return ("single" if fp32 else "tiled"), ""
 
 
 def supported(model, config: TrainConfig) -> Tuple[bool, str]:

@@ -6,6 +6,9 @@
     python3 scripts/torch_step_profile.py routes    # fused against wide route
     python3 scripts/torch_step_profile.py profile   # training steps under
                                                     # torch.profiler
+    python3 scripts/torch_step_profile.py tiles     # pass 3 on three tiles
+                                                    # against two
+    python3 scripts/torch_step_profile.py tiles "PPMI cell"   # one shape
 
 ``check`` compiles the kernels, prints the ptxas register and spill report
 of the train step's kernels and holds K5 (both routes) and K6 (fp32 and
@@ -17,6 +20,15 @@ the flagship (5 folds x 512 subjects, 20 steps) and PPMI width (one fold x
 2500 subjects, 10 steps) through FusedFoldTrainer, once timed by the host
 clock and once under torch.profiler: ms per step, device kernels per step,
 device busy time and share, and the device time of each kernel by name.
+``tiles`` runs K5 at the ADHD cell's step (10 folds x 256 rows, [116, 116],
+-H 460 460 40), at 128 rows (80 blocks: one wave at one block an SM), at
+-H 440 440 40 (the widest where three tiles fit), at -H 192 192 40 (three
+tiles hold one block an SM, two tiles two), at the flagship and at the
+PPMI cell's step (10 folds x 256 rows, 3 x 3485: the wide route), with
+pass 3 on three activation tiles where they fit and on two (the
+wide-hidden route), in turns: device ms a step (``chip_smoke.device_ms``)
+and, under torch.profiler, each kernel's device ms a step, pass 3's beside
+its bound (perfbench/work_decoder.py).
 
 Every line of output names what it measured; the first line is the card's
 name and power limit. Shapes and helpers are chip_smoke.py's.
@@ -53,6 +65,20 @@ SHAPES = {
     "PPMI": cs.STEP_SHAPES[-1],
 }
 ROUTES = {"auto": 0, "fused": 1, "wide 264": 264, "wide 528": 528}
+ADHD_H460 = ("ADHD h460", [116, 116], [460, 460], 10, 256, 29, 40, "gpoe")
+TILE_SHAPES = {
+    "ADHD h460": ADHD_H460,
+    "ADHD h460 128 rows": ADHD_H460[:4] + (128,) + ADHD_H460[5:],
+    "ADHD h440": ("ADHD h440", [116, 116], [440, 440], 10, 256, 29, 40,
+                  "gpoe"),
+    # three tiles take one block an SM, two tiles two
+    "ADHD h192": ("ADHD h192", [116, 116], [192, 192], 10, 256, 29, 40,
+                  "gpoe"),
+    "flagship": cs.STEP_SHAPES[0],
+    # the PPMI cell's step: the wide route, its mean head on the grid
+    "PPMI cell": ("PPMI cell", [3485] * 3, [110, 110], 10, 256, 29, 10,
+                  "gpoe"),
+}
 
 
 def card():
@@ -160,6 +186,62 @@ def routes():
                   flush=True)
 
 
+def kernel_ms(fn, calls=10):
+    """{kernel name: device ms a call} of ``calls`` calls under
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.device_time_total / calls / 1e3
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def tiles(only=()):
+    from perfbench import work_decoder
+
+    for key, shape in TILE_SHAPES.items():
+        if only and key not in only:
+            continue
+        _, dims, hidden, folds, rows, c_dim, z_dim, _ = shape
+        step, named, batch = problem(shape)
+        cfg = {"input_dim_list": dims, "hidden_dim": hidden,
+               "latent_dim": z_dim, "c_dim": c_dim, "folds": folds}
+        bound = work_decoder.decoder_pass(cfg, rows).bound_s * 1e3
+        layouts = [t for t in (3, 2)
+                   if ts.decoder_tiles(hidden, z_dim, forced=t)]
+        times, passes = {}, {}
+        for _ in range(2):             # each layout twice, in turns
+            for t in layouts:
+                step.dec_tiles = t
+                ms = cs.device_ms(
+                    lambda: step.loss_and_grads_flat(named, *batch))
+                times.setdefault(t, []).append(round(ms, 4))
+        for t in layouts:
+            step.dec_tiles = t
+            per = kernel_ms(lambda: step.loss_and_grads_flat(named, *batch))
+            dec = {k[:60]: round(v, 4) for k, v in per.items()
+                   if "dec" in k or "mean_" in k}
+            passes[t] = dec
+            print(f"K5 {key} tiles {t}: kernels ms a step "
+                  f"{json.dumps({k[:48]: round(v, 4) for k, v in per.items()})}",
+                  flush=True)
+        step.dec_tiles = 0
+        plan = ts.plan(step, folds, rows)
+        event = cs.cuda_ms(lambda: step.loss_and_grads_flat(named, *batch))
+        plain = cs.cuda_ms(lambda: step.reference(named, *batch), iters=10)
+        print(f"K5 {key}: auto plan {plan}; device ms a step by tiles "
+              f"{json.dumps(times)}; pass 3 by tiles {json.dumps(passes)} "
+              f"against its bound {bound:.5f} ms; the auto route's CUDA-event "
+              f"ms a call {event:.4f}, the plain version's {plain:.4f}; the "
+              f"step's bound {work_of(shape).bound_ms:.5f} ms", flush=True)
+
+
 def profile_run(what, dims, rows_per_fold, epochs, seed, precision="fp32"):
     from torch.profiler import ProfilerActivity, profile
 
@@ -206,8 +288,13 @@ def main():
               file=sys.stderr)
         return 2
     card()
-    modes = {"check": check, "routes": routes, "profile": profile_steps}
-    for mode in sys.argv[1:] or ["check"]:
+    modes = {"check": check, "routes": routes, "profile": profile_steps,
+             "tiles": tiles}
+    args = sys.argv[1:] or ["check"]
+    if args[0] == "tiles":          # tiles [shape name ...]
+        tiles(args[1:])
+        return 0
+    for mode in args:
         modes[mode]()
     return 0
 

@@ -686,6 +686,387 @@ def test_fused_train_step_kernel_matches_plain(cuda, case):
             grads["enc_w0"][:, narrow, min(dims):max(dims)]) == 0
 
 
+# the wide-hidden route (hidden widths over 440; csrc/train_step.cuh's
+# DecSmem<2>): (dims, hidden, folds, rows, fusion, seed, latent). The first
+# is the ADHD cell's step ([116, 116], -H 460 460 40, 256 rows) at 2 folds.
+WIDE_HIDDEN_CASES = {
+    "adhd-h460-z40": ([116, 116], [460, 460], 2, 256, "gpoe", 460, 40),
+    "h444-z10": ([116, 116], [444, 444], 2, 100, "gpoe", 444, 10),
+    "3x460-z10": ([90, 270], [460, 460, 460], 2, 100, "gpoe", 4603, 10),
+    # the stated limit, MAX_WIDTH_FP32: the widest hidden layer, and the
+    # widest latent, whose [dmu | dlv] tile is then the widest tile
+    "h648-z10": ([116, 116], [648], 2, 100, "gpoe", 648, 10),
+    "h110-z324": ([116, 116], [110], 2, 100, "gpoe", 324, 324),
+}
+
+
+@pytest.mark.parametrize("case", list(WIDE_HIDDEN_CASES))
+def test_wide_hidden_route_matches_plain(cuda, case):
+    """K5 where three activation tiles do not fit a block: the plan takes
+    the wide-hidden route (the library's plan as train_step.py computes
+    it), one launch a step counted under it, the losses and gradients
+    within the step's tolerances of the plain version in fp64, two calls
+    bit-equal, padding zero; the mean head on the grid too (route 264)."""
+    from multi_modal_normative_modeling_tpu_torch.kernels import train_step
+
+    dims, hidden, folds, rows, combine, seed, z = WIDE_HIDDEN_CASES[case]
+    stacked, packed, x, c, eps, mask = _step_problem(
+        cuda, dims, hidden, folds, rows, seed, z_dim=z)
+    step = train_step.FusedTrainStep(stacked, combine)
+    plan = train_step.plan(step, folds, rows)
+    assert plan["dec_tiles"] == train_step.decoder_tiles(hidden, z) == 2
+    assert plan["dec_smem"] == train_step.wide_hidden_smem_bytes(hidden, z)
+    assert plan["route"] == "wide_hidden"
+    named = step.pad_params(packed)
+    xx, cc, rm, nv = step.pack_batch(x, c, mask)
+    batch = (xx, cc, eps, rm, nv)
+    kernels.reset_launch_counts()
+    losses, grads = step.loss_and_grads_padded(named, *batch)
+    assert kernels.fused_train_step.launches == 1
+    assert kernels.fused_train_step.route_launches == {
+        "fused": 0, "wide": 0, "wide_hidden": 1}
+    ref_losses, ref_grads = _plain64(step.reference, named, batch)
+    for k in losses:
+        torch.testing.assert_close(losses[k], ref_losses[k], rtol=1e-5,
+                                   atol=0.0)
+    for k in grads:
+        torch.testing.assert_close(grads[k], ref_grads[k], rtol=1e-3,
+                                   atol=1e-5)
+    again = step.loss_and_grads_padded(named, *batch)[1]
+    ones = step.widen({k: torch.ones_like(v)
+                       for k, v in step.strip(named).items()})
+    for k in grads:
+        assert torch.equal(grads[k], again[k]), k
+        assert torch.count_nonzero(grads[k][ones[k] == 0]) == 0, k
+    step.route = 264
+    assert train_step.plan(step, folds, rows)["wide"] == 1
+    forced = step.loss_and_grads_padded(named, *batch)[1]
+    step.route = 0
+    for k in grads:
+        torch.testing.assert_close(forced[k], ref_grads[k], rtol=1e-3,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["flagship", "ragged", "3hidden", "ppmi"])
+def test_wide_hidden_route_forced_is_bit_equal_to_three_tiles(cuda, case):
+    """At widths where three tiles fit, the wide-hidden route forced gives
+    the one-pass route's (and at PPMI width the wide route's) losses and
+    gradients bit for bit: the same products in the same order."""
+    from multi_modal_normative_modeling_tpu_torch.kernels import train_step
+
+    dims, hidden, folds, rows, combine, seed = STEP_CASES[case]
+    c_dim, z_dim = STEP_WIDTHS.get(case, (29, 10))
+    stacked, packed, x, c, eps, mask = _step_problem(
+        cuda, dims, hidden, folds, rows, seed, c_dim=c_dim, z_dim=z_dim)
+    step = train_step.FusedTrainStep(stacked, combine)
+    named = step.pad_params(packed)
+    xx, cc, rm, nv = step.pack_batch(x, c, mask)
+    batch = (xx, cc, eps, rm, nv)
+    auto = train_step.plan(step, folds, rows)
+    assert auto["dec_tiles"] == 3
+    kernels.reset_launch_counts()
+    losses, grads = step.loss_and_grads_padded(named, *batch)
+    step.dec_tiles = 2
+    plan = train_step.plan(step, folds, rows)
+    assert (plan["route"], plan["wide"]) == ("wide_hidden", auto["wide"])
+    two_losses, two = step.loss_and_grads_padded(named, *batch)
+    step.dec_tiles = 0
+    assert kernels.fused_train_step.route_launches == {
+        "fused": 1 - auto["wide"], "wide": auto["wide"], "wide_hidden": 1}
+    for k in losses:
+        assert torch.equal(losses[k], two_losses[k]), k
+    for k in grads:
+        assert torch.equal(grads[k], two[k]), k
+
+
+def test_fused_trainer_counts_and_spans_the_wide_hidden_route(cuda):
+    """FusedFoldTrainer at the ADHD cell's widths: one K5 launch a step,
+    each under the wide-hidden route's count; under a profiler each sits in
+    an mmnm.step.kernel.wide_hidden range inside an mmnm.step.kernel one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from multi_modal_normative_modeling_tpu_torch.interop import (
+        packed_from_model,
+    )
+    from multi_modal_normative_modeling_tpu_torch.train import TrainConfig
+    from multi_modal_normative_modeling_tpu_torch.train.fused import (
+        FusedFoldTrainer,
+    )
+
+    dims, sizes = [116, 116], [300, 260]
+    rng = np.random.default_rng(5)
+    data = [[rng.standard_normal((s, d), dtype=np.float32) for d in dims]
+            for s in sizes]
+    cov = [rng.standard_normal((s, 29), dtype=np.float32) for s in sizes]
+    config = TrainConfig(epochs=2, batch_size=256)
+    model = build_model("cVAE_multimodal", dims, [460, 460], 40, 29, 2,
+                        folds=2, generator=torch.Generator().manual_seed(1),
+                        device=cuda)
+    trainer = FusedFoldTrainer(model, config, 300)
+    assert trainer.kernel == "single"
+    batches = trainer.batches(data, cov, cuda)
+    packed = packed_from_model(model, trainer.stacked)
+    kernels.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        trainer.run(packed, batches)
+    torch.cuda.synchronize()
+    steps = 2 * 2
+    assert kernels.fused_train_step.launches == steps
+    assert kernels.fused_train_step.route_launches == {
+        "fused": 0, "wide": 0, "wide_hidden": steps}
+    spans = {}
+    for e in prof.events():
+        if e.name.startswith("mmnm.step.kernel"):
+            spans.setdefault(e.name, []).append(
+                (e.time_range.start, e.time_range.end))
+    inner = spans["mmnm.step.kernel.wide_hidden"]
+    outer = spans["mmnm.step.kernel"]
+    assert len(inner) == len(outer) == steps
+    for (a, b), (lo, hi) in zip(sorted(inner), sorted(outer)):
+        assert lo <= a <= b <= hi
+
+
+# K5's gradients are held to rtol 1e-3 / atol 1e-5: that fixes no sign of
+# a gradient at or under the atol, and Adam moves an entry by about lr a
+# step whatever its gradient's size
+ROUNDED_GRAD = 1e-5
+# a LeakyReLU pre-activation this near zero may round to either side in
+# fp32, where the two sides take derivatives 0.01 and 1 for that row
+ROUNDED_PRE = 2e-7
+
+
+def _adhd_cli_runs(root, monkeypatch, runs, epochs=3, step_fns=None):
+    """train_supervised -R ADHD -P SE-gPoE -K 10 -H 460 460 40 on a
+    synthetic ADHD cohort (441 controls a training fold, 2 steps an
+    epoch), once for each of ``runs``, a dict of {name: extra flags}, in
+    ``root/<name>``; a run named in ``step_fns`` takes that function for
+    FusedTrainStep.loss_and_grads_flat. Returns {name: {logs, params,
+    start (the init), least (the least |gradient| of each parameter over
+    the run's steps; plain runs only), steps, route_launches,
+    adam_launches}}, logs, params, start and least as lists over folds."""
+    import shutil
+
+    from multi_modal_normative_modeling_tpu_torch.cli import (
+        common,
+        train_supervised,
+    )
+    from multi_modal_normative_modeling_tpu_torch.data.synthetic import (
+        make_synthetic_resource,
+    )
+    from multi_modal_normative_modeling_tpu_torch.interop import (
+        params_to_jax,
+    )
+    from multi_modal_normative_modeling_tpu_torch.kernels.train_step import (
+        FusedTrainStep,
+    )
+    from multi_modal_normative_modeling_tpu_torch.train.trainer import (
+        MaskedAdam,
+    )
+
+    emit, init = common.emit_fold_artifacts, train_supervised.default_init
+    step_flat = MaskedAdam.step_flat
+    run = {}
+
+    def keep(model_dir, per_fold_logs, per_fold_params, *args, **kw):
+        run.update(logs=per_fold_logs, params=per_fold_params)
+        return emit(model_dir, per_fold_logs, per_fold_params, *args, **kw)
+
+    def record(model, *args):
+        init(model, *args)
+        run.update(model=model, start=[params_to_jax(model, fold=f)
+                                       for f in range(10)])
+
+    def least_grad(adam, g, valid):
+        assert bool(valid.all())   # every fold takes every step
+        if run.get("adam") is not adam:
+            run.update(adam=adam, steps=0)
+            adam.least = g.abs()
+        else:
+            torch.minimum(adam.least, g.abs(), out=adam.least)
+        run["steps"] += 1
+        step_flat(adam, g, valid)
+
+    monkeypatch.setattr(common, "emit_fold_artifacts", keep)
+    monkeypatch.setattr(train_supervised, "default_init", record)
+    monkeypatch.setattr(MaskedAdam, "step_flat", least_grad)
+    first, out = None, {}
+    for name, flags in runs.items():
+        if first is None:
+            make_synthetic_resource(root / name, "ADHD", n_hc=490,
+                                    n_disease={0: 30, 2: 30})
+            first = name
+        else:
+            shutil.copytree(root / first / "data", root / name / "data")
+        run.clear()
+        kernels.reset_launch_counts()
+        with monkeypatch.context() as m:
+            if name in (step_fns or {}):
+                m.setattr(FusedTrainStep, "loss_and_grads_flat",
+                          step_fns[name])
+            train_supervised.run(["-R", "ADHD", "-P", "SE-gPoE", "-K", "10",
+                                  "-E", str(epochs), "-H", "460", "460",
+                                  "40"] + flags, project_root=root / name)
+        torch.cuda.synchronize()
+        got = {k: run[k] for k in ("logs", "params", "start", "steps")}
+        got["route_launches"] = dict(kernels.fused_train_step.route_launches)
+        got["adam_launches"] = kernels.masked_adam.launches
+        adam, model = run["adam"], run["model"]
+        if adam.params[0] is next(model.parameters()):
+            # the plain path trained its model in place, in views of its
+            # Adam's buffer: that buffer, overwritten, reads out in the
+            # params' layout
+            with torch.no_grad():
+                adam.flat.copy_(adam.least)
+                got["least"] = [params_to_jax(model, fold=f)
+                                for f in range(10)]
+        out[name] = got
+    return out
+
+
+def _within(got, want, rtol, atol):
+    return bool(((got.double() - want.double()).abs()
+                 <= atol + rtol * want.double().abs()).all())
+
+
+def _step_checker(flips):
+    """A FusedTrainStep.loss_and_grads_flat that holds every step's K5
+    losses and gradients, fold by fold, to the plain version in fp64 at
+    the same parameters, within the step's tolerances (losses rtol 1e-5,
+    gradients rtol 1e-3 / atol 1e-5). Where a fold's gradients fall
+    outside, K5 must match the fp64 version with one LeakyReLU derivative
+    taken on the other side, at a pre-activation of a valid row within
+    ROUNDED_PRE of zero; ``flips`` gets {fold: [(step, layer, modality,
+    row, unit)]}."""
+    import multi_modal_normative_modeling_tpu_torch.models.stacked as stacked
+
+    from multi_modal_normative_modeling_tpu_torch.kernels.train_step import (
+        FusedTrainStep,
+    )
+
+    kernel = FusedTrainStep.loss_and_grads_flat
+    act = stacked.leaky_relu
+    calls = [0]
+
+    def fp64(step, named, batch, flip=None):
+        pres = []
+
+        def leaky(a):
+            pres.append(a.detach())
+            out = act(a)
+            if flip is not None and flip[0] == len(pres) - 1:
+                other = torch.where(a > 0, 0.01 * a, a)
+                at = torch.zeros_like(a, dtype=torch.bool)
+                at[flip[1:]] = True
+                out = torch.where(at, other, out)
+            return out
+
+        with pytest.MonkeyPatch.context() as m:
+            m.setattr(stacked, "leaky_relu", leaky)
+            losses, grads = step.reference(
+                named, *[t.double() for t in batch])
+        return losses, grads, pres
+
+    def check(step, named, x, c, eps, rm, nvalid):
+        t = calls[0]
+        calls[0] += 1
+        losses, flat = kernel(step, named, x, c, eps, rm, nvalid)
+        grads = step.named_views(flat)
+        batch = (x, c, eps, rm, nvalid)
+        want_losses, want, pres = fp64(step, named, batch)
+        for f in range(x.shape[0]):
+            for k in losses:
+                assert _within(losses[k][f], want_losses[k][f], 1e-5, 0.0), (
+                    t, f, k)
+            if all(_within(grads[k][f], want[k][f], 1e-3, 1e-5)
+                   for k in grads):
+                continue
+            valid = torch.nonzero(rm[f] > 0).flatten()
+            near = [(i, f, m, int(valid[r]), j) for i, pre in enumerate(pres)
+                    for m, r, j in torch.nonzero(
+                        pre[f][:, valid].abs() <= ROUNDED_PRE).tolist()]
+            matched = [at for at in near if all(
+                _within(grads[k][f], g[k][f], 1e-3, 1e-5)
+                for g in [fp64(step, named, batch, at)[1]] for k in grads)]
+            assert matched, (
+                f"step {t} fold {f}: K5's gradients are outside the step's "
+                f"tolerances of fp64, and no derivative taken on the other "
+                f"side at the {len(near)} pre-activations within "
+                f"{ROUNDED_PRE} of zero accounts for them")
+            flips.setdefault(f, []).append((t,) + matched[0][:1]
+                                           + matched[0][2:])
+        return losses, flat
+
+    return check
+
+
+def test_train_cli_fused_at_the_adhd_grid_widest_point(cuda, tmp_path,
+                                                       monkeypatch):
+    """train_supervised -R ADHD -P SE-gPoE -K 10 -H 460 460 40
+    --fused_train_step, 3 epochs: every step through K5's wide-hidden
+    route, no plain step on the card, and each step's K5 losses and
+    gradients within the step's tolerances of the plain version in fp64
+    at the run's own parameters (``_step_checker``), but where fp32 rounds
+    a LeakyReLU pre-activation within ROUNDED_PRE of zero to its other
+    side, which the checker shows. Against the CLI's plain path from the
+    same init, the flagship's fused-vs-plain bounds, logs rtol 2e-4 and
+    parameters rtol 5e-3 / atol 5e-5: total and ll at every epoch of every
+    fold; in a fold where K5's step took a derivative on the other side,
+    kl up to that step and the parameters by the benchmark's change_gap
+    (the gap of the norms of a leaf's change over the run, over the larger
+    of the plain change's and the fold's median leaf's) within 1e-2, as
+    the paths part from there; in every other fold kl at every epoch and
+    every parameter, an entry outside only where the plain run's gradient
+    was a rounded zero (at or under ROUNDED_GRAD) in some step, whose sign
+    is not fixed, so Adam steps it by about lr either way."""
+    flips = {}
+    runs = _adhd_cli_runs(tmp_path, monkeypatch,
+                          {"fused": ["--fused_train_step"], "plain": []},
+                          step_fns={"fused": _step_checker(flips)})
+    fused, plain = runs["fused"], runs["plain"]
+    steps = fused["steps"]
+    assert steps == plain["steps"] == 3 * 2
+    assert fused["route_launches"] == {"fused": 0, "wide": 0,
+                                       "wide_hidden": steps}
+    assert fused["adam_launches"] == steps
+    assert "least" not in fused and "least" in plain
+    (logs_k, params_k), (logs_p, params_p) = ((r["logs"], r["params"])
+                                              for r in (fused, plain))
+    assert len(params_k) == len(params_p) == 10
+    # each epoch logs its first step's losses, taken before that step's
+    # update
+    logged = np.arange(3) * 2
+    for f in range(10):
+        parted = min([t for t, *_ in flips.get(f, [])], default=steps)
+        for k in logs_p[f]:
+            assert len(logs_k[f][k]) == 3
+            upto = logged <= parted if k == "kl" else logged >= 0
+            np.testing.assert_allclose(
+                np.asarray(logs_k[f][k])[upto],
+                np.asarray(logs_p[f][k])[upto], rtol=2e-4,
+                err_msg=f"fold {f} {k}")
+        leaves = [[np.asarray(x, np.float64) for x in _packed_leaves(t)]
+                  for t in (params_k[f], params_p[f], fused["start"][f],
+                            plain["start"][f], plain["least"][f])]
+        changes = [np.linalg.norm(b - s0) for b, s0 in
+                   zip(leaves[1], leaves[2])]
+        median = float(np.median(changes))
+        for i, (a, b, s0, s1, least) in enumerate(zip(*leaves)):
+            assert np.array_equal(s0, s1)
+            gap = abs(np.linalg.norm(a - s0) - changes[i]) / max(changes[i],
+                                                                  median)
+            assert gap <= 1e-2, (f, i, gap)
+            if parted < steps:
+                continue
+            apart = np.abs(a - b) > 5e-5 + 5e-3 * np.abs(b)
+            bad = apart & (least > ROUNDED_GRAD)
+            assert not bad.any(), (
+                f"fold {f} leaf {i}: {int(bad.sum())} entries apart by up "
+                f"to {np.abs(a - b)[bad].max():.3e} with a least |gradient| "
+                f"of {least[bad].min():.3e} or more")
+    # a derivative on the other side is a rare event, not the rule
+    assert sum(len(v) for v in flips.values()) <= steps, flips
+
+
 def test_tiled_train_step_kernel_matches_k5_and_plain(cuda):
     from multi_modal_normative_modeling_tpu_torch.kernels.train_step import (
         FusedTrainStep,

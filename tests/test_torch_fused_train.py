@@ -186,6 +186,51 @@ def test_bf16_fused_trainer_runs_k6(tmp_path):
         assert torch.equal(a, b)
 
 
+def test_fused_trainer_at_adhd_h460_matches_the_benchmark_reference():
+    """FusedFoldTrainer (its plain version on the CPU) at the ADHD grid's
+    widest point, -H 460 460 40 over [116, 116] with c 29, against the
+    benchmark's plain reference (perfbench/reference/cvae.py, written from
+    the model's equations), on seeded random weights: 2 folds of 40 rows,
+    batch 16 (a last batch of 8), 2 epochs, 6 Adam steps, compared by the
+    benchmark's own numbers (perfbench/compare.py). Both are fp32, the same
+    equations summed in another order: on three seeds they read loss_gap
+    1.2e-07 to 2.1e-07, ll_gap 0 to 1.1e-07, change_gap 9.9e-06 to
+    1.3e-05, and the reference in TF32 in the program's place 2.5e-05 to
+    7.7e-05, 8.2e-07 to 2.1e-06 and 4.0e-03 to 9.3e-03. The limits sit
+    ten to a hundred times above the first and fail the second twice."""
+    from perfbench import compare, inputs
+    from perfbench.reference.cvae import Reference
+
+    cfg = {"input_dim_list": [116, 116], "hidden_dim": [460, 460],
+           "latent_dim": 40, "c_dim": 29, "combine": "gpoe"}
+    folds, n, batch, epochs, lr = 2, 40, 16, 2, 1e-4
+    gen = inputs.generator(2**31 + 23, "train_job", 0, "cpu")
+    tree = inputs.init_tree(cfg, folds, gen)
+    rows = inputs.normal(gen, (folds, n, 232))
+    cov = inputs.one_hot_covariates(gen, (folds, n), 29)
+    eps = inputs.normal(gen, (epochs * 3, folds, batch, 40))
+    xs = [rows[..., :116], rows[..., 116:]]
+    model = build_model("cVAE_multimodal", [116, 116], [460, 460], 40, 29,
+                        2, folds=folds)
+    trainer = FusedFoldTrainer(model, TrainConfig(
+        epochs=epochs, batch_size=batch, learning_rate=lr, combine="gpoe"),
+        n)
+    assert trainer.kernel == "single"
+    batches = trainer.batches(
+        [[x[f].numpy() for x in xs] for f in range(folds)],
+        [cov[f].numpy() for f in range(folds)], "cpu")
+    assert batches.n_batches == 3
+    trained, logs = trainer.run(trainer.stacked.pack_params(tree), batches,
+                                eps=eps)
+    ref_tree, ref_logs, first_grad = Reference(cfg).train_job(
+        tree, xs, cov, eps, epochs, batch, lr)
+    found = compare.train_loss_numbers(logs, ref_logs, epochs)
+    assert found["loss_gap"] <= 2e-6 and found["ll_gap"] <= 5e-6, found
+    gap = compare.change_gap(tree, compare.packed_to_tree(trained, cfg),
+                             ref_tree, first_grad)
+    assert gap <= 1e-3, gap
+
+
 def test_select_kernel_reasons():
     model = build_model("cVAE_multimodal", [20, 12], [10, 8], 4, C, 2)
     assert select_kernel(model, TrainConfig(combine="gpoe")) == ("single", "")
@@ -198,8 +243,14 @@ def test_select_kernel_reasons():
                             "precision")):
         kernel, why = select_kernel(model, config)
         assert kernel is None and reason in why
+    # 480 wide takes K5's wide-hidden route in fp32; 700 fits no route
     wide = build_model("cVAE_multimodal", [20, 12], [480], 4, C, 2)
-    kernel, why = select_kernel(wide, TrainConfig(combine="gpoe"))
+    assert select_kernel(wide, TrainConfig(combine="gpoe")) == ("single", "")
+    kernel, why = select_kernel(wide, TrainConfig(combine="gpoe",
+                                                  precision="bf16"))
+    assert kernel is None and "shared memory" in why
+    wider = build_model("cVAE_multimodal", [20, 12], [700], 4, C, 2)
+    kernel, why = select_kernel(wider, TrainConfig(combine="gpoe"))
     assert kernel is None and "shared memory" in why
 
 
@@ -294,9 +345,10 @@ def test_fused_cli_exits_before_writing(extra, match, tmp_path, roots):
 
 
 def test_fused_cli_exits_on_wide_hidden_layers(roots, tmp_path):
+    """Past K5's widest route (648 in fp32) the CLI exits with the limit."""
     shutil.copytree(roots["jax"] / "data", tmp_path / "data")
-    with pytest.raises(SystemExit, match="shared memory"):
-        port_train.main(_args(device="cpu", hz_para_list=[480, 4]),
+    with pytest.raises(SystemExit, match="shared memory.*up to 648"):
+        port_train.main(_args(device="cpu", hz_para_list=[700, 4]),
                         project_root=tmp_path)
 
 

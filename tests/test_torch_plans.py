@@ -1,6 +1,7 @@
 """The launch plans of the encoder, decode+deviation and decoder_nll
 kernels, and decoder_nll under a non-uniform cotangent against the JAX
-package's; MaskedAdam's runs table.
+package's; MaskedAdam's runs table; the fused train step's decoder route
+(the one-pass layout or the wide-hidden route).
 
 The plans are pure Python (kernels/mlp.py::plan, kernels/decoder_nll.py::plan,
 kernels/deviation.py::plan over _build.fill_split): grids, splits, shared
@@ -28,7 +29,11 @@ from multi_modal_normative_modeling_tpu_torch.kernels import (
     decoder_nll as decoder_nll_fn,
     deviation,
     mlp,
+    train_step as ts,
 )
+from multi_modal_normative_modeling_tpu_torch.models import build_model
+from multi_modal_normative_modeling_tpu_torch.train import TrainConfig
+from multi_modal_normative_modeling_tpu_torch.train.fused import select_kernel
 from multi_modal_normative_modeling_tpu_torch.train.trainer import MaskedAdam
 
 # the module: the package's attribute of that name is the function
@@ -492,3 +497,96 @@ def test_masked_adam_plan_sweep(folds, runs, chunk):
 def test_masked_adam_plan_refuses_a_parameter_without_the_fold_axis():
     with pytest.raises(ValueError, match="not \\[3, ...\\]"):
         adam_kernel.plan([6, 7], 3)
+
+
+# ---- the fused train step's decoder route ------------------------------------
+
+@pytest.mark.parametrize("hidden,latent", [([460, 460], 40), ([444, 444], 10),
+                                           ([460, 460, 460], 10),
+                                           ([648], 10), ([110], 324)],
+                         ids=["adhd-h460", "h444", "3x460", "648", "z324"])
+def test_wide_hidden_route_fits_where_the_one_pass_does_not(hidden, latent):
+    """Three activation tiles of these widths are over a block's shared
+    memory, two are under it: the plan takes the wide-hidden route."""
+    assert ts.smem_bytes(hidden, latent) > _build.MAX_SMEM_BYTES
+    assert ts.wide_hidden_smem_bytes(hidden, latent) <= _build.MAX_SMEM_BYTES
+    assert ts.decoder_tiles(hidden, latent) == 2
+    assert ts.route_of(0, 2) == ts.route_of(1, 2) == "wide_hidden"
+
+
+def test_wide_hidden_route_at_the_adhd_cell():
+    """-H 460 460 40: tiles of 472 floats (460 strided 8 mod 16), 244736 B
+    on three tiles, 184320 B on two (the stages 46080 B, the dmean tile
+    17408 B)."""
+    assert ts.smem_bytes([460, 460], 40) == 4 * (11520 + 3 * 32 * 472 + 4352)
+    assert ts.smem_bytes([460, 460], 40) == 244736
+    assert ts.wide_hidden_smem_bytes([460, 460], 40) == 184320
+
+
+@pytest.mark.parametrize("hidden,latent,smem", [([110, 110], 10, 109568),
+                                                ([440, 440], 10, 232448),
+                                                ([440, 440], 40, 232448)],
+                         ids=["adni", "h440", "h440-z40"])
+def test_one_pass_route_where_three_tiles_fit(hidden, latent, smem):
+    """Widths that fit today keep the one-pass layout, at the bytes it had
+    ([440, 440] fills a block to the byte)."""
+    assert ts.smem_bytes(hidden, latent) == smem <= _build.MAX_SMEM_BYTES
+    assert ts.decoder_tiles(hidden, latent) == 3
+    assert ts.route_of(0, 3) == "fused" and ts.route_of(1, 3) == "wide"
+
+
+def test_decoder_tiles_past_the_limit_and_forced():
+    """652 wide (stride 664) fits neither layout, and neither does a latent
+    of 328; forcing takes the asked layout where it fits; bf16 has no
+    wide-hidden route."""
+    limit = ts.MAX_WIDTH_FP32
+    assert ts.decoder_tiles([limit], 10) == 2
+    assert ts.decoder_tiles([limit + 4], 10) is None
+    assert ts.decoder_tiles([110], limit // 2 + 4) is None
+    assert ts.decoder_tiles([110, 110], 10, forced=2) == 2
+    assert ts.decoder_tiles([460, 460], 40, forced=3) is None
+    assert ts.decoder_tiles([432], 10, 16, wide_hidden=False) == 3
+    assert ts.decoder_tiles([460, 460], 40, 16, wide_hidden=False) is None
+
+
+@settings(max_examples=200, deadline=None, database=None)
+@given(st.lists(st.integers(1, 700), min_size=1, max_size=3),
+       st.integers(1, 400))
+def test_decoder_tiles_sweep(hidden, latent):
+    """The route is the one-pass layout exactly where its three tiles fit,
+    else the wide-hidden one exactly where two fit; the wide-hidden layout
+    is never larger."""
+    one, two = (ts.smem_bytes(hidden, latent),
+                ts.wide_hidden_smem_bytes(hidden, latent))
+    assert two < one
+    want = (3 if one <= _build.MAX_SMEM_BYTES
+            else 2 if two <= _build.MAX_SMEM_BYTES else None)
+    assert ts.decoder_tiles(hidden, latent) == want
+    widest = max(hidden + [2 * latent])
+    assert (want is not None) == (widest <= ts.MAX_WIDTH_FP32)
+
+
+def test_select_kernel_takes_the_adhd_grid_widest_point_in_fp32():
+    """-R ADHD -H 460 460 40 goes to K5 in fp32; bf16 is refused with its
+    limit, and fp32 past 648 with its own."""
+    adhd = build_model("cVAE_multimodal", [116, 116], [460, 460], 40, 29, 2)
+    assert select_kernel(adhd, TrainConfig(combine="gpoe")) == ("single", "")
+    kernel, why = select_kernel(adhd, TrainConfig(combine="gpoe",
+                                                  precision="bf16"))
+    assert kernel is None and "up to 432" in why and "244736 B" in why
+    past = build_model("cVAE_multimodal", [116, 116], [652, 652], 40, 29, 2)
+    kernel, why = select_kernel(past, TrainConfig(combine="gpoe"))
+    assert kernel is None and "233472 B" in why
+    assert "up to 648" in why and "shared memory" in why
+
+
+@pytest.mark.parametrize("shape", CS.STEP_SHAPES, ids=lambda s: s[0])
+def test_chip_smoke_step_shapes_take_their_decoder_route(shape):
+    """chip_smoke.py's phase 6a shapes: the ADHD cell's step takes the
+    wide-hidden route (two tiles), every other shape the one-pass
+    layout."""
+    name, _, hidden, _, _, _, latent, _ = shape
+    want = 2 if name == "ADHD h460" else 3
+    assert ts.decoder_tiles(hidden, latent) == want
+    if name == "ADHD h460":
+        assert (hidden, latent) == (CS.ADHD_HIDDEN, CS.ADHD_LATENT)
