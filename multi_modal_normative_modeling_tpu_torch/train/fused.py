@@ -20,6 +20,7 @@ configuration is out of it.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -87,64 +88,138 @@ def supported(model, config: TrainConfig) -> Tuple[bool, str]:
     return kernel is not None, reason
 
 
-def make_packed_batches(step: FusedTrainStep,
-                        per_fold_data: Sequence[Sequence[np.ndarray]],
-                        per_fold_cov: Sequence[np.ndarray],
-                        batch_size: int) -> dict:
-    """Every fold's per-modality sample arrays in the step's batch layout,
-    padded once (numpy, fold-major; rows to ``row_align``, the feature and
-    covariate widths to ``col_align``): x [F, NB, M, Bp, Dp], c [F, NB, Bp,
-    Cp], rm [F, NB, Bp], nvalid [F, NB] = max(rows, 1), valid [F, NB]. Folds
-    are padded to the largest fold's batch count with all-padding batches
-    (train/fused.py:109-142 for one fold)."""
-    m = step.model
-    folds = len(per_fold_data)
-    max_n = max(d[0].shape[0] for d in per_fold_data)
-    nb = max(1, -(-max_n // batch_size))
-    bp = -(-batch_size // step.row_align) * step.row_align
-    c_dim = per_fold_cov[0].shape[1]
-    if c_dim != step.C:
-        raise ValueError(f"covariates of width {c_dim}, the model's are "
-                         f"{step.C}")
-    x = np.zeros((folds, nb, m.modalities, bp, step.Dp), np.float32)
-    c = np.zeros((folds, nb, bp, step.Cp), np.float32)
-    rm = np.zeros((folds, nb, bp), np.float32)
-    counts = np.zeros((folds, nb), np.float32)
-    for f, (data_list, cov) in enumerate(zip(per_fold_data, per_fold_cov)):
-        n = data_list[0].shape[0]
-        for b in range(nb):
-            lo, hi = b * batch_size, min(n, (b + 1) * batch_size)
-            rows = hi - lo
-            if rows <= 0:
-                continue
-            for mi, d in enumerate(data_list):
-                x[f, b, mi, :rows, :d.shape[1]] = d[lo:hi]
-            c[f, b, :rows, :c_dim] = cov[lo:hi]
-            rm[f, b, :rows] = 1.0
-            counts[f, b] = rows
-    return {"x": x, "c": c, "rm": rm, "nvalid": np.maximum(counts, 1.0),
-            "valid": counts > 0}
+# a block of at least this many elements is copied by torch, which splits
+# it over its intra-op threads: at PPMI's 256 x 3485 that took a job's pack
+# from 185-211 to 43-54 ms on the H100's host; at ADNI's 256 x 270 the
+# threads' start cost more than they saved, and numpy's one thread costs
+# less a call
+PARALLEL_COPY = 1 << 18
+
+
+def _torch_view(a) -> Optional[torch.Tensor]:
+    """A CPU tensor over ``a``'s memory, or None where torch cannot take
+    one (negative strides, another byte order, not a numpy array)."""
+    try:
+        return torch.from_numpy(a)
+    except (TypeError, ValueError):
+        return None
+
+
+def _clear(block: np.ndarray, rows: int, cols: int, written: list) -> None:
+    """Zero what ``block`` held in its first ``written`` [rows, columns]
+    outside its first ``rows`` x ``cols``; those become ``written``."""
+    r0, c0 = written
+    if r0 > rows:
+        block[rows:r0, :c0] = 0.0
+    if c0 > cols:
+        block[:min(rows, r0), cols:c0] = 0.0
+    written[:] = rows, cols
+
+
+class BatchPacker:
+    """A job's rows in the step's batch layout, written step-major: step
+    ``t`` of every fold is one slab, x [F, M, Bp, Dp] and c [F, Bp, Cp],
+    rows padded to ``row_align`` and the feature and covariate widths to
+    ``col_align``. Folds are padded to the largest fold's batch count with
+    all-padding batches (train/fused.py:109-142 for one fold). ``meta``
+    gives rm [NB, F, Bp], nvalid [NB, F] = max(rows, 1) and valid [NB, F]
+    for the whole job."""
+
+    def __init__(self, step: FusedTrainStep,
+                 per_fold_data: Sequence[Sequence[np.ndarray]],
+                 per_fold_cov: Sequence[np.ndarray], batch_size: int):
+        c_dim = per_fold_cov[0].shape[1]
+        if c_dim != step.C:
+            raise ValueError(f"covariates of width {c_dim}, the model's are "
+                             f"{step.C}")
+        modalities = step.model.modalities
+        if any(len(d) != modalities for d in per_fold_data):
+            raise ValueError(f"{[len(d) for d in per_fold_data]} modalities "
+                             f"a fold, the model's are {modalities}")
+        self.data, self.cov, self.batch_size = (per_fold_data, per_fold_cov,
+                                                batch_size)
+        with warnings.catch_warnings():
+            # a read-only array is only read from
+            warnings.simplefilter("ignore", UserWarning)
+            self.views = [[_torch_view(d) if batch_size * d.shape[1]
+                           >= PARALLEL_COPY else None for d in data_list]
+                          for data_list in per_fold_data]
+        sizes = np.array([d[0].shape[0] for d in per_fold_data])
+        self.n_batches = max(1, -(-int(sizes.max()) // batch_size))
+        folds, bp = len(per_fold_data), (-(-batch_size // step.row_align)
+                                         * step.row_align)
+        self.slab_shapes = ((folds, modalities, bp, step.Dp),
+                            (folds, bp, step.Cp))
+        starts = np.arange(self.n_batches)[:, None] * batch_size
+        self.counts = np.clip(sizes[None, :] - starts, 0, batch_size)
+
+    def nothing_written(self) -> list:
+        """``pack``'s ``written`` for slabs of zeros."""
+        folds, modalities = self.slab_shapes[0][:2]
+        return [[[0, 0] for _ in range(modalities + 1)] for _ in range(folds)]
+
+    def pack(self, t: int, x: torch.Tensor, c: torch.Tensor,
+             written: list) -> None:
+        """Step ``t`` into the float32 CPU slabs ``x`` and ``c``, which read
+        zero but in ``written`` [F][M + 1][2]: the first rows and columns
+        of each block (a modality's [Bp, Dp], then the covariates' [Bp, Cp])
+        that a pack filled before. What is left there outside this step's
+        rows is zeroed, and ``written`` becomes what this step filled, so
+        a slab reused job after job keeps nothing of an earlier one."""
+        xn, cn = x.numpy(), c.numpy()
+        lo = t * self.batch_size
+        for f, (data_list, cov) in enumerate(zip(self.data, self.cov)):
+            rows = int(self.counts[t, f])
+            for mi, (d, view) in enumerate(zip(data_list, self.views[f])):
+                block, cols = xn[f, mi], d.shape[1]
+                if view is not None and rows * cols >= PARALLEL_COPY:
+                    x[f, mi, :rows, :cols].copy_(view[lo:lo + rows])
+                else:
+                    block[:rows, :cols] = d[lo:lo + rows]
+                _clear(block, rows, cols, written[f][mi])
+            block, cols = cn[f], cov.shape[1]
+            block[:rows, :cols] = cov[lo:lo + rows]
+            _clear(block, rows, cols, written[f][-1])
+
+    def pack_all(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Every step: x [NB, F, M, Bp, Dp], c [NB, F, Bp, Cp]."""
+        x, c = (torch.zeros((self.n_batches,) + s, dtype=torch.float32)
+                for s in self.slab_shapes)
+        for t in range(self.n_batches):
+            self.pack(t, x[t], c[t], self.nothing_written())
+        return x, c
+
+    def meta(self) -> dict:
+        rows = self.slab_shapes[1][1]
+        counts = self.counts.astype(np.float32)
+        return {"rm": (np.arange(rows) < self.counts[..., None]).astype(
+                    np.float32),
+                "nvalid": np.maximum(counts, 1.0), "valid": counts > 0}
 
 
 class PackedDeviceBatches:
-    """``make_packed_batches`` output uploaded once, step-major, in the
-    step's storage dtype; the interface train.trainer.run_epochs reads."""
+    """A job's batches on the device, step-major (``BatchPacker``'s layout
+    with the step first: x [NB, F, M, Bp, Dp], c [NB, F, Bp, Cp], rm [NB, F,
+    Bp], nvalid [NB, F]), x and c in the step's storage dtype; the interface
+    train.trainer.run_epochs reads."""
 
-    def __init__(self, batches: dict, step: FusedTrainStep, device):
-        def up(a):
-            return torch.from_numpy(np.ascontiguousarray(
-                np.swapaxes(np.asarray(a, np.float32), 0, 1))).to(device)
-
-        stored = step.cast_batch({"x": up(batches["x"]),
-                                  "c": up(batches["c"])})
+    def __init__(self, x: torch.Tensor, c: torch.Tensor, meta: dict,
+                 step: FusedTrainStep, device: torch.device):
+        stored = step.cast_batch({"x": x, "c": c})
         self.x, self.c = stored["x"], stored["c"]
-        self.rm = up(batches["rm"])
-        self.nvalid = up(batches["nvalid"])
+        self.valid_host = meta["valid"]                      # [NB, F]
+        # rm, nvalid and valid (each step's row contiguous: MaskedAdam reads
+        # it in place) in one copy; to a card from page-locked memory,
+        # without a wait
+        parts = [meta["rm"], meta["nvalid"], meta["valid"].astype(np.float32)]
+        flat = torch.from_numpy(np.concatenate([a.ravel() for a in parts]))
+        if device.type == "cuda":
+            flat = flat.pin_memory()
+        flat = flat.to(device, non_blocking=True)
+        sizes = [a.size for a in parts]
+        self.rm, self.nvalid, self.valid = (
+            v.view(a.shape) for v, a in zip(flat.split(sizes), parts))
         self.mask = self.rm
-        self.valid_host = np.asarray(batches["valid"]).T       # [NB, F]
-        # each step's row contiguous: MaskedAdam reads it in place
-        self.valid = torch.from_numpy(np.ascontiguousarray(
-            self.valid_host, dtype=np.float32)).to(device)
         self.n_batches, self.folds, self.rows = self.rm.shape
 
     def step(self, t: int) -> dict:
@@ -184,17 +259,61 @@ class FusedFoldTrainer:
             {"loss": f"fused_kernel_{kernel}",
              "precision": config.precision}, config)
         self.resumed_from = 0   # the epoch run_resumable took the run up at
+        # the card's staging ring (``_stage``): slabs copied up through it,
+        # and the times it was made
+        self.staging_counts = {"slabs": 0, "allocations": 0}
+        self._ring, self._ring_key = [], None
 
     def batches(self, per_fold_data, per_fold_cov, device):
+        """Every fold's per-modality sample arrays as the job's
+        ``PackedDeviceBatches``. On a card, step by step through the
+        trainer's ring of page-locked slabs (``_stage``); elsewhere packed
+        whole on the host and moved (on the CPU, kept as packed)."""
         from ..utils.profiling import annotate
 
+        device = torch.device(device)
         with annotate("mmnm.fused.batches"):
             with annotate("mmnm.fused.pack"):
-                packed = make_packed_batches(self.step, per_fold_data,
-                                             per_fold_cov,
-                                             self.config.batch_size)
+                packer = BatchPacker(self.step, per_fold_data, per_fold_cov,
+                                     self.config.batch_size)
+                if device.type == "cuda":
+                    x, c = self._stage(packer, device)
+                else:
+                    x, c = (a.to(device) for a in packer.pack_all())
             with annotate("mmnm.fused.upload"):
-                return PackedDeviceBatches(packed, self.step, device)
+                return PackedDeviceBatches(x, c, packer.meta(), self.step,
+                                           device)
+
+    def _stage(self, packer: BatchPacker, device: torch.device):
+        """The job's x and c on the card through a ring of two page-locked
+        slabs of one step each, held from job to job (made again only for
+        another slab shape or device). Step ``t`` is packed into its slab
+        once the slab's previous copy has left it, then copied up without a
+        wait on the current stream, so the host packs a step while the one
+        before goes up; the steps queued after read whole batches."""
+        key = (packer.slab_shapes, device)
+        if self._ring_key != key:
+            for *_, sent, _ in self._ring:
+                sent.synchronize()
+            self._ring = [tuple(torch.zeros(s, dtype=torch.float32,
+                                            pin_memory=True)
+                                for s in packer.slab_shapes)
+                          + (torch.cuda.Event(), packer.nothing_written())
+                          for _ in range(2)]
+            self._ring_key = key
+            self.staging_counts["allocations"] += 1
+        x, c = (torch.empty((packer.n_batches,) + s, dtype=torch.float32,
+                            device=device) for s in packer.slab_shapes)
+        stream = torch.cuda.current_stream(device)
+        for t in range(packer.n_batches):
+            x_slab, c_slab, sent, written = self._ring[t % 2]
+            sent.synchronize()
+            packer.pack(t, x_slab, c_slab, written)
+            x[t].copy_(x_slab, non_blocking=True)
+            c[t].copy_(c_slab, non_blocking=True)
+            sent.record(stream)
+            self.staging_counts["slabs"] += 1
+        return x, c
 
     def session(self, packed: dict, batches: PackedDeviceBatches,
                 eps=None, through_autograd: bool = False) -> TrainSession:

@@ -1241,6 +1241,137 @@ def test_fused_trainer_matches_plain_trainer(cuda):
         torch.testing.assert_close(a, b, rtol=5e-3, atol=5e-5)
 
 
+# the three cells' widths, rows cut where the widths stay (PPMI's 2560 a
+# fold to 600: three steps, the last of 88 rows): (fold sizes, modality
+# widths, covariate width)
+CELL_BATCHES = {"adni": ([512] * 10, [90, 90, 90, 270], 29),
+                "ppmi": ([600] * 10, [3485] * 3, 29),
+                "adhd": ([441] * 10, [116, 116], 29)}
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _assert_batches_are(got, want: dict, stored: dict):
+    """``got`` (PackedDeviceBatches) holds ``want``'s layout bit for bit,
+    x and c as ``stored`` (the storage dtype's)."""
+    for k in ("x", "c"):
+        assert torch.equal(_bits(getattr(got, k).cpu()),
+                           _bits(stored[k].cpu())), k
+    for k in ("rm", "nvalid"):
+        assert torch.equal(_bits(getattr(got, k).cpu()),
+                           _bits(torch.from_numpy(want[k]))), k
+    assert np.array_equal(got.valid_host, want["valid"])
+    assert torch.equal(got.valid.cpu(), torch.from_numpy(
+        want["valid"].astype(np.float32)))
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("cell", list(CELL_BATCHES))
+def test_fused_batches_on_the_card_equal_the_cpu_path(cuda, cell,
+                                                      precision):
+    """``FusedFoldTrainer.batches`` on the card (the ring of page-locked
+    slabs, copies that do not wait) against the CPU path and against the
+    fold-major layout uploaded whole and cast on the card, bit for bit,
+    after K6's cast too; one slab a step through one ring."""
+    from test_torch_fused_batches import (
+        fold_major_reference,
+        packer_case,
+    )
+
+    sizes, dims, c_dim = CELL_BATCHES[cell]
+    trainer, data, cov = packer_case(sizes, dims, c_dim, 256, precision,
+                                     None, "fp32")
+    card = trainer.batches(data, cov, cuda)
+    cpu = trainer.batches(data, cov, "cpu")
+    want = fold_major_reference(trainer.step, data, cov, 256)
+    uploaded = trainer.step.cast_batch(
+        {k: torch.from_numpy(want[k]).to(cuda) for k in ("x", "c")})
+    assert card.x.dtype == (torch.bfloat16 if precision == "bf16"
+                            else torch.float32)
+    _assert_batches_are(card, want, uploaded)
+    _assert_batches_are(cpu, want, uploaded)
+    assert trainer.staging_counts == {"slabs": card.n_batches,
+                                      "allocations": 1}
+
+
+def test_fused_batches_ring_is_reused_by_the_next_job(cuda):
+    """Two jobs at PPMI's widths back to back on one trainer, the second
+    with fewer rows and behind 50 ms of queued work, so that its copies
+    wait on the stream while the host packs: one ring, a slab a step, and
+    the second job's batches bit for bit its own layout, every padded
+    entry zero."""
+    from test_torch_fused_batches import (
+        fold_major_reference,
+        packer_case,
+    )
+
+    sizes, dims, c_dim = CELL_BATCHES["ppmi"]
+    trainer, data, cov = packer_case(sizes, dims, c_dim, 256, "fp32", None,
+                                     "fp32")
+    _, small_data, small_cov = packer_case(
+        [520] * len(sizes), dims, c_dim, 256, "fp32", None, "fp32",
+        seed=1)
+    first = trainer.batches(data, cov, cuda)
+    torch.cuda._sleep(100_000_000)
+    second = trainer.batches(small_data, small_cov, cuda)
+    assert first.n_batches == second.n_batches == 3
+    assert trainer.staging_counts == {"slabs": 6, "allocations": 1}
+    want = fold_major_reference(trainer.step, small_data, small_cov, 256)
+    _assert_batches_are(second, want, {k: torch.from_numpy(want[k])
+                                       for k in ("x", "c")})
+    pad_rows = (second.rm == 0)[:, :, None, :, None].expand_as(second.x)
+    assert torch.count_nonzero(second.x[pad_rows]) == 0
+    assert torch.count_nonzero(second.x[..., 3485:]) == 0
+    assert torch.count_nonzero(second.c[..., c_dim:]) == 0
+    assert torch.count_nonzero(second.x[2, :, :, 8:]) == 0
+
+
+def test_fused_jobs_back_to_back_train_as_on_fresh_trainers(cuda):
+    """Two flagship-width jobs (3 folds; 512, then 300 rows a fold) trained
+    back to back on one trainer, each job's batches taken behind 50 ms of
+    queued work, give the trained parameters and logs of each job on a
+    trainer of its own, bit for bit: no slab is rewritten while its copy
+    is in flight."""
+    from multi_modal_normative_modeling_tpu_torch.interop import (
+        packed_from_model,
+    )
+    from multi_modal_normative_modeling_tpu_torch.train import TrainConfig
+    from multi_modal_normative_modeling_tpu_torch.train.fused import (
+        FusedFoldTrainer,
+    )
+
+    dims = [90, 90, 90, 270]
+    rng = np.random.default_rng(7)
+    jobs = [([[rng.standard_normal((n, d), dtype=np.float32) for d in dims]
+              for _ in range(3)],
+             [rng.standard_normal((n, 29), dtype=np.float32)
+              for _ in range(3)]) for n in (512, 300)]
+    config = TrainConfig(epochs=2, batch_size=256)
+    model = build_model("cVAE_multimodal", dims, [110, 110], 10, 29,
+                        len(dims), folds=3, device=cuda,
+                        generator=torch.Generator().manual_seed(2))
+    eps = torch.randn(4, 3, 256, 10,
+                      generator=torch.Generator().manual_seed(3)).to(cuda)
+
+    def train(trainer, data, cov):
+        torch.cuda._sleep(100_000_000)
+        batches = trainer.batches(data, cov, cuda)
+        return trainer.run(packed_from_model(model, trainer.stacked),
+                           batches, eps=eps)
+
+    shared = FusedFoldTrainer(model, config, 512)
+    together = [train(shared, *job) for job in jobs]
+    assert shared.staging_counts == {"slabs": 4, "allocations": 1}
+    for job, (trained, logs) in zip(jobs, together):
+        alone, alone_logs = train(FusedFoldTrainer(model, config, 512), *job)
+        for a, b in zip(_packed_leaves(trained), _packed_leaves(alone)):
+            assert torch.equal(a, b)
+        for k in alone_logs:
+            assert np.array_equal(logs[k], alone_logs[k]), k
+
+
 @pytest.mark.parametrize("unconditioned", [False, True],
                          ids=["cvae", "vae"])
 def test_bootstrap_test_stage_on_the_card_matches_the_cpu(cuda, tmp_path,
